@@ -2,23 +2,28 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA traversal kernel from this checkout, checks it against its
-plain torch version on the card, checks a small card render against the
-same render on the CPU, and renders the benchmark frame (sponza_proxy,
-1920x1080, spp 2, bounce limit 8, one whole-frame tile) through the
-port's main path.  Every phase prints one line; any failure raises, so the
-exit code is non-zero and no result line is printed.  The last line is
+Builds every CUDA kernel library from this checkout (in parallel), checks
+each kernel mode against its plain torch version on the card at the main
+path's shapes, checks small card renders against the same renders on the
+CPU, and renders the benchmark frame (sponza_proxy, 1920x1080, spp 2,
+bounce limit 8, one whole-frame tile) through each traversal route of the
+port: the group kernel (the default), the cluster route with packet and
+with box enumeration, and the packet walk.  Every phase prints one line;
+any failure raises, so the exit code is non-zero and no result line is
+printed.  The line before the last lists the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Needs a CUDA device; imports no JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -27,8 +32,12 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import ray_tracer_tpu_torch as trt  # noqa: E402
 from ray_tracer_tpu_torch.api import _camera_arrays, scene_camera  # noqa: E402
 from ray_tracer_tpu_torch.integrator import wavefront  # noqa: E402
-from ray_tracer_tpu_torch.kernels import group  # noqa: E402
-from ray_tracer_tpu_torch.ops import intersect, traverse  # noqa: E402
+from ray_tracer_tpu_torch.kernels import (  # noqa: E402
+    bvh8, cluster, group, packet,
+)
+from ray_tracer_tpu_torch.ops import (  # noqa: E402
+    cluster_trace, intersect, traverse,
+)
 from ray_tracer_tpu_torch.sampling import bsdf, lights, rng  # noqa: E402
 from ray_tracer_tpu_torch.scene import presets  # noqa: E402
 
@@ -37,9 +46,55 @@ FRAME = (1920, 1080)  # the benchmark frame: spp 2, bounce limit 8
 SMALL = (64, 36)  # the card-vs-CPU frame
 N_CHECK = 1 << 18  # rays per kernel-vs-plain check
 SCENE_TRIS = 260_000  # sponza_proxy's triangle target (its default)
-TIMED_FRAMES = 5
-KERNEL_SOURCE = "ray_tracer_tpu_torch/csrc/group_traverse.cu"
-REPLACES = "ray_tracer_tpu/kernels/group.py:89"
+TIMED_FRAMES = 3  # main frame and cluster frame: median of 3
+ROUTES = {  # frame phase -> routing, timed frames
+    "frame_cluster": (trt.Routing(cluster="on"), 3),
+    "frame_cluster_boxes": (trt.Routing(cluster="on", cluster_enum="boxes"),
+                            1),
+    "frame_packet": (trt.Routing(groups=0, anyhit_group=False), 1),
+}
+KERNEL_MODULES = (group, packet, cluster)  # the launch counters
+LIBRARIES = (bvh8, cluster)  # one nvcc build each
+KERNELS = {  # mode -> (source, the TPU kernel it replaces)
+    "group_traverse": ("ray_tracer_tpu_torch/csrc/bvh8_walk.cu",
+                       "ray_tracer_tpu/kernels/group.py:89"),
+    "group_anyhit": ("ray_tracer_tpu_torch/csrc/bvh8_walk.cu",
+                     "ray_tracer_tpu/kernels/group.py:89"),
+    "packet8_wide": ("ray_tracer_tpu_torch/csrc/bvh8_walk.cu",
+                     "ray_tracer_tpu/kernels/packet.py:301"),
+    "packet8_anyhit": ("ray_tracer_tpu_torch/csrc/bvh8_walk.cu",
+                       "ray_tracer_tpu/kernels/packet.py:301"),
+    "packet8_emit": ("ray_tracer_tpu_torch/csrc/bvh8_walk.cu",
+                     "ray_tracer_tpu/kernels/packet.py:301"),
+    "cluster_pairs": ("ray_tracer_tpu_torch/csrc/cluster_test.cu",
+                      "ray_tracer_tpu/kernels/cluster.py:36"),
+    "box_hits": ("ray_tracer_tpu_torch/csrc/cluster_test.cu",
+                 "ray_tracer_tpu/kernels/cluster.py:164"),
+}
+
+# The least time the card could take for a kernel's work: the larger of
+# its bytes over the HBM rate and its FP32 operations over the FP32 rate
+# outside the tensor cores (H100 SXM data sheet, at 700 W).
+PEAK_BYTES_S = 3.35e12
+PEAK_FP32_S = 67e12
+# FP32 operations the function needs per unit of work (comparisons not
+# counted), summed over what this run's data holds: real child boxes,
+# records, triangles and boxes, never the padding.
+OPS_CHILD = 22  # one child's slab test: 6 mul, 6 sub, 10 min/max
+OPS_RECORD = 40  # one Moller-Trumbore record test: 39 mul/add, a divide
+OPS_PAIR = 12  # one live pair's set-up: o - anchor, o' x d
+OPS_PAIR_TRI = 39  # one pair x triangle: the non-zero page terms (T 6,
+# B 5, U 11, V 11 mul/add; FO is a copy), a divide, 3 mul, 2 sub
+OPS_BOX_RAY = 6  # one live lane's set-up: 1/d, o/d
+OPS_RAY_BOX = 22  # one ray x box: 6 plane products (one non-zero page row
+# each), 6 sub, 10 min/max
+# Bytes the function needs per unit: a node's 8 child boxes with codes
+# and axis, a record's v0|e1|e2|n|front_only, a triangle's non-zero page
+# coefficients (T 4, B 3, U 6, V 6, FO 1), a box's 6 planes.
+NODE_BYTES = 64 * 4
+RECORD_BYTES = 13 * 4
+TRI_BYTES = 20 * 4
+BOX_BYTES = 6 * 4
 
 
 def phase(title: str, /, **fields) -> None:
@@ -57,6 +112,44 @@ def cuda_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def reset_launches() -> None:
+    for m in KERNEL_MODULES:
+        m.reset_launches()
+
+
+def all_launches() -> dict:
+    return {k: v for m in KERNEL_MODULES for k, v in m.launches.items()}
+
+
+def bound(bytes_moved: float, ops: float) -> dict:
+    t_bytes = bytes_moved / PEAK_BYTES_S * 1e3
+    t_ops = ops / PEAK_FP32_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_bytes=bytes_moved, bound_ops=ops)
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+@contextlib.contextmanager
+def captured(module, name):
+    """Record the arguments of every call of ``module.name``."""
+    calls = []
+    fn = getattr(module, name)
+
+    def record(*args, **kw):
+        calls.append((args, kw))
+        return fn(*args, **kw)
+
+    setattr(module, name, record)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
 
 
 def check_rays(sc, dev):
@@ -97,88 +190,258 @@ def check_rays(sc, dev):
     }
 
 
-def kernel_vs_plain(sc, dev):
-    rays = check_rays(sc, dev)
+def measure(name, run, plain, compare, cost, **fields):
+    """Run a kernel and its plain version on the same inputs, hold them
+    together with ``compare`` (raises), time both, and print the check."""
+    out, ref = run(), plain()
+    torch.cuda.synchronize()
+    compare(out, ref)
+    err = max(
+        (float((a.float() - b.float()).abs().max()) if a.numel() else 0.0)
+        for a, b in zip(out, ref)
+    )
+    ms = cuda_ms(run, 20)
+    plain_ms = cuda_ms(plain, 1)
+    rec = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, **cost(), **fields)
+    phase("kernel_vs_plain", kernel=name, exact=True, **rec)
+    return rec
+
+
+def equal_all(name):
+    def compare(out, ref):
+        for a, b in zip(out, ref):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{name}: kernel and plain differ")
+    return compare
+
+
+def walk_cost(stats, tmax0, leaf_rows=None, rows=1, emit_k=0):
+    """Bytes and FP32 operations of one walk, from the plain walk's
+    ``stats``: active rays read o, d (every lane its tmax and its
+    outputs), the distinct nodes and the real records of the distinct leaf
+    slots the rays visited are read once, and every real child box and
+    record visited is tested."""
+    active = int((tmax0 > -BIG).sum())
+    out = 4 * emit_k + 4 if emit_k else 8
+    rec_bytes = 0
+    if leaf_rows is not None:
+        first = stats["slot_seen"].nonzero()[:, 0] * 8
+        ids = first[:, None] + torch.arange(8 * rows, device=first.device)
+        rec = leaf_rows.reshape(-1, 16)[ids.reshape(-1), 0]
+        rec_bytes = int((~rec.isnan()).sum()) * RECORD_BYTES
+    node_bytes = int(stats["node_seen"].sum()) * NODE_BYTES
+    ops = stats["children"] * OPS_CHILD + stats["records"] * OPS_RECORD
+    return bound(24 * active + (4 + out) * tmax0.numel() + node_bytes
+                 + rec_bytes, ops)
+
+
+def group_checks(sc, rays):
+    """The group kernel, exact on the camera, bounce and shadow sets."""
     leaf_map = sc.leaf_map.long()
     out = {}
     for name, anyhit in (("camera", False), ("bounce", False),
                          ("shadow", True)):
         args = (sc.wide_packed, sc.leaf_rows, *rays[name])
-        dst, prim = group.group_traverse(*args, anyhit=anyhit)
-        rdst, rprim = group.group_traverse_reference(*args, anyhit=anyhit)
-        torch.cuda.synchronize()
-        if anyhit:
-            if not torch.equal(dst < -1.0, rdst < -1.0):
-                raise AssertionError("occlusion masks differ")
-        else:
-            hit, rhit = prim >= 0, rprim >= 0
-            if not torch.equal(hit, rhit):
-                raise AssertionError(f"{name}: hit masks differ")
-            tri = leaf_map[prim.clamp(min=0).long()]
-            rtri = leaf_map[rprim.clamp(min=0).long()]
-            differ = hit & (tri != rtri)
-            if not torch.equal(dst[differ], rdst[differ]):
-                raise AssertionError(f"{name}: prim differs off a tie")
-            tie_share = float(differ.float().mean())
-            if tie_share >= 1e-3:
-                raise AssertionError(f"{name}: {tie_share:.2%} ties")
-        if not torch.equal(dst, rdst):
-            raise AssertionError(f"{name}: dst differs")
-        err = float((dst - rdst).abs().max())
-        ms = cuda_ms(lambda: group.group_traverse(*args, anyhit=anyhit), 20)
-        plain_ms = cuda_ms(
-            lambda: group.group_traverse_reference(*args, anyhit=anyhit), 1)
-        active = int((args[4] > -BIG).sum())
-        out[name] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
-                         active=active,
-                         hits=int((dst < -1.0).sum() if anyhit
-                                  else (prim >= 0).sum()),
-                         prim_mismatch=int((prim != rprim).sum()))
-        phase("kernel_vs_plain", rays=name, n=N_CHECK, anyhit=anyhit,
-              exact=True, **out[name])
+        stats = {}
+
+        def compare(got, want, name=name, anyhit=anyhit):
+            (dst, prim), (rdst, rprim) = got, want
+            if anyhit:
+                if not torch.equal(dst < -1.0, rdst < -1.0):
+                    raise AssertionError("occlusion masks differ")
+            else:
+                hit, rhit = prim >= 0, rprim >= 0
+                if not torch.equal(hit, rhit):
+                    raise AssertionError(f"{name}: hit masks differ")
+                tri = leaf_map[prim.clamp(min=0).long()]
+                rtri = leaf_map[rprim.clamp(min=0).long()]
+                differ = hit & (tri != rtri)
+                if not torch.equal(dst[differ], rdst[differ]):
+                    raise AssertionError(f"{name}: prim differs off a tie")
+                tie_share = float(differ.float().mean())
+                if tie_share >= 1e-3:
+                    raise AssertionError(f"{name}: {tie_share:.2%} ties")
+            if not torch.equal(dst, rdst):
+                raise AssertionError(f"{name}: dst differs")
+
+        out["group_" + name] = measure(
+            "group_anyhit" if anyhit else "group_traverse",
+            lambda: group.group_traverse(*args, anyhit=anyhit),
+            lambda: group.group_traverse_reference(*args, anyhit=anyhit,
+                                                   stats=stats),
+            compare,
+            lambda: walk_cost(stats, args[4], sc.leaf_rows),
+            rays=name, n=N_CHECK, anyhit=anyhit,
+            active=int((args[4] > -BIG).sum()),
+        )
     return out
 
 
-def card_vs_cpu(scene_np, dev):
+def packet_checks(sc, sc16, rays):
+    """The packet walk (8- and 16-record slots, closest and occlusion) and
+    its emit mode over the cluster BVH8, exact against the plain walk."""
+    out = {}
+    cases = (("camera", sc, False), ("bounce", sc, False),
+             ("bounce", sc16, False), ("shadow", sc, True))
+    for name, s, anyhit in cases:
+        recs = s.meta["wide_leaf_recs"]
+        rows = 2 if recs > 8 else 1
+        args = (s.wide_packed, s.leaf_rows, *rays[name], recs)
+        stats = {}
+        rec = measure(
+            "packet8_anyhit" if anyhit else "packet8_wide",
+            lambda: packet.packet_traverse_wide(*args, anyhit=anyhit),
+            lambda: packet.packet_traverse_wide_reference(
+                *args, anyhit=anyhit, stats=stats),
+            equal_all(f"packet {name} {recs}"),
+            lambda: walk_cost(stats, args[4], s.leaf_rows, rows),
+            rays=name, n=N_CHECK, anyhit=anyhit, records=recs,
+            active=int((args[4] > -BIG).sum()),
+        )
+        out["packet_" + name + ("16" if recs == 16 else "")] = rec
+
+    k = trt.Routing().cluster_k
+    args = (sc.cwide_packed, sc.cwide_packed, *rays["bounce"], 8)
+    stats = {}
+
+    def compare_sets(got, want):
+        (slots, ovf), (rslots, rovf) = got, want
+        if not torch.equal(ovf, rovf):
+            raise AssertionError("emit: overflow flags differ")
+        if not torch.equal(slots.sort(dim=1).values,
+                           rslots.sort(dim=1).values):
+            raise AssertionError("emit: slot sets differ")
+
+    out["packet_emit"] = measure(
+        "packet8_emit",
+        lambda: packet.packet_traverse_wide(*args, top_k=k,
+                                            emit_leaves=True),
+        lambda: packet.packet_traverse_wide_reference(
+            *args, top_k=k, emit_leaves=True, stats=stats),
+        compare_sets,
+        lambda: walk_cost(stats, args[4], emit_k=k),
+        rays="bounce", n=N_CHECK, k=k,
+        active=int((args[4] > -BIG).sum()),
+    )
+    slots, ovf = packet.packet_traverse_wide(*args, top_k=k,
+                                             emit_leaves=True)
+    phase("emit_stats", rays="bounce",
+          mean_candidates=float((slots >= 0).sum()) / N_CHECK,
+          overflow_share=float((ovf > 0).float().mean()))
+    return out
+
+
+def chunk_cost(feats, ids, per_page, unit_bytes, ops_unit, ops_lane,
+               feat_rows, out_bytes):
+    """Bytes and operations of one chunk-kernel call.  ``per_page`` (P,)
+    holds the real triangles (or boxes) of each page.  Live lanes (feature
+    row 9 is 1 on a ray, 0 on padding; row 13, the ray's tmax, is -BIG on
+    an inactive ray) read ``feat_rows`` feature floats and meet every real
+    unit of their chunk's page; every lane writes ``out_bytes``; each
+    distinct page's real units are read once."""
+    live_lanes = ((feats[:, 9, :] == 1.0)
+                  & (feats[:, 13, :] > -BIG / 2)).sum(dim=1)
+    live = ids >= 0
+    units = torch.where(live, per_page[ids.clamp(min=0).long()], 0)
+    pages = torch.unique(ids[live]).long()
+    page_bytes = int(per_page[pages].sum()) * unit_bytes
+    n_live = int(live_lanes.sum())
+    ops = int((live_lanes * units).sum()) * ops_unit + n_live * ops_lane
+    return bound(n_live * feat_rows * 4 + nbytes(ids)
+                 + ids.numel() * 128 * out_bytes + page_bytes, ops)
+
+
+def cluster_checks(sc, rays):
+    """The cluster test and both box levels on the chunks the cluster
+    route builds for the bounce rays (its first slice of 2^17)."""
+    o, d, tmax = rays["bounce"]
+    out = {}
+    with captured(cluster, "cluster_pairs_test") as pairs:
+        cluster_trace.cluster_traverse(sc, o, d, tmax,
+                                       trt.Routing(cluster="on"))
+    with captured(cluster, "box_hits") as boxes:
+        cluster_trace.cluster_traverse(
+            sc, o, d, tmax, trt.Routing(cluster="on", cluster_enum="boxes"))
+    torch.cuda.synchronize()
+    (pages, feats, cid), kw = pairs[0]
+    t_c = kw["t_c"]
+    n_refs = sc.tri_packed.shape[0]
+    tris = torch.diff(sc.clus_start, append=sc.clus_start.new_tensor(
+        [n_refs])).long()
+    if int(tris.min()) < 1 or int(tris.max()) > t_c:
+        raise AssertionError("cluster triangle counts out of range")
+    n_sup = sc.meta["n_supers"]
+    boxes_per_page = (
+        torch.tensor([n_sup], device=o.device),
+        torch.diff(sc.super_cstart, append=sc.super_cstart.new_tensor(
+            [sc.meta["n_clusters"]])).long(),
+    )
+    out["cluster_pairs"] = measure(
+        "cluster_pairs",
+        lambda: cluster.cluster_pairs_test(pages, feats, cid, t_c),
+        lambda: cluster.cluster_pairs_test_reference(pages, feats, cid, t_c),
+        equal_all("cluster_pairs"),
+        lambda: chunk_cost(feats, cid, tris, TRI_BYTES, OPS_PAIR_TRI,
+                           OPS_PAIR, 6, 8),
+        rays="bounce", slice=cluster_trace.SLICE, chunks=int(cid.numel()),
+        live_chunks=int((cid >= 0).sum()),
+    )
+    for level, ((pages, feats, pid), _), per_page in zip(
+            (1, 2), boxes[:2], boxes_per_page):
+        out[f"box_hits_{level}"] = measure(
+            "box_hits",
+            lambda: cluster.box_hits(pages, feats, pid),
+            lambda: cluster.box_hits_reference(pages, feats, pid),
+            equal_all(f"box_hits level {level}"),
+            lambda: chunk_cost(feats, pid, per_page, BOX_BYTES,
+                               OPS_RAY_BOX, OPS_BOX_RAY, 7, 16),
+            rays="bounce", level=level, chunks=int(pid.numel()),
+            live_chunks=int((pid >= 0).sum()),
+        )
+    return out
+
+
+def card_vs_cpu(sc, sc_cpu, title, routing=None):
     cfg = trt.RenderConfig(width=SMALL[0], height=SMALL[1],
-                           samples_per_pixel=2, bounce_limit=8)
+                           samples_per_pixel=2, bounce_limit=8,
+                           routing=routing)
     t0 = time.perf_counter()
-    gpu = trt.render(scene_np.to(dev), cfg).cpu()
+    gpu = trt.render(sc, cfg).cpu()
     t1 = time.perf_counter()
-    cpu = trt.render(scene_np.to("cpu"), cfg)
+    cpu = trt.render(sc_cpu, cfg)
     t2 = time.perf_counter()
     diff = (gpu - cpu).abs()
     within = float((diff.amax(dim=-1) <= 2e-3).float().mean())
-    phase("card_vs_cpu", size=f"{SMALL[0]}x{SMALL[1]}", spp=2, bounce=8,
+    phase(title, size=f"{SMALL[0]}x{SMALL[1]}", spp=2, bounce=8,
           pixels_within_2e3=within, mean_abs_diff=float(diff.mean()),
           max_abs_diff=float(diff.max()), card_s=t1 - t0, cpu_s=t2 - t1)
     if not bool(torch.isfinite(gpu).all()):
-        raise AssertionError("card image not finite")
+        raise AssertionError(f"{title}: card image not finite")
     if within < 0.99 or float(diff.mean()) >= 1e-3:
-        raise AssertionError("card and CPU renders disagree")
+        raise AssertionError(f"{title}: card and CPU renders disagree")
 
 
-def frame(sc, dev):
+def frame(sc, dev, title, routing, timed, main=None):
+    """The benchmark frame through ``render`` (the launch counts are this
+    call's), then ``timed`` frames of bench.py's measure (frame index 1,
+    ray counts from the wavefront): their median time, and the checksum
+    and ray counts, which must agree with ``main``'s within 1%."""
     cfg = trt.RenderConfig(width=FRAME[0], height=FRAME[1],
                            samples_per_pixel=2, bounce_limit=8,
-                           max_rays_per_batch=1 << 21)
-    # the main path, once, through the public entry point
-    group.reset_launches()
+                           max_rays_per_batch=1 << 21, routing=routing)
+    reset_launches()
     img = trt.render(sc, cfg)
     torch.cuda.synchronize()
-    launches = dict(group.launches)
+    launches = all_launches()
     finite = bool(torch.isfinite(img).all())
     if img.shape != (FRAME[1], FRAME[0], 3) or not finite:
-        raise AssertionError(f"bad frame: {tuple(img.shape)} finite={finite}")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel mode never launched: {launches}")
-    # the timed frames (bench.py's: frame index 1, ray counts from the
-    # wavefront), after the warm-up above; the median of TIMED_FRAMES
+        raise AssertionError(f"{title}: bad frame {tuple(img.shape)} "
+                             f"finite={finite}")
     cam = _camera_arrays(scene_camera(sc), cfg, dev)
     ids = torch.arange(cfg.n_pixels, dtype=torch.int32, device=dev)
     torch.cuda.reset_peak_memory_stats()
     times = []
-    for _ in range(TIMED_FRAMES):
+    for _ in range(timed):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         acc, n_rays = wavefront.trace_wave(sc, *cam, ids, 1, 0, 2, cfg,
@@ -187,20 +450,40 @@ def frame(sc, dev):
         times.append(time.perf_counter() - t0)
     dt = statistics.median(times)
     rays_sem, rays_traced = (int(x) for x in n_rays.tolist())
-    phase("frame", size=f"{FRAME[0]}x{FRAME[1]}", spp=2, bounce=8,
-          frame_s=dt, frame_s_all=times,
-          rays_sem=rays_sem, rays_traced=rays_traced,
+    rec = dict(frame_s=dt, frame_s_all=times, rays_sem=rays_sem,
+               rays_traced=rays_traced, checksum=checksum,
+               launches=launches)
+    if main is not None:
+        rec["vs_main"] = {
+            k: rec[k] / main[k] - 1.0 for k in ("checksum", "rays_sem")}
+    phase(title, size=f"{FRAME[0]}x{FRAME[1]}", spp=2, bounce=8,
           mrays_sem=rays_sem / dt / 1e6, mrays_traced=rays_traced / dt / 1e6,
-          checksum=checksum, image_mean=float(img.mean()),
+          image_mean=float(img.mean()),
           peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
-          launches=launches, finite=finite)
-    return launches
+          finite=finite, **rec)
+    if main is not None and max(abs(v) for v in rec["vs_main"].values()) \
+            >= 0.01:
+        raise AssertionError(f"{title}: checksum or rays_sem off the main "
+                             f"frame's by 1% or more: {rec['vs_main']}")
+    return rec
+
+
+def build_all() -> None:
+    """Every kernel library, one nvcc each, all started together."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        libs = list(pool.map(lambda m: m.build(), LIBRARIES))
+    ptxas = {}
+    for lib in libs:
+        with open(lib[:-3] + ".log") as f:
+            ptxas[os.path.basename(lib)] = [
+                ln.strip() for ln in f if "registers" in ln]
+    phase("build", seconds=time.perf_counter() - t0, ptxas=ptxas)
 
 
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device")
-    dev = torch.device("cuda")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -211,32 +494,75 @@ def main() -> None:
           torch=torch.__version__, cuda=torch.version.cuda,
           count=torch.cuda.device_count())
 
-    t0 = time.perf_counter()
-    lib = group.build()
-    with open(lib[:-3] + ".log") as f:
-        regs = [ln.strip() for ln in f if "registers" in ln]
-    phase("build", seconds=time.perf_counter() - t0, ptxas=regs)
+    build_all()
 
     t0 = time.perf_counter()
-    scene_np = presets.sponza_proxy(SCENE_TRIS).compile()
-    sc = scene_np.to(dev)
-    phase("compile", seconds=time.perf_counter() - t0,
-          n_tris=scene_np.meta["n_tris"], W=int(sc.wide_packed.shape[0]),
+    sc = presets.sponza_proxy(SCENE_TRIS).compile(clusters=True)
+    t1 = time.perf_counter()
+    sc16 = presets.sponza_proxy(SCENE_TRIS).compile(merge_wide_leaves=True)
+    t2 = time.perf_counter()
+    dev = sc.device  # the card: compile() defaults to it
+    phase("compile", seconds=t1 - t0, seconds_16=t2 - t1,
+          n_tris=sc.meta["n_tris"], W=int(sc.wide_packed.shape[0]),
           L=int(sc.leaf_rows.shape[0]),
-          wide_leaf_recs=scene_np.meta["wide_leaf_recs"])
+          wide_leaf_recs=sc.meta["wide_leaf_recs"],
+          n_clusters=sc.meta["n_clusters"], n_supers=sc.meta["n_supers"],
+          Wc=int(sc.cwide_packed.shape[0]), clus_mt_bytes=nbytes(sc.clus_mt),
+          L16=int(sc16.leaf_rows.shape[0]),
+          wide_leaf_recs_16=sc16.meta["wide_leaf_recs"])
+    if sc.meta["n_supers"] <= 0 or sc.meta["n_clusters"] <= 0:
+        raise AssertionError("no cluster or super tables: the cluster route "
+                             "or its box enumeration cannot run")
+    if sc16.meta["wide_leaf_recs"] != 16:
+        raise AssertionError("the merged scene has no 16-record slots")
 
-    checks = kernel_vs_plain(sc, dev)
-    card_vs_cpu(scene_np, dev)
-    launches = frame(sc, dev)
+    rays = check_rays(sc, dev)
+    checks = {**group_checks(sc, rays), **packet_checks(sc, sc16, rays),
+              **cluster_checks(sc, rays)}
+    del sc16
 
-    kernels = [
-        dict(name=name, route="cuda", source=KERNEL_SOURCE,
-             replaces=REPLACES, launches=launches[name],
-             max_abs_err=checks[rays]["max_abs_err"],
-             ms=checks[rays]["ms"], plain_ms=checks[rays]["plain_ms"])
-        for name, rays in (("group_traverse", "bounce"),
-                           ("group_anyhit", "shadow"))
-    ]
+    sc_cpu = sc.to("cpu")
+    card_vs_cpu(sc, sc_cpu, "card_vs_cpu")
+    card_vs_cpu(sc, sc_cpu, "card_vs_cpu_cluster", ROUTES["frame_cluster"][0])
+    card_vs_cpu(sc, sc_cpu, "card_vs_cpu_packet", ROUTES["frame_packet"][0])
+    del sc_cpu
+
+    frames = {"frame": frame(sc, dev, "frame", None, TIMED_FRAMES)}
+    for title, (routing, timed) in ROUTES.items():
+        frames[title] = frame(sc, dev, title, routing, timed,
+                              main=frames["frame"])
+    must = {  # the frame phase that drives each mode, and its modes
+        "frame": ("group_traverse", "group_anyhit"),
+        "frame_cluster": ("packet8_emit", "cluster_pairs", "packet8_wide",
+                          "packet8_anyhit"),
+        "frame_cluster_boxes": ("box_hits", "cluster_pairs"),
+        "frame_packet": ("packet8_wide", "packet8_anyhit"),
+    }
+    for title, modes in must.items():
+        got = frames[title]["launches"]
+        if min(got[m] for m in modes) <= 0:
+            raise AssertionError(f"{title}: a kernel mode never launched: "
+                                 f"{got}")
+
+    source = {  # mode -> (its check, the frame phase of its launches)
+        "group_traverse": ("group_bounce", "frame"),
+        "group_anyhit": ("group_shadow", "frame"),
+        "packet8_wide": ("packet_bounce", "frame_packet"),
+        "packet8_anyhit": ("packet_shadow", "frame_packet"),
+        "packet8_emit": ("packet_emit", "frame_cluster"),
+        "cluster_pairs": ("cluster_pairs", "frame_cluster"),
+        "box_hits": ("box_hits_2", "frame_cluster_boxes"),
+    }
+    kernels = []
+    for name, (check, title) in source.items():
+        c = checks[check]
+        kernels.append(dict(
+            name=name, route="cuda", source=KERNELS[name][0],
+            replaces=KERNELS[name][1],
+            launches=frames[title]["launches"][name],
+            max_abs_err=c["max_abs_err"], ms=c["ms"], plain_ms=c["plain_ms"],
+            bound_ms=c["bound_ms"], bound_by=c["bound_by"], library_ms=None,
+        ))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,10 @@
 """ray_tracer_tpu_torch: the PyTorch + CUDA port of ray_tracer_tpu.
 
 A Monte-Carlo path tracer for NVIDIA Hopper: plain tensor code in torch
-and one hand-written CUDA kernel (BVH8 closest-hit and occlusion
-traversal, ``csrc/group_traverse.cu``).  It imports no JAX; the JAX
-package beside it is the reference its tests compare against.  Native
-libraries (the kernel, the C++ scene-compiler helpers) are built on first
+and hand-written CUDA kernels for traversal (``csrc/``: the BVH8 walk,
+the cluster tests).  It imports no JAX; the JAX package beside it is the
+reference its tests compare against.  Native libraries (the kernels, the
+C++ scene-compiler helpers) are built on first
 use, so importing the package needs neither a GPU nor a compiler.
 """
 

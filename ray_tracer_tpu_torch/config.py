@@ -3,9 +3,13 @@
 ``RenderConfig`` keeps the field names and defaults of the JAX package's
 (``ray_tracer_tpu/config.py``), so one configuration reads the same in
 both.  ``Routing`` keeps only what this package reads: the coherence-bin
-key widths and flavour, plus ``nee_prebin`` so that asking for it fails
-loudly.  The TPU placement and packet knobs have no counterpart here: the
-port always traverses through its one hand-written kernel.
+key widths and flavour, ``nee_prebin`` so that asking for it fails
+loudly, and the traversal-route switches (``groups``, ``anyhit_group``,
+``cluster``, ``cluster_k``, ``cluster_enum``).  The TPU placement and
+packet-shape knobs (``packet``, ``packet_size``, ``vmem_budget``,
+``mask_mode``, ``multi_pop``, ``groups_packet``, ``anyhit_groups``,
+``cluster_enum_packet``) have no counterpart here: every route runs its
+hand-written CUDA kernels one thread per ray.
 
 Values the port does not implement yet raise ``NotImplementedError`` naming
 the ROADMAP item ("Queue A") that ports them; see :meth:`RenderConfig.check`.
@@ -27,6 +31,41 @@ class Routing:
     bin_mode: str = "morton"
     # Pre-permute NEE; only "off" (shadow query after the permute) is ported.
     nee_prebin: str = "off"
+    # Closest-hit triangle traversal through the group kernel
+    # (kernels/group.py) when > 0; 0 routes it through the packet walk
+    # (kernels/packet.py).  The count itself is a TPU lane-group shape and
+    # is not read.  Scenes with 16-record leaf slots always take the walk.
+    # On one-row slots both wrappers launch the same CUDA walk
+    # (csrc/bvh8_walk.cu): the switch, kept for the JAX package's routing
+    # names, picks the wrapper and so the launch counter.
+    groups: int = 16
+    # Occlusion through the group kernel too (else the packet walk).
+    anyhit_group: bool = True
+    # Cluster route (ops/cluster_trace.py): "on" routes closest-hit and
+    # occlusion through candidate enumeration + per-cluster triangle tests
+    # on scenes compiled with cluster tables; "auto" and "off" never do
+    # (the JAX package measured "auto" as off).  Unlike the JAX package's
+    # ``use_cluster`` there is no bound on the enumeration tree's size:
+    # that bound is the TPU's scalar-memory capacity.
+    cluster: str = "auto"
+    # Per-lane candidate-cluster slots; lanes with more candidates fall
+    # back to the packet walk.
+    cluster_k: int = 16
+    # Candidate enumeration: "packet" (emit-mode walk over the cluster
+    # BVH8) or "boxes" (two brute-force slab-test levels over the super
+    # and cluster boxes; needs the scene's super tables).
+    cluster_enum: str = "packet"
+
+    def __post_init__(self):
+        if self.cluster not in ("auto", "off", "on"):
+            raise ValueError(f"Routing.cluster={self.cluster!r}: expected "
+                             "'auto', 'off' or 'on'")
+        if self.cluster_enum not in ("packet", "boxes"):
+            raise ValueError(f"Routing.cluster_enum={self.cluster_enum!r}: "
+                             "expected 'packet' or 'boxes'")
+        if self.groups < 0 or self.cluster_k < 1:
+            raise ValueError(f"Routing: groups={self.groups} must be >= 0 "
+                             f"and cluster_k={self.cluster_k} >= 1")
 
     def replace(self, **kw) -> "Routing":
         return replace(self, **kw)

@@ -1,0 +1,322 @@
+// BVH8 traversal, one thread per ray (sm_90a): closest hit, occlusion and
+// cluster enumeration.
+//
+// Replaces two TPU kernels that compute the same walk per ray:
+//   ray_tracer_tpu/kernels/group.py::_group_kernel (closest-hit
+//     `group_traverse`, order-free occlusion `group_anyhit`), and
+//   ray_tracer_tpu/kernels/packet.py::_packet8_kernel in the modes this
+//     package routes through it: the closest-hit and occlusion walks over
+//     one-row (8-record) or two-row (16-record, merge_wide_leaves=True) leaf
+//     slots (`packet8_wide`, `packet8_anyhit`) and the `emit_leaves`
+//     enumeration over the cluster BVH8 (`packet8_emit`).  The treelet
+//     TOP/DEEP modes are not ported.
+// The lockstep machinery of the TPU kernels (lane-group or packet stacks,
+// packet-majority child order, the pop LUT, the SMEM meta mirror, the
+// stamped leaf flag) is not carried over: each thread walks its own ray with
+// a private stack, so the visit and emission orders follow each ray's own
+// direction.  That can change `prim` (never `dst`) on exact-t ties, and the
+// ORDER of the emitted slots, never their set or count: a child box inside
+// its parent's box is entered only if the parent is.
+//
+// Tables (kernels/bvh8.py holds the plain torch twin, walk_reference):
+//   nodes      (W,128) f32  per child c, floats 8c..8c+5 = min3|max3, float
+//                           8c+6 = traversal code as an f32 VALUE (>= 0:
+//                           wide node id; < 0: leaf, slot = (-code-1) >> 4),
+//                           float 7 = child-sort axis.  Empty child slots
+//                           hold NaN boxes and code 0.
+//   leaf_rows  (L,128) f32  8 records of v0|e1|e2|n|front_only|pad per row;
+//                           a slot spans kRows consecutive rows, record k of
+//                           slot s has the padded id s*8 + k.  NaN records
+//                           never hit.
+// Contract:
+//   walk: origin, direction (N,3) f32, tmax0 (N,) f32 (-BIG = inactive
+//     lane) -> dst (N,) f32 (closest accepted t from tmax0, or under ANYHIT
+//     -BIG where a hit lies inside tmax0), prim (N,) i32 padded id of the
+//     closest hit, -1 on a miss (always -1 under ANYHIT).
+//   emit: nodes = the cluster BVH8 (leaf slot field = cluster id) ->
+//     slots (N,K) i32, the cluster ids whose box the ray enters within
+//     tmax0, -1 padded; ovf (N,) i32, 1 where more than K were entered.
+//
+// Each ray keeps a private stack of (node << 9 | reversed << 8 | remaining
+// child mask) words.  Mask bits are stored in visit order (reversed when
+// the ray points down the node's sort axis), so the lowest set bit is
+// always the next child; mask 0 is the root entry (visit the node itself).
+//
+// Exactness: built with --fmad=false and without fast math, every
+// expression rounds like the torch twin's separate ops.  min/max propagate
+// NaN (as torch.minimum does; fminf would drop a single NaN operand) and
+// every accept test is a comparison that is false on NaN, so an empty
+// child slot is never entered.
+//
+// What bounds it: dependent global loads.  Each visit is one 256 B node row
+// (the 8 child boxes) or one leaf slot of 512 B or 1 KiB, whose address
+// depends on the previous visit; the arithmetic per visit is small.  The
+// tables of the main-path scene (~27 MiB) sit in the 50 MB L2.  Rays arrive
+// sorted by the integrator's coherence bins (direction octant, origin morton
+// cell), so the threads of a warp walk overlapping node sets and their row
+// loads hit the same L2 lines; rows are read as float4, 16 B per load.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kBlock = 128;
+constexpr int kStack = 96;  // one (node, remaining-mask) word per level
+constexpr float kBig = 99999999.0f;
+enum WalkMode { kClosest = 0, kAnyhit = 1, kEmit = 2 };
+
+__device__ __forceinline__ float min_nan(float a, float b) {
+  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fminf(a, b);
+}
+
+__device__ __forceinline__ float max_nan(float a, float b) {
+  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
+}
+
+struct Ray {
+  float ox, oy, oz, dx, dy, dz, ix, iy, iz, oix, oiy, oiz;
+};
+
+__device__ __forceinline__ Ray load_ray(const float* __restrict__ origin,
+                                        const float* __restrict__ direction,
+                                        int i) {
+  Ray r;
+  r.ox = origin[3 * i];
+  r.oy = origin[3 * i + 1];
+  r.oz = origin[3 * i + 2];
+  // zero-direction guard (group.py:113-116, packet.py:352-354)
+  const float dx = direction[3 * i], dy = direction[3 * i + 1],
+              dz = direction[3 * i + 2];
+  r.dx = dx == 0.0f ? 1e-20f : dx;
+  r.dy = dy == 0.0f ? 1e-20f : dy;
+  r.dz = dz == 0.0f ? 1e-20f : dz;
+  r.ix = 1.0f / r.dx;
+  r.iy = 1.0f / r.dy;
+  r.iz = 1.0f / r.dz;
+  r.oix = r.ox * r.ix;
+  r.oiy = r.oy * r.iy;
+  r.oiz = r.oz * r.iz;
+  return r;
+}
+
+// Moller-Trumbore accept distance of one 16-float record, kBig on a miss
+// (the JAX kernels' _tri_t arithmetic).
+__device__ __forceinline__ float record_t(const float4* __restrict__ rec,
+                                          const Ray& y) {
+  const float4 a = __ldg(rec);      // v0.xyz, e1.x
+  const float4 b = __ldg(rec + 1);  // e1.yz, e2.xy
+  const float4 e = __ldg(rec + 2);  // e2.z, n.xyz
+  const float4 f = __ldg(rec + 3);  // front_only, pad
+  const float rx = y.ox - a.x, ry = y.oy - a.y, rz = y.oz - a.z;
+  const float qx = ry * y.dz - rz * y.dy;
+  const float qy = rz * y.dx - rx * y.dz;
+  const float qz = rx * y.dy - ry * y.dx;
+  const float d0 = -(y.dx * e.y + y.dy * e.z + y.dz * e.w);
+  const float dinv = 1.0f / d0;
+  const float t = (rx * e.y + ry * e.z + rz * e.w) * dinv;
+  const float u = (b.z * qx + b.w * qy + e.x * qz) * dinv;
+  const float v = -(a.w * qx + b.x * qy + b.y * qz) * dinv;
+  const float wb = 1.0f - u - v;
+  const bool front = d0 >= 1e-8f;
+  const bool ok = t >= 0.0f && u >= 0.0f && v >= 0.0f && wb >= 0.0f &&
+                  !(!front && f.x > 0.5f);
+  return ok ? t : kBig;
+}
+
+// The walk of one ray.  kClosest: closest accepted record (strict < so the
+// earliest record wins a tie).  kAnyhit: best = -kBig at the first record
+// inside best, then stop.  kEmit: leaf children are not entered; each leaf
+// child whose box the ray enters within best appends its slot field to
+// slots[0..top_k), past them ovf = 1; best never shrinks.
+template <int kMode, int kRows>
+__device__ __forceinline__ void walk(const float4* __restrict__ nodes,
+                                     const float4* __restrict__ leaf_rows,
+                                     const Ray& y, float& best, int& prim,
+                                     int* __restrict__ slots, int top_k,
+                                     int& ovf) {
+  uint32_t stack[kStack];
+  int sp = 0;
+  int cnt = 0;
+  stack[sp++] = 0u;
+  const float* nodes_f = reinterpret_cast<const float*>(nodes);
+
+  while (sp > 0) {
+    const uint32_t w = stack[sp - 1];
+    const uint32_t mask = w & 0xFFu;
+    const int node = static_cast<int>(w >> 9);
+    int target = node;
+    int leaf_slot = -1;
+    if (mask == 0u) {
+      --sp;
+    } else {
+      const int c = __ffs(mask) - 1;
+      const int slot = (w & 0x100u) ? 7 - c : c;
+      const uint32_t rem = mask & (mask - 1u);
+      if (rem == 0u) {
+        --sp;
+      } else {
+        stack[sp - 1] = w - mask + rem;
+      }
+      // the code is a VALUE: convert, never bitcast (scene/types.py)
+      const float code = __ldg(nodes_f + node * 128 + 8 * slot + 6);
+      if (code >= 0.0f) {
+        target = static_cast<int>(code);
+      } else {
+        leaf_slot = (static_cast<int>(-code) - 1) >> 4;
+      }
+    }
+
+    if (kMode != kEmit && leaf_slot >= 0) {
+      // kRows*8 records; record k of the slot is row leaf_slot*8 + k of
+      // the (L*8,16) view, which is its padded id
+      const float4* r = leaf_rows + leaf_slot * 32;
+      bool occluded = false;
+#pragma unroll
+      for (int k = 0; k < 8 * kRows; ++k) {
+        const float tk = record_t(r + 4 * k, y);
+        if (kMode == kAnyhit) {
+          occluded = occluded || tk < best;
+        } else if (tk < best) {  // strict: the lowest record wins a tie
+          best = tk;
+          prim = leaf_slot * 8 + k;
+        }
+      }
+      if (kMode == kAnyhit && occluded) {
+        best = -kBig;
+        return;
+      }
+      continue;
+    }
+
+    // 8-child slab test of `target`, against the current best
+    const float4* r = nodes + target * 32;
+    uint32_t m8 = 0u;
+    uint32_t leaf_bits = 0u;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const float4 a = __ldg(r + 2 * c);      // min.xyz, max.x
+      const float4 b = __ldg(r + 2 * c + 1);  // max.yz, code, axis/pad
+      const float t1x = a.x * y.ix - y.oix, t2x = a.w * y.ix - y.oix;
+      const float t1y = a.y * y.iy - y.oiy, t2y = b.x * y.iy - y.oiy;
+      const float t1z = a.z * y.iz - y.oiz, t2z = b.y * y.iz - y.oiz;
+      const float tmin = max_nan(max_nan(min_nan(t1x, t2x), min_nan(t1y, t2y)),
+                                 min_nan(t1z, t2z));
+      const float tmx = min_nan(min_nan(max_nan(t1x, t2x), max_nan(t1y, t2y)),
+                                max_nan(t1z, t2z));
+      const bool hit = tmx >= tmin && tmx > 0.0f && tmin < best;
+      if (hit) m8 |= 1u << c;
+      if (kMode == kEmit && b.z < 0.0f) {
+        leaf_bits |= 1u << c;
+        if (hit) {  // emit the leaf child's slot field, in slot order
+          const int id = (static_cast<int>(-b.z) - 1) >> 4;
+          if (cnt < top_k) {
+            slots[cnt] = id;
+          } else {
+            ovf = 1;
+          }
+          ++cnt;
+        }
+      }
+    }
+    if (kMode == kEmit) m8 &= ~leaf_bits;
+    if (m8 == 0u) continue;
+    uint32_t word = m8;
+    if (kMode != kAnyhit) {
+      // near-first: children ascend along the node's sort axis, so a ray
+      // pointing down that axis visits them from slot 7
+      const int axis = static_cast<int>(__ldg(nodes_f + target * 128 + 7));
+      const float dax = axis == 0 ? y.dx : (axis == 1 ? y.dy : y.dz);
+      if (dax < 0.0f) word = (__brev(m8) >> 24) | 0x100u;
+    }
+    if (sp >= kStack) __trap();  // unreachable: the host caps tree depth
+    stack[sp++] = (static_cast<uint32_t>(target) << 9) | word;
+  }
+}
+
+template <int kMode, int kRows>
+__global__ void __launch_bounds__(kBlock)
+    walk_kernel(const float4* __restrict__ nodes,
+                const float4* __restrict__ leaf_rows,
+                const float* __restrict__ origin,
+                const float* __restrict__ direction,
+                const float* __restrict__ tmax0, float* __restrict__ dst_out,
+                int* __restrict__ prim_out, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const Ray y = load_ray(origin, direction, i);
+  float best = tmax0[i];
+  int prim = -1, ovf = 0;
+  walk<kMode, kRows>(nodes, leaf_rows, y, best, prim, nullptr, 0, ovf);
+  dst_out[i] = best;
+  prim_out[i] = prim;
+}
+
+__global__ void __launch_bounds__(kBlock)
+    emit_kernel(const float4* __restrict__ nodes,
+                const float* __restrict__ origin,
+                const float* __restrict__ direction,
+                const float* __restrict__ tmax0, int* __restrict__ slots_out,
+                int* __restrict__ ovf_out, int n, int top_k) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  int* slots = slots_out + static_cast<int64_t>(i) * top_k;
+  for (int k = 0; k < top_k; ++k) slots[k] = -1;
+  const Ray y = load_ray(origin, direction, i);
+  float best = tmax0[i];
+  int prim = -1, ovf = 0;
+  walk<kEmit, 1>(nodes, nullptr, y, best, prim, slots, top_k, ovf);
+  ovf_out[i] = ovf;
+}
+
+template <int kMode, int kRows>
+void launch_walk(const void* nodes, const void* leaf_rows, const void* origin,
+                 const void* direction, const void* tmax0, void* dst,
+                 void* prim, int n, cudaStream_t s) {
+  const dim3 grid((n + kBlock - 1) / kBlock), block(kBlock);
+  walk_kernel<kMode, kRows><<<grid, block, 0, s>>>(
+      static_cast<const float4*>(nodes), static_cast<const float4*>(leaf_rows),
+      static_cast<const float*>(origin), static_cast<const float*>(direction),
+      static_cast<const float*>(tmax0), static_cast<float*>(dst),
+      static_cast<int*>(prim), n);
+}
+
+}  // namespace
+
+extern "C" int rt_bvh8_walk(const void* nodes, const void* leaf_rows,
+                            const void* origin, const void* direction,
+                            const void* tmax0, void* dst, void* prim, int n,
+                            int anyhit, int rows, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rows != 1 && rows != 2) return static_cast<int>(cudaErrorInvalidValue);
+  if (anyhit) {
+    if (rows == 2) {
+      launch_walk<kAnyhit, 2>(nodes, leaf_rows, origin, direction, tmax0, dst,
+                              prim, n, s);
+    } else {
+      launch_walk<kAnyhit, 1>(nodes, leaf_rows, origin, direction, tmax0, dst,
+                              prim, n, s);
+    }
+  } else {
+    if (rows == 2) {
+      launch_walk<kClosest, 2>(nodes, leaf_rows, origin, direction, tmax0,
+                               dst, prim, n, s);
+    } else {
+      launch_walk<kClosest, 1>(nodes, leaf_rows, origin, direction, tmax0,
+                               dst, prim, n, s);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int rt_bvh8_emit(const void* nodes, const void* origin,
+                            const void* direction, const void* tmax0,
+                            void* slots, void* ovf, int n, int top_k,
+                            void* stream) {
+  const dim3 grid((n + kBlock - 1) / kBlock), block(kBlock);
+  emit_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(nodes), static_cast<const float*>(origin),
+      static_cast<const float*>(direction), static_cast<const float*>(tmax0),
+      static_cast<int*>(slots), static_cast<int*>(ovf), n, top_k);
+  return static_cast<int>(cudaGetLastError());
+}

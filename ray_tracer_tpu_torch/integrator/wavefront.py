@@ -8,9 +8,11 @@ regenerates finished paths with their pixel's next sample, bins the lanes
 by (direction octant, origin morton cell) with one stable argsort and one
 packed state permute, and traces the merged wavefront: closest hit for
 bounce and camera rays, any-hit occlusion for the NEE shadow rays.  Both
-traversals run the BVH8 kernel (``kernels/group.py``).  The loop is a
+traversals run the BVH8 kernels.  The loop is a
 Python ``while`` whose exit test is one ``.item()`` per round; multi-phase
-drain shrinks the state arrays as lanes retire.
+drain shrinks the state arrays as lanes retire.  The traversal route
+(group kernel, packet walk or cluster route) follows ``cfg.routing``; see
+``ops/traverse.py``.
 
 Radiometric semantics are the reference package's (its module docstring
 lists the reference shader's quirks this reproduces): the 0/1-NEE pending
@@ -75,8 +77,10 @@ def raygen(cam_rotation, cam_pos, fov, aspect, near, pixel_id, width,
 
 
 def _shade_fetch(scene: CompiledScene, rays: CameraRays,
-                 hit: traverse.Hit):
-    """All deferred shading attributes from ONE fat-row gather.
+                 hit: traverse.Hit, space: str = "slot"):
+    """All deferred shading attributes from ONE fat-row gather, from
+    ``shade_slot`` or, where triangle hits are global ids (``space`` is
+    ``traverse.prim_space``'s ``'tri'``), ``shade_tri``.
 
     Returns ``(hp, normal, uv, albedo, emission, reflectance, ior, tex_id,
     sampler, metal_tex, alpha_tex, front)``.  Triangle barycentrics and
@@ -90,7 +94,8 @@ def _shade_fetch(scene: CompiledScene, rays: CameraRays,
     hp = rays.origin + rays.direction * hit.dst[:, None]
     is_tri = hit.kind == traverse.KIND_TRI
     tri_i = torch.where(is_tri, hit.prim, 0).long()
-    srow = scene.shade_slot[tri_i]  # (N,48): the ONE hot gather
+    table = scene.shade_tri if space == "tri" else scene.shade_slot
+    srow = table[tri_i]  # (N,48): the ONE hot gather
 
     d_eps = torch.where(rays.direction == 0.0, 1e-20, rays.direction)
     r3 = rays.origin - srow[:, 32:35]
@@ -352,6 +357,7 @@ def _trace_wave_lanes(scene, rot, pos, fov, aspect, near, pixel_id,
     n = pixel_id.shape[0]
     dev = pixel_id.device
     rt = cfg.resolved_routing()
+    space = traverse.prim_space(scene, rt)
 
     def primary_rays(pix, s):
         jitter = None
@@ -367,7 +373,7 @@ def _trace_wave_lanes(scene, rot, pos, fov, aspect, near, pixel_id,
     rays0 = primary_rays(pix0, sb0 + s0)
     hit0 = traverse.traverse(
         scene, rays0.origin, rays0.direction,
-        torch.ones(n, dtype=torch.bool, device=dev),
+        torch.ones(n, dtype=torch.bool, device=dev), routing=rt,
     )
     f3 = lambda v: torch.full((n, 3), v, dtype=F32, device=dev)
     w = Wave(
@@ -388,7 +394,7 @@ def _trace_wave_lanes(scene, rot, pos, fov, aspect, near, pixel_id,
 
         (hp, normal, uv, albedo, emission, reflectance, ior, tex_id,
          sampler, metal_tex, alpha_tex, front) = _shade_fetch(
-            scene, CameraRays(w.origin, w.direction), hit
+            scene, CameraRays(w.origin, w.direction), hit, space
         )
         albedo, emission, reflectance, cutout = _apply_material_maps(
             scene, cfg, uv, sampler, albedo, emission, reflectance,
@@ -547,7 +553,8 @@ def _trace_wave_lanes(scene, rot, pos, fov, aspect, near, pixel_id,
         j_cur, s_cur, pix, slot, li, sb_cur = packed_i.unbind(dim=1)
 
         # ---- traverse the merged wavefront (bounce ++ regenerated primary)
-        hit_next = traverse.traverse(scene, new_origin, new_dir, alive)
+        hit_next = traverse.traverse(scene, new_origin, new_dir, alive,
+                                     routing=rt)
 
         # ---- NEE shadow query for continuing diffuse lanes
         if scene.n_lights == 0:
@@ -556,7 +563,7 @@ def _trace_wave_lanes(scene, rot, pos, fov, aspect, near, pixel_id,
         else:
             occluded = traverse.traverse_anyhit(
                 scene, nee_origin, l_dir, nee_active,
-                tmax=l_dist * (1.0 - 1e-3),
+                tmax=l_dist * (1.0 - 1e-3), routing=rt,
             )
             reached = nee_active & ~occluded
             l_emit = lights.rect_light_emission(scene, li.long())

@@ -1,0 +1,340 @@
+"""The BVH8 walk behind the group and packet traversal wrappers.
+
+``csrc/bvh8_walk.cu`` is the one-thread-per-ray walk on the card, one
+library for both wrappers: ``kernels/group.py`` calls it with one-row leaf
+slots, ``kernels/packet.py`` with one- or two-row slots and in its emit
+mode.  ``walk_reference`` is its plain torch version.
+
+Tables (``CompiledScene.wide_packed`` / ``leaf_rows``):
+
+* ``nodes`` (W,128) f32: per child c, floats 8c..8c+5 = min3|max3, float
+  8c+6 = traversal code as an f32 VALUE (>= 0: wide node id; < 0: leaf
+  with payload -(slot*16 + cnt) - 1, slot = -code-1 >> 4), float 7 = the
+  child-sort axis.  Empty child slots hold NaN boxes and code 0.
+* ``leaf_rows`` (L,128) f32: 8 records v0|e1|e2|n|front_only|pad per row;
+  a slot spans ``rows`` consecutive rows, so record k of slot s is record
+  s*8 + k of the (L*8,16) view: its padded id.  NaN records never hit.
+
+Each ray keeps a stack of ``node << 9 | reversed << 8 | remaining-mask``
+words.  A step pops the next child of the top word (the lowest set bit;
+bits are stored near-first: reversed when the ray points down the node's
+sort axis) and either slab-tests a wide node's 8 children against the
+current best and pushes the hit set, or tests a leaf slot's records.
+Mask 0 is the root entry (visit the word's node itself).  Modes:
+
+* ``closest``: the closest accepted record; records fold with strict
+  ``<``, so the earliest record wins a tie;
+* ``anyhit``: ``dst = -BIG`` at the first record inside ``tmax0``;
+* ``emit``: leaf children are never entered; each leaf child whose box the
+  ray enters within ``tmax0`` appends its slot field (a cluster id on the
+  cluster enumeration tree) to the lane's next free slot of ``top_k``,
+  and sets ``ovf`` past them.  ``tmax0`` never shrinks.
+
+The arithmetic is ``ray_tracer_tpu``'s kernels', op for op; built with
+``--fmad=false`` the CUDA walk rounds like this one, so on the card the
+two agree bit for bit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+from typing import Optional
+
+import torch
+
+from ..native_build import build_shared, nvcc_path
+
+BIG = 99999999.0
+# One stack word per tree level: the builder caps the binary tree at depth
+# 64 and a wide node sits at least one binary level below its parent, so a
+# walk never holds more than 65 words (checked against the scene's depth in
+# ops/traverse.py).
+G_STACK = 96
+MAX_TREE_DEPTH = 64
+
+CSRC = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc"
+)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    # exact agreement with the torch twins: no contracted FMAs, IEEE
+    # division, NaN-aware comparisons (no --use_fast_math)
+    "--fmad=false",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+_SRC = os.path.join(CSRC, "bvh8_walk.cu")
+
+MODES = ("closest", "anyhit", "emit")
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def build() -> str:
+    """Compile the walk library (once per source hash); return its path."""
+    return build_shared(_SRC, "bvh8_walk", (nvcc_path(), *NVCC_FLAGS))
+
+
+def _load() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build())
+        lib.rt_bvh8_walk.restype = ctypes.c_int
+        lib.rt_bvh8_walk.argtypes = [ctypes.c_void_p] * 7 + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ]
+        lib.rt_bvh8_emit.restype = ctypes.c_int
+        lib.rt_bvh8_emit.argtypes = [ctypes.c_void_p] * 6 + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ]
+        _lib = lib
+    return _lib
+
+
+def _raise_on(err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"BVH8 walk kernel launch failed: CUDA error {err}")
+
+
+def launch_walk(nodes, leaf_rows, origin, direction, tmax0, anyhit: bool,
+                rows: int):
+    """The closest-hit (or occlusion) walk on the card: ``(dst, prim)``.
+    Inputs as checked by :func:`check_walk_inputs`, on a CUDA device."""
+    dev = origin.device
+    n = origin.shape[0]
+    dst = torch.empty(n, dtype=torch.float32, device=dev)
+    prim = torch.empty(n, dtype=torch.int32, device=dev)
+    if n:
+        _raise_on(_load().rt_bvh8_walk(
+            nodes.data_ptr(), leaf_rows.data_ptr(), origin.data_ptr(),
+            direction.data_ptr(), tmax0.data_ptr(), dst.data_ptr(),
+            prim.data_ptr(), n, int(anyhit), rows,
+            torch.cuda.current_stream(dev).cuda_stream,
+        ))
+    return dst, prim
+
+
+def launch_emit(nodes, origin, direction, tmax0, top_k: int):
+    """The emit walk on the card: ``(slots (N,top_k), ovf (N,))`` i32."""
+    dev = origin.device
+    n = origin.shape[0]
+    slots = torch.empty((n, top_k), dtype=torch.int32, device=dev)
+    ovf = torch.empty(n, dtype=torch.int32, device=dev)
+    if n:
+        _raise_on(_load().rt_bvh8_emit(
+            nodes.data_ptr(), origin.data_ptr(), direction.data_ptr(),
+            tmax0.data_ptr(), slots.data_ptr(), ovf.data_ptr(), n, top_k,
+            torch.cuda.current_stream(dev).cuda_stream,
+        ))
+    return slots, ovf
+
+
+def check_tensors(device, dtype, **named) -> None:
+    """Raise unless every ``name=(tensor, shape)`` lies on ``device`` with
+    ``dtype``, the given shape and contiguous memory."""
+    for name, (t, shape) in named.items():
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, expected {device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} must have shape {tuple(shape)}, got "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def check_walk_inputs(nodes, leaf_rows, origin, direction, tmax0) -> None:
+    n = origin.shape[0]
+    check_tensors(
+        origin.device, torch.float32,
+        nodes=(nodes, (nodes.shape[0], 128)),
+        leaf_rows=(leaf_rows, (leaf_rows.shape[0], 128)),
+        origin=(origin, (n, 3)), direction=(direction, (n, 3)),
+        tmax0=(tmax0, (n,)),
+    )
+    if n >= 2**31 or nodes.shape[0] >= 2**23:
+        raise ValueError("too many rays or wide nodes for 32-bit indices")
+
+
+def _mt_t(rows, origin, d):
+    """Moller-Trumbore accept distance per (lane, record), BIG on a miss:
+    the JAX kernels' ``_tri_t`` arithmetic.  rows (K,R,16); origin/d
+    (K,3)."""
+    c = lambda j: rows[:, :, j]
+    ox, oy, oz = (origin[:, j : j + 1] for j in range(3))
+    dx, dy, dz = (d[:, j : j + 1] for j in range(3))
+    rx = ox - c(0)
+    ry = oy - c(1)
+    rz = oz - c(2)
+    qx = ry * dz - rz * dy
+    qy = rz * dx - rx * dz
+    qz = rx * dy - ry * dx
+    d0 = -(dx * c(9) + dy * c(10) + dz * c(11))
+    dinv = 1.0 / d0
+    t = (rx * c(9) + ry * c(10) + rz * c(11)) * dinv
+    u = (c(6) * qx + c(7) * qy + c(8) * qz) * dinv
+    v = -(c(3) * qx + c(4) * qy + c(5) * qz) * dinv
+    w = 1.0 - u - v
+    front = d0 >= 1e-8
+    ok = (t >= 0) & (u >= 0) & (v >= 0) & (w >= 0)
+    ok = ok & ~((~front) & (c(12) > 0.5))
+    return torch.where(ok, t, BIG)
+
+
+def _slab_mask(boxes, inv, oi, best):
+    """8-child slab test -> (K,) hit-bit masks.  boxes (K,8,8)."""
+    bx = lambda j: boxes[:, :, j]
+    t1 = [bx(a) * inv[:, a : a + 1] - oi[:, a : a + 1] for a in range(3)]
+    t2 = [bx(3 + a) * inv[:, a : a + 1] - oi[:, a : a + 1] for a in range(3)]
+    lo = [torch.minimum(p, q) for p, q in zip(t1, t2)]
+    hi = [torch.maximum(p, q) for p, q in zip(t1, t2)]
+    tmin = torch.maximum(torch.maximum(lo[0], lo[1]), lo[2])
+    tmx = torch.minimum(torch.minimum(hi[0], hi[1]), hi[2])
+    hv = (tmx >= tmin) & (tmx > 0) & (tmin < best[:, None])
+    bits = torch.tensor([1 << c for c in range(8)], device=boxes.device)
+    return (hv.long() * bits).sum(dim=1)
+
+
+def walk_reference(nodes, leaf_rows, origin, direction, tmax0,
+                   mode: str = "closest", rows: int = 1, top_k: int = 0,
+                   stats: dict = None):
+    """The CUDA walk in plain torch, vectorized over the live lanes.
+
+    Returns ``(dst, prim)`` for ``closest``/``anyhit`` and ``(slots, ovf)``
+    ((N,top_k) i32 with -1 padding, (N,) i32) for ``emit``.  Raises if a
+    lane needs more than W+L+1 steps (each node and leaf slot is visited
+    at most once per walk) or overflows its stack.  ``stats``, if given,
+    receives the walk's visit counts summed over the rays: ``interior``
+    (8-child slab tests) and ``leaf`` (leaf-slot tests), ``children`` and
+    ``records`` (the non-empty child boxes and non-NaN records among
+    them), and ``node_seen`` (W,) / ``slot_seen`` (L,) bool, the distinct
+    nodes and leaf slots (by first row) any ray visited.
+    """
+    if mode not in MODES:
+        raise ValueError(f"unknown walk mode {mode!r}")
+    dev = origin.device
+    n = origin.shape[0]
+    n_nodes, n_leaf = nodes.shape[0], leaf_rows.shape[0]
+    d = torch.where(direction == 0.0, 1e-20, direction)
+    inv = 1.0 / d
+    oi = origin * inv
+    dst = tmax0.clone()
+    prim = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    slots = torch.full((n, max(top_k, 1)), -1, dtype=torch.int32,
+                       device=dev)
+    cnt = torch.zeros(n, dtype=torch.int64, device=dev)
+
+    def result():
+        if mode == "emit":
+            return slots[:, :top_k], (cnt > top_k).to(torch.int32)
+        return dst, prim
+
+    if n == 0:
+        return result()
+    boxes = nodes[:, :64].reshape(n_nodes, 8, 8)
+    codes = boxes[:, :, 6]
+    axis = nodes[:, 7].long()
+    records = leaf_rows.reshape(n_leaf * 8, 16)
+    rec_ids = torch.arange(8 * rows, device=dev)
+    ctz = torch.tensor(
+        [(m & -m).bit_length() - 1 if m else 0 for m in range(256)],
+        device=dev,
+    )
+    rev8 = torch.tensor(
+        [int(f"{m:08b}"[::-1], 2) for m in range(256)], device=dev
+    )
+    # root entry: word 0 = visit node 0 itself
+    stack = torch.zeros((n, G_STACK), dtype=torch.int64, device=dev)
+    sp = torch.ones(n, dtype=torch.int64, device=dev)
+    lanes = torch.arange(n, device=dev)
+    if stats is not None:
+        stats.update(
+            interior=0, leaf=0, children=0, records=0,
+            node_seen=torch.zeros(n_nodes, dtype=torch.bool, device=dev),
+            slot_seen=torch.zeros(n_leaf, dtype=torch.bool, device=dev),
+        )
+    for _ in range(n_nodes + n_leaf + 1):
+        top = sp[lanes] - 1
+        word = stack[lanes, top]
+        mask = word & 0xFF
+        node = word >> 9
+        direct = mask == 0
+        c = ctz[mask]
+        slot = torch.where((word & 0x100) != 0, 7 - c, c)
+        rem = mask & (mask - 1)
+        stack[lanes, top] = word - mask + rem
+        sp[lanes] = top + (~(direct | (rem == 0))).long()
+        code = codes[node, slot]
+        is_leaf = ~direct & (code < 0)
+        target = torch.where(direct, node, code.long())
+
+        lf = is_leaf.nonzero().squeeze(1)
+        if stats is not None:
+            stats["leaf"] += lf.numel()
+            stats["interior"] += lanes.numel() - lf.numel()
+        if lf.numel():  # never in emit mode: leaf children are not pushed
+            ll = lanes[lf]
+            first = ((-code[lf]).long() - 1) // 16 * 8
+            recs = records[first[:, None] + rec_ids]
+            if stats is not None:
+                stats["records"] += int((~recs[:, :, 0].isnan()).sum())
+                stats["slot_seen"][first // 8] = True
+            t = _mt_t(recs, origin[ll], d[ll])
+            if mode == "anyhit":
+                occ = ll[(t < dst[ll][:, None]).any(dim=1)]
+                dst[occ] = -BIG
+                sp[occ] = 0
+            else:
+                tmin = t.amin(dim=1)
+                # the earliest record of the minimum (torch.min's index on
+                # ties is not specified)
+                kmin = torch.where(t == tmin[:, None], rec_ids, 8 * rows)
+                kmin = kmin.amin(dim=1)
+                closer = tmin < dst[ll]
+                dst[ll] = torch.where(closer, tmin, dst[ll])
+                prim[ll] = torch.where(
+                    closer, (first + kmin).to(torch.int32), prim[ll]
+                )
+
+        it = (~is_leaf).nonzero().squeeze(1)
+        if it.numel():
+            il = lanes[it]
+            tg = target[it]
+            if stats is not None:
+                stats["children"] += int((~boxes[tg, :, 0].isnan()).sum())
+                stats["node_seen"][tg] = True
+            m8 = _slab_mask(boxes[tg], inv[il], oi[il], dst[il])
+            if mode == "emit":
+                ccodes = codes[tg]  # (K,8)
+                for ch in range(8):
+                    em = ((m8 >> ch) & 1).bool() & (ccodes[:, ch] < 0)
+                    el = il[em]
+                    if el.numel():
+                        cid = ((-ccodes[em, ch]).long() - 1) // 16
+                        k = cnt[el]
+                        keep = k < top_k
+                        slots[el[keep], k[keep]] = cid[keep].to(torch.int32)
+                        cnt[el] = k + 1
+                leaf_bits = ((ccodes < 0).long()
+                             << torch.arange(8, device=dev)).sum(dim=1)
+                m8 = m8 & ~leaf_bits
+            if mode != "anyhit":
+                ax = axis[tg]
+                neg = d[il].gather(1, ax[:, None])[:, 0] < 0
+                m8 = torch.where(neg, rev8[m8] | 0x100, m8)
+            push = (m8 & 0xFF) != 0
+            pl = il[push]
+            if pl.numel():
+                at = sp[pl]
+                if int(at.max()) >= G_STACK:
+                    raise RuntimeError("traversal stack overflow")
+                stack[pl, at] = (tg[push] << 9) | m8[push]
+                sp[pl] = at + 1
+
+        lanes = lanes[sp[lanes] > 0]
+        if lanes.numel() == 0:
+            return result()
+    raise RuntimeError(
+        f"traversal did not finish within {n_nodes + n_leaf + 1} steps"
+    )

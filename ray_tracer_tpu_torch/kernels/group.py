@@ -2,10 +2,11 @@
 
 ``group_traverse`` is the port of ``ray_tracer_tpu/kernels/group.py``'s
 ``_group_kernel`` (closest-hit, and order-free occlusion with
-``anyhit=True``).  On CUDA tensors it launches the hand-written kernel in
-``csrc/group_traverse.cu`` (built with ``nvcc`` at first use); on CPU
-tensors it runs :func:`group_traverse_reference`, the plain torch version
-of the same walk.  Nothing falls back: a CUDA tensor that the kernel cannot
+``anyhit=True``).  On CUDA tensors it launches the hand-written walk in
+``csrc/bvh8_walk.cu`` (built with ``nvcc`` at first use, one library with
+``kernels/packet.py``); on CPU tensors it runs
+:func:`group_traverse_reference`, the plain torch version of the same
+walk.  Nothing falls back: a CUDA tensor that the kernel cannot
 take raises.
 
 Contract (shared by both):
@@ -19,53 +20,27 @@ Contract (shared by both):
   and ``prim`` (N,) i32, the padded leaf-slot id ``row * 8 + record`` of
   the closest hit, -1 on a miss (always -1 under ``anyhit``).
 
-The walk: each ray keeps a stack of ``(node, remaining-child-mask)`` words.
-A step pops the next child of the top word (the lowest set bit; bits are
-stored near-first for closest-hit, plain for occlusion), and either slab-
-tests a wide node's 8 children against the current best and pushes the
-hit set, or runs the 8-record Moller-Trumbore test of a leaf row.  The
-arithmetic is ``_group_kernel``'s, op for op; the two versions here round
-identically, so on the card they agree bit for bit (the kernel is built
-with ``--fmad=false``).  Across implementations only the child order
-differs, which can change ``prim`` (never ``dst``) on exact-t ties between
+The walk is ``csrc/bvh8_walk.cu`` (plain twin: ``bvh8.walk_reference``):
+each ray keeps a stack of ``(node, remaining-child-mask)`` words, bits
+stored near-first for closest-hit, plain for occlusion.  The arithmetic is
+``_group_kernel``'s, op for op; the two versions here round identically,
+so on the card they agree bit for bit (the kernel is built with
+``--fmad=false``).  Across implementations only the child order differs,
+which can change ``prim`` (never ``dst``) on exact-t ties between
 duplicated geometry.
 """
 
 from __future__ import annotations
 
-import ctypes
-import os
-from typing import Optional
-
-import torch
-
-from ..native_build import build_shared, nvcc_path
-
-BIG = 99999999.0
-# One stack word per tree level: the builder caps the binary tree at depth
-# 64 and a wide node sits at least one binary level below its parent, so a
-# walk never holds more than 65 words (checked against the scene's depth in
-# ops/traverse.py).
-G_STACK = 96
-MAX_TREE_DEPTH = 64
-
-_SRC = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "csrc",
-    "group_traverse.cu",
-)
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    # exact agreement with the torch twin: no contracted FMAs, IEEE
-    # division, NaN-aware comparisons (no --use_fast_math)
-    "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+from .bvh8 import (  # noqa: F401  (BIG: re-exported)
+    BIG,
+    check_walk_inputs,
+    launch_walk,
+    walk_reference,
 )
 
 # Kernel launches per mode since the last reset (the CPU path never adds).
 launches = {"group_traverse": 0, "group_anyhit": 0}
-
-_lib: Optional[ctypes.CDLL] = None
 
 
 def reset_launches() -> None:
@@ -73,199 +48,27 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
-def build() -> str:
-    """Compile the kernel library (once per source hash); return its path."""
-    return build_shared(_SRC, "group_traverse", (nvcc_path(), *NVCC_FLAGS))
-
-
-def _load() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build())
-        lib.rt_group_traverse.restype = ctypes.c_int
-        lib.rt_group_traverse.argtypes = [ctypes.c_void_p] * 7 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ]
-        _lib = lib
-    return _lib
-
-
-def _check_inputs(nodes, leaf_rows, origin, direction, tmax0) -> None:
-    n = origin.shape[0]
-    shapes = {
-        "nodes": (nodes, (nodes.shape[0], 128)),
-        "leaf_rows": (leaf_rows, (leaf_rows.shape[0], 128)),
-        "origin": (origin, (n, 3)),
-        "direction": (direction, (n, 3)),
-        "tmax0": (tmax0, (n,)),
-    }
-    dev = origin.device
-    for name, (t, shape) in shapes.items():
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, origin on {dev}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} must have shape {shape}, got "
-                             f"{tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if n >= 2**31 or nodes.shape[0] >= 2**23:
-        raise ValueError("too many rays or wide nodes for 32-bit indices")
-
-
 def group_traverse(nodes, leaf_rows, origin, direction, tmax0,
                    anyhit: bool = False):
     """Closest hit (or occlusion) of N rays; see the module docstring."""
-    _check_inputs(nodes, leaf_rows, origin, direction, tmax0)
+    check_walk_inputs(nodes, leaf_rows, origin, direction, tmax0)
     if origin.device.type == "cpu":
         return group_traverse_reference(
             nodes, leaf_rows, origin, direction, tmax0, anyhit=anyhit
         )
     if origin.device.type != "cuda":
         raise ValueError(f"no traversal kernel for device {origin.device}")
-    n = origin.shape[0]
-    dst = torch.empty(n, dtype=torch.float32, device=origin.device)
-    prim = torch.empty(n, dtype=torch.int32, device=origin.device)
-    if n == 0:
-        return dst, prim
-    lib = _load()
-    stream = torch.cuda.current_stream(origin.device).cuda_stream
-    err = lib.rt_group_traverse(
-        nodes.data_ptr(), leaf_rows.data_ptr(), origin.data_ptr(),
-        direction.data_ptr(), tmax0.data_ptr(), dst.data_ptr(),
-        prim.data_ptr(), n, int(anyhit), stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"group traversal kernel launch failed: CUDA "
-                           f"error {err}")
-    launches["group_anyhit" if anyhit else "group_traverse"] += 1
+    dst, prim = launch_walk(nodes, leaf_rows, origin, direction, tmax0,
+                            anyhit, rows=1)
+    if origin.shape[0]:
+        launches["group_anyhit" if anyhit else "group_traverse"] += 1
     return dst, prim
 
 
-def _mt_t(rows, origin, d):
-    """Moller-Trumbore accept distance per (lane, record), BIG on a miss:
-    ``_group_kernel._mt_t``'s arithmetic.  rows (K,8,16); origin/d (K,3)."""
-    c = lambda j: rows[:, :, j]
-    ox, oy, oz = (origin[:, j : j + 1] for j in range(3))
-    dx, dy, dz = (d[:, j : j + 1] for j in range(3))
-    rx = ox - c(0)
-    ry = oy - c(1)
-    rz = oz - c(2)
-    qx = ry * dz - rz * dy
-    qy = rz * dx - rx * dz
-    qz = rx * dy - ry * dx
-    d0 = -(dx * c(9) + dy * c(10) + dz * c(11))
-    dinv = 1.0 / d0
-    t = (rx * c(9) + ry * c(10) + rz * c(11)) * dinv
-    u = (c(6) * qx + c(7) * qy + c(8) * qz) * dinv
-    v = -(c(3) * qx + c(4) * qy + c(5) * qz) * dinv
-    w = 1.0 - u - v
-    front = d0 >= 1e-8
-    ok = (t >= 0) & (u >= 0) & (v >= 0) & (w >= 0)
-    ok = ok & ~((~front) & (c(12) > 0.5))
-    return torch.where(ok, t, BIG)
-
-
-def _slab_mask(boxes, inv, oi, best):
-    """8-child slab test -> (K,) hit-bit masks.  boxes (K,8,8)."""
-    bx = lambda j: boxes[:, :, j]
-    t1 = [bx(a) * inv[:, a : a + 1] - oi[:, a : a + 1] for a in range(3)]
-    t2 = [bx(3 + a) * inv[:, a : a + 1] - oi[:, a : a + 1] for a in range(3)]
-    lo = [torch.minimum(p, q) for p, q in zip(t1, t2)]
-    hi = [torch.maximum(p, q) for p, q in zip(t1, t2)]
-    tmin = torch.maximum(torch.maximum(lo[0], lo[1]), lo[2])
-    tmx = torch.minimum(torch.minimum(hi[0], hi[1]), hi[2])
-    hv = (tmx >= tmin) & (tmx > 0) & (tmin < best[:, None])
-    bits = torch.tensor([1 << c for c in range(8)], device=boxes.device)
-    return (hv.long() * bits).sum(dim=1)
-
-
 def group_traverse_reference(nodes, leaf_rows, origin, direction, tmax0,
-                             anyhit: bool = False):
-    """The kernel's walk in plain torch, vectorized over the live lanes.
-
-    Raises if a lane needs more than W+L+1 steps (each node and leaf row
-    is visited at most once per walk) or overflows its stack.
-    """
-    dev = origin.device
-    n = origin.shape[0]
-    n_nodes, n_leaf = nodes.shape[0], leaf_rows.shape[0]
-    d = torch.where(direction == 0.0, 1e-20, direction)
-    inv = 1.0 / d
-    oi = origin * inv
-    dst = tmax0.clone()
-    prim = torch.full((n,), -1, dtype=torch.int32, device=dev)
-    if n == 0:
-        return dst, prim
-    boxes = nodes[:, :64].reshape(n_nodes, 8, 8)
-    codes = boxes[:, :, 6]
-    axis = nodes[:, 7].long()
-    records = leaf_rows.reshape(n_leaf, 8, 16)
-    ctz = torch.tensor(
-        [(m & -m).bit_length() - 1 if m else 0 for m in range(256)],
-        device=dev,
-    )
-    rev8 = torch.tensor(
-        [int(f"{m:08b}"[::-1], 2) for m in range(256)], device=dev
-    )
-    # root entry: word 0 = visit node 0 itself
-    stack = torch.zeros((n, G_STACK), dtype=torch.int64, device=dev)
-    sp = torch.ones(n, dtype=torch.int64, device=dev)
-    lanes = torch.arange(n, device=dev)
-    for _ in range(n_nodes + n_leaf + 1):
-        top = sp[lanes] - 1
-        word = stack[lanes, top]
-        mask = word & 0xFF
-        node = word >> 9
-        direct = mask == 0
-        c = ctz[mask]
-        slot = torch.where((word & 0x100) != 0, 7 - c, c)
-        rem = mask & (mask - 1)
-        stack[lanes, top] = word - mask + rem
-        sp[lanes] = top + (~(direct | (rem == 0))).long()
-        code = codes[node, slot]
-        is_leaf = ~direct & (code < 0)
-        target = torch.where(direct, node, code.long())
-
-        lf = is_leaf.nonzero().squeeze(1)
-        if lf.numel():
-            ll = lanes[lf]
-            row = ((-code[lf]).long() - 1) // 16
-            t = _mt_t(records[row], origin[ll], d[ll])
-            if anyhit:
-                occ = ll[(t < dst[ll][:, None]).any(dim=1)]
-                dst[occ] = -BIG
-                sp[occ] = 0
-            else:
-                tmin, kmin = t.min(dim=1)  # first index on ties
-                closer = tmin < dst[ll]
-                dst[ll] = torch.where(closer, tmin, dst[ll])
-                prim[ll] = torch.where(
-                    closer, (row * 8 + kmin).to(torch.int32), prim[ll]
-                )
-
-        it = (~is_leaf).nonzero().squeeze(1)
-        if it.numel():
-            il = lanes[it]
-            tg = target[it]
-            m8 = _slab_mask(boxes[tg], inv[il], oi[il], dst[il])
-            if not anyhit:
-                ax = axis[tg]
-                neg = d[il].gather(1, ax[:, None])[:, 0] < 0
-                m8 = torch.where(neg, rev8[m8] | 0x100, m8)
-            push = (m8 & 0xFF) != 0
-            pl = il[push]
-            if pl.numel():
-                at = sp[pl]
-                if int(at.max()) >= G_STACK:
-                    raise RuntimeError("traversal stack overflow")
-                stack[pl, at] = (tg[push] << 9) | m8[push]
-                sp[pl] = at + 1
-
-        lanes = lanes[sp[lanes] > 0]
-        if lanes.numel() == 0:
-            return dst, prim
-    raise RuntimeError(
-        f"traversal did not finish within {n_nodes + n_leaf + 1} steps"
-    )
+                             anyhit: bool = False, stats: dict = None):
+    """The kernel's walk in plain torch (``bvh8.walk_reference``, one-row
+    leaf slots)."""
+    return walk_reference(nodes, leaf_rows, origin, direction, tmax0,
+                          mode="anyhit" if anyhit else "closest",
+                          stats=stats)

@@ -1,11 +1,22 @@
-"""Scene traversal: sphere brute force, then the BVH8 kernel.
+"""Scene traversal: sphere brute force, then a triangle route.
 
-Port of ``ray_tracer_tpu/ops/traverse.py``'s flattened-scene group route
-(``traverse`` / ``traverse_anyhit`` with ``raw=True, need_uv=False``):
-triangle hits are reported in padded leaf-slot space (``prim`` indexes
-``CompiledScene.shade_slot``), and barycentrics/facing are re-derived by
-the integrator's shade fetch, so the kernel returns only ``(dst, prim)``.
-Forest (non-flattened) mesh scenes are not ported.
+Port of ``ray_tracer_tpu/ops/traverse.py``'s flattened-scene routes
+(``traverse`` / ``traverse_anyhit`` with ``raw=True, need_uv=False``),
+chosen per call from the scene and the ``Routing``:
+
+* the group kernel (``kernels/group.py``), the default: closest hit when
+  ``groups > 0``, occlusion when ``anyhit_group`` too, on scenes with
+  one-row (<= 8-record) leaf slots;
+* the cluster route (``ops/cluster_trace.py``) under ``cluster="on"`` on a
+  scene compiled with cluster tables;
+* otherwise the packet walk (``kernels/packet.py``), which also reads the
+  16-record two-row slots of ``merge_wide_leaves=True`` scenes.
+
+Triangle hits come back in :func:`prim_space`: padded leaf-slot ids
+(``shade_slot`` rows) on the group and packet routes, global triangle ids
+(``shade_tri`` rows) on the cluster route.  Barycentrics and facing are
+re-derived by the integrator's shade fetch, so the routes return only
+``(dst, prim)``.  Forest (non-flattened) mesh scenes are not ported.
 """
 
 from __future__ import annotations
@@ -14,9 +25,11 @@ from typing import NamedTuple
 
 import torch
 
-from ..kernels import group
+from ..config import Routing
+from ..kernels import group, packet
+from ..kernels.bvh8 import MAX_TREE_DEPTH
 from ..scene.types import CompiledScene
-from . import intersect
+from . import cluster_trace, intersect
 from .intersect import BIG
 
 KIND_NONE = 0
@@ -45,12 +58,35 @@ def _has_tris(scene: CompiledScene) -> bool:
             "forest (non-flattened) scenes are not ported yet "
             "(ROADMAP Queue A item 5)"
         )
-    if scene.meta.get("bvh_max_depth", 0) > group.MAX_TREE_DEPTH:
+    if scene.meta.get("bvh_max_depth", 0) > MAX_TREE_DEPTH:
         raise ValueError(
             f"BVH depth {scene.meta['bvh_max_depth']} exceeds the traversal "
-            f"stack's {group.MAX_TREE_DEPTH}"
+            f"stack's {MAX_TREE_DEPTH}"
         )
     return True
+
+
+def _cluster_on(scene: CompiledScene, routing: Routing) -> bool:
+    return cluster_trace.use_cluster(scene, routing)
+
+
+def _group_on(scene: CompiledScene, routing: Routing) -> bool:
+    """Closest hit through the group kernel?  It reads one-row (<= 8
+    record) leaf slots only; the JAX package's TPU placement test has no
+    counterpart here."""
+    return (
+        routing.groups > 0
+        and not _cluster_on(scene, routing)
+        and scene.meta.get("wide_leaf_recs", 8) <= 8
+    )
+
+
+def prim_space(scene: CompiledScene, routing: Routing = None) -> str:
+    """Which id space triangle hits come back in: ``'tri'`` (global
+    triangle ids, ``scene.shade_tri``) on the cluster route, ``'slot'``
+    (padded leaf-slot ids, ``scene.shade_slot``) otherwise."""
+    rt = routing if routing is not None else Routing()
+    return "tri" if _cluster_on(scene, rt) else "slot"
 
 
 def _sphere_dst(scene, origin, direction):
@@ -66,12 +102,15 @@ def traverse(
     direction: torch.Tensor,
     active: torch.Tensor,
     tmax: torch.Tensor = None,
+    routing: Routing = None,
 ) -> Hit:
     """Closest hit for a batch of world-space rays.
 
     ``active`` masks lanes (inactive lanes report no hit); ``tmax`` is an
-    optional per-lane search radius (default BIG).
+    optional per-lane search radius (default BIG).  Triangle ``prim`` is in
+    :func:`prim_space` of ``routing`` (default ``Routing()``).
     """
+    rt = routing if routing is not None else Routing()
     n = origin.shape[0]
     dev = origin.device
     dst = torch.full((n,), BIG, device=dev) if tmax is None else tmax
@@ -94,10 +133,17 @@ def traverse(
         return Hit(dst, kind, prim, front)
 
     tmax0 = torch.where(active, dst, -BIG).contiguous()
-    t_dst, t_prim = group.group_traverse(
-        scene.wide_packed, scene.leaf_rows, origin.contiguous(),
-        direction.contiguous(), tmax0,
-    )
+    o, d = origin.contiguous(), direction.contiguous()
+    if _cluster_on(scene, rt):
+        t_dst, t_prim = cluster_trace.cluster_traverse(
+            scene, o, d, tmax0, rt)
+    elif _group_on(scene, rt):
+        t_dst, t_prim = group.group_traverse(
+            scene.wide_packed, scene.leaf_rows, o, d, tmax0)
+    else:
+        t_dst, t_prim = packet.packet_traverse_wide(
+            scene.wide_packed, scene.leaf_rows, o, d, tmax0,
+            scene.meta.get("wide_leaf_recs", 8))
     tri_hit = t_prim >= 0
     return Hit(
         dst=torch.where(tri_hit, t_dst, dst),
@@ -113,11 +159,13 @@ def traverse_anyhit(
     direction: torch.Tensor,
     active: torch.Tensor,
     tmax: torch.Tensor,
+    routing: Routing = None,
 ) -> torch.Tensor:
     """Occlusion query: is there ANY hit strictly inside ``tmax``?
 
     Returns (N,) bool; inactive lanes report unoccluded.
     """
+    rt = routing if routing is not None else Routing()
     occ = torch.zeros((origin.shape[0],), dtype=torch.bool,
                       device=origin.device)
     if scene.n_spheres > 0:
@@ -126,8 +174,15 @@ def traverse_anyhit(
     if not _has_tris(scene):
         return occ & active
     tmax0 = torch.where(active, tmax, -BIG).contiguous()
-    dst, _ = group.group_traverse(
-        scene.wide_packed, scene.leaf_rows, origin.contiguous(),
-        direction.contiguous(), tmax0, anyhit=True,
-    )
+    o, d = origin.contiguous(), direction.contiguous()
+    if _cluster_on(scene, rt):
+        dst, _ = cluster_trace.cluster_traverse(scene, o, d, tmax0, rt,
+                                                anyhit=True)
+    elif rt.anyhit_group and _group_on(scene, rt):
+        dst, _ = group.group_traverse(
+            scene.wide_packed, scene.leaf_rows, o, d, tmax0, anyhit=True)
+    else:
+        dst, _ = packet.packet_traverse_wide(
+            scene.wide_packed, scene.leaf_rows, o, d, tmax0,
+            scene.meta.get("wide_leaf_recs", 8), anyhit=True)
     return (occ | (dst < -1.0)) & active

@@ -27,6 +27,7 @@ from .types import (
     Material,
     RectLight,
     SphereDesc,
+    resolve_device,
 )
 
 
@@ -184,8 +185,13 @@ class SceneBuilder:
         flatten_instances: bool = True,
         merge_wide_leaves: bool = None,
         spatial_splits: bool = True,
+        cluster_t_c: int = None,
+        clusters: bool = None,
+        device=None,
     ) -> CompiledScene:
-        """Flatten to device arrays.
+        """Flatten to device tensors, on ``device`` (default: the CUDA
+        device; with none present this raises, so CPU runs pass
+        ``device="cpu"``).
 
         ``flatten_instances=True`` (default) bakes every instance's triangles
         into *world space* and builds ONE global BVH: a single stackless walk
@@ -197,15 +203,33 @@ class SceneBuilder:
         traversal time) when instancing-heavy scenes make duplication too
         costly.
 
-        The reference package's cluster-pipeline and rope-stream tables are
-        not built: they serve traversal routes this package does not have.
+        ``merge_wide_leaves``: None (auto) packs sibling leaves of 8-record
+        scenes into shared single rows; True packs them into 16-record
+        two-row slots, which only the packet walk reads (the traversal then
+        routes there); False keeps one row per leaf.
+
+        ``clusters`` / ``cluster_t_c``: build the cluster route's tables
+        (``accel/cluster.py``) with clusters of at most ``cluster_t_c``
+        triangles (default 128).  By default none are built; an explicit
+        ``cluster_t_c`` opts in.  A scene the tables cannot represent
+        (:class:`~ray_tracer_tpu_torch.accel.cluster.ClusterCapacityError`)
+        gets none, unless ``clusters=True`` forced them: then it raises.
+
+        The reference package's rope-stream and treelet tables are not
+        built: they serve traversal routes this package does not have.
         """
         from . import validate as _validate
 
+        dev = resolve_device(device)
         _validate.validate(self)  # loud, actionable errors (VK_CHECK-style)
 
         f32 = np.float32
         i32 = np.int32
+        clusters_forced = clusters is True
+        if clusters is None:
+            clusters = cluster_t_c is not None
+        if cluster_t_c is None:
+            cluster_t_c = 128
         if max_leaf_tris is None:
             # Fatter leaves on big scenes shrink the node table at trivial
             # dense-test cost.
@@ -438,14 +462,9 @@ class SceneBuilder:
             # Merged-leaf mode: sibling leaf children of a wide node are
             # greedily packed (in sorted-slot order, so groups stay
             # spatially adjacent) into shared rows whose box is the union
-            # of the parts.  Dense-test ids stay slot*8+k.  The reference
-            # package's 16-record TWO-row variant (``True``) feeds only its
-            # packet kernel, which this package has not ported.
-            if merge_wide_leaves is True:
-                raise NotImplementedError(
-                    "16-record two-row leaf slots need the packet kernel "
-                    "(ROADMAP Queue B item 3), not ported yet"
-                )
+            # of the parts.  Dense-test ids stay slot*8+k, also in the
+            # 16-record TWO-row variant (``True``), whose records k >= 8
+            # sit in row slot+1 at k-8.
             if merge_wide_leaves is None:
                 # Auto: single-row sibling merge on 8-record scenes — packs
                 # partial sibling leaves into full shared rows, cutting
@@ -573,6 +592,20 @@ class SceneBuilder:
                 if leaf_map_list
                 else np.zeros(8, i32)
             )
+            ct = None
+            if clusters:
+                from ..accel.cluster import (
+                    ClusterCapacityError,
+                    build_cluster_tables,
+                )
+
+                try:
+                    ct = build_cluster_tables(
+                        forest, forest.roots[0], tri_packed, t_c=cluster_t_c
+                    )
+                except ClusterCapacityError:
+                    if clusters_forced:
+                        raise
         else:
             wide_packed = np.full((1, 128), np.nan, f32)
             wide_packed[:, 6:64:8] = 0.0
@@ -580,13 +613,33 @@ class SceneBuilder:
             leaf_rows = np.full((1, 128), np.nan, f32)
             leaf_map = np.zeros(8, i32)
             wide_leaf_recs = 4 if max_leaf_tris <= 4 else 8
+            ct = None
+        if ct is not None:
+            cluster_arrays = dict(
+                clus_mt=ct.clus_mt, clus_start=ct.clus_start,
+                cwide_packed=ct.cwide_packed, super_page=ct.super_page,
+                super_cpage=ct.super_cpage, super_cstart=ct.super_cstart,
+            )
+            n_clusters, n_supers = int(ct.clus_start.shape[0]), ct.n_supers
+        else:  # one-row placeholders, as the JAX package's
+            cwide = np.full((1, 128), np.nan, f32)
+            cwide[:, 6:64:8] = 0.0
+            cwide[:, 7] = 0.0
+            cluster_arrays = dict(
+                clus_mt=np.zeros((1, 16, 5 * cluster_t_c), f32),
+                clus_start=np.zeros(1, i32), cwide_packed=cwide,
+                super_page=np.full((16, 6 * 128), np.nan, f32),
+                super_cpage=np.full((1, 16, 6 * 128), np.nan, f32),
+                super_cstart=np.zeros(1, i32),
+            )
+            n_clusters, n_supers = 0, 0
 
         # Slot-space mirror of the fat shading rows: indexed directly by the
         # wide packet kernel's padded leaf-slot ids (slot*8 + k), removing
         # the per-lane leaf_map indirection gather from the hot path.
         shade_slot = shade_tri[leaf_map]
 
-        return CompiledScene(
+        return CompiledScene.from_numpy(dict(
             sphere_pos=sph_pos,
             sphere_radius=sph_rad,
             sphere_mat=sph_mat,
@@ -629,6 +682,7 @@ class SceneBuilder:
             wide_packed=wide_packed,
             leaf_rows=leaf_rows,
             leaf_map=leaf_map,
+            **cluster_arrays,
             light_corner=li_corner,
             light_edge_u=li_u,
             light_edge_v=li_v,
@@ -641,7 +695,7 @@ class SceneBuilder:
             env_light_dir=env_light_dir,
             tex_data=tex_data,
             tex_size=tex_size,
-            meta={
+        ), meta={
                 "n_spheres": n_sph,
                 "n_objects": n_obj,
                 "n_lights": n_li,
@@ -654,6 +708,9 @@ class SceneBuilder:
                 "max_leaf_tris": forest.max_leaf_tris,
                 "wide_leaf_recs": wide_leaf_recs,
                 "flattened": flattened,
+                "n_clusters": n_clusters,
+                "cluster_t_c": cluster_t_c,
+                "n_supers": n_supers,
                 "bvh_max_depth": forest.max_depth_seen,
                 "camera": (
                     tuple(self.camera.position),
@@ -661,5 +718,4 @@ class SceneBuilder:
                     float(self.camera.fov),
                     float(self.camera.near_plane),
                 ),
-            },
-        )
+            }, device=dev)

@@ -6,9 +6,9 @@ transforms, and a per-``usemtl``-group BVH forest.  ``CompiledScene`` is the
 flat SoA table set uploaded to the device as torch tensors — the
 replacement for the reference's nine storage-buffer bindings
 (``shaders/raytrace.comp:120-148``).  The field layout is the JAX
-package's (``ray_tracer_tpu/scene/types.py``) minus the cluster-pipeline,
-rope-stream and treelet-root tables, which feed traversal routes this
-package does not have.
+package's (``ray_tracer_tpu/scene/types.py``) minus the rope-stream and
+treelet-root tables, which feed traversal routes this package does not
+have.
 """
 
 from __future__ import annotations
@@ -117,13 +117,32 @@ class Camera:
 # Compiled device scene
 # --------------------------------------------------------------------------
 
+
+def resolve_device(device=None) -> torch.device:
+    """``device``, or the CUDA device when it is None.
+
+    The port runs on the card unless the caller asks for the CPU: with no
+    device given and no CUDA device present this raises instead of
+    silently running on the CPU.
+    """
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: pass device='cpu' to compile the scene for the "
+            "CPU (the plain torch versions of the kernels)"
+        )
+    return torch.device("cuda")
+
+
 @dataclass
 class CompiledScene:
     """Flat SoA tensors plus static ``meta``.
 
-    ``SceneBuilder.compile()`` fills the fields with numpy arrays;
-    :meth:`from_numpy` / :meth:`to` turn them into torch tensors on a
-    device.  Integer ids stored in float rows are f32 *values*, never
+    ``SceneBuilder.compile()`` builds the fields as numpy arrays and hands
+    them to :meth:`from_numpy`, which puts them on a device as torch
+    tensors; :meth:`to` copies a scene to another device.  Integer ids
+    stored in float rows are f32 *values*, never
     bitcasts, except ``bvh_packed`` columns 6-7 (index/count bitcast, as in
     the reference package).
     """
@@ -191,6 +210,19 @@ class CompiledScene:
     leaf_rows: Any  # (L,128) f32
     leaf_map: Any  # (L*8,) i32: padded slot -> global triangle id
 
+    # Cluster route (accel/cluster.py): transposed Moller-Trumbore
+    # coefficient pages per <= t_c-triangle cluster, the clusters' global
+    # triangle range starts, the enumeration BVH8 over cluster AABBs (leaf
+    # codes carry cluster ids), and the two-level box-enumeration pages.
+    # meta: n_clusters, cluster_t_c, n_supers (0 = tables not built; the
+    # arrays are then one-row placeholders).
+    clus_mt: Any  # (C,16,5*t_c) f32
+    clus_start: Any  # (C,) i32
+    cwide_packed: Any  # (Wc,128) f32
+    super_page: Any  # (16,6*128) f32
+    super_cpage: Any  # (S,16,6*128) f32
+    super_cstart: Any  # (S,) i32 first cluster id per super
+
     # NEE lights.
     light_corner: Any  # (L,3) f32
     light_edge_u: Any  # (L,3) f32
@@ -216,16 +248,19 @@ class CompiledScene:
         return tuple(f.name for f in dataclasses.fields(cls) if f.name != "meta")
 
     @classmethod
-    def from_numpy(cls, arrays: dict, meta: dict) -> "CompiledScene":
-        """Scene from numpy arrays keyed by field name, as CPU tensors.
+    def from_numpy(cls, arrays: dict, meta: dict,
+                   device=None) -> "CompiledScene":
+        """Scene from numpy arrays keyed by field name, as tensors on
+        ``device`` (default: the CUDA device; see :func:`resolve_device`).
 
         ``arrays`` may be the JAX package's compiled scene fields: keys this
-        class does not have (the cluster and rope tables) are not read.
+        class does not have (the rope and treelet tables) are not read.
         """
+        dev = resolve_device(device)
         return cls(
             meta=dict(meta),
             **{
-                f: torch.from_numpy(np.array(arrays[f]))
+                f: torch.from_numpy(np.array(arrays[f])).to(dev)
                 for f in cls.array_fields()
             },
         )

@@ -1,4 +1,4 @@
-"""The CUDA kernel on the card against its plain torch version.
+"""The CUDA kernels on the card against their plain torch versions.
 
 Imports no JAX, so it also runs where only the port is installed:
 
@@ -12,7 +12,8 @@ import pytest
 import torch
 
 import ray_tracer_tpu_torch as trt
-from ray_tracer_tpu_torch.kernels import group
+from ray_tracer_tpu_torch.kernels import cluster, group, packet
+from ray_tracer_tpu_torch.ops import cluster_trace
 from ray_tracer_tpu_torch.scene import presets
 
 BIG = 99999999.0
@@ -27,18 +28,20 @@ def dev():
 
 @pytest.fixture(scope="module")
 def scene(dev):
-    return presets.sponza_proxy(n_tris_target=20000).compile()
+    return presets.sponza_proxy(n_tris_target=20000).compile(clusters=True)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("anyhit", [False, True])
-def test_kernel_matches_plain_version(dev, scene, anyhit):
-    """Bit for bit: both versions round every op alike (the kernel is
-    built with --fmad=false)."""
-    rand = np.random.default_rng(7)
-    n = 20000
-    lo, hi = scene.bvh_packed[0, 0:3], scene.bvh_packed[0, 3:6]
-    o = rand.uniform(lo, hi, (n, 3)).astype(np.float32)
+@pytest.fixture(scope="module")
+def scene16(dev):
+    """16-record two-row leaf slots."""
+    return presets.sponza_proxy(n_tris_target=20000).compile(
+        merge_wide_leaves=True)
+
+
+def _rays(scene, n, anyhit, seed=7):
+    rand = np.random.default_rng(seed)
+    box = scene.bvh_packed[0].cpu().numpy()
+    o = rand.uniform(box[0:3], box[3:6], (n, 3)).astype(np.float32)
     d = rand.normal(size=(n, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     d[::50, 1] = 0.0
@@ -46,8 +49,15 @@ def test_kernel_matches_plain_version(dev, scene, anyhit):
     if not anyhit:
         tmax[::2] = BIG
     tmax[::9] = -BIG
-    args = [torch.from_numpy(x).to(dev) for x in (
-        scene.wide_packed, scene.leaf_rows, o, d, tmax)]
+    return [torch.from_numpy(x).to(scene.device) for x in (o, d, tmax)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("anyhit", [False, True])
+def test_kernel_matches_plain_version(dev, scene, anyhit):
+    """Bit for bit: both versions round every op alike (the kernel is
+    built with --fmad=false)."""
+    args = [scene.wide_packed, scene.leaf_rows, *_rays(scene, 20000, anyhit)]
     group.reset_launches()
     dst, prim = group.group_traverse(*args, anyhit=anyhit)
     assert sum(group.launches.values()) == 1
@@ -59,13 +69,100 @@ def test_kernel_matches_plain_version(dev, scene, anyhit):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("rows", [1, 2])
+@pytest.mark.parametrize("anyhit", [False, True])
+def test_packet_walk_matches_plain_version(dev, scene, scene16, rows,
+                                           anyhit):
+    sc = scene16 if rows == 2 else scene
+    recs = sc.meta["wide_leaf_recs"]
+    assert (recs == 16) == (rows == 2)
+    args = [sc.wide_packed, sc.leaf_rows, *_rays(sc, 20000, anyhit)]
+    packet.reset_launches()
+    dst, prim = packet.packet_traverse_wide(*args, recs, anyhit=anyhit)
+    assert sum(packet.launches.values()) == 1
+    rdst, rprim = packet.packet_traverse_wide_reference(*args, recs,
+                                                        anyhit=anyhit)
+    torch.cuda.synchronize()
+    assert torch.equal(dst, rdst) and torch.equal(prim, rprim)
+    assert (prim >= 0).any() or anyhit
+
+
+@pytest.mark.gpu
+def test_packet_emit_matches_plain_version(dev, scene):
+    o, d, tmax = _rays(scene, 20000, False)
+    args = [scene.cwide_packed, scene.cwide_packed, o, d, tmax, 8]
+    packet.reset_launches()
+    slots, ovf = packet.packet_traverse_wide(*args, top_k=16,
+                                             emit_leaves=True)
+    assert packet.launches["packet8_emit"] == 1
+    rslots, rovf = packet.packet_traverse_wide_reference(
+        *args, top_k=16, emit_leaves=True)
+    torch.cuda.synchronize()
+    assert torch.equal(slots, rslots) and torch.equal(ovf, rovf)
+    assert (slots >= 0).any()
+
+
+@pytest.mark.gpu
+def test_cluster_kernels_match_plain_versions(dev, scene):
+    o, d, tmax = _rays(scene, 4096, False)
+    feats = cluster.ray_features(o, d, tmax)
+    slots, ovf = packet.packet_traverse_wide(
+        scene.cwide_packed, scene.cwide_packed, o, d, tmax, 8, top_k=16,
+        emit_leaves=True)
+    pc, pr, _ = cluster_trace._compact_rows(
+        slots, torch.arange(4096, dtype=torch.int32, device=dev), ovf == 0,
+        4096 * 8)
+    _, ray_p, live_p, cid, _ = cluster_trace._group_pairs(
+        pc, pr, scene.meta["n_clusters"] + 2)
+    fchunks = cluster_trace._chunk_feats(feats, ray_p, live_p)
+    t_c = scene.meta["cluster_t_c"]
+    cluster.reset_launches()
+    t, p = cluster.cluster_pairs_test(scene.clus_mt, fchunks, cid, t_c)
+    rt, rp = cluster.cluster_pairs_test_reference(scene.clus_mt, fchunks,
+                                                  cid, t_c)
+    words = cluster.box_hits(scene.super_cpage, fchunks,
+                             torch.where(cid >= 0, 0, -1).to(torch.int32))
+    rwords = cluster.box_hits_reference(
+        scene.super_cpage, fchunks,
+        torch.where(cid >= 0, 0, -1).to(torch.int32))
+    torch.cuda.synchronize()
+    assert cluster.launches == {"cluster_pairs": 1, "box_hits": 1}
+    assert torch.equal(t, rt) and torch.equal(p, rp) and (p >= 0).any()
+    assert torch.equal(words, rwords) and (words != 0).any()
+
+
+@pytest.mark.gpu
 def test_render_on_card_uses_the_kernel(dev, scene):
     cfg = trt.RenderConfig(width=32, height=18, samples_per_pixel=2,
                            bounce_limit=4)
     group.reset_launches()
-    img = trt.render(scene.to(dev), cfg)
+    img = trt.render(scene, cfg)
     torch.cuda.synchronize()
     assert img.shape == (18, 32, 3) and img.device.type == "cuda"
     assert bool(torch.isfinite(img).all())
     assert group.launches["group_traverse"] > 0
     assert group.launches["group_anyhit"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["cluster", "cluster_boxes", "packet"])
+def test_render_routes_on_card(dev, scene, route):
+    kw, modes = {
+        "cluster": (dict(cluster="on"),
+                    ["packet8_emit", "cluster_pairs", "packet8_wide",
+                     "packet8_anyhit"]),
+        "cluster_boxes": (dict(cluster="on", cluster_enum="boxes"),
+                          ["box_hits", "cluster_pairs", "packet8_wide"]),
+        "packet": (dict(groups=0, anyhit_group=False),
+                   ["packet8_wide", "packet8_anyhit"]),
+    }[route]
+    cfg = trt.RenderConfig(width=32, height=18, samples_per_pixel=2,
+                           bounce_limit=4, routing=trt.Routing(**kw))
+    for m in (group, packet, cluster):
+        m.reset_launches()
+    img = trt.render(scene, cfg)
+    torch.cuda.synchronize()
+    assert img.shape == (18, 32, 3) and bool(torch.isfinite(img).all())
+    counts = {**group.launches, **packet.launches, **cluster.launches}
+    assert all(counts[m] > 0 for m in modes), counts
+    assert counts["group_traverse"] == counts["group_anyhit"] == 0

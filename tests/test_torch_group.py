@@ -29,7 +29,7 @@ def scene(request, tmp_path_factory):
     """Random triangle soup, 4-record leaves or merged 8-record rows."""
     tmp = str(tmp_path_factory.mktemp("soup"))
     jsc = soup_scene(jrt, tmp).compile(max_leaf_tris=request.param)
-    return CompiledScene.from_numpy(*scene_arrays(jsc))
+    return CompiledScene.from_numpy(*scene_arrays(jsc), device="cpu")
 
 
 def _rays(rand, n):
@@ -95,7 +95,7 @@ def test_occlusion_matches_jax(scene, rand):
 def test_room_scene_rays(rand, tmp_path):
     """Axis-aligned walls and boxes: exact slab ties on flat geometry."""
     jsc = room_scene(jrt, str(tmp_path)).compile()
-    sc = CompiledScene.from_numpy(*scene_arrays(jsc))
+    sc = CompiledScene.from_numpy(*scene_arrays(jsc), device="cpu")
     n = 700
     o = rand.uniform(-1.0, 0.4, (n, 3)).astype(np.float32)
     d = rand.normal(size=(n, 3)).astype(np.float32)

@@ -66,9 +66,9 @@ def scenes(tmp_path_factory):
         b.add_rect_light(corner=(1.0, -1.2, 0.5), edge_u=(0.0, 0.0, 0.3),
                          edge_v=(0.3, 0.0, 0.0), normal=(0, -1, 0),
                          material=3)
-        out.append(b.compile())
-    jsc, tsc = out
-    return jsc.device_put(), tsc.to("cpu")
+        out.append(b)
+    jb, tb = out
+    return jb.compile().device_put(), tb.compile(device="cpu")
 
 
 @pytest.mark.parametrize("frame,seed", [(0, 0), (7, 12345), (2**31 + 5, 99)])

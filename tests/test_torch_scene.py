@@ -39,7 +39,7 @@ def test_compiled_arrays_match_jax(name, tmp_path, monkeypatch):
     jb, tb = _builders(name, str(tmp_path), monkeypatch)
     kw = {"max_leaf_tris": 8} if name == "soup_leaf8" else {}
     jarr, jmeta = scene_arrays(jb.compile(**kw))
-    tsc = tb.compile(**kw)
+    tsc = tb.compile(device="cpu", **kw)
     for f in trt.CompiledScene.array_fields():
         got, want = np.asarray(getattr(tsc, f)), jarr[f]
         assert got.dtype == want.dtype, f
@@ -52,7 +52,7 @@ def test_compiled_arrays_match_jax(name, tmp_path, monkeypatch):
 
 def test_from_numpy_round_trip(tmp_path):
     jarr, jmeta = scene_arrays(room_scene(jrt, str(tmp_path)).compile())
-    sc = trt.CompiledScene.from_numpy(jarr, jmeta)
+    sc = trt.CompiledScene.from_numpy(jarr, jmeta, device="cpu")
     assert sc.device == torch.device("cpu")
     assert sc.meta == jmeta and sc.meta is not jmeta
     moved = sc.to("cpu")
@@ -62,6 +62,19 @@ def test_from_numpy_round_trip(tmp_path):
         np.testing.assert_array_equal(t.numpy(), jarr[f], err_msg=f)
     # fields the port does not carry are not read
     assert not hasattr(sc, "rope_streams") and "rope_streams" in jarr
+
+
+def test_compile_defaults_to_the_card(monkeypatch, tmp_path):
+    """With no CUDA device, compile() and from_numpy() without a device
+    raise (no silent CPU fallback); device="cpu" is the way to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    b = room_scene(trt, str(tmp_path))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        b.compile()
+    jarr, jmeta = scene_arrays(room_scene(jrt, str(tmp_path)).compile())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        trt.CompiledScene.from_numpy(jarr, jmeta)
+    assert b.compile(device="cpu").device == torch.device("cpu")
 
 
 def test_native_builder_failure_raises(monkeypatch, tmp_path):
@@ -93,7 +106,7 @@ presets.default_materials(b)
 b.add_obj(path, material=0, position=(0.0, 0.5, 0.0), scale=6.0)
 b.add_sphere((0.0, -0.5, 0.0), 0.5, presets.MIRROR)
 b.set_environment(trt.Environment(enabled=True))
-img = trt.render(b.compile().to("cpu"),
+img = trt.render(b.compile(device="cpu"),
                  trt.RenderConfig(width=8, height=8, samples_per_pixel=2,
                                   bounce_limit=3))
 assert img.shape == (8, 8, 3) and bool(img.isfinite().all())
