@@ -8,9 +8,9 @@ path's shapes, checks small card renders against the same renders on the
 CPU, and renders the benchmark frame (sponza_proxy, 1920x1080, spp 2,
 bounce limit 8, one whole-frame tile) through each traversal route of the
 port: the group kernel (the default), the cluster route with packet and
-with box enumeration, and the packet walk.  Every phase prints one line;
-any failure raises, so the exit code is non-zero and no result line is
-printed.  The line before the last lists the kernels; the last line is
+with box enumeration, the packet walk, the narrow binary-BVH walk and the
+rope walk.  Every phase prints one line; any failure raises, so the exit
+code is non-zero and no result line is printed.  The line before the last lists the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Needs a CUDA device; imports no JAX.
 """
 
@@ -33,7 +33,7 @@ import ray_tracer_tpu_torch as trt  # noqa: E402
 from ray_tracer_tpu_torch.api import _camera_arrays, scene_camera  # noqa: E402
 from ray_tracer_tpu_torch.integrator import wavefront  # noqa: E402
 from ray_tracer_tpu_torch.kernels import (  # noqa: E402
-    bvh8, cluster, group, packet,
+    bvh8, cluster, group, lanewalk, packet,
 )
 from ray_tracer_tpu_torch.ops import (  # noqa: E402
     cluster_trace, intersect, traverse,
@@ -52,9 +52,12 @@ ROUTES = {  # frame phase -> routing, timed frames
     "frame_cluster_boxes": (trt.Routing(cluster="on", cluster_enum="boxes"),
                             1),
     "frame_packet": (trt.Routing(groups=0, anyhit_group=False), 1),
+    "frame_narrow": (trt.Routing(wide=False), 1),
+    "frame_lanewalk": (trt.Routing(lanewalk="force"), 1),
 }
-KERNEL_MODULES = (group, packet, cluster)  # the launch counters
-LIBRARIES = (bvh8, cluster)  # one nvcc build each
+KERNEL_MODULES = (group, packet, cluster, lanewalk)  # the launch counters
+# one nvcc build each
+LIBRARIES = (bvh8.build, cluster.build, packet.build_narrow, lanewalk.build)
 KERNELS = {  # mode -> (source, the TPU kernel it replaces)
     "group_traverse": ("ray_tracer_tpu_torch/csrc/bvh8_walk.cu",
                        "ray_tracer_tpu/kernels/group.py:89"),
@@ -70,6 +73,12 @@ KERNELS = {  # mode -> (source, the TPU kernel it replaces)
                       "ray_tracer_tpu/kernels/cluster.py:36"),
     "box_hits": ("ray_tracer_tpu_torch/csrc/cluster_test.cu",
                  "ray_tracer_tpu/kernels/cluster.py:164"),
+    "packet_narrow": ("ray_tracer_tpu_torch/csrc/bvh2_walk.cu",
+                      "ray_tracer_tpu/kernels/packet.py:53"),
+    "lanewalk_closest": ("ray_tracer_tpu_torch/csrc/lanewalk.cu",
+                         "ray_tracer_tpu/kernels/lanewalk.py:167"),
+    "lanewalk_anyhit": ("ray_tracer_tpu_torch/csrc/lanewalk.cu",
+                        "ray_tracer_tpu/kernels/lanewalk.py:167"),
 }
 
 # The least time the card could take for a kernel's work: the larger of
@@ -90,11 +99,14 @@ OPS_RAY_BOX = 22  # one ray x box: 6 plane products (one non-zero page row
 # each), 6 sub, 10 min/max
 # Bytes the function needs per unit: a node's 8 child boxes with codes
 # and axis, a record's v0|e1|e2|n|front_only, a triangle's non-zero page
-# coefficients (T 4, B 3, U 6, V 6, FO 1), a box's 6 planes.
+# coefficients (T 4, B 3, U 6, V 6, FO 1), a box's 6 planes, a binary
+# node's bvh_packed row, a rope-stream row.
 NODE_BYTES = 64 * 4
 RECORD_BYTES = 13 * 4
 TRI_BYTES = 20 * 4
 BOX_BYTES = 6 * 4
+NODE2_BYTES = 8 * 4
+ROPE_ROW_BYTES = 16 * 4
 
 
 def phase(title: str, /, **fields) -> None:
@@ -192,8 +204,15 @@ def check_rays(sc, dev):
 
 def measure(name, run, plain, compare, cost, **fields):
     """Run a kernel and its plain version on the same inputs, hold them
-    together with ``compare`` (raises), time both, and print the check."""
-    out, ref = run(), plain()
+    together with ``compare`` (raises), time both, and print the check.
+    The plain version runs once: its time is that of the call compared."""
+    out = run()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    ref = plain()
+    stop.record()
     torch.cuda.synchronize()
     compare(out, ref)
     err = max(
@@ -201,7 +220,7 @@ def measure(name, run, plain, compare, cost, **fields):
         for a, b in zip(out, ref)
     )
     ms = cuda_ms(run, 20)
-    plain_ms = cuda_ms(plain, 1)
+    plain_ms = start.elapsed_time(stop)
     rec = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, **cost(), **fields)
     phase("kernel_vs_plain", kernel=name, exact=True, **rec)
     return rec
@@ -221,7 +240,6 @@ def walk_cost(stats, tmax0, leaf_rows=None, rows=1, emit_k=0):
     outputs), the distinct nodes and the real records of the distinct leaf
     slots the rays visited are read once, and every real child box and
     record visited is tested."""
-    active = int((tmax0 > -BIG).sum())
     out = 4 * emit_k + 4 if emit_k else 8
     rec_bytes = 0
     if leaf_rows is not None:
@@ -231,8 +249,70 @@ def walk_cost(stats, tmax0, leaf_rows=None, rows=1, emit_k=0):
         rec_bytes = int((~rec.isnan()).sum()) * RECORD_BYTES
     node_bytes = int(stats["node_seen"].sum()) * NODE_BYTES
     ops = stats["children"] * OPS_CHILD + stats["records"] * OPS_RECORD
-    return bound(24 * active + (4 + out) * tmax0.numel() + node_bytes
-                 + rec_bytes, ops)
+    return bound(ray_bytes(tmax0, out) + node_bytes + rec_bytes, ops)
+
+
+def ray_bytes(tmax0, out) -> int:
+    """Active rays read o, d; every lane reads its tmax and writes ``out``
+    bytes."""
+    active = int((tmax0 > -BIG).sum())
+    return 24 * active + (4 + out) * tmax0.numel()
+
+
+def narrow_checks(sc, rays):
+    """The narrow walk (all five outputs) on the bounce set and, clipped at
+    the light, on the shadow set, exact against the plain walk.  Bytes:
+    the rays, the distinct node rows whose boxes were tested and the
+    distinct triangle records tested; operations: 22 per box and 40 per
+    triangle tested."""
+    out = {}
+    root = int(sc.obj_bvh_root[0])
+    for name in ("bounce", "shadow"):
+        args = (sc.bvh_packed, sc.bvh_axis, sc.tri_packed, *rays[name], root)
+        stats = {}
+
+        def cost(args=args, stats=stats):
+            return bound(
+                ray_bytes(args[5], 17)
+                + int(stats["node_seen"].sum()) * NODE2_BYTES
+                + int(stats["tri_seen"].sum()) * RECORD_BYTES,
+                stats["boxes"] * OPS_CHILD + stats["tris"] * OPS_RECORD)
+
+        out["narrow_" + name] = measure(
+            "packet_narrow", lambda: packet.packet_traverse(*args),
+            lambda: packet.packet_traverse_reference(*args, stats=stats),
+            equal_all(f"narrow {name}"), cost,
+            rays=name, n=N_CHECK, active=int((args[5] > -BIG).sum()),
+        )
+    return out
+
+
+def lanewalk_checks(sc, rays):
+    """The rope walk, closest hit on the bounce set and occlusion on the
+    shadow set, exact against the plain walk.  Bytes: the rays and the
+    distinct 64 B rows stepped on; operations: 22 per BOX row and 40 per
+    TRI row stepped."""
+    out = {}
+    for name, anyhit in (("bounce", False), ("shadow", True)):
+        args = (sc.rope_streams, sc.meta["rope_rows"], *rays[name])
+        stats = {}
+
+        def cost(args=args, stats=stats):
+            return bound(
+                ray_bytes(args[4], 8)
+                + int(stats["row_seen"].sum()) * ROPE_ROW_BYTES,
+                stats["box"] * OPS_CHILD + stats["tri"] * OPS_RECORD)
+
+        out["lanewalk_" + name] = measure(
+            "lanewalk_anyhit" if anyhit else "lanewalk_closest",
+            lambda: lanewalk.lanewalk_traverse(*args, anyhit=anyhit),
+            lambda: lanewalk.lanewalk_traverse_reference(
+                *args, anyhit=anyhit, stats=stats),
+            equal_all(f"lanewalk {name}"), cost,
+            rays=name, n=N_CHECK, anyhit=anyhit,
+            active=int((args[4] > -BIG).sum()),
+        )
+    return out
 
 
 def group_checks(sc, rays):
@@ -472,7 +552,7 @@ def build_all() -> None:
     """Every kernel library, one nvcc each, all started together."""
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(LIBRARIES)) as pool:
-        libs = list(pool.map(lambda m: m.build(), LIBRARIES))
+        libs = list(pool.map(lambda build: build(), LIBRARIES))
     ptxas = {}
     for lib in libs:
         with open(lib[:-3] + ".log") as f:
@@ -497,12 +577,23 @@ def main() -> None:
     build_all()
 
     t0 = time.perf_counter()
-    sc = presets.sponza_proxy(SCENE_TRIS).compile(clusters=True)
+    sc = presets.sponza_proxy(SCENE_TRIS).compile(clusters=True,
+                                                  rope_streams=True)
     t1 = time.perf_counter()
     sc16 = presets.sponza_proxy(SCENE_TRIS).compile(merge_wide_leaves=True)
     t2 = time.perf_counter()
     dev = sc.device  # the card: compile() defaults to it
+    # the rope streams' share of the compile: the same build once more
+    host = [getattr(sc, f).cpu().numpy() for f in (
+        "bvh_min", "bvh_max", "bvh_index", "bvh_tri_count", "bvh_hit_link",
+        "bvh_miss_link", "tri_packed")]
+    t3 = time.perf_counter()
+    lanewalk.build_rope_streams(*host)
+    rope_s = time.perf_counter() - t3
+    del host
     phase("compile", seconds=t1 - t0, seconds_16=t2 - t1,
+          rope_rows=sc.meta["rope_rows"], rope_bytes=nbytes(sc.rope_streams),
+          rope_build_s=rope_s, B=int(sc.bvh_packed.shape[0]),
           n_tris=sc.meta["n_tris"], W=int(sc.wide_packed.shape[0]),
           L=int(sc.leaf_rows.shape[0]),
           wide_leaf_recs=sc.meta["wide_leaf_recs"],
@@ -515,16 +606,22 @@ def main() -> None:
                              "or its box enumeration cannot run")
     if sc16.meta["wide_leaf_recs"] != 16:
         raise AssertionError("the merged scene has no 16-record slots")
+    if sc.meta["rope_rows"] <= 0:
+        raise AssertionError("no rope streams: the rope walk cannot run")
 
     rays = check_rays(sc, dev)
     checks = {**group_checks(sc, rays), **packet_checks(sc, sc16, rays),
-              **cluster_checks(sc, rays)}
+              **cluster_checks(sc, rays), **narrow_checks(sc, rays),
+              **lanewalk_checks(sc, rays)}
     del sc16
 
     sc_cpu = sc.to("cpu")
     card_vs_cpu(sc, sc_cpu, "card_vs_cpu")
     card_vs_cpu(sc, sc_cpu, "card_vs_cpu_cluster", ROUTES["frame_cluster"][0])
     card_vs_cpu(sc, sc_cpu, "card_vs_cpu_packet", ROUTES["frame_packet"][0])
+    card_vs_cpu(sc, sc_cpu, "card_vs_cpu_narrow", ROUTES["frame_narrow"][0])
+    card_vs_cpu(sc, sc_cpu, "card_vs_cpu_lanewalk",
+                ROUTES["frame_lanewalk"][0])
     del sc_cpu
 
     frames = {"frame": frame(sc, dev, "frame", None, TIMED_FRAMES)}
@@ -537,6 +634,8 @@ def main() -> None:
                           "packet8_anyhit"),
         "frame_cluster_boxes": ("box_hits", "cluster_pairs"),
         "frame_packet": ("packet8_wide", "packet8_anyhit"),
+        "frame_narrow": ("packet_narrow",),
+        "frame_lanewalk": ("lanewalk_closest", "lanewalk_anyhit"),
     }
     for title, modes in must.items():
         got = frames[title]["launches"]
@@ -552,6 +651,9 @@ def main() -> None:
         "packet8_emit": ("packet_emit", "frame_cluster"),
         "cluster_pairs": ("cluster_pairs", "frame_cluster"),
         "box_hits": ("box_hits_2", "frame_cluster_boxes"),
+        "packet_narrow": ("narrow_bounce", "frame_narrow"),
+        "lanewalk_closest": ("lanewalk_bounce", "frame_lanewalk"),
+        "lanewalk_anyhit": ("lanewalk_shadow", "frame_lanewalk"),
     }
     kernels = []
     for name, (check, title) in source.items():

@@ -4,8 +4,9 @@
 (``ray_tracer_tpu/config.py``), so one configuration reads the same in
 both.  ``Routing`` keeps only what this package reads: the coherence-bin
 key widths and flavour, ``nee_prebin`` so that asking for it fails
-loudly, and the traversal-route switches (``groups``, ``anyhit_group``,
-``cluster``, ``cluster_k``, ``cluster_enum``).  The TPU placement and
+loudly, and the traversal-route switches (``wide``, ``groups``,
+``anyhit_group``, ``cluster``, ``cluster_k``, ``cluster_enum``,
+``lanewalk``).  The TPU placement and
 packet-shape knobs (``packet``, ``packet_size``, ``vmem_budget``,
 ``mask_mode``, ``multi_pop``, ``groups_packet``, ``anyhit_groups``,
 ``cluster_enum_packet``) have no counterpart here: every route runs its
@@ -31,6 +32,10 @@ class Routing:
     bin_mode: str = "morton"
     # Pre-permute NEE; only "off" (shadow query after the permute) is ported.
     nee_prebin: str = "off"
+    # BVH8 routes (True) or the narrow route (False): closest hit through
+    # the binary-BVH walk (kernels/packet.py::packet_traverse), occlusion
+    # as that closest hit clipped at tmax.
+    wide: bool = True
     # Closest-hit triangle traversal through the group kernel
     # (kernels/group.py) when > 0; 0 routes it through the packet walk
     # (kernels/packet.py).  The count itself is a TPU lane-group shape and
@@ -55,11 +60,21 @@ class Routing:
     # BVH8) or "boxes" (two brute-force slab-test levels over the super
     # and cluster boxes; needs the scene's super tables).
     cluster_enum: str = "packet"
+    # Rope-walk route (kernels/lanewalk.py): "force" routes closest hit and
+    # occlusion through the per-octant rope streams, ahead of every other
+    # route, on a scene compiled with ``rope_streams=True`` (else it
+    # raises).  "auto" and "off" never do; "interpret" is the JAX
+    # package's Pallas interpreter and raises here.
+    lanewalk: str = "off"
 
     def __post_init__(self):
         if self.cluster not in ("auto", "off", "on"):
             raise ValueError(f"Routing.cluster={self.cluster!r}: expected "
                              "'auto', 'off' or 'on'")
+        if self.lanewalk not in ("auto", "off", "force"):
+            raise ValueError(f"Routing.lanewalk={self.lanewalk!r}: expected "
+                             "'auto', 'off' or 'force' ('interpret' is the "
+                             "JAX package's TPU interpreter)")
         if self.cluster_enum not in ("packet", "boxes"):
             raise ValueError(f"Routing.cluster_enum={self.cluster_enum!r}: "
                              "expected 'packet' or 'boxes'")

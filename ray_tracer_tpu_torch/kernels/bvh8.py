@@ -161,9 +161,19 @@ def _mt_t(rows, origin, d):
     """Moller-Trumbore accept distance per (lane, record), BIG on a miss:
     the JAX kernels' ``_tri_t`` arithmetic.  rows (K,R,16); origin/d
     (K,3)."""
-    c = lambda j: rows[:, :, j]
-    ox, oy, oz = (origin[:, j : j + 1] for j in range(3))
-    dx, dy, dz = (d[:, j : j + 1] for j in range(3))
+    t, _, _, _, ok = mt_test(rows, origin[:, None, :], d[:, None, :])
+    return torch.where(ok, t, BIG)
+
+
+def mt_test(rec, origin, d, front_only: int = 12):
+    """Moller-Trumbore of v0|e1|e2|n records ``rec`` (...,16), with the
+    front-only flag in column ``front_only``, against rays ``origin``/``d``
+    (...,3, broadcast against rec's leading dimensions; ``d``
+    zero-guarded): ``(t, u, v, front, ok)``, the JAX kernels' arithmetic op
+    for op (``packet.py:117-132``)."""
+    c = lambda j: rec[..., j]
+    ox, oy, oz = (origin[..., j] for j in range(3))
+    dx, dy, dz = (d[..., j] for j in range(3))
     rx = ox - c(0)
     ry = oy - c(1)
     rz = oz - c(2)
@@ -178,8 +188,8 @@ def _mt_t(rows, origin, d):
     w = 1.0 - u - v
     front = d0 >= 1e-8
     ok = (t >= 0) & (u >= 0) & (v >= 0) & (w >= 0)
-    ok = ok & ~((~front) & (c(12) > 0.5))
-    return torch.where(ok, t, BIG)
+    ok = ok & ~((~front) & (c(front_only) > 0.5))
+    return t, u, v, front, ok
 
 
 def _slab_mask(boxes, inv, oi, best):

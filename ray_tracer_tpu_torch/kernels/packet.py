@@ -1,5 +1,5 @@
-"""BVH8 single-phase walk and cluster enumeration: the CUDA kernel and its
-twin.
+"""Packet traversal: the BVH8 walk with its cluster enumeration, and the
+narrow binary-BVH walk.  CUDA kernels and their plain torch twins.
 
 ``packet_traverse_wide`` is the port of ``ray_tracer_tpu/kernels/
 packet.py``'s ``_packet8_kernel`` in the modes this package routes through
@@ -8,32 +8,51 @@ it: the closest-hit and occlusion walks over one-row (8-record) or two-row
 clusters.  On CUDA tensors it launches the walk in ``csrc/bvh8_walk.cu``
 (built with ``nvcc`` at first use, one library with ``kernels/group.py``);
 on CPU tensors it runs
-:func:`packet_traverse_wide_reference`.  Nothing falls back: a CUDA tensor
-that the kernel cannot take raises.  The treelet TOP/DEEP modes of the TPU
-kernel (``top_k`` without ``emit_leaves``, ``deep_e``) are not ported.
+:func:`packet_traverse_wide_reference`.  The treelet TOP/DEEP modes of the
+TPU kernel (``top_k`` without ``emit_leaves``, ``deep_e``) are not ported.
 
-Both versions run ``bvh8.walk_reference``'s walk (one thread per ray on
-the card) and round alike, so on the card they
-agree bit for bit.  Against the TPU kernel, whose packet walks in lockstep
-with the packet-majority child order, only the visit order differs: it can
-change ``prim`` (never ``dst``) on exact-t ties, and the ORDER of the
-emitted slots, never their set or count.
+``packet_traverse`` is the port of ``_packet_kernel``, the narrow route's
+closest-hit walk over the binary BVH (``bvh_packed``, ``tri_packed``): on
+CUDA tensors ``csrc/bvh2_walk.cu``, on CPU tensors
+:func:`packet_traverse_reference`.  Nothing falls back: a CUDA tensor
+that a kernel cannot take raises.
+
+Each kernel and its twin walk one ray per thread alike and round alike,
+so on the card they agree bit for bit.  Against the TPU kernels, whose
+packets walk in lockstep with the packet-majority child order, only the
+visit order differs: it can change ``prim`` (never ``dst``) on exact-t
+ties, and the ORDER of the emitted slots, never their set or count.
 """
 
 from __future__ import annotations
 
+import ctypes
+import os
+from typing import Optional
+
 import torch
 
+from ..native_build import build_shared, nvcc_path
 from .bvh8 import (
+    BIG,
+    CSRC,
+    MAX_TREE_DEPTH,
+    NVCC_FLAGS,
     check_tensors,
     check_walk_inputs,
     launch_emit,
     launch_walk,
+    mt_test,
     walk_reference,
 )
 
 # Kernel launches per mode since the last reset (the CPU path never adds).
-launches = {"packet8_wide": 0, "packet8_anyhit": 0, "packet8_emit": 0}
+launches = {"packet8_wide": 0, "packet8_anyhit": 0, "packet8_emit": 0,
+            "packet_narrow": 0}
+
+N_STACK = MAX_TREE_DEPTH + 32  # the narrow walk's stack (bvh2_walk.cu)
+_NARROW_SRC = os.path.join(CSRC, "bvh2_walk.cu")
+_narrow_lib: Optional[ctypes.CDLL] = None
 
 
 def reset_launches() -> None:
@@ -128,3 +147,183 @@ def _uvfront(rec, origin, direction, prim):
     return (torch.where(miss, 0.0, u), torch.where(miss, 0.0, v),
             ~miss & (d0 >= 1e-8))
 
+
+
+def build_narrow() -> str:
+    """Compile the narrow walk library (once per source hash); its path."""
+    return build_shared(_NARROW_SRC, "bvh2_walk", (nvcc_path(), *NVCC_FLAGS))
+
+
+def _load_narrow() -> ctypes.CDLL:
+    global _narrow_lib
+    if _narrow_lib is None:
+        lib = ctypes.CDLL(build_narrow())
+        lib.rt_bvh2_walk.restype = ctypes.c_int
+        lib.rt_bvh2_walk.argtypes = (
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_void_p] * 5
+            + [ctypes.c_int, ctypes.c_void_p]
+        )
+        _narrow_lib = lib
+    return _narrow_lib
+
+
+def packet_traverse(bvh_packed, bvh_axis, tri_packed, origin, direction,
+                    tmax0, root: int):
+    """The narrow route's closest-hit walk of N rays over the binary BVH
+    -> ``(dst, prim, u, v, front)``, each (N,).
+
+    ``bvh_packed`` (B,8) f32 min3|max3|first|count (int32 bitcasts),
+    ``bvh_axis`` (B,) i32 split axes, ``tri_packed`` (T,16) f32
+    v0|e1|e2|n|front_only rows, ``root`` the root node.  ``dst``: the
+    closest accepted t (``tmax0`` on a miss; ``tmax0 = -BIG`` disables a
+    lane); ``prim``: its global triangle id, -1 on a miss; ``u``, ``v``:
+    its barycentrics (0 on a miss); ``front``: whether it faces the ray.
+    """
+    n = origin.shape[0]
+    dev = origin.device
+    check_tensors(
+        dev, torch.float32,
+        bvh_packed=(bvh_packed, (bvh_packed.shape[0], 8)),
+        tri_packed=(tri_packed, (tri_packed.shape[0], 16)),
+        origin=(origin, (n, 3)), direction=(direction, (n, 3)),
+        tmax0=(tmax0, (n,)),
+    )
+    check_tensors(dev, torch.int32,
+                  bvh_axis=(bvh_axis, (bvh_packed.shape[0],)))
+    if not 0 <= root < bvh_packed.shape[0]:
+        raise ValueError(f"root {root} is not a node of the BVH")
+    if n >= 2**31 or tri_packed.shape[0] >= 2**31 // 16:
+        raise ValueError("too many rays or triangles for 32-bit indices")
+    if dev.type == "cpu":
+        return packet_traverse_reference(bvh_packed, bvh_axis, tri_packed,
+                                         origin, direction, tmax0, root)
+    if dev.type != "cuda":
+        raise ValueError(f"no traversal kernel for device {dev}")
+    if any(t.data_ptr() % 16 for t in (bvh_packed, tri_packed)):
+        raise ValueError("bvh_packed and tri_packed must be 16-byte aligned")
+    dst = torch.empty(n, dtype=torch.float32, device=dev)
+    prim = torch.empty(n, dtype=torch.int32, device=dev)
+    u = torch.empty(n, dtype=torch.float32, device=dev)
+    v = torch.empty(n, dtype=torch.float32, device=dev)
+    front = torch.empty(n, dtype=torch.bool, device=dev)
+    if n:
+        err = _load_narrow().rt_bvh2_walk(
+            bvh_packed.data_ptr(), bvh_axis.data_ptr(), tri_packed.data_ptr(),
+            origin.data_ptr(), direction.data_ptr(), tmax0.data_ptr(), root,
+            dst.data_ptr(), prim.data_ptr(), u.data_ptr(), v.data_ptr(),
+            front.data_ptr(), n, torch.cuda.current_stream(dev).cuda_stream,
+        )
+        if err != 0:
+            raise RuntimeError(f"narrow walk kernel launch failed: CUDA "
+                               f"error {err}")
+        launches["packet_narrow"] += 1
+    return dst, prim, u, v, front
+
+
+def _entry(box, origin, inv):
+    """Entry distance of each lane into its (K,6) box, BIG on a miss: the
+    TPU kernel's ``slab`` (``packet.py:88-106``)."""
+    t1 = (box[:, 0:3] - origin) * inv
+    t2 = (box[:, 3:6] - origin) * inv
+    lo, hi = torch.minimum(t1, t2), torch.maximum(t1, t2)
+    tmin = torch.maximum(torch.maximum(lo[:, 0], lo[:, 1]), lo[:, 2])
+    tmx = torch.minimum(torch.minimum(hi[:, 0], hi[:, 1]), hi[:, 2])
+    hit = (tmx >= tmin) & (tmx > 0)
+    return torch.where(hit, tmin.clamp(min=0.0), BIG)
+
+
+def packet_traverse_reference(bvh_packed, bvh_axis, tri_packed, origin,
+                              direction, tmax0, root: int,
+                              stats: dict = None):
+    """The CUDA narrow walk in plain torch, one pop of every live lane per
+    iteration.  Raises if a lane overflows its stack or needs more than
+    B + 1 steps (a node is pushed at most once per walk).  ``stats``, if
+    given, receives ``boxes`` and ``tris`` (child boxes and triangles
+    tested, summed over the rays), ``node_seen`` (B,) bool (the node rows
+    any ray read: boxes tested) and ``tri_seen`` (T,) bool (the triangles
+    any ray tested)."""
+    dev = origin.device
+    n = origin.shape[0]
+    n_nodes = bvh_packed.shape[0]
+    d = torch.where(direction == 0.0, 1e-20, direction)
+    inv = 1.0 / d
+    dst = tmax0.clone()
+    prim = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    u = torch.zeros(n, dtype=torch.float32, device=dev)
+    v = torch.zeros(n, dtype=torch.float32, device=dev)
+    front = torch.zeros(n, dtype=torch.bool, device=dev)
+    ints = bvh_packed.view(torch.int32)
+    first_all, count_all = ints[:, 6].long(), ints[:, 7].long()
+    boxes = bvh_packed[:, 0:6]
+    axis = bvh_axis.long()
+    if stats is not None:
+        stats.update(
+            boxes=0, tris=0,
+            node_seen=torch.zeros(n_nodes, dtype=torch.bool, device=dev),
+            tri_seen=torch.zeros(tri_packed.shape[0], dtype=torch.bool,
+                                 device=dev),
+        )
+    if n == 0:
+        return dst, prim, u, v, front
+    stack = torch.zeros((n, N_STACK), dtype=torch.int64, device=dev)
+    sp = torch.zeros(n, dtype=torch.int64, device=dev)
+    e_root = _entry(boxes[root].expand(n, 6), origin, inv)
+    lanes = (e_root < dst).nonzero().squeeze(1)
+    stack[lanes, 0] = root
+    sp[lanes] = 1
+    if stats is not None:
+        stats["boxes"] += int((tmax0 > -BIG).sum())
+        stats["node_seen"][root] = True
+    for _ in range(n_nodes + 1):
+        if lanes.numel() == 0:
+            return dst, prim, u, v, front
+        top = sp[lanes] - 1
+        node = stack[lanes, top]
+        sp[lanes] = top
+        first, count = first_all[node], count_all[node]
+        leaf = count > 0
+
+        lf = leaf.nonzero().squeeze(1)
+        if lf.numel():
+            ll, lfirst, lcount = lanes[lf], first[lf], count[lf]
+            for k in range(int(lcount.max())):
+                live = k < lcount
+                ti = torch.where(live, lfirst + k, 0)
+                if stats is not None:
+                    stats["tris"] += int(live.sum())
+                    stats["tri_seen"][ti[live]] = True
+                t, tu, tv, tf, ok = mt_test(tri_packed[ti], origin[ll], d[ll])
+                closer = live & ok & (t < dst[ll])
+                dst[ll] = torch.where(closer, t, dst[ll])
+                prim[ll] = torch.where(closer, ti.to(torch.int32), prim[ll])
+                u[ll] = torch.where(closer, tu, u[ll])
+                v[ll] = torch.where(closer, tv, v[ll])
+                front[ll] = torch.where(closer, tf, front[ll])
+
+        it = (~leaf).nonzero().squeeze(1)
+        if it.numel():
+            il, c0 = lanes[it], first[it]
+            if stats is not None:
+                stats["boxes"] += 2 * it.numel()
+                stats["node_seen"][c0] = True
+                stats["node_seen"][c0 + 1] = True
+            best = dst[il]
+            e0 = _entry(boxes[c0], origin[il], inv[il])
+            e1 = _entry(boxes[c0 + 1], origin[il], inv[il])
+            neg = d[il].gather(1, axis[node[it]][:, None])[:, 0] < 0
+            push_far = torch.where(neg, e0, e1) < best
+            push_near = torch.where(neg, e1, e0) < best
+            at = sp[il]
+            if int(at.max()) + 2 > N_STACK:
+                raise RuntimeError("traversal stack overflow")
+            for push, child in ((push_far, torch.where(neg, c0, c0 + 1)),
+                                (push_near, torch.where(neg, c0 + 1, c0))):
+                pl = il[push]
+                stack[pl, sp[pl]] = child[push]
+                sp[pl] += 1
+
+        lanes = lanes[sp[lanes] > 0]
+    if lanes.numel():
+        raise RuntimeError(
+            f"traversal did not finish within {n_nodes + 1} steps")
+    return dst, prim, u, v, front

@@ -2,21 +2,30 @@
 
 Port of ``ray_tracer_tpu/ops/traverse.py``'s flattened-scene routes
 (``traverse`` / ``traverse_anyhit`` with ``raw=True, need_uv=False``),
-chosen per call from the scene and the ``Routing``:
+chosen per call from the scene and the ``Routing``, in the JAX package's
+order:
 
-* the group kernel (``kernels/group.py``), the default: closest hit when
-  ``groups > 0``, occlusion when ``anyhit_group`` too, on scenes with
-  one-row (<= 8-record) leaf slots;
+* the rope walk (``kernels/lanewalk.py``) under ``lanewalk="force"``, for
+  closest hit and occlusion, on a scene compiled with
+  ``rope_streams=True`` (without them it raises);
 * the cluster route (``ops/cluster_trace.py``) under ``cluster="on"`` on a
   scene compiled with cluster tables;
-* otherwise the packet walk (``kernels/packet.py``), which also reads the
-  16-record two-row slots of ``merge_wide_leaves=True`` scenes.
+* under ``wide=True`` (the default), the group kernel
+  (``kernels/group.py``): closest hit when ``groups > 0``, occlusion when
+  ``anyhit_group`` too, on scenes with one-row (<= 8-record) leaf slots;
+* otherwise, still wide, the packet walk (``kernels/packet.py``), which
+  also reads the 16-record two-row slots of ``merge_wide_leaves=True``
+  scenes;
+* under ``wide=False``, the narrow walk over the binary BVH
+  (``packet.packet_traverse``), occlusion as its closest hit clipped at
+  ``tmax``.
 
 Triangle hits come back in :func:`prim_space`: padded leaf-slot ids
 (``shade_slot`` rows) on the group and packet routes, global triangle ids
-(``shade_tri`` rows) on the cluster route.  Barycentrics and facing are
-re-derived by the integrator's shade fetch, so the routes return only
-``(dst, prim)``.  Forest (non-flattened) mesh scenes are not ported.
+(``shade_tri`` rows) on the rope-walk, cluster and narrow routes.
+Barycentrics and facing are re-derived by the integrator's shade fetch, so
+the routes return only ``(dst, prim)``.  Forest (non-flattened) mesh
+scenes are not ported.
 """
 
 from __future__ import annotations
@@ -26,7 +35,7 @@ from typing import NamedTuple
 import torch
 
 from ..config import Routing
-from ..kernels import group, packet
+from ..kernels import group, lanewalk, packet
 from ..kernels.bvh8 import MAX_TREE_DEPTH
 from ..scene.types import CompiledScene
 from . import cluster_trace, intersect
@@ -66,6 +75,19 @@ def _has_tris(scene: CompiledScene) -> bool:
     return True
 
 
+def _lanewalk_on(scene: CompiledScene, routing: Routing) -> bool:
+    """Both queries through the rope walk?  ``lanewalk="force"`` asks for
+    it; a scene compiled without rope streams then raises."""
+    if routing.lanewalk != "force":
+        return False
+    if not scene.meta.get("rope_rows", 0):
+        raise ValueError(
+            "Routing(lanewalk='force') needs the rope streams: compile the "
+            "scene with compile(rope_streams=True)"
+        )
+    return True
+
+
 def _cluster_on(scene: CompiledScene, routing: Routing) -> bool:
     return cluster_trace.use_cluster(scene, routing)
 
@@ -75,7 +97,8 @@ def _group_on(scene: CompiledScene, routing: Routing) -> bool:
     record) leaf slots only; the JAX package's TPU placement test has no
     counterpart here."""
     return (
-        routing.groups > 0
+        routing.wide
+        and routing.groups > 0
         and not _cluster_on(scene, routing)
         and scene.meta.get("wide_leaf_recs", 8) <= 8
     )
@@ -83,10 +106,21 @@ def _group_on(scene: CompiledScene, routing: Routing) -> bool:
 
 def prim_space(scene: CompiledScene, routing: Routing = None) -> str:
     """Which id space triangle hits come back in: ``'tri'`` (global
-    triangle ids, ``scene.shade_tri``) on the cluster route, ``'slot'``
-    (padded leaf-slot ids, ``scene.shade_slot``) otherwise."""
+    triangle ids, ``scene.shade_tri``) on the rope-walk, cluster and narrow
+    routes, ``'slot'`` (padded leaf-slot ids, ``scene.shade_slot``) on the
+    wide ones."""
     rt = routing if routing is not None else Routing()
-    return "tri" if _cluster_on(scene, rt) else "slot"
+    if _lanewalk_on(scene, rt) or _cluster_on(scene, rt) or not rt.wide:
+        return "tri"
+    return "slot"
+
+
+def _narrow(scene, o, d, tmax0):
+    """The narrow walk over the binary BVH: ``(dst, prim)``."""
+    dst, prim, _, _, _ = packet.packet_traverse(
+        scene.bvh_packed, scene.bvh_axis, scene.tri_packed, o, d, tmax0,
+        int(scene.obj_bvh_root[0]))
+    return dst, prim
 
 
 def _sphere_dst(scene, origin, direction):
@@ -134,9 +168,14 @@ def traverse(
 
     tmax0 = torch.where(active, dst, -BIG).contiguous()
     o, d = origin.contiguous(), direction.contiguous()
-    if _cluster_on(scene, rt):
+    if _lanewalk_on(scene, rt):
+        t_dst, t_prim = lanewalk.lanewalk_traverse(
+            scene.rope_streams, scene.meta["rope_rows"], o, d, tmax0)
+    elif _cluster_on(scene, rt):
         t_dst, t_prim = cluster_trace.cluster_traverse(
             scene, o, d, tmax0, rt)
+    elif not rt.wide:
+        t_dst, t_prim = _narrow(scene, o, d, tmax0)
     elif _group_on(scene, rt):
         t_dst, t_prim = group.group_traverse(
             scene.wide_packed, scene.leaf_rows, o, d, tmax0)
@@ -163,7 +202,9 @@ def traverse_anyhit(
 ) -> torch.Tensor:
     """Occlusion query: is there ANY hit strictly inside ``tmax``?
 
-    Returns (N,) bool; inactive lanes report unoccluded.
+    Returns (N,) bool; inactive lanes report unoccluded.  The narrow route
+    has no occlusion walk: its closest hit clipped at ``tmax`` (a closest
+    hit inside ``tmax`` exists iff any hit does).
     """
     rt = routing if routing is not None else Routing()
     occ = torch.zeros((origin.shape[0],), dtype=torch.bool,
@@ -175,9 +216,16 @@ def traverse_anyhit(
         return occ & active
     tmax0 = torch.where(active, tmax, -BIG).contiguous()
     o, d = origin.contiguous(), direction.contiguous()
-    if _cluster_on(scene, rt):
+    if _lanewalk_on(scene, rt):
+        dst, _ = lanewalk.lanewalk_traverse(
+            scene.rope_streams, scene.meta["rope_rows"], o, d, tmax0,
+            anyhit=True)
+    elif _cluster_on(scene, rt):
         dst, _ = cluster_trace.cluster_traverse(scene, o, d, tmax0, rt,
                                                 anyhit=True)
+    elif not rt.wide:
+        _, prim = _narrow(scene, o, d, tmax0)
+        return (occ | (prim >= 0)) & active
     elif rt.anyhit_group and _group_on(scene, rt):
         dst, _ = group.group_traverse(
             scene.wide_packed, scene.leaf_rows, o, d, tmax0, anyhit=True)

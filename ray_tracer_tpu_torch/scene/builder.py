@@ -28,6 +28,7 @@ from .types import (
     RectLight,
     SphereDesc,
     resolve_device,
+    rope_placeholder,
 )
 
 
@@ -187,6 +188,7 @@ class SceneBuilder:
         spatial_splits: bool = True,
         cluster_t_c: int = None,
         clusters: bool = None,
+        rope_streams: bool = False,
         device=None,
     ) -> CompiledScene:
         """Flatten to device tensors, on ``device`` (default: the CUDA
@@ -215,8 +217,15 @@ class SceneBuilder:
         (:class:`~ray_tracer_tpu_torch.accel.cluster.ClusterCapacityError`)
         gets none, unless ``clusters=True`` forced them: then it raises.
 
-        The reference package's rope-stream and treelet tables are not
-        built: they serve traversal routes this package does not have.
+        ``rope_streams``: build the rope-walk route's per-octant row
+        streams (``kernels/lanewalk.py``; flattened triangle scenes only).
+        Off by default: at 64 B a row, 8 streams of one row per node and
+        per triangle reference (about 200 MB for ``sponza_proxy()``) that
+        only ``Routing(lanewalk="force")`` reads.  The JAX package builds
+        them unless ``RT_ROPE_BUILD=0``.
+
+        The reference package's treelet tables are not built: they serve a
+        traversal route this package does not have.
         """
         from . import validate as _validate
 
@@ -634,6 +643,17 @@ class SceneBuilder:
             )
             n_clusters, n_supers = 0, 0
 
+        rope_rows = 0
+        rope = rope_placeholder()
+        if rope_streams and flattened and n_tris:
+            from ..kernels.lanewalk import build_rope_streams
+
+            rope, rope_rows = build_rope_streams(
+                forest.node_min, forest.node_max, forest.index,
+                forest.tri_count, forest.hit_link, forest.miss_link,
+                tri_packed,
+            )
+
         # Slot-space mirror of the fat shading rows: indexed directly by the
         # wide packet kernel's padded leaf-slot ids (slot*8 + k), removing
         # the per-lane leaf_map indirection gather from the hot path.
@@ -683,6 +703,7 @@ class SceneBuilder:
             leaf_rows=leaf_rows,
             leaf_map=leaf_map,
             **cluster_arrays,
+            rope_streams=rope,
             light_corner=li_corner,
             light_edge_u=li_u,
             light_edge_v=li_v,
@@ -711,6 +732,7 @@ class SceneBuilder:
                 "n_clusters": n_clusters,
                 "cluster_t_c": cluster_t_c,
                 "n_supers": n_supers,
+                "rope_rows": int(rope_rows),
                 "bvh_max_depth": forest.max_depth_seen,
                 "camera": (
                     tuple(self.camera.position),

@@ -6,9 +6,9 @@ transforms, and a per-``usemtl``-group BVH forest.  ``CompiledScene`` is the
 flat SoA table set uploaded to the device as torch tensors — the
 replacement for the reference's nine storage-buffer bindings
 (``shaders/raytrace.comp:120-148``).  The field layout is the JAX
-package's (``ray_tracer_tpu/scene/types.py``) minus the rope-stream and
-treelet-root tables, which feed traversal routes this package does not
-have.
+package's (``ray_tracer_tpu/scene/types.py``) minus the treelet-root
+table, which feeds a traversal route this package does not have, and with
+the rope streams in a row-major layout (:func:`rope_rows_layout`).
 """
 
 from __future__ import annotations
@@ -135,6 +135,28 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
+ROPE_FIELDS = 16  # floats per rope-stream row
+ROPE_PAGE = 128  # rows per page of the JAX package's layout
+
+
+def rope_rows_layout(streams: np.ndarray) -> np.ndarray:
+    """The JAX package's page-major, field-major rope streams (8, n_pages,
+    16*128) as this package's row-major (8, n_pages*128, 16) rows: field f
+    of row r of page p sits at column f*128 + r there."""
+    s = np.asarray(streams)
+    n_oct, n_pages = s.shape[:2]
+    return np.ascontiguousarray(
+        s.reshape(n_oct, n_pages, ROPE_FIELDS, ROPE_PAGE)
+        .transpose(0, 1, 3, 2)
+        .reshape(n_oct, n_pages * ROPE_PAGE, ROPE_FIELDS)
+    )
+
+
+def rope_placeholder() -> np.ndarray:
+    """The one-row ``rope_streams`` of a scene compiled without them."""
+    return np.zeros((1, 1, ROPE_FIELDS), np.float32)
+
+
 @dataclass
 class CompiledScene:
     """Flat SoA tensors plus static ``meta``.
@@ -223,6 +245,13 @@ class CompiledScene:
     super_cpage: Any  # (S,16,6*128) f32
     super_cstart: Any  # (S,) i32 first cluster id per super
 
+    # Rope-walk route (kernels/lanewalk.py): per direction octant, the
+    # binary tree in that octant's preorder as 16-float rows (interior ->
+    # one BOX row, leaf -> a BOX row and its TRI rows), padded to a
+    # multiple of 128 rows.  meta: rope_rows, the rows per octant (0 = not
+    # built; the array is then a one-row placeholder).
+    rope_streams: Any  # (8,R_pad,16) f32
+
     # NEE lights.
     light_corner: Any  # (L,3) f32
     light_edge_u: Any  # (L,3) f32
@@ -254,9 +283,17 @@ class CompiledScene:
         ``device`` (default: the CUDA device; see :func:`resolve_device`).
 
         ``arrays`` may be the JAX package's compiled scene fields: keys this
-        class does not have (the rope and treelet tables) are not read.
+        class does not have (the treelet tables) are not read, and rope
+        streams in the JAX layout (16*128 columns) are converted by
+        :func:`rope_rows_layout`.
         """
         dev = resolve_device(device)
+        arrays = dict(arrays)
+        rope = np.asarray(arrays["rope_streams"])
+        if not meta.get("rope_rows", 0):
+            arrays["rope_streams"] = rope_placeholder()
+        elif rope.shape[-1] == ROPE_FIELDS * ROPE_PAGE:
+            arrays["rope_streams"] = rope_rows_layout(rope)
         return cls(
             meta=dict(meta),
             **{

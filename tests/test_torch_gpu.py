@@ -12,7 +12,7 @@ import pytest
 import torch
 
 import ray_tracer_tpu_torch as trt
-from ray_tracer_tpu_torch.kernels import cluster, group, packet
+from ray_tracer_tpu_torch.kernels import cluster, group, lanewalk, packet
 from ray_tracer_tpu_torch.ops import cluster_trace
 from ray_tracer_tpu_torch.scene import presets
 
@@ -28,7 +28,8 @@ def dev():
 
 @pytest.fixture(scope="module")
 def scene(dev):
-    return presets.sponza_proxy(n_tris_target=20000).compile(clusters=True)
+    return presets.sponza_proxy(n_tris_target=20000).compile(
+        clusters=True, rope_streams=True)
 
 
 @pytest.fixture(scope="module")
@@ -103,6 +104,48 @@ def test_packet_emit_matches_plain_version(dev, scene):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("clipped", [False, True])
+def test_narrow_walk_matches_plain_version(dev, scene, clipped):
+    o, d, tmax = _rays(scene, 20000, clipped)
+    args = [scene.bvh_packed, scene.bvh_axis, scene.tri_packed, o, d, tmax,
+            int(scene.obj_bvh_root[0])]
+    packet.reset_launches()
+    got = packet.packet_traverse(*args)
+    assert packet.launches["packet_narrow"] == 1
+    want = packet.packet_traverse_reference(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert (got[1] >= 0).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("anyhit", [False, True])
+def test_rope_walk_matches_plain_version(dev, scene, anyhit):
+    args = [scene.rope_streams, scene.meta["rope_rows"],
+            *_rays(scene, 20000, anyhit)]
+    lanewalk.reset_launches()
+    dst, prim = lanewalk.lanewalk_traverse(*args, anyhit=anyhit)
+    mode = "lanewalk_anyhit" if anyhit else "lanewalk_closest"
+    assert lanewalk.launches[mode] == 1
+    rdst, rprim = lanewalk.lanewalk_traverse_reference(*args, anyhit=anyhit)
+    torch.cuda.synchronize()
+    assert torch.equal(dst, rdst) and torch.equal(prim, rprim)
+    assert (prim >= 0).any() or (anyhit and (dst < -1.0).any())
+
+
+@pytest.mark.gpu
+def test_rope_walk_raises_on_a_malformed_stream(dev, scene):
+    """A stream whose links loop raises through the kernel's error flag
+    instead of hanging the card."""
+    streams = scene.rope_streams.clone()
+    streams[:, :, 6:8] = 0.0  # every BOX row links back to row 0
+    with pytest.raises(RuntimeError, match="did not end"):
+        lanewalk.lanewalk_traverse(streams, scene.meta["rope_rows"],
+                                   *_rays(scene, 256, False))
+
+
+@pytest.mark.gpu
 def test_cluster_kernels_match_plain_versions(dev, scene):
     o, d, tmax = _rays(scene, 4096, False)
     feats = cluster.ray_features(o, d, tmax)
@@ -145,7 +188,8 @@ def test_render_on_card_uses_the_kernel(dev, scene):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("route", ["cluster", "cluster_boxes", "packet"])
+@pytest.mark.parametrize("route", ["cluster", "cluster_boxes", "packet",
+                                   "narrow", "lanewalk"])
 def test_render_routes_on_card(dev, scene, route):
     kw, modes = {
         "cluster": (dict(cluster="on"),
@@ -155,14 +199,18 @@ def test_render_routes_on_card(dev, scene, route):
                           ["box_hits", "cluster_pairs", "packet8_wide"]),
         "packet": (dict(groups=0, anyhit_group=False),
                    ["packet8_wide", "packet8_anyhit"]),
+        "narrow": (dict(wide=False), ["packet_narrow"]),
+        "lanewalk": (dict(lanewalk="force"),
+                     ["lanewalk_closest", "lanewalk_anyhit"]),
     }[route]
     cfg = trt.RenderConfig(width=32, height=18, samples_per_pixel=2,
                            bounce_limit=4, routing=trt.Routing(**kw))
-    for m in (group, packet, cluster):
+    for m in (group, packet, cluster, lanewalk):
         m.reset_launches()
     img = trt.render(scene, cfg)
     torch.cuda.synchronize()
     assert img.shape == (18, 32, 3) and bool(torch.isfinite(img).all())
-    counts = {**group.launches, **packet.launches, **cluster.launches}
+    counts = {**group.launches, **packet.launches, **cluster.launches,
+              **lanewalk.launches}
     assert all(counts[m] > 0 for m in modes), counts
     assert counts["group_traverse"] == counts["group_anyhit"] == 0

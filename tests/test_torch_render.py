@@ -144,6 +144,49 @@ def test_room_matches_jax_route(room_clusters, route):
     assert not stray.any(), np.argwhere(stray)
 
 
+TRI_ROUTE_CFG = dict(width=32, height=32, samples_per_pixel=2,
+                     bounce_limit=6)
+TRI_ROUTES = {  # the port's routing, the JAX package's for the same route
+    "narrow": (dict(wide=False), dict(packet="interpret", wide=False)),
+    "lanewalk": (dict(lanewalk="force"),
+                 dict(packet="off", lanewalk="interpret")),
+}
+
+
+@pytest.fixture(scope="module")
+def room_ropes(tmp_path_factory):
+    """The room scene with rope streams (the JAX package builds them by
+    default), and each package's image of it on its group-kernel route."""
+    tmp = str(tmp_path_factory.mktemp("room_ropes"))
+    jsc = room_scene(jrt, tmp).compile().device_put()
+    ref = jrt.render(jsc, jrt.RenderConfig(
+        routing=JRouting(packet="interpret", groups=4, groups_packet=512),
+        **TRI_ROUTE_CFG))
+    tsc = room_scene(trt, tmp).compile(rope_streams=True, device="cpu")
+    own = trt.render(tsc, trt.RenderConfig(**TRI_ROUTE_CFG))
+    return jsc, tsc, np.asarray(ref), own.numpy()
+
+
+@pytest.mark.parametrize("route", list(TRI_ROUTES))
+def test_room_matches_jax_tri_route(room_ropes, route):
+    """32x32, spp 2, bounce 6 through the narrow route and the rope walk,
+    whose hits are global triangle ids (``shade_tri`` rows), against the
+    JAX package on the same route, its kernels in Pallas interpret mode,
+    and against the port's own group-route image.  Ray by ray these routes
+    part from the group route only at exact-t ties (the visit order picks
+    the triangle); on this render no pixel moves, in either package."""
+    jsc, tsc, group_img, own_group_img = room_ropes
+    tkw, jkw = TRI_ROUTES[route]
+    want = np.asarray(jrt.render(jsc, jrt.RenderConfig(
+        routing=JRouting(**jkw), **TRI_ROUTE_CFG)))
+    got = trt.render(tsc, trt.RenderConfig(routing=trt.Routing(**tkw),
+                                           **TRI_ROUTE_CFG)).numpy()
+    assert_images_match(got, want)
+    assert_images_match(got, group_img)
+    moved = _moved(got, own_group_img)
+    assert not moved.any(), np.argwhere(moved)
+
+
 def test_room_drain_phases_match_jax(room):
     """128x128 spp 2 = 32,768 lanes: the smallest wavefront at which one
     multi-phase drain step runs (widths 32768 -> 8192)."""

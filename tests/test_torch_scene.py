@@ -16,6 +16,7 @@ import ray_tracer_tpu as jrt
 import ray_tracer_tpu_torch as trt
 from ray_tracer_tpu.scene import presets as j_presets
 from ray_tracer_tpu_torch.scene import presets as t_presets
+from ray_tracer_tpu_torch.scene.types import rope_placeholder, rope_rows_layout
 
 from torch_parity import room_scene, scene_arrays, soup_scene, sponza_builders
 
@@ -39,7 +40,11 @@ def test_compiled_arrays_match_jax(name, tmp_path, monkeypatch):
     jb, tb = _builders(name, str(tmp_path), monkeypatch)
     kw = {"max_leaf_tris": 8} if name == "soup_leaf8" else {}
     jarr, jmeta = scene_arrays(jb.compile(**kw))
-    tsc = tb.compile(device="cpu", **kw)
+    tsc = tb.compile(device="cpu", rope_streams=True, **kw)
+    if jmeta["rope_rows"]:  # the port keeps the streams row-major
+        jarr["rope_streams"] = rope_rows_layout(jarr["rope_streams"])
+    else:
+        jarr["rope_streams"] = rope_placeholder()
     for f in trt.CompiledScene.array_fields():
         got, want = np.asarray(getattr(tsc, f)), jarr[f]
         assert got.dtype == want.dtype, f
@@ -56,12 +61,14 @@ def test_from_numpy_round_trip(tmp_path):
     assert sc.device == torch.device("cpu")
     assert sc.meta == jmeta and sc.meta is not jmeta
     moved = sc.to("cpu")
+    assert jmeta["rope_rows"] > 0
+    jarr = dict(jarr, rope_streams=rope_rows_layout(jarr["rope_streams"]))
     for f in trt.CompiledScene.array_fields():
         t = getattr(moved, f)
         assert isinstance(t, torch.Tensor), f
         np.testing.assert_array_equal(t.numpy(), jarr[f], err_msg=f)
     # fields the port does not carry are not read
-    assert not hasattr(sc, "rope_streams") and "rope_streams" in jarr
+    assert not hasattr(sc, "wide_troot") and "wide_troot" in jarr
 
 
 def test_compile_defaults_to_the_card(monkeypatch, tmp_path):

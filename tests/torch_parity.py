@@ -8,6 +8,9 @@ generated OBJ files.
 import os
 
 import numpy as np
+import torch
+
+BIG = 99999999.0
 
 
 def write_obj(path, verts, faces):
@@ -142,3 +145,50 @@ def assert_images_match(img, ref, atol=2e-3, max_diverged=0.01):
     diverged = (diff.max(axis=-1) > atol).mean()
     assert diverged <= max_diverged, f"{diverged:.2%} of pixels differ"
     assert diff.mean() < atol, diff.mean()
+
+
+def route_rays(rand, name, n):
+    """Seeded rays for the traversal-route tests: across the soup scene,
+    or inside the room scene with a quarter straight down."""
+    if name == "room":
+        o = rand.uniform(-1.0, 0.4, (n, 3)).astype(np.float32)
+    else:
+        o = rand.uniform(-4, 4, (n, 3)).astype(np.float32)
+    d = rand.normal(size=(n, 3)).astype(np.float32)
+    if name == "room":
+        d[::4] = [0.0, 1.0, 0.0]
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    d[::50, 0] = 0.0  # exercise the zero-direction guard
+    return o, d
+
+
+def route_tmax(rand, case, n):
+    """Per-ray clip distances: BIG, random ('clipped'), or BIG with every
+    third lane inactive ('inactive')."""
+    tmax = np.full(n, BIG, np.float32)
+    if case == "clipped":
+        tmax = rand.uniform(0.1, 6.0, n).astype(np.float32)
+    if case == "inactive":
+        tmax[::3] = -BIG
+    return tmax
+
+
+def assert_tri_ties(sc, o, d, prim, jprim, hit):
+    """Where two routes' global triangle ids differ on a hit, both
+    triangles accept the ray (by the port's arithmetic) at the same t
+    within the traversal tolerance (rtol 1e-5, atol 1e-6): a tie, decided
+    by visit order or by an ulp of rounding.  At most 1% of the rays."""
+    from ray_tracer_tpu_torch.kernels.bvh8 import mt_test
+
+    differ = hit & (prim != jprim)
+    if differ.any():
+        dd = np.where(d == 0.0, np.float32(1e-20), d)[differ]
+        dd = torch.from_numpy(dd)
+        oo = torch.from_numpy(o[differ])
+        t_a, _, _, _, ok_a = mt_test(sc.tri_packed[prim[differ]], oo, dd)
+        t_b, _, _, _, ok_b = mt_test(sc.tri_packed[jprim[differ]], oo, dd)
+        assert ok_a.all() and ok_b.all()
+        np.testing.assert_allclose(t_a.numpy(), t_b.numpy(), rtol=1e-5,
+                                   atol=1e-6)
+    assert differ.mean() < 1e-2
+    return differ

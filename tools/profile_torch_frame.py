@@ -1,6 +1,7 @@
 """Profile the benchmark frame of ray_tracer_tpu_torch, one route at a time.
 
-    python3 tools/profile_torch_frame.py [group|packet|cluster|cluster_boxes ...]
+    python3 tools/profile_torch_frame.py \
+        [group|packet|cluster|cluster_boxes|narrow|lanewalk ...]
 
 The frame is chip_smoke.py's (sponza_proxy, 1920x1080, spp 2, bounce limit
 8, one whole-frame tile).  For each route: one warm-up frame, then one
@@ -37,9 +38,12 @@ ROUTES = {
     "packet": trt.Routing(groups=0, anyhit_group=False),
     "cluster": trt.Routing(cluster="on"),
     "cluster_boxes": trt.Routing(cluster="on", cluster_enum="boxes"),
+    "narrow": trt.Routing(wide=False),
+    "lanewalk": trt.Routing(lanewalk="force"),
 }
-OWN_KERNELS = ("group_traverse_kernel", "packet_walk_kernel",
-               "packet_emit_kernel", "cluster_pairs_kernel",
+# the port's CUDA kernels, by a part of their names ("walk_kernel" also
+# matches bvh2_walk_kernel and lanewalk_kernel)
+OWN_KERNELS = ("walk_kernel", "emit_kernel", "cluster_pairs_kernel",
                "box_hits_kernel")
 
 
@@ -61,7 +65,8 @@ def main(routes) -> None:
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     print(smi, flush=True)
-    sc = presets.sponza_proxy().compile(clusters=True)
+    sc = presets.sponza_proxy().compile(
+        clusters=True, rope_streams="lanewalk" in routes)
     dev = sc.device
     for name in routes:
         cfg = trt.RenderConfig(width=1920, height=1080, samples_per_pixel=2,
