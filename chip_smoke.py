@@ -8,9 +8,10 @@ path's shapes, checks small card renders against the same renders on the
 CPU, and renders the benchmark frame (sponza_proxy, 1920x1080, spp 2,
 bounce limit 8, one whole-frame tile) through each traversal route of the
 port: the group kernel (the default), the cluster route with packet and
-with box enumeration, the packet walk, the narrow binary-BVH walk and the
-rope walk.  Every phase prints one line; any failure raises, so the exit
-code is non-zero and no result line is printed.  The line before the last lists the kernels; the last line is
+with box enumeration, the packet walk, the narrow binary-BVH walk, the
+rope walk and two-phase treelet traversal.  Every phase prints one line;
+any failure raises, so the exit code is non-zero and no result line is
+printed.  The line before the last lists the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Needs a CUDA device; imports no JAX.
 """
 
@@ -54,6 +55,7 @@ ROUTES = {  # frame phase -> routing, timed frames
     "frame_packet": (trt.Routing(groups=0, anyhit_group=False), 1),
     "frame_narrow": (trt.Routing(wide=False), 1),
     "frame_lanewalk": (trt.Routing(lanewalk="force"), 1),
+    "frame_two_phase": (trt.Routing(two_phase=True), 1),
 }
 KERNEL_MODULES = (group, packet, cluster, lanewalk)  # the launch counters
 # one nvcc build each
@@ -79,6 +81,10 @@ KERNELS = {  # mode -> (source, the TPU kernel it replaces)
                          "ray_tracer_tpu/kernels/lanewalk.py:167"),
     "lanewalk_anyhit": ("ray_tracer_tpu_torch/csrc/lanewalk.cu",
                         "ray_tracer_tpu/kernels/lanewalk.py:167"),
+    **{mode: ("ray_tracer_tpu_torch/csrc/bvh8_walk.cu",
+              "ray_tracer_tpu/kernels/packet.py:301")
+       for mode in ("packet8_top", "packet8_top_anyhit", "packet8_deep",
+                    "packet8_deep_anyhit")},
 }
 
 # The least time the card could take for a kernel's work: the larger of
@@ -234,22 +240,30 @@ def equal_all(name):
     return compare
 
 
-def walk_cost(stats, tmax0, leaf_rows=None, rows=1, emit_k=0):
+def walk_cost(stats, tmax0, leaf_rows=None, rows=1, emit_k=0, nodes=None,
+              extra_bytes=0):
     """Bytes and FP32 operations of one walk, from the plain walk's
     ``stats``: active rays read o, d (every lane its tmax and its
-    outputs), the distinct nodes and the real records of the distinct leaf
+    outputs: dst and prim, and ``emit_k`` slots and a flag where it
+    emits), the distinct nodes and the real records of the distinct leaf
     slots the rays visited are read once, and every real child box and
-    record visited is tested."""
-    out = 4 * emit_k + 4 if emit_k else 8
+    record visited is tested.  ``nodes`` (the TOP walk's tree): the troot
+    flags of the visited nodes' interior children are read too;
+    ``extra_bytes``: other inputs read once (DEEP entry lists)."""
+    out = (0 if leaf_rows is None else 8) + (4 * emit_k + 4 if emit_k else 0)
     rec_bytes = 0
     if leaf_rows is not None:
         first = stats["slot_seen"].nonzero()[:, 0] * 8
         ids = first[:, None] + torch.arange(8 * rows, device=first.device)
         rec = leaf_rows.reshape(-1, 16)[ids.reshape(-1), 0]
         rec_bytes = int((~rec.isnan()).sum()) * RECORD_BYTES
-    node_bytes = int(stats["node_seen"].sum()) * NODE_BYTES
+    seen = stats["node_seen"]
+    node_bytes = int(seen.sum()) * NODE_BYTES
+    if nodes is not None:
+        node_bytes += int((nodes[seen][:, 6:64:8] > 0).sum()) * 4
     ops = stats["children"] * OPS_CHILD + stats["records"] * OPS_RECORD
-    return bound(ray_bytes(tmax0, out) + node_bytes + rec_bytes, ops)
+    return bound(ray_bytes(tmax0, out) + node_bytes + rec_bytes + extra_bytes,
+                 ops)
 
 
 def ray_bytes(tmax0, out) -> int:
@@ -408,6 +422,53 @@ def packet_checks(sc, sc16, rays):
     phase("emit_stats", rays="bounce",
           mean_candidates=float((slots >= 0).sum()) / N_CHECK,
           overflow_share=float((ovf > 0).float().mean()))
+    return out
+
+
+def treelet_checks(sc, rays):
+    """The TOP walk (bounce set, and its occlusion form on the shadow set)
+    and the DEEP walks of both rounds that the two-phase route builds
+    from those sets, exact against the plain walk."""
+    out = {}
+    rt = ROUTES["frame_two_phase"][0]
+    recs = sc.meta["wide_leaf_recs"]
+    for name, anyhit in (("bounce", False), ("shadow", True)):
+        with captured(packet, "packet_traverse_wide") as calls:
+            traverse._two_phase_wide(sc, *rays[name], rt, anyhit=anyhit)
+        torch.cuda.synchronize()
+        if len(calls) != 3:
+            raise AssertionError(f"two-phase {name}: {len(calls)} walks")
+        for (args, kw), step in zip(calls, ("top", "deep1", "deep2")):
+            kernel = "packet8_" + step[:4] + ("_anyhit" if anyhit else "")
+            stats = {}
+            plain_kw = {k: v for k, v in kw.items() if k != "deep_e"}
+
+            def cost(args=args, kw=kw, stats=stats):
+                if "troot" in kw:
+                    return walk_cost(stats, args[4], sc.leaf_rows,
+                                     emit_k=kw["top_k"], nodes=sc.wide_packed)
+                return walk_cost(stats, args[4], sc.leaf_rows,
+                                 extra_bytes=nbytes(kw["entries"]))
+
+            rec = measure(
+                kernel,
+                lambda args=args, kw=kw: packet.packet_traverse_wide(
+                    *args, **kw),
+                lambda args=args, kw=plain_kw, stats=stats:
+                    packet.packet_traverse_wide_reference(*args, **kw,
+                                                          stats=stats),
+                equal_all(f"{kernel} {name}"), cost,
+                rays=name, step=step, n=int(args[2].shape[0]),
+                anyhit=anyhit, active=int((args[4] > -BIG).sum()),
+                records=recs,
+            )
+            out[f"{step}_{name}"] = rec
+            if step == "top":
+                slots, ovf = packet.packet_traverse_wide(*args, **kw)[2:]
+                phase("two_phase_stats", rays=name, anyhit=anyhit,
+                      n_treelets=sc.meta["n_treelets"], top_k=kw["top_k"],
+                      mean_entries=float((slots >= 0).sum()) / N_CHECK,
+                      overflow_share=float((ovf > 0).float().mean()))
     return out
 
 
@@ -612,7 +673,7 @@ def main() -> None:
     rays = check_rays(sc, dev)
     checks = {**group_checks(sc, rays), **packet_checks(sc, sc16, rays),
               **cluster_checks(sc, rays), **narrow_checks(sc, rays),
-              **lanewalk_checks(sc, rays)}
+              **lanewalk_checks(sc, rays), **treelet_checks(sc, rays)}
     del sc16
 
     sc_cpu = sc.to("cpu")
@@ -622,6 +683,8 @@ def main() -> None:
     card_vs_cpu(sc, sc_cpu, "card_vs_cpu_narrow", ROUTES["frame_narrow"][0])
     card_vs_cpu(sc, sc_cpu, "card_vs_cpu_lanewalk",
                 ROUTES["frame_lanewalk"][0])
+    card_vs_cpu(sc, sc_cpu, "card_vs_cpu_two_phase",
+                ROUTES["frame_two_phase"][0])
     del sc_cpu
 
     frames = {"frame": frame(sc, dev, "frame", None, TIMED_FRAMES)}
@@ -636,6 +699,8 @@ def main() -> None:
         "frame_packet": ("packet8_wide", "packet8_anyhit"),
         "frame_narrow": ("packet_narrow",),
         "frame_lanewalk": ("lanewalk_closest", "lanewalk_anyhit"),
+        "frame_two_phase": ("packet8_top", "packet8_top_anyhit",
+                            "packet8_deep", "packet8_deep_anyhit"),
     }
     for title, modes in must.items():
         got = frames[title]["launches"]
@@ -654,6 +719,10 @@ def main() -> None:
         "packet_narrow": ("narrow_bounce", "frame_narrow"),
         "lanewalk_closest": ("lanewalk_bounce", "frame_lanewalk"),
         "lanewalk_anyhit": ("lanewalk_shadow", "frame_lanewalk"),
+        "packet8_top": ("top_bounce", "frame_two_phase"),
+        "packet8_top_anyhit": ("top_shadow", "frame_two_phase"),
+        "packet8_deep": ("deep2_bounce", "frame_two_phase"),
+        "packet8_deep_anyhit": ("deep2_shadow", "frame_two_phase"),
     }
     kernels = []
     for name, (check, title) in source.items():

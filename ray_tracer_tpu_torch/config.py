@@ -6,7 +6,7 @@ both.  ``Routing`` keeps only what this package reads: the coherence-bin
 key widths and flavour, ``nee_prebin`` so that asking for it fails
 loudly, and the traversal-route switches (``wide``, ``groups``,
 ``anyhit_group``, ``cluster``, ``cluster_k``, ``cluster_enum``,
-``lanewalk``).  The TPU placement and
+``lanewalk``, ``two_phase``, ``top_k``).  The TPU placement and
 packet-shape knobs (``packet``, ``packet_size``, ``vmem_budget``,
 ``mask_mode``, ``multi_pop``, ``groups_packet``, ``anyhit_groups``,
 ``cluster_enum_packet``) have no counterpart here: every route runs its
@@ -66,6 +66,16 @@ class Routing:
     # raises).  "auto" and "off" never do; "interpret" is the JAX
     # package's Pallas interpreter and raises here.
     lanewalk: str = "off"
+    # Two-phase treelet traversal (ops/traverse.py::_two_phase_wide): a TOP
+    # walk emits each ray's treelet entries, the (ray, entry) pairs are
+    # sorted by entry and walked by DEEP launches from their entries.  On
+    # a wide scene with treelets it takes closest hit and occlusion from
+    # the group kernel and the packet walk.  The JAX package measured it
+    # slower than one phase on the TPU (its config.py).
+    two_phase: bool = False
+    # Per-lane entry slots of the TOP walk; lanes with more walk the whole
+    # tree from the root in the DEEP phase.
+    top_k: int = 5
 
     def __post_init__(self):
         if self.cluster not in ("auto", "off", "on"):
@@ -78,9 +88,10 @@ class Routing:
         if self.cluster_enum not in ("packet", "boxes"):
             raise ValueError(f"Routing.cluster_enum={self.cluster_enum!r}: "
                              "expected 'packet' or 'boxes'")
-        if self.groups < 0 or self.cluster_k < 1:
-            raise ValueError(f"Routing: groups={self.groups} must be >= 0 "
-                             f"and cluster_k={self.cluster_k} >= 1")
+        if self.groups < 0 or self.cluster_k < 1 or self.top_k < 1:
+            raise ValueError(f"Routing: groups={self.groups} must be >= 0, "
+                             f"cluster_k={self.cluster_k} and "
+                             f"top_k={self.top_k} >= 1")
 
     def replace(self, **kw) -> "Routing":
         return replace(self, **kw)

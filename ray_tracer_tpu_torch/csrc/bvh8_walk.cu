@@ -1,22 +1,24 @@
-// BVH8 traversal, one thread per ray (sm_90a): closest hit, occlusion and
-// cluster enumeration.
+// BVH8 traversal, one thread per ray (sm_90a): closest hit, occlusion,
+// cluster enumeration and the two phases of treelet traversal.
 //
 // Replaces two TPU kernels that compute the same walk per ray:
 //   ray_tracer_tpu/kernels/group.py::_group_kernel (closest-hit
 //     `group_traverse`, order-free occlusion `group_anyhit`), and
-//   ray_tracer_tpu/kernels/packet.py::_packet8_kernel in the modes this
-//     package routes through it: the closest-hit and occlusion walks over
-//     one-row (8-record) or two-row (16-record, merge_wide_leaves=True) leaf
-//     slots (`packet8_wide`, `packet8_anyhit`) and the `emit_leaves`
-//     enumeration over the cluster BVH8 (`packet8_emit`).  The treelet
-//     TOP/DEEP modes are not ported.
+//   ray_tracer_tpu/kernels/packet.py::_packet8_kernel in every mode: the
+//     closest-hit and occlusion walks over one-row (8-record) or two-row
+//     (16-record, merge_wide_leaves=True) leaf slots (`packet8_wide`,
+//     `packet8_anyhit`), the `emit_leaves` enumeration over the cluster
+//     BVH8 (`packet8_emit`), and the treelet TOP (`top_k` + `troot`) and
+//     DEEP (`deep_e` + `entries`) modes of two-phase traversal.
 // The lockstep machinery of the TPU kernels (lane-group or packet stacks,
 // packet-majority child order, the pop LUT, the SMEM meta mirror, the
 // stamped leaf flag) is not carried over: each thread walks its own ray with
 // a private stack, so the visit and emission orders follow each ray's own
 // direction.  That can change `prim` (never `dst`) on exact-t ties, and the
 // ORDER of the emitted slots, never their set or count: a child box inside
-// its parent's box is entered only if the parent is.
+// its parent's box is entered only if the parent is.  (In TOP mode the
+// emitted treelet roots also depend on how far `best` has shrunk when the
+// walk reaches them; every root that can hold a closer hit is emitted.)
 //
 // Tables (kernels/bvh8.py holds the plain torch twin, walk_reference):
 //   nodes      (W,128) f32  per child c, floats 8c..8c+5 = min3|max3, float
@@ -28,6 +30,8 @@
 //                           a slot spans kRows consecutive rows, record k of
 //                           slot s has the padded id s*8 + k.  NaN records
 //                           never hit.
+//   troot      (W,) i32     1 on treelet roots (TOP mode only).
+//   entries    (G,E) i32    per-packet entry lists, -1 padded (DEEP only).
 // Contract:
 //   walk: origin, direction (N,3) f32, tmax0 (N,) f32 (-BIG = inactive
 //     lane) -> dst (N,) f32 (closest accepted t from tmax0, or under ANYHIT
@@ -36,11 +40,20 @@
 //   emit: nodes = the cluster BVH8 (leaf slot field = cluster id) ->
 //     slots (N,K) i32, the cluster ids whose box the ray enters within
 //     tmax0, -1 padded; ovf (N,) i32, 1 where more than K were entered.
+//   TOP: the walk from the root, except that an interior child that is a
+//     treelet root is never pushed: if the ray enters its box within the
+//     current best, its node id goes to the lane's next free slot of K
+//     (child-slot order c = 0..7), past them ovf = 1 -> dst, prim (the
+//     closest top-level hit), slots, ovf.
+//   DEEP: lane i walks from the entries of its packet, row i / P of
+//     `entries` (P = packet size): one mask-0 word per entry >= 0, pushed
+//     untested in list order, then the closest-hit or occlusion walk,
+//     treelet roots included -> dst, prim.
 //
 // Each ray keeps a private stack of (node << 9 | reversed << 8 | remaining
 // child mask) words.  Mask bits are stored in visit order (reversed when
 // the ray points down the node's sort axis), so the lowest set bit is
-// always the next child; mask 0 is the root entry (visit the node itself).
+// always the next child; mask 0 is an entry (visit the node itself).
 //
 // Exactness: built with --fmad=false and without fast math, every
 // expression rounds like the torch twin's separate ops.  min/max propagate
@@ -55,6 +68,10 @@
 // sorted by the integrator's coherence bins (direction octant, origin morton
 // cell), so the threads of a warp walk overlapping node sets and their row
 // loads hit the same L2 lines; rows are read as float4, 16 B per load.
+// DEEP lanes arrive sorted by their entry (the two-phase route's pair
+// sort), so a warp starts inside one treelet; the packet's other entries
+// cost each lane one pop and one slab test of the entry node when its
+// bound prunes them.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -62,9 +79,11 @@
 namespace {
 
 constexpr int kBlock = 128;
-constexpr int kStack = 96;  // one (node, remaining-mask) word per level
+// one (node, remaining-mask) word per level, plus the DEEP entries
+constexpr int kStack = 96;
 constexpr float kBig = 99999999.0f;
 enum WalkMode { kClosest = 0, kAnyhit = 1, kEmit = 2 };
+enum WalkStart { kRoot = 0, kTop = 1, kDeep = 2 };
 
 __device__ __forceinline__ float min_nan(float a, float b) {
   return (a != a || b != b) ? __int_as_float(0x7fc00000) : fminf(a, b);
@@ -128,17 +147,29 @@ __device__ __forceinline__ float record_t(const float4* __restrict__ rec,
 // earliest record wins a tie).  kAnyhit: best = -kBig at the first record
 // inside best, then stop.  kEmit: leaf children are not entered; each leaf
 // child whose box the ray enters within best appends its slot field to
-// slots[0..top_k), past them ovf = 1; best never shrinks.
-template <int kMode, int kRows>
+// slots[0..top_k), past them ovf = 1; best never shrinks.  kTop: the same
+// for interior children flagged in troot, whose node id is appended.
+// kDeep: the stack starts with the deep_e words of `entries` (>= 0).
+template <int kMode, int kRows, int kStart>
 __device__ __forceinline__ void walk(const float4* __restrict__ nodes,
                                      const float4* __restrict__ leaf_rows,
-                                     const Ray& y, float& best, int& prim,
-                                     int* __restrict__ slots, int top_k,
-                                     int& ovf) {
+                                     const int* __restrict__ troot,
+                                     const int* __restrict__ entries,
+                                     int deep_e, const Ray& y, float& best,
+                                     int& prim, int* __restrict__ slots,
+                                     int top_k, int& ovf) {
   uint32_t stack[kStack];
   int sp = 0;
   int cnt = 0;
-  stack[sp++] = 0u;
+  if (kStart == kDeep) {
+    // deep_e + the deepest walk fits kStack (checked on the host)
+    for (int e = 0; e < deep_e; ++e) {
+      const int entry = __ldg(entries + e);
+      if (entry >= 0) stack[sp++] = static_cast<uint32_t>(entry) << 9;
+    }
+  } else {
+    stack[sp++] = 0u;
+  }
   const float* nodes_f = reinterpret_cast<const float*>(nodes);
 
   while (sp > 0) {
@@ -192,7 +223,7 @@ __device__ __forceinline__ void walk(const float4* __restrict__ nodes,
     // 8-child slab test of `target`, against the current best
     const float4* r = nodes + target * 32;
     uint32_t m8 = 0u;
-    uint32_t leaf_bits = 0u;
+    uint32_t emit_bits = 0u;  // children emitted instead of pushed
 #pragma unroll
     for (int c = 0; c < 8; ++c) {
       const float4 a = __ldg(r + 2 * c);      // min.xyz, max.x
@@ -206,10 +237,16 @@ __device__ __forceinline__ void walk(const float4* __restrict__ nodes,
                                 max_nan(t1z, t2z));
       const bool hit = tmx >= tmin && tmx > 0.0f && tmin < best;
       if (hit) m8 |= 1u << c;
+      int id = -1;  // what this child emits, if it is emitted
       if (kMode == kEmit && b.z < 0.0f) {
-        leaf_bits |= 1u << c;
-        if (hit) {  // emit the leaf child's slot field, in slot order
-          const int id = (static_cast<int>(-b.z) - 1) >> 4;
+        id = (static_cast<int>(-b.z) - 1) >> 4;  // the leaf's slot field
+      } else if (kStart == kTop && b.z > 0.0f) {
+        const int child = static_cast<int>(b.z);
+        if (__ldg(troot + child) == 1) id = child;  // a treelet root
+      }
+      if (id >= 0) {
+        emit_bits |= 1u << c;
+        if (hit) {  // in slot order
           if (cnt < top_k) {
             slots[cnt] = id;
           } else {
@@ -219,7 +256,7 @@ __device__ __forceinline__ void walk(const float4* __restrict__ nodes,
         }
       }
     }
-    if (kMode == kEmit) m8 &= ~leaf_bits;
+    m8 &= ~emit_bits;
     if (m8 == 0u) continue;
     uint32_t word = m8;
     if (kMode != kAnyhit) {
@@ -234,89 +271,99 @@ __device__ __forceinline__ void walk(const float4* __restrict__ nodes,
   }
 }
 
-template <int kMode, int kRows>
-__global__ void __launch_bounds__(kBlock)
-    walk_kernel(const float4* __restrict__ nodes,
-                const float4* __restrict__ leaf_rows,
-                const float* __restrict__ origin,
-                const float* __restrict__ direction,
-                const float* __restrict__ tmax0, float* __restrict__ dst_out,
-                int* __restrict__ prim_out, int n) {
+struct WalkArgs {
+  const float4* nodes;
+  const float4* leaf_rows;
+  const int* troot;
+  const int* entries;
+  const float* origin;
+  const float* direction;
+  const float* tmax0;
+  float* dst;
+  int* prim;
+  int* slots;
+  int* ovf;
+  int n, top_k, deep_e, packet_size;
+};
+
+template <int kMode, int kRows, int kStart>
+__global__ void __launch_bounds__(kBlock) walk_kernel(const WalkArgs a) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Ray y = load_ray(origin, direction, i);
-  float best = tmax0[i];
+  if (i >= a.n) return;
+  constexpr bool kEmits = kMode == kEmit || kStart == kTop;
+  int* slots = nullptr;
+  if (kEmits) {
+    slots = a.slots + static_cast<int64_t>(i) * a.top_k;
+    for (int k = 0; k < a.top_k; ++k) slots[k] = -1;
+  }
+  const int* entries =
+      kStart == kDeep ? a.entries + (i / a.packet_size) * a.deep_e : nullptr;
+  const Ray y = load_ray(a.origin, a.direction, i);
+  float best = a.tmax0[i];
   int prim = -1, ovf = 0;
-  walk<kMode, kRows>(nodes, leaf_rows, y, best, prim, nullptr, 0, ovf);
-  dst_out[i] = best;
-  prim_out[i] = prim;
+  walk<kMode, kRows, kStart>(a.nodes, a.leaf_rows, a.troot, entries,
+                             a.deep_e, y, best, prim, slots, a.top_k, ovf);
+  if (kMode != kEmit) {
+    a.dst[i] = best;
+    a.prim[i] = prim;
+  }
+  if (kEmits) a.ovf[i] = ovf;
 }
 
-__global__ void __launch_bounds__(kBlock)
-    emit_kernel(const float4* __restrict__ nodes,
-                const float* __restrict__ origin,
-                const float* __restrict__ direction,
-                const float* __restrict__ tmax0, int* __restrict__ slots_out,
-                int* __restrict__ ovf_out, int n, int top_k) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  int* slots = slots_out + static_cast<int64_t>(i) * top_k;
-  for (int k = 0; k < top_k; ++k) slots[k] = -1;
-  const Ray y = load_ray(origin, direction, i);
-  float best = tmax0[i];
-  int prim = -1, ovf = 0;
-  walk<kEmit, 1>(nodes, nullptr, y, best, prim, slots, top_k, ovf);
-  ovf_out[i] = ovf;
+template <int kMode, int kRows, int kStart>
+int launch(const WalkArgs& a, cudaStream_t s) {
+  const dim3 grid((a.n + kBlock - 1) / kBlock), block(kBlock);
+  walk_kernel<kMode, kRows, kStart><<<grid, block, 0, s>>>(a);
+  return 0;
 }
 
-template <int kMode, int kRows>
-void launch_walk(const void* nodes, const void* leaf_rows, const void* origin,
-                 const void* direction, const void* tmax0, void* dst,
-                 void* prim, int n, cudaStream_t s) {
-  const dim3 grid((n + kBlock - 1) / kBlock), block(kBlock);
-  walk_kernel<kMode, kRows><<<grid, block, 0, s>>>(
-      static_cast<const float4*>(nodes), static_cast<const float4*>(leaf_rows),
-      static_cast<const float*>(origin), static_cast<const float*>(direction),
-      static_cast<const float*>(tmax0), static_cast<float*>(dst),
-      static_cast<int*>(prim), n);
+template <int kMode, int kStart>
+int by_rows(int rows, const WalkArgs& a, cudaStream_t s) {
+  if (rows == 1) return launch<kMode, 1, kStart>(a, s);
+  if (rows == 2) return launch<kMode, 2, kStart>(a, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int kMode>
+int by_start(int start, int rows, const WalkArgs& a, cudaStream_t s) {
+  if (start == kRoot) return by_rows<kMode, kRoot>(rows, a, s);
+  if (start == kTop) return by_rows<kMode, kTop>(rows, a, s);
+  if (start == kDeep) return by_rows<kMode, kDeep>(rows, a, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-extern "C" int rt_bvh8_walk(const void* nodes, const void* leaf_rows,
-                            const void* origin, const void* direction,
-                            const void* tmax0, void* dst, void* prim, int n,
-                            int anyhit, int rows, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (rows != 1 && rows != 2) return static_cast<int>(cudaErrorInvalidValue);
-  if (anyhit) {
-    if (rows == 2) {
-      launch_walk<kAnyhit, 2>(nodes, leaf_rows, origin, direction, tmax0, dst,
-                              prim, n, s);
-    } else {
-      launch_walk<kAnyhit, 1>(nodes, leaf_rows, origin, direction, tmax0, dst,
-                              prim, n, s);
-    }
-  } else {
-    if (rows == 2) {
-      launch_walk<kClosest, 2>(nodes, leaf_rows, origin, direction, tmax0,
-                               dst, prim, n, s);
-    } else {
-      launch_walk<kClosest, 1>(nodes, leaf_rows, origin, direction, tmax0,
-                               dst, prim, n, s);
-    }
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int rt_bvh8_emit(const void* nodes, const void* origin,
+// One launch of the walk.  mode: 0 closest, 1 anyhit, 2 emit (one-row,
+// from the root); start: 0 root, 1 TOP (troot, slots, ovf, top_k), 2 DEEP
+// (entries, deep_e, packet_size).  Pointers a mode does not read may be
+// null.  Returns the launch's CUDA error code.
+extern "C" int rt_bvh8_walk(int mode, int rows, int start, const void* nodes,
+                            const void* leaf_rows, const void* troot,
+                            const void* entries, const void* origin,
                             const void* direction, const void* tmax0,
-                            void* slots, void* ovf, int n, int top_k,
+                            void* dst, void* prim, void* slots, void* ovf,
+                            int n, int top_k, int deep_e, int packet_size,
                             void* stream) {
-  const dim3 grid((n + kBlock - 1) / kBlock), block(kBlock);
-  emit_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(nodes), static_cast<const float*>(origin),
-      static_cast<const float*>(direction), static_cast<const float*>(tmax0),
-      static_cast<int*>(slots), static_cast<int*>(ovf), n, top_k);
-  return static_cast<int>(cudaGetLastError());
+  const WalkArgs a{
+      static_cast<const float4*>(nodes), static_cast<const float4*>(leaf_rows),
+      static_cast<const int*>(troot), static_cast<const int*>(entries),
+      static_cast<const float*>(origin), static_cast<const float*>(direction),
+      static_cast<const float*>(tmax0), static_cast<float*>(dst),
+      static_cast<int*>(prim), static_cast<int*>(slots),
+      static_cast<int*>(ovf), n, top_k, deep_e, packet_size};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int err;
+  if (mode == kEmit) {
+    err = rows == 1 && start == kRoot
+              ? launch<kEmit, 1, kRoot>(a, s)
+              : static_cast<int>(cudaErrorInvalidValue);
+  } else if (mode == kClosest) {
+    err = by_start<kClosest>(start, rows, a, s);
+  } else if (mode == kAnyhit) {
+    err = by_start<kAnyhit>(start, rows, a, s);
+  } else {
+    err = static_cast<int>(cudaErrorInvalidValue);
+  }
+  return err != 0 ? err : static_cast<int>(cudaGetLastError());
 }

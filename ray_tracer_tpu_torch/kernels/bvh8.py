@@ -30,6 +30,20 @@ Mask 0 is the root entry (visit the word's node itself).  Modes:
   cluster enumeration tree) to the lane's next free slot of ``top_k``,
   and sets ``ovf`` past them.  ``tmax0`` never shrinks.
 
+and where the walk starts (the two phases of treelet traversal):
+
+* from the root (word 0), the default;
+* TOP (``troot`` (W,) i32 given, with ``top_k``): the closest-hit or
+  occlusion walk from the root, except that an interior child flagged in
+  ``troot`` (a treelet root) is never pushed: when the ray enters its box
+  within the current best, its node id goes to the lane's next free slot
+  (child-slot order), past ``top_k`` of them ``ovf`` is set;
+* DEEP (``entries`` (G,E) i32, -1 padded, and ``packet_size`` P with
+  N = G*P): lane i starts with one mask-0 word per entry of row i // P,
+  pushed untested in list order, and walks on as the closest-hit or
+  occlusion walk does, treelet roots included.  Its result is the
+  closest hit in the union of its packet's entry subtrees.
+
 The arithmetic is ``ray_tracer_tpu``'s kernels', op for op; built with
 ``--fmad=false`` the CUDA walk rounds like this one, so on the card the
 two agree bit for bit.
@@ -49,9 +63,10 @@ BIG = 99999999.0
 # One stack word per tree level: the builder caps the binary tree at depth
 # 64 and a wide node sits at least one binary level below its parent, so a
 # walk never holds more than 65 words (checked against the scene's depth in
-# ops/traverse.py).
+# ops/traverse.py), plus, in DEEP mode, one word per entry.
 G_STACK = 96
 MAX_TREE_DEPTH = 64
+MAX_DEEP_E = G_STACK - MAX_TREE_DEPTH - 1
 
 CSRC = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc"
@@ -66,6 +81,7 @@ NVCC_FLAGS = (
 _SRC = os.path.join(CSRC, "bvh8_walk.cu")
 
 MODES = ("closest", "anyhit", "emit")
+_START_ROOT, _START_TOP, _START_DEEP = 0, 1, 2
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -80,53 +96,47 @@ def _load() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(build())
         lib.rt_bvh8_walk.restype = ctypes.c_int
-        lib.rt_bvh8_walk.argtypes = [ctypes.c_void_p] * 7 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ]
-        lib.rt_bvh8_emit.restype = ctypes.c_int
-        lib.rt_bvh8_emit.argtypes = [ctypes.c_void_p] * 6 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ]
+        lib.rt_bvh8_walk.argtypes = (
+            [ctypes.c_int] * 3 + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
+            + [ctypes.c_void_p]
+        )
         _lib = lib
     return _lib
 
 
-def _raise_on(err: int) -> None:
-    if err != 0:
-        raise RuntimeError(f"BVH8 walk kernel launch failed: CUDA error {err}")
-
-
-def launch_walk(nodes, leaf_rows, origin, direction, tmax0, anyhit: bool,
-                rows: int):
-    """The closest-hit (or occlusion) walk on the card: ``(dst, prim)``.
-    Inputs as checked by :func:`check_walk_inputs`, on a CUDA device."""
+def launch(nodes, leaf_rows, origin, direction, tmax0, mode: str,
+           rows: int = 1, top_k: int = 0, troot=None, entries=None,
+           packet_size: int = 0):
+    """One launch of the walk on the card, with :func:`walk_reference`'s
+    arguments and results.  Inputs as checked by :func:`check_walk_inputs`
+    (and :func:`check_start_inputs`), on a CUDA device."""
     dev = origin.device
     n = origin.shape[0]
-    dst = torch.empty(n, dtype=torch.float32, device=dev)
-    prim = torch.empty(n, dtype=torch.int32, device=dev)
+    start = (_START_TOP if troot is not None
+             else _START_DEEP if entries is not None else _START_ROOT)
+    emits = mode == "emit" or start == _START_TOP
+    dst = prim = slots = ovf = None
+    if mode != "emit":
+        dst = torch.empty(n, dtype=torch.float32, device=dev)
+        prim = torch.empty(n, dtype=torch.int32, device=dev)
+    if emits:
+        slots = torch.empty((n, top_k), dtype=torch.int32, device=dev)
+        ovf = torch.empty(n, dtype=torch.int32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()
     if n:
-        _raise_on(_load().rt_bvh8_walk(
-            nodes.data_ptr(), leaf_rows.data_ptr(), origin.data_ptr(),
-            direction.data_ptr(), tmax0.data_ptr(), dst.data_ptr(),
-            prim.data_ptr(), n, int(anyhit), rows,
+        err = _load().rt_bvh8_walk(
+            MODES.index(mode), rows, start, ptr(nodes), ptr(leaf_rows),
+            ptr(troot), ptr(entries), ptr(origin), ptr(direction),
+            ptr(tmax0), ptr(dst), ptr(prim), ptr(slots), ptr(ovf), n, top_k,
+            0 if entries is None else entries.shape[1], packet_size,
             torch.cuda.current_stream(dev).cuda_stream,
-        ))
-    return dst, prim
-
-
-def launch_emit(nodes, origin, direction, tmax0, top_k: int):
-    """The emit walk on the card: ``(slots (N,top_k), ovf (N,))`` i32."""
-    dev = origin.device
-    n = origin.shape[0]
-    slots = torch.empty((n, top_k), dtype=torch.int32, device=dev)
-    ovf = torch.empty(n, dtype=torch.int32, device=dev)
-    if n:
-        _raise_on(_load().rt_bvh8_emit(
-            nodes.data_ptr(), origin.data_ptr(), direction.data_ptr(),
-            tmax0.data_ptr(), slots.data_ptr(), ovf.data_ptr(), n, top_k,
-            torch.cuda.current_stream(dev).cuda_stream,
-        ))
-    return slots, ovf
+        )
+        if err != 0:
+            raise RuntimeError(
+                f"BVH8 walk kernel launch failed: CUDA error {err}")
+    if mode == "emit":
+        return slots, ovf
+    return (dst, prim, slots, ovf) if emits else (dst, prim)
 
 
 def check_tensors(device, dtype, **named) -> None:
@@ -155,6 +165,32 @@ def check_walk_inputs(nodes, leaf_rows, origin, direction, tmax0) -> None:
     )
     if n >= 2**31 or nodes.shape[0] >= 2**23:
         raise ValueError("too many rays or wide nodes for 32-bit indices")
+
+
+def check_start_inputs(nodes, origin, troot=None, entries=None,
+                       packet_size: int = 0) -> None:
+    """Raise unless the TOP table (``troot`` (W,) i32) or the DEEP entry
+    lists (``entries`` (G,E) i32 with N = G * ``packet_size`` and E at
+    most :data:`MAX_DEEP_E`) fit the walk's inputs."""
+    if troot is not None and entries is not None:
+        raise ValueError("a walk starts from the root (TOP) or from entry "
+                         "lists (DEEP), not both")
+    if troot is not None:
+        check_tensors(origin.device, torch.int32,
+                      troot=(troot, (nodes.shape[0],)))
+    if entries is not None:
+        n = origin.shape[0]
+        if entries.dim() != 2 or packet_size < 1:
+            raise ValueError("DEEP mode needs (G,E) entries and a packet "
+                             "size >= 1")
+        g, e = entries.shape
+        if g * packet_size != n:
+            raise ValueError(f"DEEP mode: {n} rays are not {g} packets of "
+                             f"{packet_size}")
+        if not 1 <= e <= MAX_DEEP_E:
+            raise ValueError(f"DEEP mode: {e} entries per packet, the stack "
+                             f"holds 1..{MAX_DEEP_E} beside the tree depth")
+        check_tensors(origin.device, torch.int32, entries=(entries, (g, e)))
 
 
 def _mt_t(rows, origin, d):
@@ -208,15 +244,18 @@ def _slab_mask(boxes, inv, oi, best):
 
 def walk_reference(nodes, leaf_rows, origin, direction, tmax0,
                    mode: str = "closest", rows: int = 1, top_k: int = 0,
+                   troot=None, entries=None, packet_size: int = 0,
                    stats: dict = None):
     """The CUDA walk in plain torch, vectorized over the live lanes.
 
-    Returns ``(dst, prim)`` for ``closest``/``anyhit`` and ``(slots, ovf)``
-    ((N,top_k) i32 with -1 padding, (N,) i32) for ``emit``.  Raises if a
-    lane needs more than W+L+1 steps (each node and leaf slot is visited
-    at most once per walk) or overflows its stack.  ``stats``, if given,
-    receives the walk's visit counts summed over the rays: ``interior``
-    (8-child slab tests) and ``leaf`` (leaf-slot tests), ``children`` and
+    Returns ``(dst, prim)`` for ``closest``/``anyhit`` (from the root, or
+    DEEP from ``entries``), ``(dst, prim, slots, ovf)`` in TOP mode
+    (``troot``) and ``(slots, ovf)`` ((N,top_k) i32 with -1 padding, (N,)
+    i32) for ``emit``.  Raises if a lane needs more than E*(W+L+1) steps
+    (each node and leaf slot is visited at most once per entry; E = 1
+    from the root) or overflows its stack.  ``stats``, if given, receives
+    the walk's visit counts summed over the rays: ``interior`` (8-child
+    slab tests) and ``leaf`` (leaf-slot tests), ``children`` and
     ``records`` (the non-empty child boxes and non-NaN records among
     them), and ``node_seen`` (W,) / ``slot_seen`` (L,) bool, the distinct
     nodes and leaf slots (by first row) any ray visited.
@@ -231,22 +270,23 @@ def walk_reference(nodes, leaf_rows, origin, direction, tmax0,
     oi = origin * inv
     dst = tmax0.clone()
     prim = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    top = troot is not None
     slots = torch.full((n, max(top_k, 1)), -1, dtype=torch.int32,
                        device=dev)
     cnt = torch.zeros(n, dtype=torch.int64, device=dev)
 
     def result():
+        ovf = (cnt > top_k).to(torch.int32)
         if mode == "emit":
-            return slots[:, :top_k], (cnt > top_k).to(torch.int32)
-        return dst, prim
+            return slots[:, :top_k], ovf
+        return (dst, prim, slots[:, :top_k], ovf) if top else (dst, prim)
 
-    if n == 0:
-        return result()
     boxes = nodes[:, :64].reshape(n_nodes, 8, 8)
     codes = boxes[:, :, 6]
     axis = nodes[:, 7].long()
     records = leaf_rows.reshape(n_leaf * 8, 16)
     rec_ids = torch.arange(8 * rows, device=dev)
+    bits = torch.arange(8, device=dev)
     ctz = torch.tensor(
         [(m & -m).bit_length() - 1 if m else 0 for m in range(256)],
         device=dev,
@@ -254,27 +294,39 @@ def walk_reference(nodes, leaf_rows, origin, direction, tmax0,
     rev8 = torch.tensor(
         [int(f"{m:08b}"[::-1], 2) for m in range(256)], device=dev
     )
-    # root entry: word 0 = visit node 0 itself
     stack = torch.zeros((n, G_STACK), dtype=torch.int64, device=dev)
-    sp = torch.ones(n, dtype=torch.int64, device=dev)
-    lanes = torch.arange(n, device=dev)
+    n_starts = 1
+    if entries is not None:
+        # DEEP: the packet's entries as mask-0 words, in list order
+        ent = entries.long()[torch.arange(n, device=dev) // packet_size]
+        valid = ent >= 0
+        lane, col = valid.nonzero(as_tuple=True)
+        stack[lane, valid.cumsum(dim=1)[lane, col] - 1] = ent[lane, col] << 9
+        sp = valid.sum(dim=1)
+        n_starts = entries.shape[1]
+    else:  # word 0 = visit the root itself
+        sp = torch.ones(n, dtype=torch.int64, device=dev)
+    lanes = torch.arange(n, device=dev)[sp > 0]
     if stats is not None:
         stats.update(
             interior=0, leaf=0, children=0, records=0,
             node_seen=torch.zeros(n_nodes, dtype=torch.bool, device=dev),
             slot_seen=torch.zeros(n_leaf, dtype=torch.bool, device=dev),
         )
-    for _ in range(n_nodes + n_leaf + 1):
-        top = sp[lanes] - 1
-        word = stack[lanes, top]
+    max_steps = n_starts * (n_nodes + n_leaf + 1)
+    for _ in range(max_steps):
+        if lanes.numel() == 0:
+            return result()
+        sp_top = sp[lanes] - 1
+        word = stack[lanes, sp_top]
         mask = word & 0xFF
         node = word >> 9
         direct = mask == 0
         c = ctz[mask]
         slot = torch.where((word & 0x100) != 0, 7 - c, c)
         rem = mask & (mask - 1)
-        stack[lanes, top] = word - mask + rem
-        sp[lanes] = top + (~(direct | (rem == 0))).long()
+        stack[lanes, sp_top] = word - mask + rem
+        sp[lanes] = sp_top + (~(direct | (rem == 0))).long()
         code = codes[node, slot]
         is_leaf = ~direct & (code < 0)
         target = torch.where(direct, node, code.long())
@@ -315,20 +367,25 @@ def walk_reference(nodes, leaf_rows, origin, direction, tmax0,
                 stats["children"] += int((~boxes[tg, :, 0].isnan()).sum())
                 stats["node_seen"][tg] = True
             m8 = _slab_mask(boxes[tg], inv[il], oi[il], dst[il])
-            if mode == "emit":
+            if mode == "emit" or top:
                 ccodes = codes[tg]  # (K,8)
-                for ch in range(8):
-                    em = ((m8 >> ch) & 1).bool() & (ccodes[:, ch] < 0)
+                if top:  # interior children flagged as treelet roots
+                    child = torch.where(ccodes > 0, ccodes, 0).long()
+                    is_em = (ccodes > 0) & (troot.long()[child] == 1)
+                    val = child
+                else:  # leaf children: their slot fields
+                    is_em = ccodes < 0
+                    val = ((-ccodes).long() - 1) // 16
+                for ch in range(8):  # in slot order
+                    em = ((m8 >> ch) & 1).bool() & is_em[:, ch]
                     el = il[em]
                     if el.numel():
-                        cid = ((-ccodes[em, ch]).long() - 1) // 16
                         k = cnt[el]
                         keep = k < top_k
-                        slots[el[keep], k[keep]] = cid[keep].to(torch.int32)
+                        slots[el[keep], k[keep]] = (
+                            val[em, ch][keep].to(torch.int32))
                         cnt[el] = k + 1
-                leaf_bits = ((ccodes < 0).long()
-                             << torch.arange(8, device=dev)).sum(dim=1)
-                m8 = m8 & ~leaf_bits
+                m8 = m8 & ~(is_em.long() << bits).sum(dim=1)
             if mode != "anyhit":
                 ax = axis[tg]
                 neg = d[il].gather(1, ax[:, None])[:, 0] < 0
@@ -343,8 +400,6 @@ def walk_reference(nodes, leaf_rows, origin, direction, tmax0,
                 sp[pl] = at + 1
 
         lanes = lanes[sp[lanes] > 0]
-        if lanes.numel() == 0:
-            return result()
-    raise RuntimeError(
-        f"traversal did not finish within {n_nodes + n_leaf + 1} steps"
-    )
+    if lanes.numel() == 0:
+        return result()
+    raise RuntimeError(f"traversal did not finish within {max_steps} steps")

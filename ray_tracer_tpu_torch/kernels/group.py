@@ -35,7 +35,7 @@ from __future__ import annotations
 from .bvh8 import (  # noqa: F401  (BIG: re-exported)
     BIG,
     check_walk_inputs,
-    launch_walk,
+    launch,
     walk_reference,
 )
 
@@ -58,8 +58,8 @@ def group_traverse(nodes, leaf_rows, origin, direction, tmax0,
         )
     if origin.device.type != "cuda":
         raise ValueError(f"no traversal kernel for device {origin.device}")
-    dst, prim = launch_walk(nodes, leaf_rows, origin, direction, tmax0,
-                            anyhit, rows=1)
+    dst, prim = launch(nodes, leaf_rows, origin, direction, tmax0,
+                       "anyhit" if anyhit else "closest")
     if origin.shape[0]:
         launches["group_anyhit" if anyhit else "group_traverse"] += 1
     return dst, prim

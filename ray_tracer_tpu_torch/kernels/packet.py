@@ -1,15 +1,16 @@
-"""Packet traversal: the BVH8 walk with its cluster enumeration, and the
-narrow binary-BVH walk.  CUDA kernels and their plain torch twins.
+"""Packet traversal: the BVH8 walk with its cluster enumeration and its
+treelet modes, and the narrow binary-BVH walk.  CUDA kernels and their
+plain torch twins.
 
 ``packet_traverse_wide`` is the port of ``ray_tracer_tpu/kernels/
-packet.py``'s ``_packet8_kernel`` in the modes this package routes through
-it: the closest-hit and occlusion walks over one-row (8-record) or two-row
-(16-record) leaf slots, and the ``emit_leaves`` enumeration of candidate
-clusters.  On CUDA tensors it launches the walk in ``csrc/bvh8_walk.cu``
-(built with ``nvcc`` at first use, one library with ``kernels/group.py``);
-on CPU tensors it runs
-:func:`packet_traverse_wide_reference`.  The treelet TOP/DEEP modes of the
-TPU kernel (``top_k`` without ``emit_leaves``, ``deep_e``) are not ported.
+packet.py``'s ``_packet8_kernel`` in all its modes: the closest-hit and
+occlusion walks over one-row (8-record) or two-row (16-record) leaf
+slots, the ``emit_leaves`` enumeration of candidate clusters, and the
+TOP (``top_k`` + ``troot``) and DEEP (``deep_e`` + ``entries``) phases
+of two-phase treelet traversal.  On CUDA tensors it launches the walk in
+``csrc/bvh8_walk.cu`` (built with ``nvcc`` at first use, one library with
+``kernels/group.py``); on CPU tensors it runs
+:func:`packet_traverse_wide_reference`.
 
 ``packet_traverse`` is the port of ``_packet_kernel``, the narrow route's
 closest-hit walk over the binary BVH (``bvh_packed``, ``tri_packed``): on
@@ -38,17 +39,18 @@ from .bvh8 import (
     CSRC,
     MAX_TREE_DEPTH,
     NVCC_FLAGS,
+    check_start_inputs,
     check_tensors,
     check_walk_inputs,
-    launch_emit,
-    launch_walk,
+    launch,
     mt_test,
     walk_reference,
 )
 
 # Kernel launches per mode since the last reset (the CPU path never adds).
 launches = {"packet8_wide": 0, "packet8_anyhit": 0, "packet8_emit": 0,
-            "packet_narrow": 0}
+            "packet8_top": 0, "packet8_top_anyhit": 0, "packet8_deep": 0,
+            "packet8_deep_anyhit": 0, "packet_narrow": 0}
 
 N_STACK = MAX_TREE_DEPTH + 32  # the narrow walk's stack (bvh2_walk.cu)
 _NARROW_SRC = os.path.join(CSRC, "bvh2_walk.cu")
@@ -69,10 +71,12 @@ def _rows(max_recs: int) -> int:
 
 def packet_traverse_wide(nodes, leaf_rows, origin, direction, tmax0,
                          max_recs: int, anyhit: bool = False, top_k: int = 0,
-                         emit_leaves: bool = False):
+                         emit_leaves: bool = False, troot=None,
+                         deep_e: int = 0, entries=None,
+                         packet_size: int = 0):
     """The packet walk of N rays over a BVH8.
 
-    Walk (``top_k == 0``): returns ``(dst, prim)`` — ``dst`` the closest
+    Walk (the default): returns ``(dst, prim)`` — ``dst`` the closest
     accepted t (``tmax0`` on a miss), or under ``anyhit`` ``-BIG`` where a
     hit lies inside ``tmax0``; ``prim`` the padded leaf-slot id
     ``slot * 8 + record`` (map through ``leaf_map``), -1 on a miss and
@@ -83,30 +87,51 @@ def packet_traverse_wide(nodes, leaf_rows, origin, direction, tmax0,
     ``leaf_rows`` never read): returns ``(slots, ovf)``, (N,top_k) i32
     cluster ids (-1 padded) whose box the ray enters within ``tmax0``, in
     visit order, and (N,) i32 overflow flags (more than ``top_k``).
+
+    TOP (``top_k > 0`` + ``troot`` (W,) i32, the scene's ``wide_troot``):
+    the walk from the root that does not descend into treelet roots and
+    emits the node ids of those it enters instead -> ``(dst, prim, slots,
+    ovf)``: the closest top-level hit, and the entries and overflow flags
+    as in the emit mode.
+
+    DEEP (``deep_e > 0`` + ``entries`` (G,deep_e) i32, -1 padded, with
+    N = G * ``packet_size``): packet g walks from its entry list
+    ``entries[g]`` instead of the root -> ``(dst, prim)``.
     """
     check_walk_inputs(nodes, leaf_rows, origin, direction, tmax0)
     rows = _rows(max_recs)
-    if top_k and not emit_leaves:
-        raise NotImplementedError(
-            "the treelet TOP mode (top_k without emit_leaves) is not ported "
-            "(ROADMAP Queue A item 8, with two-phase traversal)"
-        )
-    if emit_leaves and (top_k < 1 or anyhit):
-        raise ValueError("emit_leaves needs top_k >= 1 and anyhit=False")
+    if emit_leaves:
+        if top_k < 1 or anyhit or troot is not None or deep_e:
+            raise ValueError("emit_leaves needs top_k >= 1, anyhit=False "
+                             "and no treelet inputs")
+    elif (top_k > 0) != (troot is not None):
+        raise ValueError("the TOP mode needs top_k >= 1 and the treelet-root "
+                         "table troot together")
+    if (deep_e > 0) != (entries is not None):
+        raise ValueError("the DEEP mode needs deep_e and entries together")
+    if entries is not None and entries.dim() == 2 \
+            and entries.shape[1] != deep_e:
+        raise ValueError(f"entries hold {entries.shape[1]} per packet, "
+                         f"deep_e is {deep_e}")
+    check_start_inputs(nodes, origin, troot, entries, packet_size)
     dev = origin.device
+    kw = dict(anyhit=anyhit, top_k=top_k, emit_leaves=emit_leaves,
+              troot=troot, entries=entries, packet_size=packet_size)
     if dev.type == "cpu":
         return packet_traverse_wide_reference(
-            nodes, leaf_rows, origin, direction, tmax0, max_recs,
-            anyhit=anyhit, top_k=top_k, emit_leaves=emit_leaves,
-        )
+            nodes, leaf_rows, origin, direction, tmax0, max_recs, **kw)
     if dev.type != "cuda":
         raise ValueError(f"no traversal kernel for device {dev}")
+    walk = "anyhit" if anyhit else "closest"
+    out = launch(nodes, leaf_rows, origin, direction, tmax0,
+                 "emit" if emit_leaves else walk, rows, top_k=top_k,
+                 troot=troot, entries=entries, packet_size=packet_size)
     if emit_leaves:
-        out = launch_emit(nodes, origin, direction, tmax0, top_k)
         mode = "packet8_emit"
+    elif troot is not None or entries is not None:
+        mode = ("packet8_top" if troot is not None else "packet8_deep") + (
+            "_anyhit" if anyhit else "")
     else:
-        out = launch_walk(nodes, leaf_rows, origin, direction, tmax0, anyhit,
-                          rows)
         mode = "packet8_anyhit" if anyhit else "packet8_wide"
     if origin.shape[0]:
         launches[mode] += 1
@@ -116,13 +141,15 @@ def packet_traverse_wide(nodes, leaf_rows, origin, direction, tmax0,
 def packet_traverse_wide_reference(nodes, leaf_rows, origin, direction,
                                    tmax0, max_recs: int,
                                    anyhit: bool = False, top_k: int = 0,
-                                   emit_leaves: bool = False,
+                                   emit_leaves: bool = False, troot=None,
+                                   entries=None, packet_size: int = 0,
                                    stats: dict = None):
     """The kernel's walk in plain torch (``bvh8.walk_reference``)."""
     mode = "emit" if emit_leaves else ("anyhit" if anyhit else "closest")
     return walk_reference(nodes, leaf_rows, origin, direction, tmax0,
                           mode=mode, rows=_rows(max_recs), top_k=top_k,
-                          stats=stats)
+                          troot=troot, entries=entries,
+                          packet_size=packet_size, stats=stats)
 
 
 def reconstruct_uvfront(leaf_rows, origin, direction, prim):

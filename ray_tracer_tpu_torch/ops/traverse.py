@@ -10,18 +10,23 @@ order:
   ``rope_streams=True`` (without them it raises);
 * the cluster route (``ops/cluster_trace.py``) under ``cluster="on"`` on a
   scene compiled with cluster tables;
-* under ``wide=True`` (the default), the group kernel
-  (``kernels/group.py``): closest hit when ``groups > 0``, occlusion when
-  ``anyhit_group`` too, on scenes with one-row (<= 8-record) leaf slots;
-* otherwise, still wide, the packet walk (``kernels/packet.py``), which
-  also reads the 16-record two-row slots of ``merge_wide_leaves=True``
-  scenes;
 * under ``wide=False``, the narrow walk over the binary BVH
   (``packet.packet_traverse``), occlusion as its closest hit clipped at
-  ``tmax``.
+  ``tmax``;
+* under ``wide=True`` (the default), the group kernel
+  (``kernels/group.py``): closest hit when ``groups > 0`` and not
+  ``two_phase``, occlusion when ``anyhit_group`` too, on scenes with
+  one-row (<= 8-record) leaf slots;
+* under ``two_phase=True``, on a scene with treelets, two-phase treelet
+  traversal (:func:`_two_phase_wide`: the TOP and DEEP modes of the
+  packet walk), for closest hit and, ahead of the group kernel, occlusion;
+* otherwise, still wide, the packet walk (``kernels/packet.py``), which
+  also reads the 16-record two-row slots of ``merge_wide_leaves=True``
+  scenes.
 
 Triangle hits come back in :func:`prim_space`: padded leaf-slot ids
-(``shade_slot`` rows) on the group and packet routes, global triangle ids
+(``shade_slot`` rows) on the group, two-phase and packet routes, global
+triangle ids
 (``shade_tri`` rows) on the rope-walk, cluster and narrow routes.
 Barycentrics and facing are re-derived by the integrator's shade fetch, so
 the routes return only ``(dst, prim)``.  Forest (non-flattened) mesh
@@ -44,6 +49,15 @@ from .intersect import BIG
 KIND_NONE = 0
 KIND_SPHERE = 1
 KIND_TRI = 2
+
+# Two-phase traversal: the (ray, entry) pairs of a DEEP launch are sorted
+# by entry and each entry's run is padded to a multiple of RUN lanes, so a
+# packet of PACKET lanes (the JAX package's default packet) holds at most
+# DEEP_E = PACKET // RUN distinct entries.
+RUN = 128
+PACKET = 2048
+DEEP_E = PACKET // RUN
+_SENT = 2**30  # sort key of a dead pair: after every node id
 
 
 class Hit(NamedTuple):
@@ -99,8 +113,21 @@ def _group_on(scene: CompiledScene, routing: Routing) -> bool:
     return (
         routing.wide
         and routing.groups > 0
+        and not routing.two_phase
         and not _cluster_on(scene, routing)
         and scene.meta.get("wide_leaf_recs", 8) <= 8
+    )
+
+
+def _two_phase_ok(scene: CompiledScene, routing: Routing) -> bool:
+    """Two-phase treelet traversal?  ``two_phase``, the wide route and a
+    scene with treelets, as in the JAX package; its TPU conditions (the
+    node table in VMEM, the SMEM meta mirror within 600 kB) have no
+    counterpart here.  A scene without treelets takes the packet walk."""
+    return (
+        routing.two_phase
+        and routing.wide
+        and scene.meta.get("n_treelets", 0) > 0
     )
 
 
@@ -113,6 +140,115 @@ def prim_space(scene: CompiledScene, routing: Routing = None) -> str:
     if _lanewalk_on(scene, rt) or _cluster_on(scene, rt) or not rt.wide:
         return "tri"
     return "slot"
+
+
+def _deep_round(scene, o, d, pair_entry, pair_ray, valid, tmax_ray,
+                anyhit):
+    """One DEEP launch over (ray, entry) pairs: ``(dst, prim, live)`` per
+    pair, in pair order.
+
+    The pairs are sorted by entry (stable; dead pairs last) and each run of
+    one entry is padded to a multiple of RUN lanes, so every RUN-lane block
+    of a PACKET-lane packet belongs to one entry and the packet's entry
+    list is its blocks' first keys.  Each pair walks its packet's entries
+    bounded by its ray's ``tmax_ray``.  The runs are found by binary
+    search of every possible key (node ids, then the dead key) in the
+    sorted keys, which needs no atomics; every size comes from the shapes
+    and the scene's treelet count, so no value is read back to the host.
+    """
+    m = pair_entry.shape[0]
+    dev = pair_entry.device
+    n_keys = scene.wide_packed.shape[0] + 1
+    # at most: the treelet roots, the root (overflow lanes) and dead pairs
+    max_runs = scene.meta["n_treelets"] + 2
+    key = torch.where(valid, pair_entry, _SENT)
+    order = torch.argsort(key, stable=True)
+    pe = key[order].contiguous()
+    keys = torch.arange(n_keys, dtype=pe.dtype, device=dev)
+    keys[-1] = _SENT
+    first = torch.searchsorted(pe, keys)  # each key's run start
+    lens = torch.diff(first, append=first.new_full((1,), m))
+    padded = (lens + RUN - 1) // RUN * RUN
+    offs = torch.cumsum(padded, 0) - padded
+    kid = torch.where(pe >= _SENT, n_keys - 1, pe).long()
+    dest = offs[kid] + torch.arange(m, device=dev) - first[kid]
+    g2 = -(-(m + max_runs * RUN) // PACKET)
+    m2 = g2 * PACKET  # the padded capacity
+    pe_p = torch.full((m2,), _SENT, dtype=pe.dtype, device=dev)
+    pe_p[dest] = pe
+    ray_p = torch.zeros(m2, dtype=torch.int64, device=dev)
+    ray_p[dest] = pair_ray[order]
+    live_p = torch.zeros(m2, dtype=torch.bool, device=dev)
+    live_p[dest] = valid[order]
+    entries = pe_p.view(g2, DEEP_E, RUN)[:, :, 0]
+    entries = torch.where(entries >= _SENT, -1, entries).to(torch.int32)
+    tm_p = torch.where(live_p, tmax_ray[ray_p], -BIG).contiguous()
+    dst, prim = packet.packet_traverse_wide(
+        scene.wide_packed, scene.leaf_rows, o[ray_p].contiguous(),
+        d[ray_p].contiguous(), tm_p, scene.meta.get("wide_leaf_recs", 8),
+        anyhit=anyhit, deep_e=DEEP_E, entries=entries.contiguous(),
+        packet_size=PACKET)
+    at = torch.empty_like(dest)
+    at[order] = dest  # each pair's lane
+    return dst[at], prim[at], live_p[at]
+
+
+def _two_phase_wide(scene, o, d, tmax0, rt, anyhit=False):
+    """Two-phase treelet traversal (the JAX package's ``_two_phase_wide``):
+    ``(dst, prim)`` as the packet walk returns them.
+
+    A TOP walk from the root finds the closest top-level hit and each
+    ray's treelet entries (lanes that overflow their ``top_k`` slots get
+    the root as their one entry).  DEEP round 1 walks each ray's first
+    entry bounded by the TOP best; round 2 its other entries, bounded by
+    round 1's best.  Closest hit folds the K+1 results per ray with an
+    argmin (phase A wins ties); occlusion ORs them into the ``-BIG``
+    marker."""
+    n = o.shape[0]
+    k = rt.top_k
+    dev = o.device
+    dst_a, prim_a, slots, ovf = packet.packet_traverse_wide(
+        scene.wide_packed, scene.leaf_rows, o, d, tmax0,
+        scene.meta.get("wide_leaf_recs", 8), anyhit=anyhit, top_k=k,
+        troot=scene.wide_troot)
+    root_only = torch.full((k,), -1, dtype=torch.int32, device=dev)
+    root_only[0] = 0
+    slots = torch.where((ovf > 0)[:, None], root_only, slots)
+    lane_active = tmax0 > -1.0
+    rays = torch.arange(n, device=dev)
+
+    # round 1: each ray's first entry (the TOP walk emits near-first)
+    v1 = (slots[:, 0] >= 0) & lane_active
+    if anyhit:
+        v1 = v1 & ~(dst_a < -1.0)
+    d1, p1, l1 = _deep_round(scene, o, d, slots[:, 0], rays, v1, dst_a,
+                             anyhit)
+    if anyhit:
+        best1 = torch.where((dst_a < -1.0) | ((d1 < -1.0) & l1), -BIG,
+                            tmax0)
+    else:
+        best1 = torch.where((p1 >= 0) & l1 & (d1 < dst_a), d1, dst_a)
+
+    # round 2: the other entries, bounded by round 1's best
+    pair_entry = slots[:, 1:].T.reshape(-1)
+    pair_ray = rays.repeat(k - 1)
+    valid = (pair_entry >= 0) & lane_active[pair_ray]
+    if anyhit:
+        valid = valid & ~(best1[pair_ray] < -1.0)
+    d2, p2, l2 = _deep_round(scene, o, d, pair_entry, pair_ray, valid,
+                             best1, anyhit)
+    d2, p2, l2 = (x.view(k - 1, n) for x in (d2, p2, l2))
+    if anyhit:
+        occ = (best1 < -1.0) | ((d2 < -1.0) & l2).any(dim=0)
+        return torch.where(occ, -BIG, dst_a), prim_a
+
+    # fold: phase A, round 1 and round 2, first index on ties
+    dst_d = torch.cat([d1[None], d2])
+    prim_d = torch.cat([p1[None], p2])
+    dst_all = torch.cat([dst_a[None], torch.where(prim_d >= 0, dst_d, BIG)])
+    prim_all = torch.cat([prim_a[None], prim_d])
+    win = torch.argmin(dst_all, dim=0, keepdim=True)
+    return dst_all.gather(0, win)[0], prim_all.gather(0, win)[0]
 
 
 def _narrow(scene, o, d, tmax0):
@@ -179,6 +315,8 @@ def traverse(
     elif _group_on(scene, rt):
         t_dst, t_prim = group.group_traverse(
             scene.wide_packed, scene.leaf_rows, o, d, tmax0)
+    elif _two_phase_ok(scene, rt):
+        t_dst, t_prim = _two_phase_wide(scene, o, d, tmax0, rt)
     else:
         t_dst, t_prim = packet.packet_traverse_wide(
             scene.wide_packed, scene.leaf_rows, o, d, tmax0,
@@ -226,6 +364,8 @@ def traverse_anyhit(
     elif not rt.wide:
         _, prim = _narrow(scene, o, d, tmax0)
         return (occ | (prim >= 0)) & active
+    elif _two_phase_ok(scene, rt):
+        dst, _ = _two_phase_wide(scene, o, d, tmax0, rt, anyhit=True)
     elif rt.anyhit_group and _group_on(scene, rt):
         dst, _ = group.group_traverse(
             scene.wide_packed, scene.leaf_rows, o, d, tmax0, anyhit=True)

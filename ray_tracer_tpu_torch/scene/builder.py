@@ -31,6 +31,39 @@ from .types import (
     rope_placeholder,
 )
 
+TREELET_SIZE = 64  # most wide nodes in a treelet of two-phase traversal
+
+
+def treelet_roots(wide_packed: np.ndarray) -> np.ndarray:
+    """The (W,) i32 treelet-root flags of a BVH8: 1 on each wide node whose
+    subtree holds at most ``TREELET_SIZE`` wide nodes and whose parent's
+    subtree holds more.
+
+    The JAX builder's reverse sweep, vectorized: a node's subtree size is
+    the number of nodes it is an ancestor-or-self of, counted by walking
+    every node up its parent chain one level per step."""
+    n_wide = wide_packed.shape[0]
+    codes = wide_packed[:, 6:64:8]
+    empty = ~np.isfinite(wide_packed[:, 0:64:8])
+    child = np.where(
+        empty | (codes < 0) | ~np.isfinite(codes), -1,
+        np.nan_to_num(codes, nan=-1.0),
+    ).astype(np.int64)
+    has = child >= 0
+    parent = np.full(n_wide, -1, np.int64)
+    parent[child[has]] = np.nonzero(has)[0]
+    sizes = np.zeros(n_wide, np.int64)
+    up = np.arange(n_wide)
+    while up.size:
+        sizes += np.bincount(up, minlength=n_wide)
+        up = parent[up]
+        up = up[up >= 0]
+    small = sizes <= TREELET_SIZE
+    troot = np.zeros(n_wide, np.int32)
+    roots = has & ~small[:, None] & small[np.maximum(child, 0)]
+    troot[child[roots]] = 1
+    return troot
+
 
 @dataclass
 class _MeshGroupRef:
@@ -224,8 +257,8 @@ class SceneBuilder:
         only ``Routing(lanewalk="force")`` reads.  The JAX package builds
         them unless ``RT_ROPE_BUILD=0``.
 
-        The reference package's treelet tables are not built: they serve a
-        traversal route this package does not have.
+        The treelet-root table ``wide_troot`` of two-phase traversal is
+        always built (:func:`treelet_roots`).
         """
         from . import validate as _validate
 
@@ -601,6 +634,7 @@ class SceneBuilder:
                 if leaf_map_list
                 else np.zeros(8, i32)
             )
+            wide_troot = treelet_roots(wide_packed)
             ct = None
             if clusters:
                 from ..accel.cluster import (
@@ -622,6 +656,7 @@ class SceneBuilder:
             leaf_rows = np.full((1, 128), np.nan, f32)
             leaf_map = np.zeros(8, i32)
             wide_leaf_recs = 4 if max_leaf_tris <= 4 else 8
+            wide_troot = np.zeros(1, i32)
             ct = None
         if ct is not None:
             cluster_arrays = dict(
@@ -702,6 +737,7 @@ class SceneBuilder:
             wide_packed=wide_packed,
             leaf_rows=leaf_rows,
             leaf_map=leaf_map,
+            wide_troot=wide_troot,
             **cluster_arrays,
             rope_streams=rope,
             light_corner=li_corner,
@@ -733,6 +769,8 @@ class SceneBuilder:
                 "cluster_t_c": cluster_t_c,
                 "n_supers": n_supers,
                 "rope_rows": int(rope_rows),
+                "treelet_size": TREELET_SIZE,
+                "n_treelets": int(wide_troot.sum()) if flattened else 0,
                 "bvh_max_depth": forest.max_depth_seen,
                 "camera": (
                     tuple(self.camera.position),

@@ -6,9 +6,8 @@ transforms, and a per-``usemtl``-group BVH forest.  ``CompiledScene`` is the
 flat SoA table set uploaded to the device as torch tensors — the
 replacement for the reference's nine storage-buffer bindings
 (``shaders/raytrace.comp:120-148``).  The field layout is the JAX
-package's (``ray_tracer_tpu/scene/types.py``) minus the treelet-root
-table, which feeds a traversal route this package does not have, and with
-the rope streams in a row-major layout (:func:`rope_rows_layout`).
+package's (``ray_tracer_tpu/scene/types.py``), with the rope streams in a
+row-major layout (:func:`rope_rows_layout`).
 """
 
 from __future__ import annotations
@@ -231,6 +230,10 @@ class CompiledScene:
     # obj|pad2; NaN records are padding.
     leaf_rows: Any  # (L,128) f32
     leaf_map: Any  # (L*8,) i32: padded slot -> global triangle id
+    # Two-phase treelet traversal: 1 on each treelet root, a wide node whose
+    # subtree holds at most meta["treelet_size"] wide nodes under a parent
+    # whose subtree holds more (meta["n_treelets"] of them).
+    wide_troot: Any  # (W,) i32
 
     # Cluster route (accel/cluster.py): transposed Moller-Trumbore
     # coefficient pages per <= t_c-triangle cluster, the clusters' global
@@ -282,8 +285,7 @@ class CompiledScene:
         """Scene from numpy arrays keyed by field name, as tensors on
         ``device`` (default: the CUDA device; see :func:`resolve_device`).
 
-        ``arrays`` may be the JAX package's compiled scene fields: keys this
-        class does not have (the treelet tables) are not read, and rope
+        ``arrays`` may be the JAX package's compiled scene fields: rope
         streams in the JAX layout (16*128 columns) are converted by
         :func:`rope_rows_layout`.
         """

@@ -104,6 +104,46 @@ def test_packet_emit_matches_plain_version(dev, scene):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("start", ["top", "deep"])
+@pytest.mark.parametrize("anyhit", [False, True])
+def test_treelet_modes_match_plain_version(dev, scene, start, anyhit):
+    """The TOP and DEEP walks of two-phase traversal, every output bit for
+    bit (the slots in their order too): kernel and twin walk each ray in
+    the same order."""
+    n_packets, packet_size, deep_e = 10, 2048, 16
+    args = [scene.wide_packed, scene.leaf_rows,
+            *_rays(scene, n_packets * packet_size, anyhit),
+            scene.meta["wide_leaf_recs"]]
+    if start == "top":
+        kw = dict(top_k=5, troot=scene.wide_troot)
+    else:  # each packet: up to 16 treelet roots, the root in every third
+        rand = np.random.default_rng(3)
+        roots = scene.wide_troot.nonzero()[:, 0].cpu().numpy()
+        entries = np.full((n_packets, deep_e), -1, np.int32)
+        for g in range(n_packets):
+            pick = rand.permutation(roots)[:rand.integers(1, deep_e)]
+            entries[g, :len(pick)] = pick
+            if g % 3 == 0:
+                entries[g, -1] = 0
+        kw = dict(deep_e=deep_e, entries=torch.from_numpy(entries).to(dev),
+                  packet_size=packet_size)
+    assert scene.meta["n_treelets"] > 0
+    packet.reset_launches()
+    got = packet.packet_traverse_wide(*args, anyhit=anyhit, **kw)
+    mode = f"packet8_{start}" + ("_anyhit" if anyhit else "")
+    assert packet.launches[mode] == sum(packet.launches.values()) == 1
+    kw.pop("deep_e", None)
+    want = packet.packet_traverse_wide_reference(*args, anyhit=anyhit, **kw)
+    torch.cuda.synchronize()
+    assert len(got) == len(want) == (4 if start == "top" else 2)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert (got[1] >= 0).any() or (anyhit and (got[0] < -1.0).any())
+    if start == "top":
+        assert (got[2] >= 0).any()
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("clipped", [False, True])
 def test_narrow_walk_matches_plain_version(dev, scene, clipped):
     o, d, tmax = _rays(scene, 20000, clipped)
@@ -189,7 +229,7 @@ def test_render_on_card_uses_the_kernel(dev, scene):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("route", ["cluster", "cluster_boxes", "packet",
-                                   "narrow", "lanewalk"])
+                                   "narrow", "lanewalk", "two_phase"])
 def test_render_routes_on_card(dev, scene, route):
     kw, modes = {
         "cluster": (dict(cluster="on"),
@@ -202,6 +242,9 @@ def test_render_routes_on_card(dev, scene, route):
         "narrow": (dict(wide=False), ["packet_narrow"]),
         "lanewalk": (dict(lanewalk="force"),
                      ["lanewalk_closest", "lanewalk_anyhit"]),
+        "two_phase": (dict(two_phase=True),
+                      ["packet8_top", "packet8_top_anyhit", "packet8_deep",
+                       "packet8_deep_anyhit"]),
     }[route]
     cfg = trt.RenderConfig(width=32, height=18, samples_per_pixel=2,
                            bounce_limit=4, routing=trt.Routing(**kw))

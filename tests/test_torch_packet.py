@@ -159,7 +159,7 @@ def test_wrapper_rejects_treelet_mode_and_bad_inputs(scene):
     n = 8
     args = [scene.wide_packed, scene.leaf_rows, torch.zeros(n, 3),
             torch.ones(n, 3), torch.full((n,), BIG)]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="troot"):  # the TOP mode's table
         t_packet.packet_traverse_wide(*args, 8, top_k=4)
     with pytest.raises(ValueError):
         t_packet.packet_traverse_wide(*args, 12)

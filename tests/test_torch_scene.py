@@ -67,8 +67,8 @@ def test_from_numpy_round_trip(tmp_path):
         t = getattr(moved, f)
         assert isinstance(t, torch.Tensor), f
         np.testing.assert_array_equal(t.numpy(), jarr[f], err_msg=f)
-    # fields the port does not carry are not read
-    assert not hasattr(sc, "wide_troot") and "wide_troot" in jarr
+    # the treelet-root table of two-phase traversal is carried
+    assert sc.wide_troot.dtype == torch.int32 and "n_treelets" in sc.meta
 
 
 def test_compile_defaults_to_the_card(monkeypatch, tmp_path):

@@ -1,0 +1,429 @@
+"""Two-phase treelet traversal of the port against the JAX package's.
+
+The scene is a 2000-triangle soup (131 wide nodes, 8 treelets at
+``max_leaf_tris=4``); the 400-triangle soup has no treelets.  On CPU the
+TOP and DEEP modes of ``packet_traverse_wide`` run their plain torch
+version (the CUDA kernel's twin); the JAX side runs ``_packet8_kernel``
+through Pallas' interpreter at a packet of 512 lanes.  Tolerances are the
+other parity tests': hit and occlusion masks equal, ``dst`` within
+``rtol=1e-5, atol=1e-6`` (XLA contracts multiply-adds into FMAs, the port
+does not), ``prim`` equal up to exact-t ties (each walks in its own
+order).  Against the port's own one-phase walk the route's ``dst`` is
+exact: both take the minimum over the same records, rounded alike.
+
+The kernel tests compile the soup without spatial splits.  An SBVH leaf
+holds triangles clipped to its box, and the TPU kernel tests every lane of
+a packet against every leaf the packet visits: a lane that walks a few
+subtrees can then take a hit, found through a packet mate's leaf, whose
+point lies outside those subtrees.  Without spatial splits every hit lies
+inside its leaf's box, so the port's per-ray walk finds it too.  The route
+is exact either way (every hit point lies in a leaf that the top walk or
+an entered treelet reaches), and its tests use the SBVH soup.
+
+The TOP walk emits a treelet root when the ray enters its box within the
+best hit found so far, and that best shrinks along the walk, so two visit
+orders may emit different far roots.  The roots whose entry distance lies
+below the ray's final closest hit are emitted by every order: those sets
+must agree.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import ray_tracer_tpu as jrt
+from ray_tracer_tpu.config import Routing as JRouting
+from ray_tracer_tpu.kernels import packet as j_packet
+from ray_tracer_tpu.ops import traverse as j_traverse
+import ray_tracer_tpu_torch as trt
+from ray_tracer_tpu_torch import CompiledScene, Routing
+from ray_tracer_tpu_torch.kernels import packet as t_packet
+from ray_tracer_tpu_torch.ops import traverse as t_traverse
+from ray_tracer_tpu_torch.scene import builder as t_builder
+
+from torch_parity import (
+    assert_images_match,
+    assert_tri_ties,
+    route_rays,
+    route_tmax,
+    scene_arrays,
+    soup_scene,
+    sponza_builders,
+)
+
+BIG = 99999999.0
+TOL = dict(rtol=1e-5, atol=1e-6)
+P = 512  # the JAX kernels' packet in these tests
+E = 16  # entries per DEEP packet
+N_TRIS = 2000
+
+
+def _soup(tmp_path_factory, **kw):
+    """(JAX scene on the device, the port's scene of the same arrays)."""
+    tmp = str(tmp_path_factory.mktemp("soup"))
+    jsc = soup_scene(jrt, tmp, n_tris=N_TRIS).compile(max_leaf_tris=4, **kw)
+    sc = CompiledScene.from_numpy(*scene_arrays(jsc), device="cpu")
+    assert sc.meta["n_treelets"] >= 4
+    return jsc.device_put(), sc
+
+
+@pytest.fixture(scope="module")
+def scenes(tmp_path_factory):
+    """The 2000-triangle SBVH soup."""
+    return _soup(tmp_path_factory)
+
+
+@pytest.fixture(scope="module")
+def kscenes(tmp_path_factory):
+    """The same soup without spatial splits, for the kernel tests."""
+    return _soup(tmp_path_factory, spatial_splits=False)
+
+
+def _jax(x):
+    return jnp.asarray(x.numpy() if isinstance(x, torch.Tensor) else x)
+
+
+def _tris(sc, prim):
+    """Global triangle ids of padded leaf-slot ids (-1 stays -1)."""
+    leaf_map = sc.leaf_map.numpy()
+    return np.where(prim >= 0, leaf_map[np.maximum(prim, 0)], -1)
+
+
+def _rays(seed, n, case):
+    rand = np.random.default_rng(seed)
+    o, d = route_rays(rand, "soup", n)
+    return o, d, route_tmax(rand, case, n)
+
+
+def _kernel_args(sc, o, d, tmax):
+    return (sc.wide_packed, sc.leaf_rows, torch.from_numpy(o),
+            torch.from_numpy(d), torch.from_numpy(tmax),
+            sc.meta["wide_leaf_recs"])
+
+
+def _jax_kernel(sc, o, d, tmax, **kw):
+    return j_packet.packet_traverse_wide(
+        _jax(sc.wide_packed), _jax(sc.leaf_rows), _jax(o), _jax(d),
+        _jax(tmax), 0, interpret=True, packet_size=P,
+        max_recs=sc.meta["wide_leaf_recs"], need_uv=False, **kw)
+
+
+def _assert_closest(sc, o, d, tmax, got, want):
+    (dst, prim), (jdst, jprim) = got, want
+    hit = jprim >= 0
+    np.testing.assert_array_equal(prim >= 0, hit)
+    np.testing.assert_allclose(dst, jdst, **TOL)
+    np.testing.assert_array_equal(dst[~hit], tmax[~hit])
+    assert_tri_ties(sc, o, d, _tris(sc, prim), _tris(sc, jprim), hit)
+    return hit
+
+
+# ---- the tables
+
+
+@pytest.mark.parametrize("name", ["soup_leaf4", "soup_leaf8",
+                                  "sponza_proxy"])
+def test_treelet_tables_match_jax(name, tmp_path, monkeypatch):
+    tmp = str(tmp_path)
+    if name == "sponza_proxy":
+        jb, tb = sponza_builders(tmp, monkeypatch, 8000)
+        kw = {}
+    else:
+        jb = soup_scene(jrt, tmp, n_tris=N_TRIS)
+        tb = soup_scene(trt, tmp, n_tris=N_TRIS)
+        kw = dict(max_leaf_tris=4 if name == "soup_leaf4" else 8)
+    jarr, jmeta = scene_arrays(jb.compile(**kw))
+    sc = tb.compile(device="cpu", **kw)
+    np.testing.assert_array_equal(sc.wide_troot.numpy(), jarr["wide_troot"])
+    assert sc.wide_troot.dtype == torch.int32
+    for key in ("treelet_size", "n_treelets"):
+        assert sc.meta[key] == jmeta[key], key
+    assert sc.meta["n_treelets"] > 0
+    assert sc.meta["n_treelets"] == int(sc.wide_troot.sum())
+    kept = CompiledScene.from_numpy(jarr, jmeta, device="cpu").to("cpu")
+    np.testing.assert_array_equal(kept.wide_troot.numpy(), jarr["wide_troot"])
+    assert kept.meta["n_treelets"] == jmeta["n_treelets"]
+
+
+def test_treelet_roots_of_a_small_tree(tmp_path):
+    """A tree of at most TREELET_SIZE wide nodes has no treelet root (the
+    root has no parent); the mesh-free scene keeps a one-entry table."""
+    sc = soup_scene(trt, str(tmp_path), n_tris=40).compile(device="cpu")
+    assert sc.wide_packed.shape[0] <= t_builder.TREELET_SIZE
+    assert sc.meta["n_treelets"] == 0 and not sc.wide_troot.any()
+    b = trt.SceneBuilder()
+    b.add_material(trt.Material())
+    b.add_sphere((0.0, 0.0, 0.0), 1.0, 0)
+    empty = b.compile(device="cpu")
+    assert empty.wide_troot.tolist() == [0]
+    assert empty.meta["n_treelets"] == 0
+
+
+# ---- the kernel modes against the JAX kernel
+
+
+def _entries(sc, seed):
+    """Two packets' entry lists: shuffled treelet roots, the root in the
+    second, -1 padded to E."""
+    rand = np.random.default_rng(seed)
+    roots = np.nonzero(sc.wide_troot.numpy())[0].astype(np.int32)
+    ent = np.full((2, E), -1, np.int32)
+    ent[0, :5] = rand.permutation(roots)[:5]
+    ent[1, :3] = np.concatenate([[0], rand.permutation(roots)[:2]])
+    return ent
+
+
+@pytest.mark.parametrize("case", ["closest", "clipped", "inactive"])
+def test_deep_kernel_matches_jax(kscenes, case):
+    _, sc = kscenes
+    n = 2 * P
+    o, d, tmax = _rays(11, n, case)
+    ent = _entries(sc, 5)
+    t_packet.reset_launches()
+    got = t_packet.packet_traverse_wide(
+        *_kernel_args(sc, o, d, tmax), deep_e=E,
+        entries=torch.from_numpy(ent), packet_size=P)
+    assert sum(t_packet.launches.values()) == 0  # CPU: the plain version
+    want = _jax_kernel(sc, o, d, tmax, deep_e=E, entries=_jax(ent))
+    hit = _assert_closest(sc, o, d, tmax, [x.numpy() for x in got],
+                          [np.asarray(x) for x in want[:2]])
+    assert hit[:P].sum() > 20 and hit[P:].sum() > 20
+    if case == "inactive":
+        assert not hit[::3].any()
+
+
+def test_deep_anyhit_matches_jax(kscenes):
+    _, sc = kscenes
+    n = 2 * P
+    o, d, tmax = _rays(12, n, "clipped")
+    tmax[::7] = -BIG
+    ent = _entries(sc, 6)
+    dst, prim = t_packet.packet_traverse_wide(
+        *_kernel_args(sc, o, d, tmax), anyhit=True, deep_e=E,
+        entries=torch.from_numpy(ent), packet_size=P)
+    want = _jax_kernel(sc, o, d, tmax, anyhit=True, deep_e=E,
+                       entries=_jax(ent))
+    occ = np.asarray(want[0]) < -1.0
+    assert 0 < occ.sum() < n
+    np.testing.assert_array_equal(dst.numpy() < -1.0, occ)
+    np.testing.assert_array_equal(dst.numpy()[~occ], tmax[~occ])
+    assert (prim == -1).all()
+
+
+def _entry_dist(sc, o, d):
+    """(N, W) entry distance of each ray into each treelet root's box (its
+    parent's child slot), inf where it misses or the node is no root."""
+    wp = sc.wide_packed.numpy()
+    w = wp.shape[0]
+    boxes = np.full((w, 6), np.nan, np.float32)
+    codes = wp[:, 6:64:8]
+    par, slot = np.nonzero(np.isfinite(wp[:, 0:64:8]) & (codes > 0))
+    boxes[codes[par, slot].astype(np.int64)] = wp[:, :64].reshape(w, 8, 8)[
+        par, slot, :6]
+    dd = np.where(d == 0.0, np.float32(1e-20), d)
+    inv = (1.0 / dd)[:, None, :]
+    oi = (o * (1.0 / dd))[:, None, :]
+    t1 = boxes[None, :, :3] * inv - oi
+    t2 = boxes[None, :, 3:] * inv - oi
+    tmin = np.minimum(t1, t2).max(axis=2)
+    tmx = np.maximum(t1, t2).min(axis=2)
+    entry = np.where((tmx >= tmin) & (tmx > 0), tmin, np.inf)
+    return np.where(sc.wide_troot.numpy()[None] == 1, entry, np.inf)
+
+
+@pytest.mark.parametrize("anyhit", [False, True])
+def test_top_kernel_matches_jax(kscenes, anyhit):
+    _, sc = kscenes
+    n = 900
+    o, d, tmax = _rays(13, n, "clipped" if anyhit else "inactive")
+    k = 5
+    troot = sc.wide_troot
+    dst, prim, slots, ovf = (x.numpy() for x in t_packet.packet_traverse_wide(
+        *_kernel_args(sc, o, d, tmax), anyhit=anyhit, top_k=k, troot=troot))
+    want = _jax_kernel(sc, o, d, tmax, anyhit=anyhit, top_k=k,
+                       troot=_jax(troot))
+    jdst, jprim = np.asarray(want[0]), np.asarray(want[1])
+    jslots, jovf = np.asarray(want[5]), np.asarray(want[6])
+    if anyhit:
+        np.testing.assert_array_equal(dst < -1.0, jdst < -1.0)
+        assert (prim == -1).all()
+    else:
+        _assert_closest(sc, o, d, tmax, (dst, prim), (jdst, jprim))
+    roots = sc.wide_troot.numpy()
+    assert (roots[slots[slots >= 0]] == 1).all()
+    assert (slots >= 0).sum() > 100
+    # the roots that can hold the closest hit: entered before the final
+    # hit of the whole tree (the one-phase walk's dst)
+    final = t_packet.packet_traverse_wide(*_kernel_args(sc, o, d, tmax),
+                                          anyhit=anyhit)[0].numpy()
+    entry = _entry_dist(sc, o, d)
+    both = (ovf == 0) & (jovf == 0)
+    checked = 0
+    for i in np.nonzero(both)[0]:
+        near = {r for r in np.nonzero(entry[i] < final[i])[0]}
+        got = set(slots[i][slots[i] >= 0]) & near
+        want_i = set(jslots[i][jslots[i] >= 0]) & near
+        assert got == want_i == near, i
+        checked += bool(near)
+    assert checked > 50
+
+
+# ---- the route against the JAX route and the port's one-phase walk
+
+
+@pytest.fixture(scope="module")
+def route_runs(scenes):
+    """The JAX two-phase route (closest hit and occlusion) on one ray set,
+    for top_k 2 and 5, run once for the tests below."""
+    jsc, _ = scenes
+    n = 900
+    o, d, tmax = _rays(14, n, "clipped")
+    act = np.ones(n, bool)
+    act[::5] = False
+    runs = {}
+    for k in (2, 5):
+        rt = JRouting(packet="interpret", two_phase=True, packet_size=P,
+                      top_k=k)
+        jo, jd, ja = _jax(o), _jax(d), _jax(act)
+        hit = j_traverse.traverse(jsc, jo, jd, ja, routing=rt, need_uv=False)
+        occ = j_traverse.traverse_anyhit(jsc, jo, jd, ja, _jax(tmax),
+                                         routing=rt)
+        runs[k] = (np.asarray(hit.dst), np.asarray(hit.prim),
+                   np.asarray(hit.kind), np.asarray(occ))
+    return (o, d, tmax, act), runs
+
+
+def _count_calls(monkeypatch):
+    """Record the start (root, TOP or DEEP) of every packet-walk call."""
+    calls = []
+    walk = t_packet.packet_traverse_wide
+
+    def record(*args, **kw):
+        calls.append("top" if kw.get("troot") is not None
+                     else "deep" if kw.get("entries") is not None else "root")
+        return walk(*args, **kw)
+
+    monkeypatch.setattr(t_packet, "packet_traverse_wide", record)
+    return calls
+
+
+@pytest.mark.parametrize("k", [2, 5])
+def test_route_closest_matches_jax(scenes, route_runs, monkeypatch, k):
+    _, sc = scenes
+    (o, d, _, act), runs = route_runs
+    jdst, jprim, jkind, _ = runs[k]
+    args = (sc, torch.from_numpy(o), torch.from_numpy(d),
+            torch.from_numpy(act))
+    calls = _count_calls(monkeypatch)
+    got = t_traverse.traverse(*args, routing=Routing(two_phase=True,
+                                                     top_k=k))
+    assert calls == ["top", "deep", "deep"]
+    one = t_traverse.traverse(*args, routing=Routing(groups=0))
+    dst, prim, kind = got.dst.numpy(), got.prim.numpy(), got.kind.numpy()
+    hit = jkind == 2
+    assert hit.sum() > 100
+    np.testing.assert_array_equal(kind, jkind)
+    np.testing.assert_allclose(dst, jdst, **TOL)
+    tri = _tris(sc, np.where(hit, prim, -1))
+    assert_tri_ties(sc, o, d, tri, np.where(hit, jprim, -1), hit)
+    # against the one-phase walk: the same minimum
+    assert torch.equal(got.dst, one.dst) and torch.equal(got.kind, one.kind)
+    assert_tri_ties(sc, o, d, tri, _tris(sc, np.where(hit, one.prim.numpy(),
+                                                      -1)), hit)
+    if k == 2:  # lanes past their slots re-walk from the root
+        tmax = np.full(len(o), BIG, np.float32)
+        ovf = t_packet.packet_traverse_wide(*_kernel_args(sc, o, d, tmax),
+                                            top_k=k, troot=sc.wide_troot)[3]
+        assert ovf.any()
+
+
+@pytest.mark.parametrize("k", [2, 5])
+def test_route_anyhit_matches_jax(scenes, route_runs, k):
+    _, sc = scenes
+    (o, d, tmax, act), runs = route_runs
+    jocc = runs[k][3]
+    args = (sc, torch.from_numpy(o), torch.from_numpy(d),
+            torch.from_numpy(act), torch.from_numpy(tmax))
+    occ = t_traverse.traverse_anyhit(*args, routing=Routing(two_phase=True,
+                                                            top_k=k))
+    assert 0 < jocc.sum() < len(jocc)
+    np.testing.assert_array_equal(occ.numpy(), jocc)
+    one = t_traverse.traverse_anyhit(*args, routing=Routing())
+    assert torch.equal(occ, one)
+
+
+def test_scene_without_treelets_takes_the_packet_walk(tmp_path,
+                                                      monkeypatch):
+    sc = soup_scene(trt, str(tmp_path)).compile(device="cpu")
+    assert sc.meta["n_treelets"] == 0
+    o, d, tmax = (torch.from_numpy(x) for x in _rays(15, 300, "clipped"))
+    act = torch.ones(300, dtype=torch.bool)
+    calls = _count_calls(monkeypatch)
+    rt = Routing(two_phase=True)
+    t_traverse.traverse(sc, o, d, act, routing=rt)
+    t_traverse.traverse_anyhit(sc, o, d, act, tmax, routing=rt)
+    assert calls == ["root", "root"]  # not the group kernel either
+    assert t_traverse.prim_space(sc, rt) == "slot"
+
+
+def test_route_calls_on_a_treelet_scene(scenes, monkeypatch):
+    """Two-phase takes occlusion from the group kernel; the cluster and
+    narrow routes stay ahead of it."""
+    _, sc = scenes
+    o, d, tmax = (torch.from_numpy(x) for x in _rays(16, 200, "clipped"))
+    act = torch.ones(200, dtype=torch.bool)
+    calls = _count_calls(monkeypatch)
+    t_traverse.traverse_anyhit(sc, o, d, act, tmax,
+                               routing=Routing(two_phase=True))
+    assert calls == ["top", "deep", "deep"]
+    t_traverse.traverse(sc, o, d, act,
+                        routing=Routing(two_phase=True, wide=False))
+    assert calls == ["top", "deep", "deep"]  # the narrow walk
+    assert t_traverse.prim_space(sc, Routing(two_phase=True)) == "slot"
+
+
+def test_wrapper_rejects_bad_treelet_inputs(kscenes):
+    _, sc = kscenes
+    n = 2 * P
+    args = _kernel_args(sc, *_rays(17, n, "closest"))
+    ent = torch.full((2, E), -1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="troot"):
+        t_packet.packet_traverse_wide(*args, top_k=4)
+    with pytest.raises(ValueError, match="packets"):
+        t_packet.packet_traverse_wide(*args, deep_e=E, entries=ent,
+                                      packet_size=P // 2)
+    with pytest.raises(ValueError, match="deep_e"):
+        t_packet.packet_traverse_wide(*args, entries=ent, packet_size=P)
+    with pytest.raises(ValueError, match="entries per packet"):
+        wide = torch.full((2, 40), -1, dtype=torch.int32)
+        t_packet.packet_traverse_wide(*args, deep_e=40, entries=wide,
+                                      packet_size=P)
+    with pytest.raises(TypeError):
+        t_packet.packet_traverse_wide(*args, top_k=4,
+                                      troot=sc.wide_troot.long())
+    with pytest.raises(ValueError, match="not both"):
+        t_packet.packet_traverse_wide(*args, top_k=4, troot=sc.wide_troot,
+                                      deep_e=E, entries=ent, packet_size=P)
+    with pytest.raises(ValueError, match="top_k"):
+        Routing(two_phase=True, top_k=0)
+
+
+# ---- a render
+
+
+def test_render_matches_group_route(tmp_path, monkeypatch):
+    """sponza_proxy cut to 8k triangles, 32x18, spp 2, bounce 3: the
+    two-phase image is the group route's."""
+    _, tb = sponza_builders(str(tmp_path), monkeypatch, 8000)
+    sc = tb.compile(device="cpu")
+    assert sc.meta["n_treelets"] > 0
+    cfg = trt.RenderConfig(width=32, height=18, samples_per_pixel=2,
+                           bounce_limit=3)
+    calls = _count_calls(monkeypatch)
+    img = trt.render(sc, cfg.replace(routing=Routing(two_phase=True)))
+    assert {"top", "deep"} <= set(calls) and "root" not in calls
+    ref = trt.render(sc, cfg)
+    assert_images_match(img.numpy(), ref.numpy())
+    assert float(np.abs(img.numpy() - ref.numpy()).max()) < 1e-6

@@ -1,7 +1,7 @@
 """Profile the benchmark frame of ray_tracer_tpu_torch, one route at a time.
 
     python3 tools/profile_torch_frame.py \
-        [group|packet|cluster|cluster_boxes|narrow|lanewalk ...]
+        [group|packet|cluster|cluster_boxes|narrow|lanewalk|two_phase ...]
 
 The frame is chip_smoke.py's (sponza_proxy, 1920x1080, spp 2, bounce limit
 8, one whole-frame tile).  For each route: one warm-up frame, then one
@@ -40,10 +40,12 @@ ROUTES = {
     "cluster_boxes": trt.Routing(cluster="on", cluster_enum="boxes"),
     "narrow": trt.Routing(wide=False),
     "lanewalk": trt.Routing(lanewalk="force"),
+    "two_phase": trt.Routing(two_phase=True),
 }
-# the port's CUDA kernels, by a part of their names ("walk_kernel" also
-# matches bvh2_walk_kernel and lanewalk_kernel)
-OWN_KERNELS = ("walk_kernel", "emit_kernel", "cluster_pairs_kernel",
+# the port's CUDA kernels, by a part of their names ("walk_kernel" matches
+# every mode of bvh8_walk.cu, emit, TOP and DEEP included, and bvh2_walk_kernel
+# and lanewalk_kernel)
+OWN_KERNELS = ("walk_kernel", "cluster_pairs_kernel",
                "box_hits_kernel")
 
 
@@ -90,14 +92,18 @@ def main(routes) -> None:
             by_name[e.name] += e.time_range.elapsed_us()
         busy = union_us((e.time_range.start, e.time_range.end)
                         for e in kernels) / 1e6
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+        # names cut to 90 characters; kernels that share a prefix are summed
+        short = defaultdict(float)
+        for k, v in by_name.items():
+            short[k[:90]] += v
+        top = sorted(short.items(), key=lambda kv: -kv[1])[:12]
         own = {k: v / 1e3 for k, v in by_name.items()
                if any(o in k for o in OWN_KERNELS)}
         print(json.dumps({
             "route": name, "device": smi, "wall_s": wall, "busy_s": busy,
             "idle_share": 1.0 - busy / wall, "launches": len(kernels),
             "own_kernels_ms": own,
-            "top_ms": {k[:90]: v / 1e3 for k, v in top},
+            "top_ms": {k: v / 1e3 for k, v in top},
         }), flush=True)
 
 
