@@ -2,14 +2,17 @@
 
     python3 chip_smoke.py
 
-Builds every CUDA kernel library from this checkout (in parallel), checks
-each kernel mode against its plain torch version on the card at the main
-path's shapes, checks small card renders against the same renders on the
-CPU, and renders the benchmark frame (sponza_proxy, 1920x1080, spp 2,
-bounce limit 8, one whole-frame tile) through each traversal route of the
-port: the group kernel (the default), the cluster route with packet and
-with box enumeration, the packet walk, the narrow binary-BVH walk, the
-rope walk and two-phase treelet traversal.  Every phase prints one line;
+Builds every CUDA kernel library from this checkout (in parallel), prints
+the main path's kernel (group_walk_kernel) as ptxas reports it, holds it
+against walk_kernel, the design it replaced, and times both in turns on
+bounce and shadow rays at 2^18 and 2^22 lanes (the frame's widest round),
+checks each kernel mode against its plain torch version on the card at
+the main path's shapes, checks small card renders against the same
+renders on the CPU, and renders the benchmark frame (sponza_proxy,
+1920x1080, spp 2, bounce limit 8, one whole-frame tile) through each
+traversal route of the port: the group kernel (the default), the cluster
+route with packet and with box enumeration, the packet walk, the narrow
+binary-BVH walk, the rope walk and two-phase treelet traversal.  Every phase prints one line;
 any failure raises, so the exit code is non-zero and no result line is
 printed.  The line before the last lists the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Needs a CUDA device; imports no JAX.
@@ -46,6 +49,7 @@ BIG = group.BIG
 FRAME = (1920, 1080)  # the benchmark frame: spp 2, bounce limit 8
 SMALL = (64, 36)  # the card-vs-CPU frame
 N_CHECK = 1 << 18  # rays per kernel-vs-plain check
+N_WIDE = 1 << 22  # the frame's widest round (4,147,200 lanes), rounded up
 SCENE_TRIS = 260_000  # sponza_proxy's triangle target (its default)
 TIMED_FRAMES = 3  # main frame and cluster frame: median of 3
 ROUTES = {  # frame phase -> routing, timed frames
@@ -170,22 +174,31 @@ def captured(module, name):
         setattr(module, name, fn)
 
 
-def check_rays(sc, dev):
-    """The three ray sets of one wavefront round at N_CHECK lanes: camera
+def check_rays(sc, dev, n=N_CHECK):
+    """The three ray sets of one wavefront round at ``n`` lanes: camera
     rays over the frame, cosine bounce rays from their hits, and shadow
-    rays toward the rect light, each ordered by the integrator's bin key."""
+    rays toward the rect light, each ordered by the integrator's bin key.
+    Up to the frame's pixel count the pixels are spread over the frame;
+    past it every pixel takes samples 0, 1, ... in turn, as in a round of
+    the frame at spp 2."""
     cfg = trt.RenderConfig(width=FRAME[0], height=FRAME[1])
     cam = _camera_arrays(scene_camera(sc), cfg, dev)
-    ids = torch.linspace(0, cfg.n_pixels - 1, N_CHECK, device=dev).to(
-        torch.int32)
+    if n <= cfg.n_pixels:
+        ids = torch.linspace(0, cfg.n_pixels - 1, n, device=dev).to(
+            torch.int32)
+        sample = 0
+    else:
+        lane = torch.arange(n, device=dev)
+        ids = (lane % cfg.n_pixels).to(torch.int32)
+        sample = lane // cfg.n_pixels
     cam_rays = wavefront.raygen(*cam, ids, cfg.width, cfg.height)
     o = cam_rays.origin.contiguous()
     d = cam_rays.direction.contiguous()
-    hit = traverse.traverse(sc, o, d, torch.ones(N_CHECK, dtype=torch.bool,
+    hit = traverse.traverse(sc, o, d, torch.ones(n, dtype=torch.bool,
                                                  device=dev))
     hp, normal = wavefront._shade_fetch(
         sc, wavefront.CameraRays(o, d), hit)[:2]
-    u = rng.uniforms(0, ids, 0, 0, 0, 7)
+    u = rng.uniforms(0, ids, 0, sample, 0, 7)
     hit_any = hit.did_hit
     b_dir = bsdf.cosine_hemisphere_dir(normal, u[:, 3], u[:, 4])
     b_org = hp + normal * 1e-5
@@ -200,7 +213,7 @@ def check_rays(sc, dev):
         t0 = torch.where(active, tmax, -BIG)
         return [x[order].contiguous() for x in (org, dirs, t0)]
 
-    full = torch.full((N_CHECK,), BIG, device=dev)
+    full = torch.full((n,), BIG, device=dev)
     return {
         "camera": (o, d, full),
         "bounce": binned(b_org, b_dir, full, hit_any),
@@ -330,7 +343,10 @@ def lanewalk_checks(sc, rays):
 
 
 def group_checks(sc, rays):
-    """The group kernel, exact on the camera, bounce and shadow sets."""
+    """The group kernel (group_walk_kernel), exact on the camera, bounce
+    and shadow sets: ``dst`` and ``prim`` equal to the plain walk's, and
+    against the order-free contract (hit masks, ``dst``, ``prim`` off only
+    on exact-t ties)."""
     leaf_map = sc.leaf_map.long()
     out = {}
     for name, anyhit in (("camera", False), ("bounce", False),
@@ -357,6 +373,8 @@ def group_checks(sc, rays):
                     raise AssertionError(f"{name}: {tie_share:.2%} ties")
             if not torch.equal(dst, rdst):
                 raise AssertionError(f"{name}: dst differs")
+            if not torch.equal(prim, rprim):
+                raise AssertionError(f"{name}: prim differs")
 
         out["group_" + name] = measure(
             "group_anyhit" if anyhit else "group_traverse",
@@ -368,6 +386,61 @@ def group_checks(sc, rays):
             rays=name, n=N_CHECK, anyhit=anyhit,
             active=int((args[4] > -BIG).sum()),
         )
+    return out
+
+
+def group_vs_old(sc, rays, n):
+    """group_walk_kernel against walk_kernel, the design it replaced (the
+    packet walk with one-row slots), on the bounce and shadow sets of
+    ``n`` lanes: equal outputs (``torch.equal``), then each timed in turns
+    (old, new, new, old; 10 launches each).  The plain walk does not run
+    here."""
+    recs = sc.meta["wide_leaf_recs"]
+    if recs > 8:
+        raise AssertionError(f"the group walk reads one-row slots, not {recs}")
+    for name, anyhit in (("bounce", False), ("shadow", True)):
+        args = (sc.wide_packed, sc.leaf_rows, *rays[name])
+        runs = {
+            "new": lambda args=args, anyhit=anyhit: group.group_traverse(
+                *args, anyhit=anyhit),
+            "old": lambda args=args, anyhit=anyhit:
+                packet.packet_traverse_wide(*args, recs, anyhit=anyhit),
+        }
+        for a, b in zip(runs["new"](), runs["old"]()):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{name} at {n} lanes: the group walk "
+                                     "and the packet walk differ")
+        times = {"new": [], "old": []}
+        for which in ("old", "new", "new", "old"):
+            times[which].append(cuda_ms(runs[which], 10))
+        rec = dict(new_ms=statistics.mean(times["new"]),
+                   old_ms=statistics.mean(times["old"]),
+                   new_ms_runs=times["new"], old_ms_runs=times["old"])
+        phase("group_vs_old", rays=name, n=n, anyhit=anyhit, equal=True,
+              active=int((args[4] > -BIG).sum()),
+              speedup=rec["old_ms"] / rec["new_ms"], **rec)
+
+
+def ptxas_of(lib, name):
+    """``-Xptxas -v``'s report for each entry function of ``lib`` whose
+    name holds ``name``: its lines, its stack frame and spill store
+    bytes."""
+    with open(lib[:-3] + ".log") as f:
+        lines = [ln.strip() for ln in f]
+    out = []
+    for i, ln in enumerate(lines):
+        if "Compiling entry function" in ln and name in ln:
+            body = []
+            for nxt in lines[i + 1:]:
+                if "Compiling entry function" in nxt:
+                    break
+                body.append(nxt)
+            size = lambda what: next(
+                (int(x.split(what)[0].split()[-1]) for x in body
+                 if what in x), None)
+            out.append(dict(entry=ln.split("'")[1], lines=body,
+                            stack_frame_bytes=size(" bytes stack frame"),
+                            spill_store_bytes=size(" bytes spill stores")))
     return out
 
 
@@ -670,7 +743,15 @@ def main() -> None:
     if sc.meta["rope_rows"] <= 0:
         raise AssertionError("no rope streams: the rope walk cannot run")
 
+    # its stack frame is the local stack array; nothing spills
+    walks = ptxas_of(bvh8.build(), "group_walk_kernel")
+    phase("group_walk_ptxas", kernels=walks)
+    if len(walks) != 2 or any(w["spill_store_bytes"] != 0 for w in walks):
+        raise AssertionError(f"group_walk_kernel spills: {walks}")
+
     rays = check_rays(sc, dev)
+    group_vs_old(sc, rays, N_CHECK)
+    group_vs_old(sc, check_rays(sc, dev, N_WIDE), N_WIDE)
     checks = {**group_checks(sc, rays), **packet_checks(sc, sc16, rays),
               **cluster_checks(sc, rays), **narrow_checks(sc, rays),
               **lanewalk_checks(sc, rays), **treelet_checks(sc, rays)}

@@ -1,5 +1,8 @@
 // BVH8 traversal, one thread per ray (sm_90a): closest hit, occlusion,
-// cluster enumeration and the two phases of treelet traversal.
+// cluster enumeration and the two phases of treelet traversal.  Two
+// kernels: group_walk_kernel (rt_bvh8_group, below walk_kernel), the main
+// path's closest-hit and occlusion walk over one-row leaf slots, and
+// walk_kernel (rt_bvh8_walk), every mode of the packet walk.
 //
 // Replaces two TPU kernels that compute the same walk per ray:
 //   ray_tracer_tpu/kernels/group.py::_group_kernel (closest-hit
@@ -61,9 +64,10 @@
 // every accept test is a comparison that is false on NaN, so an empty
 // child slot is never entered.
 //
-// What bounds it: dependent global loads.  Each visit is one 256 B node row
-// (the 8 child boxes) or one leaf slot of 512 B or 1 KiB, whose address
-// depends on the previous visit; the arithmetic per visit is small.  The
+// What bounds walk_kernel: dependent global loads.  Each visit is one 256 B
+// node row (the 8 child boxes) or one leaf slot of 512 B or 1 KiB, whose
+// address depends on the previous visit; the arithmetic per visit is small.
+// The
 // tables of the main-path scene (~27 MiB) sit in the 50 MB L2.  Rays arrive
 // sorted by the integrator's coherence bins (direction octant, origin morton
 // cell), so the threads of a warp walk overlapping node sets and their row
@@ -80,6 +84,7 @@ namespace {
 
 constexpr int kBlock = 128;
 // one (node, remaining-mask) word per level, plus the DEEP entries
+// (kernels/bvh8.py G_STACK)
 constexpr int kStack = 96;
 constexpr float kBig = 99999999.0f;
 enum WalkMode { kClosest = 0, kAnyhit = 1, kEmit = 2 };
@@ -332,7 +337,189 @@ int by_start(int start, int rows, const WalkArgs& a, cudaStream_t s) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// ---------------------------------------------------------------------------
+// group_walk_kernel: the main path's walk (kernels/group.py::group_traverse)
+//
+// Replaces ray_tracer_tpu/kernels/group.py::_group_kernel (closest hit, and
+// occlusion with anyhit=True) and computes exactly walk_kernel<kClosest |
+// kAnyhit, 1, kRoot>: the same visits in the same order, so dst and prim
+// equal walk_reference(..., rows=1) bit for bit.
+//
+// What bounds it on this card: instruction issue and latency within
+// divergent warps, not bytes and not the FP32 rate.  The tables (~27 MiB on
+// the main-path scene) sit in the 50 MB L2, and the FP32 work (22
+// operations per child box, 40 per record) is 2-3% of the FP32 peak in
+// the kernel's time.  Each thread walks its own ray, so a warp runs as long
+// as its longest ray and executes both the leaf and the interior branch
+// whenever its lanes split.  What the design does about it (each element
+// timed against its own removal by tools/measure_group_walk.py, whose
+// variants of this kernel are tools/group_walk_variants.cu; PERF.md):
+//   * min/max with NaN propagation is one instruction (PTX min.NaN.f32 /
+//     max.NaN.f32, sm_80+) instead of walk_kernel's compare-compare-or-
+//     fminf-select, 10 per child box.  Box-test values only feed
+//     comparisons, so the sign of a zero never changes a result.
+//   * A leaf slot's records are tested only up to the count its code
+//     carries (payload & 15, written by scene/builder.py); the rest are NaN
+//     padding, which never hits, so dst and prim are unchanged.
+//   * The sort axis is child 0's float 7, already loaded with the row.
+//   * The top stack word stays in a register; the words below it are a
+//     local array, as in walk_kernel (384 B of stack frame, no spills).
+//   * Registers pinned at 56 (9 blocks of 128 threads per SM): 48 runs as
+//     fast, 40 and fewer spill, and left to itself ptxas may take 80 and
+//     lose an eighth of the speed to the lower occupancy.
+// Tried and left out (tools/group_walk_variants.cu): the words below the
+// top in shared memory, [level][thread] and sized by the tree's depth, ran
+// no faster than the local array, which hits L1; descending into the
+// nearest entered child with its code from registers (no reload) ran
+// slower, at more registers; eight lanes per ray is faster at 2^18 rays
+// but slower from 2^20 on and in the frame.
+// Built, like everything here, with --fmad=false and IEEE division.
+
+constexpr int kGroupBlock = 128;
+constexpr int kGroupMinBlocks = 9;  // blocks per SM: at most 56 registers
+
+__device__ __forceinline__ float min_ptx(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ float max_ptx(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+struct GroupArgs {
+  const float4* nodes;
+  const float4* leaf_rows;
+  const float* origin;
+  const float* direction;
+  const float* tmax0;
+  float* dst;
+  int* prim;
+  int n;
+};
+
+template <bool kAnyhit>
+__global__ void __launch_bounds__(kGroupBlock, kGroupMinBlocks)
+    group_walk_kernel(const GroupArgs a) {
+  const int i = blockIdx.x * kGroupBlock + threadIdx.x;
+  if (i >= a.n) return;
+  const Ray y = load_ray(a.origin, a.direction, i);
+  const float* nodes_f = reinterpret_cast<const float*>(a.nodes);
+  float best = a.tmax0[i];
+  int prim = -1;
+  uint32_t below[kStack - 1];  // the words under the top one
+  uint32_t top = 0u;  // the top (node << 9 | reversed << 8 | mask) word
+  int held = 0;       // words held: top, then below[0 .. held-2]
+  float code = 0.0f;  // the next target: >= 0 a wide node id, < 0 a leaf
+
+  for (;;) {
+    if (code >= 0.0f) {
+      // 8-child slab test of wide node `code`, against the current best
+      const int node = static_cast<int>(code);
+      const float4* r = a.nodes + node * 32;
+      uint32_t m8 = 0u;
+      float axis_f = 0.0f;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const float4 p = __ldg(r + 2 * c);      // min.xyz, max.x
+        const float4 q = __ldg(r + 2 * c + 1);  // max.yz, code, axis/pad
+        const float t1x = p.x * y.ix - y.oix, t2x = p.w * y.ix - y.oix;
+        const float t1y = p.y * y.iy - y.oiy, t2y = q.x * y.iy - y.oiy;
+        const float t1z = p.z * y.iz - y.oiz, t2z = q.y * y.iz - y.oiz;
+        const float tmin = max_ptx(
+            max_ptx(min_ptx(t1x, t2x), min_ptx(t1y, t2y)), min_ptx(t1z, t2z));
+        const float tmx = min_ptx(
+            min_ptx(max_ptx(t1x, t2x), max_ptx(t1y, t2y)), max_ptx(t1z, t2z));
+        if (tmx >= tmin && tmx > 0.0f && tmin < best) m8 |= 1u << c;
+        if (c == 0) axis_f = q.w;
+      }
+      if (m8 != 0u) {
+        uint32_t word = m8;
+        if (!kAnyhit) {  // near-first, as walk_kernel
+          const int axis = static_cast<int>(axis_f);
+          const float dax = axis == 0 ? y.dx : (axis == 1 ? y.dy : y.dz);
+          if (dax < 0.0f) word = (__brev(m8) >> 24) | 0x100u;
+        }
+        if (held > 0) {
+          if (held >= kStack) __trap();  // unreachable: the host caps depth
+          below[held - 1] = top;
+        }
+        top = word | static_cast<uint32_t>(node) << 9;
+        ++held;
+      }
+    } else {
+      // one-row leaf slot: records k = 0..7 are rows leaf_slot*8 + k of the
+      // (L*8,16) view, their padded ids; those past the payload's count
+      // are NaN padding, which never hits
+      const int payload = static_cast<int>(-code) - 1;
+      const int leaf_slot = payload >> 4;
+      const int cnt = payload & 15;
+      const float4* r = a.leaf_rows + leaf_slot * 32;
+      bool occluded = false;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        if (k >= cnt) break;
+        const float tk = record_t(r + 4 * k, y);
+        if (kAnyhit) {
+          if (tk < best) {
+            occluded = true;
+            break;
+          }
+        } else if (tk < best) {  // strict: the lowest record wins a tie
+          best = tk;
+          prim = leaf_slot * 8 + k;
+        }
+      }
+      if (kAnyhit && occluded) {
+        best = -kBig;
+        break;
+      }
+    }
+    // pop: the next child of the top word, its code from the parent's row
+    if (held == 0) break;
+    const uint32_t mask = top & 0xFFu;
+    const int c = __ffs(mask) - 1;
+    const int slot = (top & 0x100u) ? 7 - c : c;
+    const int node = static_cast<int>(top >> 9);
+    const uint32_t rem = mask & (mask - 1u);
+    if (rem != 0u) {
+      top = top - mask + rem;
+    } else if (--held > 0) {
+      top = below[held - 1];
+    }
+    // the code is a VALUE: convert, never bitcast (scene/types.py)
+    code = __ldg(nodes_f + node * 128 + 8 * slot + 6);
+  }
+  a.dst[i] = best;
+  a.prim[i] = prim;
+}
+
 }  // namespace
+
+// One launch of the main path's walk: closest hit (anyhit 0) or occlusion
+// (anyhit 1) of n rays over one-row leaf slots, with walk_kernel's
+// contract.  Returns the launch's CUDA error.
+extern "C" int rt_bvh8_group(int anyhit, const void* nodes,
+                             const void* leaf_rows, const void* origin,
+                             const void* direction, const void* tmax0,
+                             void* dst, void* prim, int n, void* stream) {
+  const GroupArgs a{
+      static_cast<const float4*>(nodes), static_cast<const float4*>(leaf_rows),
+      static_cast<const float*>(origin), static_cast<const float*>(direction),
+      static_cast<const float*>(tmax0), static_cast<float*>(dst),
+      static_cast<int*>(prim), n};
+  const dim3 grid((n + kGroupBlock - 1) / kGroupBlock), block(kGroupBlock);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (anyhit) {
+    group_walk_kernel<true><<<grid, block, 0, s>>>(a);
+  } else {
+    group_walk_kernel<false><<<grid, block, 0, s>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 // One launch of the walk.  mode: 0 closest, 1 anyhit, 2 emit (one-row,
 // from the root); start: 0 root, 1 TOP (troot, slots, ovf, top_k), 2 DEEP

@@ -1,9 +1,11 @@
 """The BVH8 walk behind the group and packet traversal wrappers.
 
 ``csrc/bvh8_walk.cu`` is the one-thread-per-ray walk on the card, one
-library for both wrappers: ``kernels/group.py`` calls it with one-row leaf
-slots, ``kernels/packet.py`` with one- or two-row slots and in its emit
-mode.  ``walk_reference`` is its plain torch version.
+library for both wrappers, with two kernels: ``kernels/group.py`` launches
+``group_walk_kernel`` (:func:`launch_group`, one-row leaf slots, closest
+hit and occlusion), ``kernels/packet.py`` launches ``walk_kernel``
+(:func:`launch`) with one- or two-row slots and in every other mode.
+``walk_reference`` is the plain torch version of both.
 
 Tables (``CompiledScene.wide_packed`` / ``leaf_rows``):
 
@@ -100,8 +102,34 @@ def _load() -> ctypes.CDLL:
             [ctypes.c_int] * 3 + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
             + [ctypes.c_void_p]
         )
+        lib.rt_bvh8_group.restype = ctypes.c_int
+        lib.rt_bvh8_group.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int]
+            + [ctypes.c_void_p]
+        )
         _lib = lib
     return _lib
+
+
+def launch_group(nodes, leaf_rows, origin, direction, tmax0, anyhit: bool):
+    """One launch of ``group_walk_kernel`` on the card: ``(dst, prim)`` as
+    :func:`walk_reference` with one-row slots returns them.  Inputs as
+    checked by :func:`check_walk_inputs`, on a CUDA device."""
+    dev = origin.device
+    n = origin.shape[0]
+    dst = torch.empty(n, dtype=torch.float32, device=dev)
+    prim = torch.empty(n, dtype=torch.int32, device=dev)
+    if n:
+        err = _load().rt_bvh8_group(
+            int(anyhit), nodes.data_ptr(), leaf_rows.data_ptr(),
+            origin.data_ptr(), direction.data_ptr(), tmax0.data_ptr(),
+            dst.data_ptr(), prim.data_ptr(), n,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+        if err != 0:
+            raise RuntimeError(
+                f"BVH8 group walk kernel launch failed: CUDA error {err}")
+    return dst, prim
 
 
 def launch(nodes, leaf_rows, origin, direction, tmax0, mode: str,
@@ -257,8 +285,9 @@ def walk_reference(nodes, leaf_rows, origin, direction, tmax0,
     the walk's visit counts summed over the rays: ``interior`` (8-child
     slab tests) and ``leaf`` (leaf-slot tests), ``children`` and
     ``records`` (the non-empty child boxes and non-NaN records among
-    them), and ``node_seen`` (W,) / ``slot_seen`` (L,) bool, the distinct
-    nodes and leaf slots (by first row) any ray visited.
+    them), ``node_seen`` (W,) / ``slot_seen`` (L,) bool, the distinct
+    nodes and leaf slots (by first row) any ray visited, and ``max_sp``,
+    the most stack words any ray held.
     """
     if mode not in MODES:
         raise ValueError(f"unknown walk mode {mode!r}")
@@ -310,6 +339,7 @@ def walk_reference(nodes, leaf_rows, origin, direction, tmax0,
     if stats is not None:
         stats.update(
             interior=0, leaf=0, children=0, records=0,
+            max_sp=int(sp.max()) if n else 0,
             node_seen=torch.zeros(n_nodes, dtype=torch.bool, device=dev),
             slot_seen=torch.zeros(n_leaf, dtype=torch.bool, device=dev),
         )
@@ -398,6 +428,8 @@ def walk_reference(nodes, leaf_rows, origin, direction, tmax0,
                     raise RuntimeError("traversal stack overflow")
                 stack[pl, at] = (tg[push] << 9) | m8[push]
                 sp[pl] = at + 1
+                if stats is not None:
+                    stats["max_sp"] = max(stats["max_sp"], int(at.max()) + 1)
 
         lanes = lanes[sp[lanes] > 0]
     if lanes.numel() == 0:

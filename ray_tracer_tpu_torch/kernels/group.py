@@ -2,12 +2,15 @@
 
 ``group_traverse`` is the port of ``ray_tracer_tpu/kernels/group.py``'s
 ``_group_kernel`` (closest-hit, and order-free occlusion with
-``anyhit=True``).  On CUDA tensors it launches the hand-written walk in
-``csrc/bvh8_walk.cu`` (built with ``nvcc`` at first use, one library with
-``kernels/packet.py``); on CPU tensors it runs
-:func:`group_traverse_reference`, the plain torch version of the same
-walk.  Nothing falls back: a CUDA tensor that the kernel cannot
-take raises.
+``anyhit=True``).  On CUDA tensors it launches ``group_walk_kernel``, the
+hand-written walk in ``csrc/bvh8_walk.cu`` designed for Hopper (built with
+``nvcc`` at first use, one library with ``kernels/packet.py``); on CPU
+tensors it runs :func:`group_traverse_reference`, the plain torch version
+of the same walk.  Nothing falls back: a CUDA tensor that the kernel
+cannot take raises.  The stack holds ``bvh8.G_STACK`` words, one per wide
+level; ``ops/traverse.py`` caps a compiled scene's depth well below that.
+On a hand-built tree deeper than the stack the plain walk raises and the
+kernel stops with a device trap.
 
 Contract (shared by both):
 
@@ -22,8 +25,9 @@ Contract (shared by both):
 
 The walk is ``csrc/bvh8_walk.cu`` (plain twin: ``bvh8.walk_reference``):
 each ray keeps a stack of ``(node, remaining-child-mask)`` words, bits
-stored near-first for closest-hit, plain for occlusion.  The arithmetic is
-``_group_kernel``'s, op for op; the two versions here round identically,
+stored near-first for closest-hit, plain for occlusion; the kernel keeps
+the top word in a register.  The arithmetic is ``_group_kernel``'s, op for
+op; the two versions here round identically,
 so on the card they agree bit for bit (the kernel is built with
 ``--fmad=false``).  Across implementations only the child order differs,
 which can change ``prim`` (never ``dst``) on exact-t ties between
@@ -35,7 +39,7 @@ from __future__ import annotations
 from .bvh8 import (  # noqa: F401  (BIG: re-exported)
     BIG,
     check_walk_inputs,
-    launch,
+    launch_group,
     walk_reference,
 )
 
@@ -58,8 +62,8 @@ def group_traverse(nodes, leaf_rows, origin, direction, tmax0,
         )
     if origin.device.type != "cuda":
         raise ValueError(f"no traversal kernel for device {origin.device}")
-    dst, prim = launch(nodes, leaf_rows, origin, direction, tmax0,
-                       "anyhit" if anyhit else "closest")
+    dst, prim = launch_group(nodes, leaf_rows, origin, direction, tmax0,
+                             anyhit)
     if origin.shape[0]:
         launches["group_anyhit" if anyhit else "group_traverse"] += 1
     return dst, prim

@@ -555,9 +555,11 @@ class SceneBuilder:
                                 block[8 * r : 8 * r + 8].reshape(128)
                             )
                         leaf_map_list.append(ids)
-                        # payload cnt is informational only (the kernel
-                        # decodes just the slot, //16); cap to keep the
-                        # slot field unambiguous
+                        # payload cnt: the records packed into the slot.
+                        # The group walk (csrc/bvh8_walk.cu) tests only
+                        # that many of a one-row slot (rec_cap 8); cap it
+                        # to keep the slot field unambiguous (walk_kernel
+                        # tests every record of a two-row slot)
                         children.append(
                             (box, f32(-(slot * 16 + min(off, 15)) - 1))
                         )

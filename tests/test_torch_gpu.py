@@ -12,9 +12,11 @@ import pytest
 import torch
 
 import ray_tracer_tpu_torch as trt
-from ray_tracer_tpu_torch.kernels import cluster, group, lanewalk, packet
+from ray_tracer_tpu_torch.kernels import bvh8, cluster, group, lanewalk, packet
 from ray_tracer_tpu_torch.ops import cluster_trace
 from ray_tracer_tpu_torch.scene import presets
+
+from torch_parity import deep_chain, soup_scene
 
 BIG = 99999999.0
 
@@ -67,6 +69,77 @@ def test_kernel_matches_plain_version(dev, scene, anyhit):
     assert torch.equal(dst, rdst)
     assert torch.equal(prim, rprim)
     assert (prim >= 0).any() or anyhit
+
+
+@pytest.fixture(scope="module")
+def walk_scenes(dev, scene, tmp_path_factory):
+    """(nodes, leaf_rows, ray box) of the main-path scene, of a soup whose
+    leaves are merged into one-row slots (a slot's record count sums
+    several leaves) and of a loose chain as deep as the walk's stack, whose
+    rays from its middle fill the stack (tests/test_torch_group_walk.py)."""
+    soup = soup_scene(trt, str(tmp_path_factory.mktemp("soup"))).compile(
+        max_leaf_tris=8)
+    assert soup.meta["wide_leaf_recs"] == 8
+    nodes, rows = (torch.from_numpy(x).to(dev)
+                   for x in deep_chain(bvh8.G_STACK, loose=True))
+    return {
+        "sponza": (scene.wide_packed, scene.leaf_rows,
+                   scene.bvh_packed[0].cpu()),
+        "soup_leaf8": (soup.wide_packed, soup.leaf_rows,
+                       soup.bvh_packed[0].cpu()),
+        "deep": (nodes, rows, torch.tensor([-0.1] * 3 + [0.1] * 3)),
+    }
+
+
+def _walk_rays(box, n, anyhit, dev, seed=5):
+    rand = np.random.default_rng(seed)
+    box = box.numpy()
+    o = rand.uniform(box[0:3], box[3:6], (n, 3)).astype(np.float32)
+    d = rand.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    d[::50, 1] = 0.0
+    tmax = rand.uniform(0.1, 8.0, n).astype(np.float32)
+    if not anyhit:
+        tmax[::2] = BIG
+    tmax[::9] = -BIG
+    return [torch.from_numpy(x).to(dev) for x in (o, d, tmax)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [0, 1, 127, 129, 20000])
+@pytest.mark.parametrize("name", ["sponza", "soup_leaf8", "deep"])
+@pytest.mark.parametrize("anyhit", [False, True])
+def test_group_walk_matches_plain_version(dev, walk_scenes, name, n, anyhit):
+    """group_walk_kernel against the plain walk, bit for bit, at ray counts
+    around its 128-thread block, on merged one-row leaf slots and on a
+    tree as deep as its stack."""
+    nodes, rows, box = walk_scenes[name]
+    args = [nodes, rows, *_walk_rays(box, n, anyhit, dev)]
+    group.reset_launches()
+    dst, prim = group.group_traverse(*args, anyhit=anyhit)
+    assert sum(group.launches.values()) == (1 if n else 0)
+    rdst, rprim = group.group_traverse_reference(*args, anyhit=anyhit)
+    torch.cuda.synchronize()
+    assert torch.equal(dst, rdst) and torch.equal(prim, rprim)
+    if n == 20000:
+        assert (prim >= 0).any() or (anyhit and (dst < -1.0).any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["sponza", "soup_leaf8", "deep"])
+@pytest.mark.parametrize("anyhit", [False, True])
+def test_group_walk_matches_the_packet_walk(dev, walk_scenes, name, anyhit):
+    """The new kernel against walk_kernel (the packet walk, one-row slots)
+    on the same rays: the same visits, so the same outputs."""
+    nodes, rows, box = walk_scenes[name]
+    args = [nodes, rows, *_walk_rays(box, 20000, anyhit, dev, seed=6)]
+    got = group.group_traverse(*args, anyhit=anyhit)
+    packet.reset_launches()
+    want = packet.packet_traverse_wide(*args, 8, anyhit=anyhit)
+    assert packet.launches["packet8_anyhit" if anyhit else "packet8_wide"] == 1
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.gpu

@@ -192,3 +192,45 @@ def assert_tri_ties(sc, o, d, prim, jprim, hit):
                                    atol=1e-6)
     assert differ.mean() < 1e-2
     return differ
+
+
+def deep_chain(depth, seed=5, leaves=3, loose=False):
+    """BVH8 tables (``wide_packed``, ``leaf_rows``) of a chain ``depth``
+    wide nodes deep: node k holds node k+1's cube (half-size 4 * 0.97^(k+1))
+    as an interior child and ``leaves`` leaf slots of one to three random
+    triangles inside its own cube, children sorted along x (the sort axis).
+    Every cube holds the origin, so rays through the middle walk the whole
+    chain.  ``loose``: each leaf's box is its node's whole cube, so the
+    interior child sorts first and a ray from inside the innermost cube
+    pointing up x (or an occlusion ray) descends the chain before it tests
+    any leaf, holding one stack word per level."""
+    rand = np.random.default_rng(seed)
+    nodes = np.zeros((depth, 128), np.float32)
+    rows = []
+    for k in range(depth):
+        half = 4.0 * 0.97 ** k
+        children = []  # (box (6,), code)
+        if k + 1 < depth:
+            inner = 4.0 * 0.97 ** (k + 1)
+            children.append((np.r_[[-inner] * 3, [inner] * 3], k + 1))
+        for _ in range(leaves):
+            cnt = int(rand.integers(1, 4))
+            v = rand.uniform(-half, half, (cnt, 3, 3)).astype(np.float32)
+            rec = np.full((8, 16), np.nan, np.float32)
+            e1, e2 = v[:, 1] - v[:, 0], v[:, 2] - v[:, 0]
+            rec[:cnt, 0:3], rec[:cnt, 3:6], rec[:cnt, 6:9] = v[:, 0], e1, e2
+            rec[:cnt, 9:12] = np.cross(e1, e2)
+            rec[:cnt, 12:16] = 0.0
+            flat = v.reshape(-1, 3)
+            box = (np.r_[[-half] * 3, [half] * 3] if loose
+                   else np.r_[flat.min(axis=0), flat.max(axis=0)])
+            children.append((box, -(len(rows) * 16 + cnt) - 1))
+            rows.append(rec.reshape(128))
+        children.sort(key=lambda ch: float(ch[0][0] + ch[0][3]))
+        nodes[k, :64] = np.nan
+        nodes[k, 6:64:8] = 0.0
+        for c, (box, code) in enumerate(children):
+            nodes[k, 8 * c:8 * c + 6] = box
+            nodes[k, 8 * c + 6] = code
+        nodes[k, 7] = 0.0  # the sort axis: x
+    return nodes, np.stack(rows)

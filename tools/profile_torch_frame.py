@@ -43,8 +43,8 @@ ROUTES = {
     "two_phase": trt.Routing(two_phase=True),
 }
 # the port's CUDA kernels, by a part of their names ("walk_kernel" matches
-# every mode of bvh8_walk.cu, emit, TOP and DEEP included, and bvh2_walk_kernel
-# and lanewalk_kernel)
+# both kernels of bvh8_walk.cu, group_walk_kernel and walk_kernel in every
+# mode, emit, TOP and DEEP included, and bvh2_walk_kernel and lanewalk_kernel)
 OWN_KERNELS = ("walk_kernel", "cluster_pairs_kernel",
                "box_hits_kernel")
 
