@@ -6,8 +6,11 @@ Builds every CUDA kernel library from this checkout (in parallel), prints
 the main path's kernel (group_walk_kernel) as ptxas reports it, holds it
 against walk_kernel, the design it replaced, and times both in turns on
 bounce and shadow rays at 2^18 and 2^22 lanes (the frame's widest round),
-checks each kernel mode against its plain torch version on the card at
-the main path's shapes, checks small card renders against the same
+prints the cluster route's chunk kernels (cluster_pairs_kernel,
+box_hits_kernel) as ptxas reports them and holds each against the design
+it replaced (tools/cluster_test_variants.cu) on the route's chunks, timed
+in turns, checks each kernel mode against its plain torch version on the
+card at the main path's shapes, checks small card renders against the same
 renders on the CPU, and renders the benchmark frame (sponza_proxy,
 1920x1080, spp 2, bounce limit 8, one whole-frame tile) through each
 traversal route of the port: the group kernel (the default), the cluster
@@ -31,7 +34,9 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+REPO = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, REPO)
+sys.path.append(os.path.join(REPO, "tools"))
 
 import ray_tracer_tpu_torch as trt  # noqa: E402
 from ray_tracer_tpu_torch.api import _camera_arrays, scene_camera  # noqa: E402
@@ -44,6 +49,8 @@ from ray_tracer_tpu_torch.ops import (  # noqa: E402
 )
 from ray_tracer_tpu_torch.sampling import bsdf, lights, rng  # noqa: E402
 from ray_tracer_tpu_torch.scene import presets  # noqa: E402
+
+import cluster_test_variants  # noqa: E402
 
 BIG = group.BIG
 FRAME = (1920, 1080)  # the benchmark frame: spp 2, bounce limit 8
@@ -63,7 +70,8 @@ ROUTES = {  # frame phase -> routing, timed frames
 }
 KERNEL_MODULES = (group, packet, cluster, lanewalk)  # the launch counters
 # one nvcc build each
-LIBRARIES = (bvh8.build, cluster.build, packet.build_narrow, lanewalk.build)
+LIBRARIES = (bvh8.build, cluster.build, packet.build_narrow, lanewalk.build,
+             cluster_test_variants.build)
 KERNELS = {  # mode -> (source, the TPU kernel it replaces)
     "group_traverse": ("ray_tracer_tpu_torch/csrc/bvh8_walk.cu",
                        "ray_tracer_tpu/kernels/group.py:89"),
@@ -565,53 +573,79 @@ def chunk_cost(feats, ids, per_page, unit_bytes, ops_unit, ops_lane,
                  + ids.numel() * 128 * out_bytes + page_bytes, ops)
 
 
-def cluster_checks(sc, rays):
-    """The cluster test and both box levels on the chunks the cluster
-    route builds for the bounce rays (its first slice of 2^17)."""
-    o, d, tmax = rays["bounce"]
-    out = {}
-    with captured(cluster, "cluster_pairs_test") as pairs:
-        cluster_trace.cluster_traverse(sc, o, d, tmax,
-                                       trt.Routing(cluster="on"))
-    with captured(cluster, "box_hits") as boxes:
-        cluster_trace.cluster_traverse(
-            sc, o, d, tmax, trt.Routing(cluster="on", cluster_enum="boxes"))
-    torch.cuda.synchronize()
-    (pages, feats, cid), kw = pairs[0]
-    t_c = kw["t_c"]
-    n_refs = sc.tri_packed.shape[0]
-    tris = torch.diff(sc.clus_start, append=sc.clus_start.new_tensor(
-        [n_refs])).long()
-    if int(tris.min()) < 1 or int(tris.max()) > t_c:
+def cluster_chunks(sc, rays):
+    """The chunk-kernel calls the cluster route makes for the bounce rays
+    (its first slice of 2^17): the cluster test's arguments, and both box
+    levels' arguments of the box enumeration."""
+    calls = cluster_test_variants.route_chunks(sc, *rays["bounce"])
+    return {kernel: args for kernel, slice_, args in calls if slice_ == 0}
+
+
+def cluster_checks(sc, chunks):
+    """The cluster test and both box levels on the route's chunks."""
+    pages, feats, cid, count, t_c = chunks["cluster_pairs"]
+    if int(count.min()) < 1 or int(count.max()) > t_c:
         raise AssertionError("cluster triangle counts out of range")
-    n_sup = sc.meta["n_supers"]
-    boxes_per_page = (
-        torch.tensor([n_sup], device=o.device),
-        torch.diff(sc.super_cstart, append=sc.super_cstart.new_tensor(
-            [sc.meta["n_clusters"]])).long(),
-    )
-    out["cluster_pairs"] = measure(
+    out = {"cluster_pairs": measure(
         "cluster_pairs",
-        lambda: cluster.cluster_pairs_test(pages, feats, cid, t_c),
-        lambda: cluster.cluster_pairs_test_reference(pages, feats, cid, t_c),
+        lambda: cluster.cluster_pairs_test(pages, feats, cid, count, t_c),
+        lambda: cluster.cluster_pairs_test_reference(pages, feats, cid,
+                                                     count, t_c),
         equal_all("cluster_pairs"),
-        lambda: chunk_cost(feats, cid, tris, TRI_BYTES, OPS_PAIR_TRI,
-                           OPS_PAIR, 6, 8),
+        lambda: chunk_cost(feats, cid, count.long(), TRI_BYTES,
+                           OPS_PAIR_TRI, OPS_PAIR, 6, 8),
         rays="bounce", slice=cluster_trace.SLICE, chunks=int(cid.numel()),
         live_chunks=int((cid >= 0).sum()),
-    )
-    for level, ((pages, feats, pid), _), per_page in zip(
-            (1, 2), boxes[:2], boxes_per_page):
+    )}
+    for level in (1, 2):
+        pages, feats, pid, count = chunks[f"box_hits_{level}"]
         out[f"box_hits_{level}"] = measure(
             "box_hits",
-            lambda: cluster.box_hits(pages, feats, pid),
-            lambda: cluster.box_hits_reference(pages, feats, pid),
+            lambda: cluster.box_hits(pages, feats, pid, count),
+            lambda: cluster.box_hits_reference(pages, feats, pid, count),
             equal_all(f"box_hits level {level}"),
-            lambda: chunk_cost(feats, pid, per_page, BOX_BYTES,
+            lambda: chunk_cost(feats, pid, count.long(), BOX_BYTES,
                                OPS_RAY_BOX, OPS_BOX_RAY, 7, 16),
             rays="bounce", level=level, chunks=int(pid.numel()),
             live_chunks=int((pid >= 0).sum()),
         )
+    return out
+
+
+def cluster_vs_old(chunks):
+    """Each chunk kernel against the design it replaced, on the route's
+    chunks (the bounce slice, both box levels): equal outputs
+    (``torch.equal``), then each timed in turns (old, new, new, old; 10
+    launches each).  The plain versions do not run here."""
+    pages, feats, cid, count, t_c = chunks["cluster_pairs"]
+    cases = {"cluster_pairs": (
+        lambda: cluster.cluster_pairs_test(pages, feats, cid, count, t_c),
+        lambda: cluster_test_variants.cluster_pairs(
+            "old", pages, feats, cid, count, t_c), cid)}
+    for level in (1, 2):
+        bp, bf, pid, bc = chunks[f"box_hits_{level}"]
+        cases[f"box_hits_{level}"] = (
+            lambda bp=bp, bf=bf, pid=pid, bc=bc: (
+                cluster.box_hits(bp, bf, pid, bc),),
+            lambda bp=bp, bf=bf, pid=pid, bc=bc: (
+                cluster_test_variants.box_hits("old", bp, bf, pid, bc),),
+            pid)
+    out = {}
+    for name, (new, old, ids) in cases.items():
+        for a, b in zip(new(), old()):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{name}: the new kernel and the old "
+                                     "one differ")
+        times = {"new": [], "old": []}
+        for which in ("old", "new", "new", "old"):
+            times[which].append(cuda_ms(new if which == "new" else old, 10))
+        rec = dict(new_ms=statistics.mean(times["new"]),
+                   old_ms=statistics.mean(times["old"]),
+                   new_ms_runs=times["new"], old_ms_runs=times["old"])
+        phase("cluster_vs_old", kernel=name, equal=True,
+              chunks=int(ids.numel()), live_chunks=int((ids >= 0).sum()),
+              speedup=rec["old_ms"] / rec["new_ms"], **rec)
+        out[name] = rec
     return out
 
 
@@ -749,13 +783,24 @@ def main() -> None:
     if len(walks) != 2 or any(w["spill_store_bytes"] != 0 for w in walks):
         raise AssertionError(f"group_walk_kernel spills: {walks}")
 
+    # the cluster chunk kernels: no spills
+    chunk_kernels = [w for name in ("cluster_pairs_kernel", "box_hits_kernel")
+                     for w in ptxas_of(cluster.build(), name)]
+    phase("cluster_ptxas", kernels=chunk_kernels)
+    if len(chunk_kernels) != 2 or any(w["spill_store_bytes"] != 0
+                                      for w in chunk_kernels):
+        raise AssertionError(f"a cluster chunk kernel spills: "
+                             f"{chunk_kernels}")
+
     rays = check_rays(sc, dev)
     group_vs_old(sc, rays, N_CHECK)
     group_vs_old(sc, check_rays(sc, dev, N_WIDE), N_WIDE)
+    chunks = cluster_chunks(sc, rays)
+    cluster_vs_old(chunks)
     checks = {**group_checks(sc, rays), **packet_checks(sc, sc16, rays),
-              **cluster_checks(sc, rays), **narrow_checks(sc, rays),
+              **cluster_checks(sc, chunks), **narrow_checks(sc, rays),
               **lanewalk_checks(sc, rays), **treelet_checks(sc, rays)}
-    del sc16
+    del sc16, chunks
 
     sc_cpu = sc.to("cpu")
     card_vs_cpu(sc, sc_cpu, "card_vs_cpu")

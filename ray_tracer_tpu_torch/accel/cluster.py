@@ -67,6 +67,7 @@ class ClusterTables:
     super_cpage: np.ndarray = None  # (S,16,6*128) f32 per-super clusters
     super_cstart: np.ndarray = None  # (S,) i32 first cluster id (page
     # column c of super s is cluster cstart[s]+c)
+    super_cpage_count: np.ndarray = None  # (S,) i32 clusters per super
     n_supers: int = 0
 
 
@@ -226,8 +227,8 @@ def build_super_tables(upper: BVHForest, root: int, cl_nodes: np.ndarray,
     ``upper`` is the cluster tree (leaves = clusters, 'tri ranges' are
     cluster-id ranges), so ``cluster_cut(upper, root, t_s)`` yields
     contiguous CLUSTER ranges of <= t_s: the supers.  Returns
-    (super_page, super_cpage, super_cstart, n_supers), or None when the
-    scene exceeds the 128 x 128 two-level capacity.
+    (super_page, super_cpage, super_cstart, super_cpage_count, n_supers),
+    or None when the scene exceeds the 128 x 128 two-level capacity.
     """
     cs, cc, snodes = cluster_cut(upper, root, t_s)
     S = cs.shape[0]
@@ -239,7 +240,7 @@ def build_super_tables(upper: BVHForest, root: int, cl_nodes: np.ndarray,
         ids = np.arange(cs[si], cs[si] + cc[si], dtype=i32)
         nd = cl_nodes[ids]
         cpages[si] = _box_page(upper.node_min[nd], upper.node_max[nd])
-    return super_page, cpages, cs.astype(i32), S
+    return super_page, cpages, cs.astype(i32), cc.astype(i32), S
 
 
 def build_cluster_tables(
@@ -281,9 +282,11 @@ def build_cluster_tables(
         super_page = np.full((16, 6 * 128), np.nan, f32)
         super_cpage = np.full((1, 16, 6 * 128), np.nan, f32)
         super_cstart = np.zeros(1, i32)
+        super_cpage_count = np.zeros(1, i32)
         n_supers = 0
     else:
-        super_page, super_cpage, super_cstart, n_supers = sup
+        (super_page, super_cpage, super_cstart, super_cpage_count,
+         n_supers) = sup
 
     return ClusterTables(
         clus_mt=_mt_pages(tri_packed, starts, counts, t_c, anchors),
@@ -294,5 +297,6 @@ def build_cluster_tables(
         super_page=super_page,
         super_cpage=super_cpage,
         super_cstart=super_cstart,
+        super_cpage_count=super_cpage_count,
         n_supers=n_supers,
     )

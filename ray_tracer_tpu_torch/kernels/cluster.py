@@ -9,11 +9,14 @@ take raises.
 
 Both take 128-lane chunks: ``feats`` (G,16,128) holds each chunk's ray
 features (:func:`ray_features` rows, transposed), and each chunk names
-one page (-1: a dead chunk, which reports no hit).  The JAX kernels
-contract the page against the chunk in one ``Precision.HIGHEST`` matrix
-product; here both versions write that contraction out as sums in a
-fixed row order (never ``torch.matmul``, whose order is not the kernel's
-and which TF32 may touch), so on the card they agree bit for bit.
+one page (-1: a dead chunk, which reports no hit), whose real triangles
+or boxes a count tensor gives.  The JAX kernels contract the whole page
+against the chunk in one ``Precision.HIGHEST`` matrix product.  Here both
+versions compute only the terms whose page entry the builder writes
+(``accel/cluster.py``), for the real triangles or boxes, as sums in the
+contraction's row order (never ``torch.matmul``, whose order is not the
+kernel's and which TF32 may touch): every term left out is an exact zero
+times a finite feature, and on the card the two agree bit for bit.
 
 ``extract_slots`` and ``ray_features`` are plain torch, as in the JAX
 package, where they run outside any kernel.
@@ -32,6 +35,13 @@ from .bvh8 import CSRC, NVCC_FLAGS, check_tensors
 BIG = 99999999.0
 N_BLOCKS = 5  # T | B | U | V | FO blocks per page (accel/cluster.py)
 BOX_COLS = 6 * 128  # t1x|t2x|t1y|t2y|t1z|t2z blocks of 128 boxes
+# The page entries _mt_pages writes, (row, block) per triangle, in the
+# kernel's staging order: T rows 0-2 and 9, B rows 3-5, U and V rows 3-8,
+# FO row 9.  Each block's terms sum in row order.
+PAIR_ROWS = (0, 1, 2, 9, 3, 4, 5, 3, 4, 5, 6, 7, 8, 3, 4, 5, 6, 7, 8, 9)
+PAIR_BLOCKS = (0,) * 4 + (1,) * 3 + (2,) * 6 + (3,) * 6 + (4,)
+# _box_page's entries: block k (t1x|t2x|t1y|t2y|t1z|t2z) on axis row k // 2
+BOX_ROWS = (0, 0, 1, 1, 2, 2)
 # Chunks per step of the plain versions: bounds their (chunks, columns,
 # 128) intermediates.
 PLAIN_BATCH = 64
@@ -54,29 +64,36 @@ def build() -> str:
     return build_shared(_SRC, "cluster_test", (nvcc_path(), *NVCC_FLAGS))
 
 
+def bind(path: str) -> ctypes.CDLL:
+    """Load a library that exports ``rt_cluster_pairs`` and
+    ``rt_box_hits`` and declare their arguments."""
+    lib = ctypes.CDLL(path)
+    lib.rt_cluster_pairs.restype = ctypes.c_int
+    lib.rt_cluster_pairs.argtypes = [ctypes.c_void_p] * 6 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ]
+    lib.rt_box_hits.restype = ctypes.c_int
+    lib.rt_box_hits.argtypes = [ctypes.c_void_p] * 5 + [
+        ctypes.c_int, ctypes.c_void_p,
+    ]
+    return lib
+
+
 def _load() -> ctypes.CDLL:
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build())
-        lib.rt_cluster_pairs.restype = ctypes.c_int
-        lib.rt_cluster_pairs.argtypes = [ctypes.c_void_p] * 5 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ]
-        lib.rt_box_hits.restype = ctypes.c_int
-        lib.rt_box_hits.argtypes = [ctypes.c_void_p] * 4 + [
-            ctypes.c_int, ctypes.c_void_p,
-        ]
-        _lib = lib
+        _lib = bind(build())
     return _lib
 
 
-def _check_chunks(pages, cols, feats, chunk_page) -> None:
+def _check_chunks(pages, cols, feats, chunk_page, counts) -> None:
     g = feats.shape[0]
     dev = feats.device
     check_tensors(dev, torch.float32,
                   pages=(pages, (pages.shape[0], 16, cols)),
                   feats=(feats, (g, 16, 128)))
-    check_tensors(dev, torch.int32, chunk_page=(chunk_page, (g,)))
+    check_tensors(dev, torch.int32, chunk_page=(chunk_page, (g,)),
+                  counts=(counts, (pages.shape[0],)))
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"no cluster kernel for device {dev}")
 
@@ -86,8 +103,9 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
 
 
-def cluster_pairs_test(clus_mt, feats, chunk_cid, t_c: int = 128):
-    """Test every chunk's 128 ray-feature lanes against its cluster.
+def cluster_pairs_test(clus_mt, feats, chunk_cid, clus_count, t_c: int = 128):
+    """Test every chunk's 128 ray-feature lanes against its cluster's
+    ``clus_count`` (C,) i32 real triangles.
 
     Returns ``(t, prim_local)`` of shape (G,128): the closest accepted hit
     distance (BIG if none) and the winning triangle's index *within the
@@ -95,9 +113,10 @@ def cluster_pairs_test(clus_mt, feats, chunk_cid, t_c: int = 128):
     """
     if t_c < 1 or t_c > 512:
         raise ValueError(f"t_c must be in 1..512, got {t_c}")
-    _check_chunks(clus_mt, N_BLOCKS * t_c, feats, chunk_cid)
+    _check_chunks(clus_mt, N_BLOCKS * t_c, feats, chunk_cid, clus_count)
     if feats.device.type == "cpu":
-        return cluster_pairs_test_reference(clus_mt, feats, chunk_cid, t_c)
+        return cluster_pairs_test_reference(clus_mt, feats, chunk_cid,
+                                            clus_count, t_c)
     g = feats.shape[0]
     t = torch.empty((g, 128), dtype=torch.float32, device=feats.device)
     p = torch.empty((g, 128), dtype=torch.int32, device=feats.device)
@@ -105,7 +124,7 @@ def cluster_pairs_test(clus_mt, feats, chunk_cid, t_c: int = 128):
         return t, p
     err = _load().rt_cluster_pairs(
         clus_mt.data_ptr(), feats.data_ptr(), chunk_cid.data_ptr(),
-        t.data_ptr(), p.data_ptr(), g, t_c,
+        clus_count.data_ptr(), t.data_ptr(), p.data_ptr(), g, t_c,
         torch.cuda.current_stream(feats.device).cuda_stream,
     )
     _raise_on(err, "cluster pairs")
@@ -113,31 +132,45 @@ def cluster_pairs_test(clus_mt, feats, chunk_cid, t_c: int = 128):
     return t, p
 
 
-def cluster_pairs_test_reference(clus_mt, feats, chunk_cid, t_c: int = 128):
-    """The kernel's arithmetic in plain torch, PLAIN_BATCH chunks a step."""
+def cluster_pairs_test_reference(clus_mt, feats, chunk_cid, clus_count,
+                                 t_c: int = 128):
+    """The kernel's arithmetic in plain torch, PLAIN_BATCH chunks a step:
+    the written page entries of the real triangles, each block's terms
+    summed in row order."""
     g = feats.shape[0]
     dev = feats.device
     t_out = torch.full((g, 128), BIG, dtype=torch.float32, device=dev)
     p_out = torch.full((g, 128), -1, dtype=torch.int32, device=dev)
     live = (chunk_cid >= 0).nonzero().squeeze(1)
     ids = torch.arange(t_c, device=dev)[:, None]
+    rows = torch.tensor(PAIR_ROWS, device=dev)
+    blocks = torch.tensor(PAIR_BLOCKS, device=dev)
+    paged = clus_mt.reshape(-1, 16, N_BLOCKS, t_c)
     for s in range(0, live.numel(), PLAIN_BATCH):
         gi = live[s : s + PLAIN_BATCH]
-        page = clus_mt[chunk_cid[gi].long()]  # (b,16,5*t_c)
+        cid = chunk_cid[gi].long()
+        coef = paged[cid[:, None], rows, blocks]  # (b,20,t_c)
+        real = ids[None] < clus_count[cid][:, None, None]  # (b,t_c,1)
         fr = feats[gi]  # (b,16,128)
-        o = fr[:, 0:3] - page[:, 10:13, 0:1]  # cluster-local origin
+        o = fr[:, 0:3] - clus_mt[cid, 10:13, 0:1]  # cluster-local origin
         d = fr[:, 3:6]
         c = torch.stack([
             o[:, 1] * d[:, 2] - o[:, 2] * d[:, 1],
             o[:, 2] * d[:, 0] - o[:, 0] * d[:, 2],
             o[:, 0] * d[:, 1] - o[:, 1] * d[:, 0],
         ], dim=1)
-        f = torch.cat([o, d, c, fr[:, 9:16]], dim=1)  # (b,16,128)
-        acc = torch.zeros((gi.numel(), N_BLOCKS * t_c, 128),
-                          dtype=torch.float32, device=dev)
-        for r in range(16):  # the kernel's row order
-            acc = acc + page[:, r, :, None] * f[:, r, None, :]
-        T, B, U, V, FO = acc.split(t_c, dim=1)
+        f9 = fr[:, 9]
+        f = [o[:, 0], o[:, 1], o[:, 2], f9, *d.unbind(1), *d.unbind(1),
+             *c.unbind(1), *d.unbind(1), *c.unbind(1), f9]
+
+        def block(lo, hi):  # sum of terms lo..hi-1 in order: (b,t_c,128)
+            acc = coef[:, lo, :, None] * f[lo][:, None, :]
+            for k in range(lo + 1, hi):
+                acc = acc + coef[:, k, :, None] * f[k][:, None, :]
+            return acc
+
+        T, B, U, V, FO = (block(0, 4), block(4, 7), block(7, 13),
+                          block(13, 19), block(19, 20))
         rb = 1.0 / B
         t = T * rb
         u = U * rb
@@ -145,7 +178,7 @@ def cluster_pairs_test_reference(clus_mt, feats, chunk_cid, t_c: int = 128):
         w = 1.0 - u - v
         front = B >= 1e-8
         ok = (t >= 0) & (u >= 0) & (v >= 0) & (w >= 0)
-        ok = ok & ~((~front) & (FO > 0.5))
+        ok = ok & ~((~front) & (FO > 0.5)) & real
         tt = torch.where(ok, t, BIG)
         tmin = tt.amin(dim=1)
         first = torch.where(tt == tmin[:, None], ids, t_c).amin(dim=1)
@@ -154,20 +187,20 @@ def cluster_pairs_test_reference(clus_mt, feats, chunk_cid, t_c: int = 128):
     return t_out, p_out
 
 
-def box_hits(pages, feats, chunk_pid):
-    """Slab test of each chunk's 128 rays against its page's <= 128 boxes:
-    (G,4,128) i32 words, bit b of word w set iff the ray enters box 32w+b
-    within its tmax (feature row 13)."""
-    _check_chunks(pages, BOX_COLS, feats, chunk_pid)
+def box_hits(pages, feats, chunk_pid, page_count):
+    """Slab test of each chunk's 128 rays against the ``page_count`` (P,)
+    i32 real boxes of its page: (G,4,128) i32 words, bit b of word w set
+    iff the ray enters box 32w+b within its tmax (feature row 13)."""
+    _check_chunks(pages, BOX_COLS, feats, chunk_pid, page_count)
     if feats.device.type == "cpu":
-        return box_hits_reference(pages, feats, chunk_pid)
+        return box_hits_reference(pages, feats, chunk_pid, page_count)
     g = feats.shape[0]
     words = torch.empty((g, 4, 128), dtype=torch.int32, device=feats.device)
     if g == 0:
         return words
     err = _load().rt_box_hits(
         pages.data_ptr(), feats.data_ptr(), chunk_pid.data_ptr(),
-        words.data_ptr(), g,
+        page_count.data_ptr(), words.data_ptr(), g,
         torch.cuda.current_stream(feats.device).cuda_stream,
     )
     _raise_on(err, "box hits")
@@ -175,26 +208,32 @@ def box_hits(pages, feats, chunk_pid):
     return words
 
 
-def box_hits_reference(pages, feats, chunk_pid):
-    """The kernel's arithmetic in plain torch, PLAIN_BATCH chunks a step."""
+def box_hits_reference(pages, feats, chunk_pid, page_count):
+    """The kernel's arithmetic in plain torch, PLAIN_BATCH chunks a step:
+    each plane from its block's own axis row, bound * iv - o * iv, for the
+    real boxes (a lane whose 1/d has an infinite component sets no bit, as
+    in the old form: ``csrc/cluster_test.cu`` says why)."""
     g = feats.shape[0]
     dev = feats.device
     out = torch.zeros((g, 4, 128), dtype=torch.int32, device=dev)
     live = (chunk_pid >= 0).nonzero().squeeze(1)
     weights = (1 << torch.arange(32, device=dev, dtype=torch.int64))
+    rows = torch.tensor(BOX_ROWS, device=dev)
+    blocks = torch.arange(6, device=dev)
+    boxes = torch.arange(128, device=dev)[:, None]
+    paged = pages.reshape(-1, 16, 6, 128)
     for s in range(0, live.numel(), PLAIN_BATCH):
         gi = live[s : s + PLAIN_BATCH]
-        page = pages[chunk_pid[gi].long()]  # (b,16,768)
+        pid = chunk_pid[gi].long()
+        bound = paged[pid[:, None], rows, blocks]  # (b,6,128 boxes)
         fr = feats[gi]
         iv = 1.0 / fr[:, 3:6]  # (b,3,128)
         oiv = fr[:, 0:3] * iv
-        raw = (page[:, 0, :, None] * iv[:, 0, None, :]
-               + page[:, 1, :, None] * iv[:, 1, None, :]
-               + page[:, 2, :, None] * iv[:, 2, None, :])  # (b,768,128)
         t1x, t2x, t1y, t2y, t1z, t2z = (
-            raw[:, k * 128 : (k + 1) * 128] - oiv[:, k // 2, None, :]
+            bound[:, k, :, None] * iv[:, k // 2, None, :]
+            - oiv[:, k // 2, None, :]
             for k in range(6)
-        )
+        )  # (b,128 boxes,128 lanes)
         tmin = torch.maximum(
             torch.maximum(torch.minimum(t1x, t2x), torch.minimum(t1y, t2y)),
             torch.minimum(t1z, t2z))
@@ -202,6 +241,7 @@ def box_hits_reference(pages, feats, chunk_pid):
             torch.minimum(torch.maximum(t1x, t2x), torch.maximum(t1y, t2y)),
             torch.maximum(t1z, t2z))
         hit = (tmx >= tmin) & (tmx > 0) & (tmin < fr[:, 13, None, :])
+        hit = hit & (boxes < page_count[pid][:, None, None])
         bits = hit.reshape(-1, 4, 32, 128).long() * weights[:, None]
         words = bits.sum(dim=2)  # (b,4,128) in [0, 2^32)
         out[gi] = (words - (words >= 2**31).long() * 2**32).to(torch.int32)

@@ -158,7 +158,8 @@ def _enum_boxes(scene, feats, routing, lane_active):
     f1[:n] = feats
     f1 = f1.reshape(g1, 128, 16).transpose(1, 2).contiguous()
     w1 = kcluster.box_hits(scene.super_page[None].contiguous(), f1,
-                           torch.zeros(g1, dtype=I32, device=dev))
+                           torch.zeros(g1, dtype=I32, device=dev),
+                           scene.super_page_count)
     words1 = w1.transpose(1, 2).reshape(-1, 4)[:n]
     sslots, sovf = kcluster.extract_slots(words1, K_S)  # (n,K_S) super ids
     ovf_b = sovf & lane_active
@@ -173,7 +174,8 @@ def _enum_boxes(scene, feats, routing, lane_active):
     sp, rayp, livep, chunk_sid, _ = _group_pairs(psid, pray, S + 2)
     rays_safe = torch.where(livep, rayp, 0)
     w2 = kcluster.box_hits(scene.super_cpage,
-                           _chunk_feats(feats, rays_safe, livep), chunk_sid)
+                           _chunk_feats(feats, rays_safe, livep), chunk_sid,
+                           scene.super_cpage_count)
     words2 = w2.transpose(1, 2).reshape(-1, 4)
     cols, povf = kcluster.extract_slots(words2, K)  # (m2,K) page columns
     cstart = scene.super_cstart[sp.clamp(0, max(S - 1, 0)).long()]
@@ -251,7 +253,7 @@ def _cluster_traverse_slice(scene: CompiledScene, origin, direction, tmax0,
     # ---- 3. test chunks, resolve per ray with scatter-min
     t_chunk, p_chunk = kcluster.cluster_pairs_test(
         scene.clus_mt, _chunk_feats(feats, ray_p, live_p), chunk_cid,
-        t_c=t_c,
+        scene.clus_count, t_c=t_c,
     )
     t_flat = t_chunk.reshape(-1)
     p_flat = p_chunk.reshape(-1)

@@ -663,8 +663,12 @@ class SceneBuilder:
         if ct is not None:
             cluster_arrays = dict(
                 clus_mt=ct.clus_mt, clus_start=ct.clus_start,
-                cwide_packed=ct.cwide_packed, super_page=ct.super_page,
-                super_cpage=ct.super_cpage, super_cstart=ct.super_cstart,
+                clus_count=ct.clus_count, cwide_packed=ct.cwide_packed,
+                super_page=ct.super_page,
+                super_page_count=np.array([ct.n_supers], i32),
+                super_cpage=ct.super_cpage,
+                super_cpage_count=ct.super_cpage_count,
+                super_cstart=ct.super_cstart,
             )
             n_clusters, n_supers = int(ct.clus_start.shape[0]), ct.n_supers
         else:  # one-row placeholders, as the JAX package's
@@ -673,9 +677,12 @@ class SceneBuilder:
             cwide[:, 7] = 0.0
             cluster_arrays = dict(
                 clus_mt=np.zeros((1, 16, 5 * cluster_t_c), f32),
-                clus_start=np.zeros(1, i32), cwide_packed=cwide,
+                clus_start=np.zeros(1, i32), clus_count=np.zeros(1, i32),
+                cwide_packed=cwide,
                 super_page=np.full((16, 6 * 128), np.nan, f32),
+                super_page_count=np.zeros(1, i32),
                 super_cpage=np.full((1, 16, 6 * 128), np.nan, f32),
+                super_cpage_count=np.zeros(1, i32),
                 super_cstart=np.zeros(1, i32),
             )
             n_clusters, n_supers = 0, 0

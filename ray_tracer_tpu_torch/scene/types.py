@@ -134,6 +134,29 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
+def page_counts(arrays: dict, meta: dict) -> dict:
+    """The cluster tables' page counts from the range starts: a cluster's
+    triangles run to the next cluster's start (the last to the end of
+    ``tri_packed``), a super's clusters to the next super's first cluster
+    (the last to ``n_clusters``); the level-1 page holds ``n_supers``
+    boxes.  Placeholder tables count 0."""
+    n_c = int(meta.get("n_clusters", 0))
+    n_s = int(meta.get("n_supers", 0))
+
+    def runs(starts, end, n):
+        if not n:
+            return np.zeros(1, np.int32)
+        return np.diff(np.asarray(starts, np.int64), append=end).astype(
+            np.int32)
+
+    return dict(
+        clus_count=runs(arrays["clus_start"],
+                        np.asarray(arrays["tri_packed"]).shape[0], n_c),
+        super_page_count=np.array([n_s], np.int32),
+        super_cpage_count=runs(arrays["super_cstart"], n_c, n_s),
+    )
+
+
 ROPE_FIELDS = 16  # floats per rope-stream row
 ROPE_PAGE = 128  # rows per page of the JAX package's layout
 
@@ -238,14 +261,18 @@ class CompiledScene:
     # Cluster route (accel/cluster.py): transposed Moller-Trumbore
     # coefficient pages per <= t_c-triangle cluster, the clusters' global
     # triangle range starts, the enumeration BVH8 over cluster AABBs (leaf
-    # codes carry cluster ids), and the two-level box-enumeration pages.
-    # meta: n_clusters, cluster_t_c, n_supers (0 = tables not built; the
-    # arrays are then one-row placeholders).
+    # codes carry cluster ids), and the two-level box-enumeration pages
+    # with the real triangles or boxes of each page (the kernels loop over
+    # those alone).  meta: n_clusters, cluster_t_c, n_supers (0 = tables
+    # not built; the arrays are then one-row placeholders, counts 0).
     clus_mt: Any  # (C,16,5*t_c) f32
     clus_start: Any  # (C,) i32
+    clus_count: Any  # (C,) i32 triangles per cluster
     cwide_packed: Any  # (Wc,128) f32
     super_page: Any  # (16,6*128) f32
+    super_page_count: Any  # (1,) i32 boxes on super_page: n_supers
     super_cpage: Any  # (S,16,6*128) f32
+    super_cpage_count: Any  # (S,) i32 cluster boxes per super page
     super_cstart: Any  # (S,) i32 first cluster id per super
 
     # Rope-walk route (kernels/lanewalk.py): per direction octant, the
@@ -287,10 +314,11 @@ class CompiledScene:
 
         ``arrays`` may be the JAX package's compiled scene fields: rope
         streams in the JAX layout (16*128 columns) are converted by
-        :func:`rope_rows_layout`.
+        :func:`rope_rows_layout`, and the page counts it lacks are
+        derived by :func:`page_counts`.
         """
         dev = resolve_device(device)
-        arrays = dict(arrays)
+        arrays = {**page_counts(arrays, meta), **arrays}
         rope = np.asarray(arrays["rope_streams"])
         if not meta.get("rope_rows", 0):
             arrays["rope_streams"] = rope_placeholder()

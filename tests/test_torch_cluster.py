@@ -6,11 +6,17 @@ their plain torch versions; the JAX side runs ``_cluster_kernel`` and
 ``_box_kernel`` through Pallas' interpreter on the same chunks.  Box words
 are equal; hit distances agree within rtol 1e-4 (the JAX contraction sums
 in another order, and the factorized distance cancels), hits and
-in-cluster indices off exact ties.  The whole
+in-cluster indices off exact ties.  The port's kernels compute only the
+page entries the builder writes, for each page's real triangles or
+boxes: on every page here they equal the full contraction they replaced
+(``torch_parity.cluster_pairs_full`` / ``box_hits_full``) exactly.  The
+whole
 route: ``traverse``/``traverse_anyhit`` under ``Routing(cluster="on")``
 against the JAX package's on the same route, with the tolerances of
 tests/test_cluster.py::test_cluster_sbvh_scene.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -30,7 +36,9 @@ from ray_tracer_tpu_torch.kernels import packet as t_packet
 from ray_tracer_tpu_torch.ops import cluster_trace as t_trace
 from ray_tracer_tpu_torch.ops import traverse as t_traverse
 
-from torch_parity import scene_arrays, soup_scene, sponza_builders
+from torch_parity import (aimed_chunks, box_hits_full, cluster_pairs_full,
+                          hand_built_pages, scene_arrays, soup_scene,
+                          sponza_builders)
 
 BIG = 99999999.0
 CLUSTER_FIELDS = ("clus_mt", "clus_start", "cwide_packed", "super_page",
@@ -125,10 +133,10 @@ def test_capacity_error_degrades_unless_forced(tmp_path, monkeypatch):
         soup_scene(trt, str(tmp_path)).compile(clusters=True, device="cpu")
 
 
-def _pairs(sc, rand, n=600):
+def _pairs(sc, rand, n=600, **ray_kw):
     """Grouped (ray, cluster) chunks of random rays through the port's
     packet enumeration: (feats (n,16), chunk feats, chunk cids)."""
-    o, d = _t(*_rays(rand, n))
+    o, d = _t(*_rays(rand, n, **ray_kw))
     tmax = torch.full((n,), BIG)
     feats = t_cluster.ray_features(o, d, tmax)
     slots, ovf = t_packet.packet_traverse_wide(
@@ -146,7 +154,8 @@ def test_cluster_pairs_test_matches_jax(soup, rand):
     sc = soup[1]
     _, fchunks, cid = _pairs(sc, rand)
     t_c = sc.meta["cluster_t_c"]
-    t, p = t_cluster.cluster_pairs_test(sc.clus_mt, fchunks, cid, t_c=t_c)
+    t, p = t_cluster.cluster_pairs_test(sc.clus_mt, fchunks, cid,
+                                        sc.clus_count, t_c=t_c)
     jt, jp = j_cluster.cluster_pairs_test(*_j(sc.clus_mt, fchunks, cid),
                                           t_c=t_c, interpret=True)
     t, p, jt, jp = t.numpy(), p.numpy(), np.asarray(jt), np.asarray(jp)
@@ -174,9 +183,10 @@ def test_box_hits_match_jax(soup, rand):
     pid1 = torch.zeros(g1, dtype=torch.int32)
     s = sc.meta["n_supers"]
     pid2 = torch.from_numpy(rand.integers(-1, s, g1).astype(np.int32))
-    for pages, pid in ((sc.super_page[None].contiguous(), pid1),
-                       (sc.super_cpage, pid2)):
-        words = t_cluster.box_hits(pages, f1, pid)
+    for pages, pid, count in (
+            (sc.super_page[None].contiguous(), pid1, sc.super_page_count),
+            (sc.super_cpage, pid2, sc.super_cpage_count)):
+        words = t_cluster.box_hits(pages, f1, pid, count)
         jwords = j_cluster.box_hits(*_j(pages, f1, pid), interpret=True)
         np.testing.assert_array_equal(words.numpy(), np.asarray(jwords))
         assert (words != 0).any()
@@ -204,6 +214,177 @@ def test_ray_features_match_jax(rand):
     got = t_cluster.ray_features(*_t(o, d, tmax))
     want = j_cluster.ray_features(*_j(o, d, tmax))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# ---- the compact kernels against the full contraction they replaced
+
+
+@pytest.fixture(scope="module")
+def compiled(soup, sponza, tmp_path_factory):
+    """Cluster scenes from both compilers: the JAX package's (converted by
+    ``CompiledScene.from_numpy``, which derives the page counts) and the
+    port's own (which keeps the cluster tables' counts), each as the soup
+    (t_c 16) and the cut ``sponza_proxy`` (t_c 128)."""
+    import ray_tracer_tpu_torch as trt
+    from ray_tracer_tpu_torch.scene import presets as t_presets
+
+    tmp = str(tmp_path_factory.mktemp("port"))
+    return {
+        "soup_jax": soup[1],
+        "soup_port": soup_scene(trt, tmp, n_tris=2400).compile(
+            cluster_t_c=16, device="cpu"),
+        "sponza_jax": sponza[1],
+        "sponza_port": t_presets.sponza_proxy(n_tris_target=8000).compile(
+            clusters=True, device="cpu"),
+    }
+
+
+SCENES = ["soup_jax", "soup_port", "sponza_jax", "sponza_port"]
+SPONZA_RAYS = dict(scale=0.1, shift=(0.0, -0.5, -3.0))
+
+
+def _scene_pairs(compiled, name, rand):
+    kw = SPONZA_RAYS if name.startswith("sponza") else {}
+    return _pairs(compiled[name], rand, **kw)
+
+
+def _assert_pairs_equal_full(pages, fchunks, cid, count, t_c):
+    t, p = t_cluster.cluster_pairs_test(pages, fchunks, cid, count, t_c)
+    ft, fp = cluster_pairs_full(pages, fchunks, cid, t_c)
+    assert (t == ft).all()  # the sign of a zero may differ, no value
+    assert torch.equal(p, fp)
+    return p
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_page_counts_are_range_lengths(compiled, name):
+    """clus_count and the box page counts are the lengths of the clusters'
+    triangle ranges and the supers' cluster ranges; a page's columns past
+    its count are the NaN padding."""
+    sc = compiled[name]
+    n_c, n_s = sc.meta["n_clusters"], sc.meta["n_supers"]
+    t_c = sc.meta["cluster_t_c"]
+    n_refs = sc.tri_packed.shape[0]
+    assert torch.equal(sc.clus_count, torch.diff(
+        sc.clus_start, append=torch.tensor([n_refs], dtype=torch.int32)))
+    assert 1 <= int(sc.clus_count.min()) <= int(sc.clus_count.max()) <= t_c
+    assert sc.super_page_count.tolist() == [n_s]
+    assert torch.equal(sc.super_cpage_count, torch.diff(
+        sc.super_cstart, append=torch.tensor([n_c], dtype=torch.int32)))
+    for page, count in ((sc.super_page, n_s),
+                        *zip(sc.super_cpage, sc.super_cpage_count.tolist())):
+        for k in range(6):  # block k's planes lie on axis row k // 2
+            plane = page[k // 2, k * 128:(k + 1) * 128]
+            assert torch.isfinite(plane[:count]).all()
+            assert torch.isnan(plane[count:]).all()
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_compact_pairs_equal_full_contraction(compiled, name, rand):
+    """The route's chunks (run-padded lanes, dead tail chunks) on every
+    cluster page of both compilers."""
+    sc = compiled[name]
+    _, fchunks, cid = _scene_pairs(compiled, name, rand)
+    p = _assert_pairs_equal_full(sc.clus_mt, fchunks, cid, sc.clus_count,
+                                 sc.meta["cluster_t_c"])
+    assert (p >= 0).sum() > 50
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_compact_boxes_equal_full_contraction(compiled, name, rand):
+    """Level 1 (every ray against the super page) and level 2 (chunks
+    against random super pages, dead chunks among them)."""
+    sc = compiled[name]
+    feats = _scene_pairs(compiled, name, rand)[0]
+    n = feats.shape[0]
+    g1 = -(-n // 128)
+    f1 = torch.zeros((g1 * 128, 16))
+    f1[:n] = feats  # the padding lanes of the last chunk stay zero
+    f1 = f1.reshape(g1, 128, 16).transpose(1, 2).contiguous()
+    pid2 = torch.from_numpy(
+        rand.integers(-1, sc.meta["n_supers"], g1).astype(np.int32))
+    for pages, pid, count in (
+            (sc.super_page[None].contiguous(), torch.zeros_like(pid2),
+             sc.super_page_count),
+            (sc.super_cpage, pid2, sc.super_cpage_count)):
+        words = t_cluster.box_hits(pages, f1, pid, count)
+        assert torch.equal(words, box_hits_full(pages, f1, pid))
+        assert (words != 0).any()
+
+
+@pytest.mark.parametrize("t_c", [8, 16, 128])
+def test_compact_pairs_on_hand_built_pages(compiled, t_c, rand):
+    """Pages of one triangle, of exactly t_c, and between, in chunk
+    sequences with runs of one chunk and of several of one cluster, a
+    cluster change at every chunk, and dead chunks."""
+    tp = compiled["soup_port"].tri_packed.numpy()
+    pages, starts, counts = hand_built_pages(tp, t_c)
+    cids = [0, 1, 1, 1, 2, -1, 3, 0, 2, 1, -1, -1, 3, 3]
+    fchunks = aimed_chunks(tp, starts, counts, cids, rand)
+    cid = torch.tensor(cids, dtype=torch.int32)
+    p = _assert_pairs_equal_full(pages, fchunks, cid, counts, t_c)
+    hit = p >= 0
+    for ci in range(4):  # every cluster is hit, the one-triangle one too
+        assert hit[cid == ci].any()
+    assert int(p.max()) >= min(t_c // 2, 8)
+
+
+def test_all_dead_chunks(compiled):
+    sc = compiled["soup_port"]
+    t_c = sc.meta["cluster_t_c"]
+    feats = torch.rand((3, 16, 128))
+    dead = torch.full((3,), -1, dtype=torch.int32)
+    t, p = t_cluster.cluster_pairs_test(sc.clus_mt, feats, dead,
+                                        sc.clus_count, t_c)
+    assert (t == BIG).all() and (p == -1).all()
+    words = t_cluster.box_hits(sc.super_cpage, feats, dead,
+                               sc.super_cpage_count)
+    assert (words == 0).all()
+    assert torch.equal(words, box_hits_full(sc.super_cpage, feats, dead))
+
+
+def test_box_hits_subnormal_direction_matches_jax(soup, rand):
+    """A direction component of 1e-40 passes the zero guard and gives
+    1/d = inf: the JAX kernel's 0 * inf terms make every plane NaN, and
+    the port's lane sets no bit either, at both levels."""
+    sc = soup[1]
+    feats = _pairs(sc, rand)[0][:256].clone()
+    feats[::3, 3] = 1e-40
+    feats[1::5, 4] = -1e-40
+    f = feats.reshape(2, 128, 16).transpose(1, 2).contiguous()
+    tiny = ((feats[:, 3:6] != 0) & (feats[:, 3:6].abs() < 1e-38)).any(dim=1)
+    for pages, pid, count in (
+            (sc.super_page[None].contiguous(),
+             torch.zeros(2, dtype=torch.int32), sc.super_page_count),
+            (sc.super_cpage, torch.tensor([0, 1], dtype=torch.int32),
+             sc.super_cpage_count)):
+        words = t_cluster.box_hits(pages, f, pid, count)
+        jwords = j_cluster.box_hits(*_j(pages, f, pid), interpret=True)
+        np.testing.assert_array_equal(words.numpy(), np.asarray(jwords))
+        assert torch.equal(words, box_hits_full(pages, f, pid))
+        lane_words = words.transpose(1, 2).reshape(256, 4)
+        assert (lane_words[tiny] == 0).all()
+    assert (lane_words[~tiny] != 0).any()
+
+
+def test_route_raises_on_a_count_of_the_wrong_length(compiled, rand):
+    sc = compiled["soup_port"]
+    o, d = _t(*_rays(rand, 64))
+    tmax = torch.full((64,), BIG)
+    boxes = Routing(cluster="on", cluster_enum="boxes")
+    for field, routing in (("clus_count", Routing(cluster="on")),
+                           ("super_page_count", boxes),
+                           ("super_cpage_count", boxes)):
+        count = getattr(sc, field)
+        bad = dataclasses.replace(
+            sc, **{field: torch.cat([count, count[:1]])})
+        with pytest.raises(ValueError, match="counts must have shape"):
+            t_trace.cluster_traverse(bad, o, d, tmax, routing)
+    with pytest.raises(TypeError, match="counts must be"):
+        t_cluster.cluster_pairs_test(
+            sc.clus_mt, torch.zeros((1, 16, 128)),
+            torch.zeros(1, dtype=torch.int32), sc.clus_count.long(),
+            sc.meta["cluster_t_c"])
 
 
 ROUTES = {

@@ -16,7 +16,7 @@ from ray_tracer_tpu_torch.kernels import bvh8, cluster, group, lanewalk, packet
 from ray_tracer_tpu_torch.ops import cluster_trace
 from ray_tracer_tpu_torch.scene import presets
 
-from torch_parity import deep_chain, soup_scene
+from torch_parity import aimed_chunks, deep_chain, hand_built_pages, soup_scene
 
 BIG = 99999999.0
 
@@ -273,18 +273,149 @@ def test_cluster_kernels_match_plain_versions(dev, scene):
     fchunks = cluster_trace._chunk_feats(feats, ray_p, live_p)
     t_c = scene.meta["cluster_t_c"]
     cluster.reset_launches()
-    t, p = cluster.cluster_pairs_test(scene.clus_mt, fchunks, cid, t_c)
+    t, p = cluster.cluster_pairs_test(scene.clus_mt, fchunks, cid,
+                                      scene.clus_count, t_c)
     rt, rp = cluster.cluster_pairs_test_reference(scene.clus_mt, fchunks,
-                                                  cid, t_c)
-    words = cluster.box_hits(scene.super_cpage, fchunks,
-                             torch.where(cid >= 0, 0, -1).to(torch.int32))
-    rwords = cluster.box_hits_reference(
-        scene.super_cpage, fchunks,
-        torch.where(cid >= 0, 0, -1).to(torch.int32))
+                                                  cid, scene.clus_count, t_c)
+    pid = torch.where(cid >= 0, 0, -1).to(torch.int32)
+    words = cluster.box_hits(scene.super_cpage, fchunks, pid,
+                             scene.super_cpage_count)
+    rwords = cluster.box_hits_reference(scene.super_cpage, fchunks, pid,
+                                        scene.super_cpage_count)
     torch.cuda.synchronize()
     assert cluster.launches == {"cluster_pairs": 1, "box_hits": 1}
     assert torch.equal(t, rt) and torch.equal(p, rp) and (p >= 0).any()
     assert torch.equal(words, rwords) and (words != 0).any()
+
+
+# chunk cluster ids (-1 dead): none, one, three, and runs of one chunk and
+# of many chunks of one cluster (the page reuse), a cluster change at
+# every chunk (the prefetch), and dead chunks between and after
+CHUNK_SEQS = {
+    "0": [],
+    "1": [1],
+    "3": [1, -1, 2],
+    "many": ([0] + [1] * 9 + [2, 3] * 6 + [-1] * 5 + [3] * 4
+             + [0, 1, 2, 3] * 40 + [2] * 30 + [-1] * 30),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seq", list(CHUNK_SEQS))
+@pytest.mark.parametrize("t_c", [8, 128, 512])
+def test_cluster_pairs_kernel_on_hand_built_pages(dev, scene, t_c, seq):
+    """Pages of 1, t_c, t_c / 2 and 3 triangles, against the plain
+    version bit for bit."""
+    tp = scene.tri_packed.cpu()
+    pages, starts, counts = hand_built_pages(tp, t_c)
+    cids = CHUNK_SEQS[seq]
+    feats = aimed_chunks(tp, starts, counts, cids, np.random.default_rng(3))
+    args = [x.to(dev) for x in (pages, feats,
+                                torch.tensor(cids, dtype=torch.int32),
+                                counts)]
+    cluster.reset_launches()
+    t, p = cluster.cluster_pairs_test(*args, t_c)
+    assert cluster.launches["cluster_pairs"] == (1 if cids else 0)
+    rt, rp = cluster.cluster_pairs_test_reference(*args, t_c)
+    torch.cuda.synchronize()
+    assert torch.equal(t, rt) and torch.equal(p, rp)
+    if len(cids) > 3:
+        assert int(p.max()) >= t_c // 2 and (p == 0).any()
+
+
+def _page_runs(rand, n, n_pages):
+    """(n,) i32 page ids in runs of 1-6 chunks, -1 (dead) among them."""
+    runs = rand.integers(-1, n_pages, n)
+    return torch.from_numpy(np.repeat(runs, rand.integers(1, 7, n))[:n]
+                            .astype(np.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_chunks", [0, 1, 3, 600])
+@pytest.mark.parametrize("level", [1, 2])
+def test_box_hits_kernel_matches_plain_version(dev, scene, level, n_chunks):
+    """Level 1 (every chunk on the one super page) and level 2 (runs of
+    super pages, dead chunks among them); some lanes carry a direction
+    component of 1e-40, whose 1/d is inf: they set no bit."""
+    o, d, tmax = _rays(scene, n_chunks * 128, False)
+    d[::13, 0] = 1e-40
+    feats = cluster.ray_features(o, d, tmax).reshape(n_chunks, 128, 16)
+    feats = feats.transpose(1, 2).contiguous()
+    if level == 1:
+        pages = scene.super_page[None].contiguous()
+        pid = torch.zeros(n_chunks, dtype=torch.int32)
+        count = scene.super_page_count
+    else:
+        pages, count = scene.super_cpage, scene.super_cpage_count
+        pid = _page_runs(np.random.default_rng(level), n_chunks,
+                         scene.meta["n_supers"])
+    args = (pages, feats, pid.to(dev), count)
+    cluster.reset_launches()
+    words = cluster.box_hits(*args)
+    assert cluster.launches["box_hits"] == (1 if n_chunks else 0)
+    rwords = cluster.box_hits_reference(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(words, rwords)
+    lanes = words.transpose(1, 2).reshape(-1, 4)
+    assert (lanes[::13] == 0).all()
+    if n_chunks == 600:
+        assert (lanes != 0).any()
+
+
+@pytest.fixture(scope="module")
+def variants(dev):
+    """tools/cluster_test_variants.py: the chunk kernels before their
+    redesign and the shipped walk at other settings."""
+    import os
+    import sys
+
+    sys.path.append(os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools"))
+    import cluster_test_variants
+
+    return cluster_test_variants
+
+
+@pytest.fixture(scope="module")
+def route_chunks(scene, variants):
+    """Every chunk-kernel call of both cluster routes on 2^15 rays."""
+    return variants.route_chunks(scene, *_rays(scene, 1 << 15, False))
+
+
+def _chunk_runs(variants, name, kernel, args):
+    if kernel == "cluster_pairs":
+        return (cluster.cluster_pairs_test(*args),
+                variants.cluster_pairs(name, *args))
+    return ((cluster.box_hits(*args),), (variants.box_hits(name, *args),))
+
+
+@pytest.mark.gpu
+def test_cluster_kernels_match_the_old_kernels(variants, route_chunks):
+    """The chunk kernels against the designs they replaced
+    (tools/cluster_test_variants.cu) on the cluster route's chunks for
+    bounce-like rays: equal."""
+    kernels = {kernel for kernel, _, _ in route_chunks}
+    assert kernels == {"cluster_pairs", "box_hits_1", "box_hits_2"}
+    for kernel, _, args in route_chunks:
+        new, old = _chunk_runs(variants, "old", kernel, args)
+        for a, b in zip(new, old):
+            assert torch.equal(a, b), kernel
+        if kernel == "cluster_pairs":
+            assert (new[1] >= 0).any()
+        else:
+            assert (new[0] != 0).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["shipped", "tile1", "tile2", "tile4",
+                                  "tile8", "tile16", "blocks4", "blocks6"])
+def test_cluster_kernel_walk_variants_match(variants, route_chunks, name):
+    """The shipped walk's other settings, which the measuring tool times,
+    compute exactly what the package's kernels compute."""
+    for kernel, _, args in route_chunks:
+        want, got = _chunk_runs(variants, name, kernel, args)
+        for a, b in zip(want, got):
+            assert torch.equal(a, b), kernel
 
 
 @pytest.mark.gpu

@@ -16,7 +16,11 @@ import ray_tracer_tpu as jrt
 import ray_tracer_tpu_torch as trt
 from ray_tracer_tpu.scene import presets as j_presets
 from ray_tracer_tpu_torch.scene import presets as t_presets
-from ray_tracer_tpu_torch.scene.types import rope_placeholder, rope_rows_layout
+from ray_tracer_tpu_torch.scene.types import (
+    page_counts,
+    rope_placeholder,
+    rope_rows_layout,
+)
 
 from torch_parity import room_scene, scene_arrays, soup_scene, sponza_builders
 
@@ -45,6 +49,9 @@ def test_compiled_arrays_match_jax(name, tmp_path, monkeypatch):
         jarr["rope_streams"] = rope_rows_layout(jarr["rope_streams"])
     else:
         jarr["rope_streams"] = rope_placeholder()
+    # the cluster tables' page counts, which the JAX package does not keep:
+    # the port's own equal those derived from the JAX range starts
+    jarr.update(page_counts(jarr, jmeta))
     for f in trt.CompiledScene.array_fields():
         got, want = np.asarray(getattr(tsc, f)), jarr[f]
         assert got.dtype == want.dtype, f
@@ -62,7 +69,8 @@ def test_from_numpy_round_trip(tmp_path):
     assert sc.meta == jmeta and sc.meta is not jmeta
     moved = sc.to("cpu")
     assert jmeta["rope_rows"] > 0
-    jarr = dict(jarr, rope_streams=rope_rows_layout(jarr["rope_streams"]))
+    jarr = dict(jarr, rope_streams=rope_rows_layout(jarr["rope_streams"]),
+                **page_counts(jarr, jmeta))
     for f in trt.CompiledScene.array_fields():
         t = getattr(moved, f)
         assert isinstance(t, torch.Tensor), f

@@ -234,3 +234,120 @@ def deep_chain(depth, seed=5, leaves=3, loose=False):
             nodes[k, 8 * c + 6] = code
         nodes[k, 7] = 0.0  # the sort axis: x
     return nodes, np.stack(rows)
+
+
+def cluster_pairs_full(clus_mt, feats, chunk_cid, t_c):
+    """The cluster test as a full contraction, the form the chunk kernel
+    had before it dropped the page's zero entries: all 16 feature rows
+    against all 5 x t_c page columns, each block's 16 terms summed in row
+    order from 0.0, over every column (NaN padding is never accepted)."""
+    g = feats.shape[0]
+    t_out = torch.full((g, 128), BIG, dtype=torch.float32)
+    p_out = torch.full((g, 128), -1, dtype=torch.int32)
+    live = (chunk_cid >= 0).nonzero().squeeze(1)
+    ids = torch.arange(t_c)[:, None]
+    for s in range(0, live.numel(), 64):
+        gi = live[s : s + 64]
+        page = clus_mt[chunk_cid[gi].long()]  # (b,16,5*t_c)
+        fr = feats[gi]
+        o = fr[:, 0:3] - page[:, 10:13, 0:1]
+        d = fr[:, 3:6]
+        c = torch.stack([
+            o[:, 1] * d[:, 2] - o[:, 2] * d[:, 1],
+            o[:, 2] * d[:, 0] - o[:, 0] * d[:, 2],
+            o[:, 0] * d[:, 1] - o[:, 1] * d[:, 0],
+        ], dim=1)
+        f = torch.cat([o, d, c, fr[:, 9:16]], dim=1)  # (b,16,128)
+        acc = torch.zeros((gi.numel(), 5 * t_c, 128), dtype=torch.float32)
+        for r in range(16):
+            acc = acc + page[:, r, :, None] * f[:, r, None, :]
+        T, B, U, V, FO = acc.split(t_c, dim=1)
+        rb = 1.0 / B
+        t, u, v = T * rb, U * rb, V * rb
+        w = 1.0 - u - v
+        ok = (t >= 0) & (u >= 0) & (v >= 0) & (w >= 0)
+        ok = ok & ~((~(B >= 1e-8)) & (FO > 0.5))
+        tt = torch.where(ok, t, BIG)
+        tmin = tt.amin(dim=1)
+        first = torch.where(tt == tmin[:, None], ids, t_c).amin(dim=1)
+        t_out[gi] = tmin
+        p_out[gi] = torch.where(tmin < BIG, first, -1).to(torch.int32)
+    return t_out, p_out
+
+
+def box_hits_full(pages, feats, chunk_pid):
+    """The box test as the full contraction the kernel had before it
+    dropped the page's zero entries: each slab plane is page rows 0-2
+    against 1/d, three products summed in row order, over all 128
+    columns (NaN padding sets no bit)."""
+    g = feats.shape[0]
+    out = torch.zeros((g, 4, 128), dtype=torch.int32)
+    live = (chunk_pid >= 0).nonzero().squeeze(1)
+    weights = 1 << torch.arange(32, dtype=torch.int64)
+    for s in range(0, live.numel(), 64):
+        gi = live[s : s + 64]
+        page = pages[chunk_pid[gi].long()]  # (b,16,768)
+        fr = feats[gi]
+        iv = 1.0 / fr[:, 3:6]
+        oiv = fr[:, 0:3] * iv
+        raw = (page[:, 0, :, None] * iv[:, 0, None, :]
+               + page[:, 1, :, None] * iv[:, 1, None, :]
+               + page[:, 2, :, None] * iv[:, 2, None, :])  # (b,768,128)
+        t1x, t2x, t1y, t2y, t1z, t2z = (
+            raw[:, k * 128 : (k + 1) * 128] - oiv[:, k // 2, None, :]
+            for k in range(6))
+        tmin = torch.maximum(
+            torch.maximum(torch.minimum(t1x, t2x), torch.minimum(t1y, t2y)),
+            torch.minimum(t1z, t2z))
+        tmx = torch.minimum(
+            torch.minimum(torch.maximum(t1x, t2x), torch.maximum(t1y, t2y)),
+            torch.maximum(t1z, t2z))
+        hit = (tmx >= tmin) & (tmx > 0) & (tmin < fr[:, 13, None, :])
+        words = (hit.reshape(-1, 4, 32, 128).long()
+                 * weights[:, None]).sum(dim=2)
+        out[gi] = (words - (words >= 2**31).long() * 2**32).to(torch.int32)
+    return out
+
+
+def hand_built_pages(tri_packed, t_c):
+    """Cluster pages (``accel/cluster.py::_mt_pages``) over the first
+    triangles of a ``tri_packed`` table: clusters of 1, t_c, t_c // 2 (at
+    least 2) and 3 triangles, anchored at their vertex means.  Returns
+    (pages (4,16,5*t_c), starts (4,) numpy, counts (4,) i32 tensor)."""
+    from ray_tracer_tpu_torch.accel.cluster import _mt_pages
+
+    tp = np.asarray(tri_packed)
+    counts = np.array([1, t_c, max(t_c // 2, 2), 3], np.int32)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int32)
+    anchors = np.stack([tp[s:s + c, 0:3].mean(axis=0)
+                        for s, c in zip(starts, counts)])
+    anchors = anchors.astype(np.float32).astype(np.float64)
+    pages = _mt_pages(tp, starts, counts, t_c, anchors)
+    return torch.from_numpy(pages), starts, torch.from_numpy(counts)
+
+
+def aimed_chunks(tri_packed, starts, counts, cids, rand):
+    """(G,16,128) features of rays aimed at random points of random
+    triangles of each chunk's cluster (``cids``, -1 = dead) from up to 2
+    units away; every seventh lane is padding (zero features), and a dead
+    chunk is all padding."""
+    from ray_tracer_tpu_torch.kernels.cluster import ray_features
+
+    tp = np.asarray(tri_packed)
+    counts = np.asarray(counts)
+    feats = torch.zeros((len(cids), 16, 128))
+    for g, ci in enumerate(cids):
+        if ci < 0:
+            continue
+        rec = tp[starts[ci] + rand.integers(0, counts[ci], 128)]
+        a, b = rand.uniform(0, 1, (2, 128, 1))
+        a, b = np.where(a + b > 1, 1 - a, a), np.where(a + b > 1, 1 - b, b)
+        point = rec[:, 0:3] + a * rec[:, 3:6] + b * rec[:, 6:9]
+        o = point + rand.uniform(-2, 2, (128, 3))
+        d = point - o
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        f = ray_features(torch.from_numpy(o.astype(np.float32)),
+                         torch.from_numpy(d.astype(np.float32)))
+        f[::7] = 0.0
+        feats[g] = f.T
+    return feats

@@ -9,7 +9,7 @@ frame of bench.py's measure (frame index 1) under ``torch.profiler``.
 Prints one JSON line per route: wall seconds, device busy seconds (the
 union of the kernels' intervals), the idle share, the kernel launches,
 and device milliseconds by kernel (the top 12, and the port's own CUDA
-kernels).  The profiler inflates host time, so the idle share is an
+kernels with their launches).  The profiler inflates host time, so the idle share is an
 upper bound.  Needs a CUDA device; imports no JAX.
 """
 
@@ -88,8 +88,10 @@ def main(routes) -> None:
         kernels = [e for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA]
         by_name = defaultdict(float)
+        count = defaultdict(int)
         for e in kernels:
             by_name[e.name] += e.time_range.elapsed_us()
+            count[e.name] += 1
         busy = union_us((e.time_range.start, e.time_range.end)
                         for e in kernels) / 1e6
         # names cut to 90 characters; kernels that share a prefix are summed
@@ -103,6 +105,7 @@ def main(routes) -> None:
             "route": name, "device": smi, "wall_s": wall, "busy_s": busy,
             "idle_share": 1.0 - busy / wall, "launches": len(kernels),
             "own_kernels_ms": own,
+            "own_kernels_launches": {k: count[k] for k in own},
             "top_ms": {k: v / 1e3 for k, v in top},
         }), flush=True)
 
