@@ -9,7 +9,10 @@ bounce and shadow rays at 2^18 and 2^22 lanes (the frame's widest round),
 prints the cluster route's chunk kernels (cluster_pairs_kernel,
 box_hits_kernel) as ptxas reports them and holds each against the design
 it replaced (tools/cluster_test_variants.cu) on the route's chunks, timed
-in turns, checks each kernel mode against its plain torch version on the
+in turns, prints the two-phase route's DEEP kernel (deep_walk_kernel) as
+ptxas reports it and holds it against the walk it replaced
+(tools/deep_walk_variants.cu) on the route's DEEP launches, timed in
+turns, checks each kernel mode against its plain torch version on the
 card at the main path's shapes, checks small card renders against the same
 renders on the CPU, and renders the benchmark frame (sponza_proxy,
 1920x1080, spp 2, bounce limit 8, one whole-frame tile) through each
@@ -51,6 +54,7 @@ from ray_tracer_tpu_torch.sampling import bsdf, lights, rng  # noqa: E402
 from ray_tracer_tpu_torch.scene import presets  # noqa: E402
 
 import cluster_test_variants  # noqa: E402
+import deep_walk_variants  # noqa: E402
 
 BIG = group.BIG
 FRAME = (1920, 1080)  # the benchmark frame: spp 2, bounce limit 8
@@ -71,32 +75,35 @@ ROUTES = {  # frame phase -> routing, timed frames
 KERNEL_MODULES = (group, packet, cluster, lanewalk)  # the launch counters
 # one nvcc build each
 LIBRARIES = (bvh8.build, cluster.build, packet.build_narrow, lanewalk.build,
-             cluster_test_variants.build)
-KERNELS = {  # mode -> (source, the TPU kernel it replaces)
-    "group_traverse": ("ray_tracer_tpu_torch/csrc/bvh8_walk.cu",
+             cluster_test_variants.build, deep_walk_variants.build)
+BVH8 = "ray_tracer_tpu_torch/csrc/bvh8_walk.cu"
+PACKET8 = "ray_tracer_tpu/kernels/packet.py:301"
+KERNELS = {  # mode -> (source, its CUDA kernel, the TPU kernel it replaces)
+    "group_traverse": (BVH8, "group_walk_kernel",
                        "ray_tracer_tpu/kernels/group.py:89"),
-    "group_anyhit": ("ray_tracer_tpu_torch/csrc/bvh8_walk.cu",
+    "group_anyhit": (BVH8, "group_walk_kernel",
                      "ray_tracer_tpu/kernels/group.py:89"),
-    "packet8_wide": ("ray_tracer_tpu_torch/csrc/bvh8_walk.cu",
-                     "ray_tracer_tpu/kernels/packet.py:301"),
-    "packet8_anyhit": ("ray_tracer_tpu_torch/csrc/bvh8_walk.cu",
-                       "ray_tracer_tpu/kernels/packet.py:301"),
-    "packet8_emit": ("ray_tracer_tpu_torch/csrc/bvh8_walk.cu",
-                     "ray_tracer_tpu/kernels/packet.py:301"),
+    "packet8_wide": (BVH8, "walk_kernel", PACKET8),
+    "packet8_anyhit": (BVH8, "walk_kernel", PACKET8),
+    "packet8_emit": (BVH8, "walk_kernel", PACKET8),
     "cluster_pairs": ("ray_tracer_tpu_torch/csrc/cluster_test.cu",
+                      "cluster_pairs_kernel",
                       "ray_tracer_tpu/kernels/cluster.py:36"),
     "box_hits": ("ray_tracer_tpu_torch/csrc/cluster_test.cu",
-                 "ray_tracer_tpu/kernels/cluster.py:164"),
+                 "box_hits_kernel", "ray_tracer_tpu/kernels/cluster.py:164"),
     "packet_narrow": ("ray_tracer_tpu_torch/csrc/bvh2_walk.cu",
+                      "bvh2_walk_kernel",
                       "ray_tracer_tpu/kernels/packet.py:53"),
     "lanewalk_closest": ("ray_tracer_tpu_torch/csrc/lanewalk.cu",
+                         "lanewalk_kernel",
                          "ray_tracer_tpu/kernels/lanewalk.py:167"),
     "lanewalk_anyhit": ("ray_tracer_tpu_torch/csrc/lanewalk.cu",
+                        "lanewalk_kernel",
                         "ray_tracer_tpu/kernels/lanewalk.py:167"),
-    **{mode: ("ray_tracer_tpu_torch/csrc/bvh8_walk.cu",
-              "ray_tracer_tpu/kernels/packet.py:301")
-       for mode in ("packet8_top", "packet8_top_anyhit", "packet8_deep",
-                    "packet8_deep_anyhit")},
+    "packet8_top": (BVH8, "walk_kernel", PACKET8),
+    "packet8_top_anyhit": (BVH8, "walk_kernel", PACKET8),
+    "packet8_deep": (BVH8, "deep_walk_kernel", PACKET8),
+    "packet8_deep_anyhit": (BVH8, "deep_walk_kernel", PACKET8),
 }
 
 # The least time the card could take for a kernel's work: the larger of
@@ -553,6 +560,38 @@ def treelet_checks(sc, rays):
     return out
 
 
+def deep_vs_old(sc, rays):
+    """deep_walk_kernel against the DEEP walk it replaced (old_deep_kernel
+    of tools/deep_walk_variants.cu), on the two DEEP launches of the
+    two-phase route for the bounce set (closest hit) and the shadow set
+    (occlusion): dst and prim equal (``torch.equal``; both walk the
+    entries in list order), then each timed in turns (old, new, new, old;
+    10 launches each).  The plain walk does not run here."""
+    for name, anyhit in (("bounce", False), ("shadow", True)):
+        calls = deep_walk_variants.route_deep_calls(sc, *rays[name],
+                                                    anyhit=anyhit)
+        for round_, (args, kw) in enumerate(calls, 1):
+            runs = {
+                "new": lambda args=args, kw=kw: packet.packet_traverse_wide(
+                    *args, **kw),
+                "old": lambda args=args, kw=kw: deep_walk_variants.run(
+                    "old", *args, **kw),
+            }
+            deep_walk_variants.compare(f"DEEP round {round_} {name}",
+                                       runs["new"](), runs["old"]())
+            times = {"new": [], "old": []}
+            for which in ("old", "new", "new", "old"):
+                times[which].append(cuda_ms(runs[which], 10))
+            rec = dict(new_ms=statistics.mean(times["new"]),
+                       old_ms=statistics.mean(times["old"]),
+                       new_ms_runs=times["new"], old_ms_runs=times["old"])
+            tmax0 = args[4]
+            phase("deep_vs_old", rays=name, round=round_, anyhit=anyhit,
+                  lanes=int(tmax0.numel()), live=int((tmax0 > 0).sum()),
+                  equal=True,
+                  speedup=rec["old_ms"] / rec["new_ms"], **rec)
+
+
 def chunk_cost(feats, ids, per_page, unit_bytes, ops_unit, ops_lane,
                feat_rows, out_bytes):
     """Bytes and operations of one chunk-kernel call.  ``per_page`` (P,)
@@ -792,7 +831,14 @@ def main() -> None:
         raise AssertionError(f"a cluster chunk kernel spills: "
                              f"{chunk_kernels}")
 
+    # the DEEP kernel: no spills
+    deep = ptxas_of(bvh8.build(), "deep_walk_kernel")
+    phase("deep_walk_ptxas", kernels=deep)
+    if len(deep) != 4 or any(w["spill_store_bytes"] != 0 for w in deep):
+        raise AssertionError(f"deep_walk_kernel spills: {deep}")
+
     rays = check_rays(sc, dev)
+    deep_vs_old(sc, rays)
     group_vs_old(sc, rays, N_CHECK)
     group_vs_old(sc, check_rays(sc, dev, N_WIDE), N_WIDE)
     chunks = cluster_chunks(sc, rays)
@@ -855,7 +901,7 @@ def main() -> None:
         c = checks[check]
         kernels.append(dict(
             name=name, route="cuda", source=KERNELS[name][0],
-            replaces=KERNELS[name][1],
+            kernel=KERNELS[name][1], replaces=KERNELS[name][2],
             launches=frames[title]["launches"][name],
             max_abs_err=c["max_abs_err"], ms=c["ms"], plain_ms=c["plain_ms"],
             bound_ms=c["bound_ms"], bound_by=c["bound_by"], library_ms=None,

@@ -1,8 +1,10 @@
 // BVH8 traversal, one thread per ray (sm_90a): closest hit, occlusion,
-// cluster enumeration and the two phases of treelet traversal.  Two
-// kernels: group_walk_kernel (rt_bvh8_group, below walk_kernel), the main
-// path's closest-hit and occlusion walk over one-row leaf slots, and
-// walk_kernel (rt_bvh8_walk), every mode of the packet walk.
+// cluster enumeration and the two phases of treelet traversal.  Three
+// kernels: walk_kernel (rt_bvh8_walk), the packet walk from the root and
+// its TOP and emit modes; group_walk_kernel (rt_bvh8_group), the main
+// path's closest-hit and occlusion walk over one-row leaf slots; and
+// deep_walk_kernel (rt_bvh8_deep), the DEEP phase of treelet traversal.
+// The last two share one walk loop (walk_from).
 //
 // Replaces two TPU kernels that compute the same walk per ray:
 //   ray_tracer_tpu/kernels/group.py::_group_kernel (closest-hit
@@ -26,9 +28,11 @@
 // Tables (kernels/bvh8.py holds the plain torch twin, walk_reference):
 //   nodes      (W,128) f32  per child c, floats 8c..8c+5 = min3|max3, float
 //                           8c+6 = traversal code as an f32 VALUE (>= 0:
-//                           wide node id; < 0: leaf, slot = (-code-1) >> 4),
-//                           float 7 = child-sort axis.  Empty child slots
-//                           hold NaN boxes and code 0.
+//                           wide node id; < 0: leaf with payload
+//                           -(slot*16 + cnt) - 1, slot = payload >> 4, cnt
+//                           its records, capped at 15), float 7 =
+//                           child-sort axis.  Empty child slots hold NaN
+//                           boxes and code 0.
 //   leaf_rows  (L,128) f32  8 records of v0|e1|e2|n|front_only|pad per row;
 //                           a slot spans kRows consecutive rows, record k of
 //                           slot s has the padded id s*8 + k.  NaN records
@@ -48,15 +52,17 @@
 //     current best, its node id goes to the lane's next free slot of K
 //     (child-slot order c = 0..7), past them ovf = 1 -> dst, prim (the
 //     closest top-level hit), slots, ovf.
-//   DEEP: lane i walks from the entries of its packet, row i / P of
-//     `entries` (P = packet size): one mask-0 word per entry >= 0, pushed
-//     untested in list order, then the closest-hit or occlusion walk,
-//     treelet roots included -> dst, prim.
+//   DEEP: lane i walks the subtrees of the entries of its packet, row i / P
+//     of `entries` (P = packet size; -1 = none), treelet roots included ->
+//     dst, prim: the closest hit (or occlusion) in the union of those
+//     subtrees within tmax0, the subtrees walked one after the other, the
+//     last listed first; see deep_walk_kernel.
 //
 // Each ray keeps a private stack of (node << 9 | reversed << 8 | remaining
 // child mask) words.  Mask bits are stored in visit order (reversed when
 // the ray points down the node's sort axis), so the lowest set bit is
-// always the next child; mask 0 is an entry (visit the node itself).
+// always the next child; in walk_kernel mask 0 is the start (visit the
+// root itself).
 //
 // Exactness: built with --fmad=false and without fast math, every
 // expression rounds like the torch twin's separate ops.  min/max propagate
@@ -67,15 +73,11 @@
 // What bounds walk_kernel: dependent global loads.  Each visit is one 256 B
 // node row (the 8 child boxes) or one leaf slot of 512 B or 1 KiB, whose
 // address depends on the previous visit; the arithmetic per visit is small.
-// The
-// tables of the main-path scene (~27 MiB) sit in the 50 MB L2.  Rays arrive
-// sorted by the integrator's coherence bins (direction octant, origin morton
-// cell), so the threads of a warp walk overlapping node sets and their row
-// loads hit the same L2 lines; rows are read as float4, 16 B per load.
-// DEEP lanes arrive sorted by their entry (the two-phase route's pair
-// sort), so a warp starts inside one treelet; the packet's other entries
-// cost each lane one pop and one slab test of the entry node when its
-// bound prunes them.
+// The tables of the main-path scene (~27 MiB) sit in the 50 MB L2.  Rays
+// arrive sorted by the integrator's coherence bins (direction octant,
+// origin morton cell), so the threads of a warp walk overlapping node sets
+// and their row loads hit the same L2 lines; rows are read as float4, 16 B
+// per load.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -83,12 +85,11 @@
 namespace {
 
 constexpr int kBlock = 128;
-// one (node, remaining-mask) word per level, plus the DEEP entries
-// (kernels/bvh8.py G_STACK)
+// one (node, remaining-mask) word per wide level (kernels/bvh8.py G_STACK)
 constexpr int kStack = 96;
 constexpr float kBig = 99999999.0f;
 enum WalkMode { kClosest = 0, kAnyhit = 1, kEmit = 2 };
-enum WalkStart { kRoot = 0, kTop = 1, kDeep = 2 };
+enum WalkStart { kRoot = 0, kTop = 1 };
 
 __device__ __forceinline__ float min_nan(float a, float b) {
   return (a != a || b != b) ? __int_as_float(0x7fc00000) : fminf(a, b);
@@ -154,27 +155,17 @@ __device__ __forceinline__ float record_t(const float4* __restrict__ rec,
 // child whose box the ray enters within best appends its slot field to
 // slots[0..top_k), past them ovf = 1; best never shrinks.  kTop: the same
 // for interior children flagged in troot, whose node id is appended.
-// kDeep: the stack starts with the deep_e words of `entries` (>= 0).
 template <int kMode, int kRows, int kStart>
 __device__ __forceinline__ void walk(const float4* __restrict__ nodes,
                                      const float4* __restrict__ leaf_rows,
                                      const int* __restrict__ troot,
-                                     const int* __restrict__ entries,
-                                     int deep_e, const Ray& y, float& best,
-                                     int& prim, int* __restrict__ slots,
-                                     int top_k, int& ovf) {
+                                     const Ray& y, float& best, int& prim,
+                                     int* __restrict__ slots, int top_k,
+                                     int& ovf) {
   uint32_t stack[kStack];
   int sp = 0;
   int cnt = 0;
-  if (kStart == kDeep) {
-    // deep_e + the deepest walk fits kStack (checked on the host)
-    for (int e = 0; e < deep_e; ++e) {
-      const int entry = __ldg(entries + e);
-      if (entry >= 0) stack[sp++] = static_cast<uint32_t>(entry) << 9;
-    }
-  } else {
-    stack[sp++] = 0u;
-  }
+  stack[sp++] = 0u;
   const float* nodes_f = reinterpret_cast<const float*>(nodes);
 
   while (sp > 0) {
@@ -280,7 +271,6 @@ struct WalkArgs {
   const float4* nodes;
   const float4* leaf_rows;
   const int* troot;
-  const int* entries;
   const float* origin;
   const float* direction;
   const float* tmax0;
@@ -288,7 +278,7 @@ struct WalkArgs {
   int* prim;
   int* slots;
   int* ovf;
-  int n, top_k, deep_e, packet_size;
+  int n, top_k;
 };
 
 template <int kMode, int kRows, int kStart>
@@ -301,13 +291,11 @@ __global__ void __launch_bounds__(kBlock) walk_kernel(const WalkArgs a) {
     slots = a.slots + static_cast<int64_t>(i) * a.top_k;
     for (int k = 0; k < a.top_k; ++k) slots[k] = -1;
   }
-  const int* entries =
-      kStart == kDeep ? a.entries + (i / a.packet_size) * a.deep_e : nullptr;
   const Ray y = load_ray(a.origin, a.direction, i);
   float best = a.tmax0[i];
   int prim = -1, ovf = 0;
-  walk<kMode, kRows, kStart>(a.nodes, a.leaf_rows, a.troot, entries,
-                             a.deep_e, y, best, prim, slots, a.top_k, ovf);
+  walk<kMode, kRows, kStart>(a.nodes, a.leaf_rows, a.troot, y, best, prim,
+                             slots, a.top_k, ovf);
   if (kMode != kEmit) {
     a.dst[i] = best;
     a.prim[i] = prim;
@@ -333,7 +321,6 @@ template <int kMode>
 int by_start(int start, int rows, const WalkArgs& a, cudaStream_t s) {
   if (start == kRoot) return by_rows<kMode, kRoot>(rows, a, s);
   if (start == kTop) return by_rows<kMode, kTop>(rows, a, s);
-  if (start == kDeep) return by_rows<kMode, kDeep>(rows, a, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -401,25 +388,31 @@ struct GroupArgs {
   int n;
 };
 
-template <bool kAnyhit>
-__global__ void __launch_bounds__(kGroupBlock, kGroupMinBlocks)
-    group_walk_kernel(const GroupArgs a) {
-  const int i = blockIdx.x * kGroupBlock + threadIdx.x;
-  if (i >= a.n) return;
-  const Ray y = load_ray(a.origin, a.direction, i);
-  const float* nodes_f = reinterpret_cast<const float*>(a.nodes);
-  float best = a.tmax0[i];
-  int prim = -1;
-  uint32_t below[kStack - 1];  // the words under the top one
-  uint32_t top = 0u;  // the top (node << 9 | reversed << 8 | mask) word
-  int held = 0;       // words held: top, then below[0 .. held-2]
-  float code = 0.0f;  // the next target: >= 0 a wide node id, < 0 a leaf
+// The walk of one ray through the subtree of wide node `code` (a node id
+// as an f32 value), then through those of the nodes that next(code) sets
+// as long as it returns true: closest hit (or occlusion, kAnyhit) over
+// kRows-row leaf slots, folding into best and prim.  One loop walks them
+// all, so a lane that finishes a subtree starts the next while the other
+// lanes of its warp are still in theirs.  The stack: kTopReg, the top word
+// in a register and the kStack - 1 words under it in `stack`; else all
+// kStack words in `stack`.  A record inside best ends an occlusion walk
+// with best = -kBig.
+template <bool kAnyhit, int kRows, bool kTopReg, class Next>
+__device__ __forceinline__ void walk_from(float code,
+                                          const float4* __restrict__ nodes,
+                                          const float4* __restrict__ leaf_rows,
+                                          const Ray& y, float& best,
+                                          int& prim, uint32_t* stack,
+                                          Next next) {
+  const float* nodes_f = reinterpret_cast<const float*>(nodes);
+  uint32_t top = 0u;  // kTopReg: the top (node << 9 | reversed << 8 | mask)
+  int held = 0;       // words held: top, then stack[0 .. held-2]; or all
 
   for (;;) {
     if (code >= 0.0f) {
       // 8-child slab test of wide node `code`, against the current best
       const int node = static_cast<int>(code);
-      const float4* r = a.nodes + node * 32;
+      const float4* r = nodes + node * 32;
       uint32_t m8 = 0u;
       float axis_f = 0.0f;
 #pragma unroll
@@ -443,25 +436,33 @@ __global__ void __launch_bounds__(kGroupBlock, kGroupMinBlocks)
           const float dax = axis == 0 ? y.dx : (axis == 1 ? y.dy : y.dz);
           if (dax < 0.0f) word = (__brev(m8) >> 24) | 0x100u;
         }
-        if (held > 0) {
+        word |= static_cast<uint32_t>(node) << 9;
+        if (kTopReg) {
+          if (held > 0) {
+            if (held >= kStack) __trap();  // unreachable: the host caps depth
+            stack[held - 1] = top;
+          }
+          top = word;
+        } else {
           if (held >= kStack) __trap();  // unreachable: the host caps depth
-          below[held - 1] = top;
+          stack[held] = word;
         }
-        top = word | static_cast<uint32_t>(node) << 9;
         ++held;
       }
     } else {
-      // one-row leaf slot: records k = 0..7 are rows leaf_slot*8 + k of the
-      // (L*8,16) view, their padded ids; those past the payload's count
-      // are NaN padding, which never hits
+      // leaf slot: record k is row leaf_slot*8 + k of the (L*8,16) view,
+      // its padded id; the records past the payload's count are NaN
+      // padding, which never hits.  The count is capped at 15
+      // (scene/builder.py), so on a two-row slot 15 reads as 15 or 16.
       const int payload = static_cast<int>(-code) - 1;
       const int leaf_slot = payload >> 4;
       const int cnt = payload & 15;
-      const float4* r = a.leaf_rows + leaf_slot * 32;
+      const int lim = kRows == 2 && cnt == 15 ? 16 : cnt;
+      const float4* r = leaf_rows + leaf_slot * 32;
       bool occluded = false;
 #pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        if (k >= cnt) break;
+      for (int k = 0; k < 8 * kRows; ++k) {
+        if (k >= lim) break;
         const float tk = record_t(r + 4 * k, y);
         if (kAnyhit) {
           if (tk < best) {
@@ -475,23 +476,137 @@ __global__ void __launch_bounds__(kGroupBlock, kGroupMinBlocks)
       }
       if (kAnyhit && occluded) {
         best = -kBig;
-        break;
+        return;
       }
     }
+    if (held == 0) {  // this subtree is done: the next one, if any
+      if (!next(code)) return;
+      continue;
+    }
     // pop: the next child of the top word, its code from the parent's row
-    if (held == 0) break;
-    const uint32_t mask = top & 0xFFu;
+    const uint32_t w = kTopReg ? top : stack[held - 1];
+    const uint32_t mask = w & 0xFFu;
     const int c = __ffs(mask) - 1;
-    const int slot = (top & 0x100u) ? 7 - c : c;
-    const int node = static_cast<int>(top >> 9);
+    const int slot = (w & 0x100u) ? 7 - c : c;
+    const int node = static_cast<int>(w >> 9);
     const uint32_t rem = mask & (mask - 1u);
     if (rem != 0u) {
-      top = top - mask + rem;
-    } else if (--held > 0) {
-      top = below[held - 1];
+      if (kTopReg) {
+        top = w - mask + rem;
+      } else {
+        stack[held - 1] = w - mask + rem;
+      }
+    } else if (--held > 0 && kTopReg) {
+      top = stack[held - 1];
     }
     // the code is a VALUE: convert, never bitcast (scene/types.py)
     code = __ldg(nodes_f + node * 128 + 8 * slot + 6);
+  }
+}
+
+template <bool kAnyhit>
+__global__ void __launch_bounds__(kGroupBlock, kGroupMinBlocks)
+    group_walk_kernel(const GroupArgs a) {
+  const int i = blockIdx.x * kGroupBlock + threadIdx.x;
+  if (i >= a.n) return;
+  const Ray y = load_ray(a.origin, a.direction, i);
+  float best = a.tmax0[i];
+  int prim = -1;
+  uint32_t below[kStack - 1];  // the words under the top one
+  walk_from<kAnyhit, 1, true>(0.0f, a.nodes, a.leaf_rows, y, best, prim,
+                              below, [](float&) { return false; });
+  a.dst[i] = best;
+  a.prim[i] = prim;
+}
+
+// ---------------------------------------------------------------------------
+// deep_walk_kernel: the DEEP phase of two-phase treelet traversal
+// (kernels/packet.py::packet_traverse_wide with entries; ops/traverse.py::
+// _deep_round launches it twice per query)
+//
+// Replaces ray_tracer_tpu/kernels/packet.py::_packet8_kernel with deep_e
+// (the DEEP start, packet.py:516-535), closest hit and occlusion over one-
+// or two-row leaf slots.  Lane i returns the closest accepted hit (or,
+// under occlusion, -kBig) over the subtrees of every entry of row i / P of
+// `entries`, within tmax0, walked one after the other, the last listed
+// first: dst and prim bit for bit those of the walk it replaced
+// (walk_kernel's former DEEP start: one untested mask-0 word per entry
+// pushed in list order, then the walk), which visits the same nodes in the
+// same order.
+//
+// What bounds it on this card: as group_walk_kernel, instruction issue and
+// latency in divergent warps; the tables sit in L2.  The work itself is
+// the function's: a packet's lanes are the (ray, entry) pairs of up to 16
+// entries, each padded to runs of 128 lanes, and every lane walks every
+// entry's subtree within its best, so it tests the leaves that the other
+// entries' treelets hold in front of its hit, about 3x the leaf tests of a
+// walk of its own entry alone, whatever the order of the entries.  What
+// the design does (each element timed against its own removal by
+// tools/measure_deep_walk.py, whose variants of this kernel are
+// tools/deep_walk_variants.cu; PERF.md):
+//   * group_walk_kernel's walk (walk_from): min.NaN/max.NaN, leaf records
+//     only up to the leaf code's count.
+//   * Entries are read from the list when the walk of the one before ends,
+//     not pushed, and one loop walks every subtree: a lane that finishes
+//     one takes its next entry at once (a loop per entry, which makes the
+//     lanes of a warp wait at its end for the slowest, is slower).  The
+//     entries keep the old order, so the lanes of a warp, which share
+//     their packet's list, walk the same subtrees about the same time.
+//   * The whole stack in a local array (walk_from<., ., false>): here the
+//     top word in a register, as group_walk_kernel keeps it, is slower.
+//   * Lanes with tmax0 <= 0 (the padding lanes, -BIG) return tmax0 and -1
+//     at once: no record with t >= 0 lies below their bound.
+//   * Registers pinned at 64 (8 blocks of 128 threads per SM).
+// Measured and left out (tools/deep_walk_variants.cu): testing each
+// entry's own box (its child box in its parent's row) against best before
+// walking it, at its turn or for all entries up front, which skips
+// nothing the walk would enter (a child box lies inside its parent's) but
+// saves only the entry node's eight child tests, a row that the warp's
+// lanes read together, and costs a box load and test per entry; and the
+// entries nearest first, by that box's entry distance.
+
+constexpr int kDeepMinBlocks = 8;  // blocks per SM: at most 64 registers
+constexpr int kMaxDeepE = 31;      // entries per packet (kernels/bvh8.py)
+
+struct DeepArgs {
+  const float4* nodes;
+  const float4* leaf_rows;
+  const int* entries;
+  const float* origin;
+  const float* direction;
+  const float* tmax0;
+  float* dst;
+  int* prim;
+  int n, deep_e, packet_size;
+};
+
+template <bool kAnyhit, int kRows>
+__global__ void __launch_bounds__(kGroupBlock, kDeepMinBlocks)
+    deep_walk_kernel(const DeepArgs a) {
+  const int i = blockIdx.x * kGroupBlock + threadIdx.x;
+  if (i >= a.n) return;
+  float best = a.tmax0[i];
+  int prim = -1;
+  if (best > 0.0f) {
+    const Ray y = load_ray(a.origin, a.direction, i);
+    const int* entries = a.entries + (i / a.packet_size) * a.deep_e;
+    int e = a.deep_e;  // the next entry: the last listed first
+    auto next = [&](float& code) {
+      while (e > 0) {
+        const int entry = __ldg(entries + --e);
+        if (entry >= 0) {
+          code = static_cast<float>(entry);
+          return true;
+        }
+      }
+      return false;
+    };
+    float code;
+    uint32_t stack[kStack];
+    if (next(code)) {
+      walk_from<kAnyhit, kRows, false>(code, a.nodes, a.leaf_rows, y, best,
+                                       prim, stack, next);
+    }
   }
   a.dst[i] = best;
   a.prim[i] = prim;
@@ -521,24 +636,57 @@ extern "C" int rt_bvh8_group(int anyhit, const void* nodes,
   return static_cast<int>(cudaGetLastError());
 }
 
+// One launch of the DEEP walk: closest hit (anyhit 0) or occlusion
+// (anyhit 1) of n = G * packet_size lanes over rows-row leaf slots (1 or
+// 2), lane i from the entries of row i / packet_size of the (G, deep_e)
+// list (deep_e at most 31).  Returns the launch's CUDA error.
+extern "C" int rt_bvh8_deep(int anyhit, int rows, const void* nodes,
+                            const void* leaf_rows, const void* entries,
+                            const void* origin, const void* direction,
+                            const void* tmax0, void* dst, void* prim, int n,
+                            int deep_e, int packet_size, void* stream) {
+  const DeepArgs a{
+      static_cast<const float4*>(nodes), static_cast<const float4*>(leaf_rows),
+      static_cast<const int*>(entries),
+      static_cast<const float*>(origin), static_cast<const float*>(direction),
+      static_cast<const float*>(tmax0), static_cast<float*>(dst),
+      static_cast<int*>(prim), n, deep_e, packet_size};
+  if (deep_e < 1 || deep_e > kMaxDeepE || packet_size < 1 ||
+      (rows != 1 && rows != 2)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid((n + kGroupBlock - 1) / kGroupBlock), block(kGroupBlock);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (anyhit) {
+    if (rows == 1) {
+      deep_walk_kernel<true, 1><<<grid, block, 0, s>>>(a);
+    } else {
+      deep_walk_kernel<true, 2><<<grid, block, 0, s>>>(a);
+    }
+  } else if (rows == 1) {
+    deep_walk_kernel<false, 1><<<grid, block, 0, s>>>(a);
+  } else {
+    deep_walk_kernel<false, 2><<<grid, block, 0, s>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 // One launch of the walk.  mode: 0 closest, 1 anyhit, 2 emit (one-row,
-// from the root); start: 0 root, 1 TOP (troot, slots, ovf, top_k), 2 DEEP
-// (entries, deep_e, packet_size).  Pointers a mode does not read may be
-// null.  Returns the launch's CUDA error code.
+// from the root); start: 0 root, 1 TOP (troot, slots, ovf, top_k).
+// Pointers a mode does not read may be null.  Returns the launch's CUDA
+// error code.
 extern "C" int rt_bvh8_walk(int mode, int rows, int start, const void* nodes,
                             const void* leaf_rows, const void* troot,
-                            const void* entries, const void* origin,
-                            const void* direction, const void* tmax0,
-                            void* dst, void* prim, void* slots, void* ovf,
-                            int n, int top_k, int deep_e, int packet_size,
+                            const void* origin, const void* direction,
+                            const void* tmax0, void* dst, void* prim,
+                            void* slots, void* ovf, int n, int top_k,
                             void* stream) {
   const WalkArgs a{
       static_cast<const float4*>(nodes), static_cast<const float4*>(leaf_rows),
-      static_cast<const int*>(troot), static_cast<const int*>(entries),
-      static_cast<const float*>(origin), static_cast<const float*>(direction),
-      static_cast<const float*>(tmax0), static_cast<float*>(dst),
-      static_cast<int*>(prim), static_cast<int*>(slots),
-      static_cast<int*>(ovf), n, top_k, deep_e, packet_size};
+      static_cast<const int*>(troot), static_cast<const float*>(origin),
+      static_cast<const float*>(direction), static_cast<const float*>(tmax0),
+      static_cast<float*>(dst), static_cast<int*>(prim),
+      static_cast<int*>(slots), static_cast<int*>(ovf), n, top_k};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int err;
   if (mode == kEmit) {

@@ -1,11 +1,12 @@
 """The BVH8 walk behind the group and packet traversal wrappers.
 
 ``csrc/bvh8_walk.cu`` is the one-thread-per-ray walk on the card, one
-library for both wrappers, with two kernels: ``kernels/group.py`` launches
-``group_walk_kernel`` (:func:`launch_group`, one-row leaf slots, closest
-hit and occlusion), ``kernels/packet.py`` launches ``walk_kernel``
-(:func:`launch`) with one- or two-row slots and in every other mode.
-``walk_reference`` is the plain torch version of both.
+library for both wrappers, with three kernels: ``kernels/group.py``
+launches ``group_walk_kernel`` (:func:`launch_group`, one-row leaf slots,
+closest hit and occlusion), ``kernels/packet.py`` launches
+``deep_walk_kernel`` (:func:`launch_deep`) for the DEEP start and
+``walk_kernel`` (:func:`launch`) with one- or two-row slots in every other
+mode.  ``walk_reference`` is the plain torch version of all three.
 
 Tables (``CompiledScene.wide_packed`` / ``leaf_rows``):
 
@@ -43,8 +44,12 @@ and where the walk starts (the two phases of treelet traversal):
 * DEEP (``entries`` (G,E) i32, -1 padded, and ``packet_size`` P with
   N = G*P): lane i starts with one mask-0 word per entry of row i // P,
   pushed untested in list order, and walks on as the closest-hit or
-  occlusion walk does, treelet roots included.  Its result is the
-  closest hit in the union of its packet's entry subtrees.
+  occlusion walk does, treelet roots included.  Its result is the closest
+  hit in the union of its packet's entry subtrees, walked one after the
+  other, the last listed first (the CUDA kernel reads each entry when
+  the walk of the one before ends, which visits the same nodes in the
+  same order).  Lanes with ``tmax0 <= 0`` start with no word: no record
+  with t >= 0 lies below their bound.
 
 The arithmetic is ``ray_tracer_tpu``'s kernels', op for op; built with
 ``--fmad=false`` the CUDA walk rounds like this one, so on the card the
@@ -65,7 +70,7 @@ BIG = 99999999.0
 # One stack word per tree level: the builder caps the binary tree at depth
 # 64 and a wide node sits at least one binary level below its parent, so a
 # walk never holds more than 65 words (checked against the scene's depth in
-# ops/traverse.py), plus, in DEEP mode, one word per entry.
+# ops/traverse.py), plus, in the plain DEEP walk, one word per entry.
 G_STACK = 96
 MAX_TREE_DEPTH = 64
 MAX_DEEP_E = G_STACK - MAX_TREE_DEPTH - 1
@@ -83,7 +88,7 @@ NVCC_FLAGS = (
 _SRC = os.path.join(CSRC, "bvh8_walk.cu")
 
 MODES = ("closest", "anyhit", "emit")
-_START_ROOT, _START_TOP, _START_DEEP = 0, 1, 2
+_START_ROOT, _START_TOP = 0, 1
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -99,7 +104,12 @@ def _load() -> ctypes.CDLL:
         lib = ctypes.CDLL(build())
         lib.rt_bvh8_walk.restype = ctypes.c_int
         lib.rt_bvh8_walk.argtypes = (
-            [ctypes.c_int] * 3 + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
+            [ctypes.c_int] * 3 + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 2
+            + [ctypes.c_void_p]
+        )
+        lib.rt_bvh8_deep.restype = ctypes.c_int
+        lib.rt_bvh8_deep.argtypes = (
+            [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
             + [ctypes.c_void_p]
         )
         lib.rt_bvh8_group.restype = ctypes.c_int
@@ -132,16 +142,39 @@ def launch_group(nodes, leaf_rows, origin, direction, tmax0, anyhit: bool):
     return dst, prim
 
 
-def launch(nodes, leaf_rows, origin, direction, tmax0, mode: str,
-           rows: int = 1, top_k: int = 0, troot=None, entries=None,
-           packet_size: int = 0):
-    """One launch of the walk on the card, with :func:`walk_reference`'s
-    arguments and results.  Inputs as checked by :func:`check_walk_inputs`
-    (and :func:`check_start_inputs`), on a CUDA device."""
+def launch_deep(nodes, leaf_rows, entries, origin, direction, tmax0,
+                anyhit: bool, rows: int, packet_size: int):
+    """One launch of ``deep_walk_kernel`` on the card: ``(dst, prim)`` as
+    :func:`walk_reference` returns them with ``entries``.  Inputs as
+    checked by :func:`check_walk_inputs` and :func:`check_start_inputs`,
+    on a CUDA device."""
     dev = origin.device
     n = origin.shape[0]
-    start = (_START_TOP if troot is not None
-             else _START_DEEP if entries is not None else _START_ROOT)
+    dst = torch.empty(n, dtype=torch.float32, device=dev)
+    prim = torch.empty(n, dtype=torch.int32, device=dev)
+    if n:
+        err = _load().rt_bvh8_deep(
+            int(anyhit), rows, nodes.data_ptr(), leaf_rows.data_ptr(),
+            entries.data_ptr(), origin.data_ptr(),
+            direction.data_ptr(), tmax0.data_ptr(), dst.data_ptr(),
+            prim.data_ptr(), n, entries.shape[1], packet_size,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+        if err != 0:
+            raise RuntimeError(
+                f"BVH8 DEEP walk kernel launch failed: CUDA error {err}")
+    return dst, prim
+
+
+def launch(nodes, leaf_rows, origin, direction, tmax0, mode: str,
+           rows: int = 1, top_k: int = 0, troot=None):
+    """One launch of ``walk_kernel`` on the card (from the root, or TOP),
+    with :func:`walk_reference`'s arguments and results.  Inputs as checked
+    by :func:`check_walk_inputs` (and :func:`check_start_inputs`), on a
+    CUDA device."""
+    dev = origin.device
+    n = origin.shape[0]
+    start = _START_TOP if troot is not None else _START_ROOT
     emits = mode == "emit" or start == _START_TOP
     dst = prim = slots = ovf = None
     if mode != "emit":
@@ -154,9 +187,8 @@ def launch(nodes, leaf_rows, origin, direction, tmax0, mode: str,
     if n:
         err = _load().rt_bvh8_walk(
             MODES.index(mode), rows, start, ptr(nodes), ptr(leaf_rows),
-            ptr(troot), ptr(entries), ptr(origin), ptr(direction),
-            ptr(tmax0), ptr(dst), ptr(prim), ptr(slots), ptr(ovf), n, top_k,
-            0 if entries is None else entries.shape[1], packet_size,
+            ptr(troot), ptr(origin), ptr(direction), ptr(tmax0), ptr(dst),
+            ptr(prim), ptr(slots), ptr(ovf), n, top_k,
             torch.cuda.current_stream(dev).cuda_stream,
         )
         if err != 0:
@@ -326,9 +358,10 @@ def walk_reference(nodes, leaf_rows, origin, direction, tmax0,
     stack = torch.zeros((n, G_STACK), dtype=torch.int64, device=dev)
     n_starts = 1
     if entries is not None:
-        # DEEP: the packet's entries as mask-0 words, in list order
+        # DEEP: the packet's entries as mask-0 words, in list order; none
+        # on lanes with tmax0 <= 0, where no record can lie below tmax0
         ent = entries.long()[torch.arange(n, device=dev) // packet_size]
-        valid = ent >= 0
+        valid = (ent >= 0) & (tmax0 > 0)[:, None]
         lane, col = valid.nonzero(as_tuple=True)
         stack[lane, valid.cumsum(dim=1)[lane, col] - 1] = ent[lane, col] << 9
         sp = valid.sum(dim=1)

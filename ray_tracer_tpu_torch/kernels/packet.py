@@ -9,7 +9,8 @@ slots, the ``emit_leaves`` enumeration of candidate clusters, and the
 TOP (``top_k`` + ``troot``) and DEEP (``deep_e`` + ``entries``) phases
 of two-phase treelet traversal.  On CUDA tensors it launches the walk in
 ``csrc/bvh8_walk.cu`` (built with ``nvcc`` at first use, one library with
-``kernels/group.py``); on CPU tensors it runs
+``kernels/group.py``): ``deep_walk_kernel`` for the DEEP start,
+``walk_kernel`` for the others; on CPU tensors it runs
 :func:`packet_traverse_wide_reference`.
 
 ``packet_traverse`` is the port of ``_packet_kernel``, the narrow route's
@@ -43,6 +44,7 @@ from .bvh8 import (
     check_tensors,
     check_walk_inputs,
     launch,
+    launch_deep,
     mt_test,
     walk_reference,
 )
@@ -95,8 +97,11 @@ def packet_traverse_wide(nodes, leaf_rows, origin, direction, tmax0,
     as in the emit mode.
 
     DEEP (``deep_e > 0`` + ``entries`` (G,deep_e) i32, -1 padded, with
-    N = G * ``packet_size``): packet g walks from its entry list
-    ``entries[g]`` instead of the root -> ``(dst, prim)``.
+    N = G * ``packet_size``): each lane of packet g walks the subtrees of
+    the entries ``entries[g]`` instead of the tree from the root ->
+    ``(dst, prim)``, the closest hit (or occlusion) in their union, the
+    subtrees walked one after the other, the last listed first.  Lanes
+    with ``tmax0 <= 0`` (the route's padding) return ``tmax0`` and -1.
     """
     check_walk_inputs(nodes, leaf_rows, origin, direction, tmax0)
     rows = _rows(max_recs)
@@ -123,9 +128,13 @@ def packet_traverse_wide(nodes, leaf_rows, origin, direction, tmax0,
     if dev.type != "cuda":
         raise ValueError(f"no traversal kernel for device {dev}")
     walk = "anyhit" if anyhit else "closest"
-    out = launch(nodes, leaf_rows, origin, direction, tmax0,
-                 "emit" if emit_leaves else walk, rows, top_k=top_k,
-                 troot=troot, entries=entries, packet_size=packet_size)
+    if entries is not None:
+        out = launch_deep(nodes, leaf_rows, entries, origin, direction,
+                          tmax0, anyhit, rows, packet_size)
+    else:
+        out = launch(nodes, leaf_rows, origin, direction, tmax0,
+                     "emit" if emit_leaves else walk, rows, top_k=top_k,
+                     troot=troot)
     if emit_leaves:
         mode = "packet8_emit"
     elif troot is not None or entries is not None:

@@ -151,10 +151,12 @@ def _deep_round(scene, o, d, pair_entry, pair_ray, valid, tmax_ray,
     one entry is padded to a multiple of RUN lanes, so every RUN-lane block
     of a PACKET-lane packet belongs to one entry and the packet's entry
     list is its blocks' first keys.  Each pair walks its packet's entries
-    bounded by its ray's ``tmax_ray``.  The runs are found by binary
-    search of every possible key (node ids, then the dead key) in the
-    sorted keys, which needs no atomics; every size comes from the shapes
-    and the scene's treelet count, so no value is read back to the host.
+    bounded by its ray's ``tmax_ray``; the padding lanes (``-BIG``)
+    return at once (``packet_traverse_wide``).  The runs are found by
+    binary search of every possible key (node ids, then the dead key) in
+    the sorted keys, which needs no atomics; every size comes from the
+    shapes and the scene's treelet count, so no value is read back to the
+    host.
     """
     m = pair_entry.shape[0]
     dev = pair_entry.device

@@ -216,6 +216,65 @@ def test_treelet_modes_match_plain_version(dev, scene, start, anyhit):
         assert (got[2] >= 0).any()
 
 
+@pytest.fixture(scope="module")
+def deep_variants(dev):
+    """tools/deep_walk_variants.py: the DEEP walk before its redesign."""
+    import os
+    import sys
+
+    sys.path.append(os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools"))
+    import deep_walk_variants
+
+    return deep_walk_variants
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("start", ["treelet_roots", "any_nodes"])
+@pytest.mark.parametrize("rows", [1, 2])
+@pytest.mark.parametrize("anyhit", [False, True])
+def test_deep_walk_matches_plain_version(dev, scene, scene16, deep_variants,
+                                         start, rows, anyhit):
+    """deep_walk_kernel, bit for bit against its twin, over one- and
+    two-row leaf slots, from lists of treelet roots (the route's) or of
+    any wide nodes (nested ones too), the root in every third list, with
+    inactive lanes; and against the walk it replaced (old_deep_kernel of
+    tools/deep_walk_variants.cu), bit for bit too."""
+    sc = scene if rows == 1 else scene16
+    assert (sc.meta["wide_leaf_recs"] > 8) == (rows == 2)
+    n_packets, packet_size, deep_e = 10, 2048, 16
+    rand = np.random.default_rng(4)
+    if start == "treelet_roots":
+        pool = sc.wide_troot.nonzero()[:, 0].cpu().numpy()
+    else:
+        pool = np.arange(1, sc.wide_packed.shape[0])
+    assert len(pool) > 0
+    entries = np.full((n_packets, deep_e), -1, np.int32)
+    for g in range(n_packets):
+        pick = rand.permutation(pool)[:rand.integers(1, deep_e)]
+        if g % 3 == 0:
+            pick[0] = 0
+        entries[g, rand.permutation(deep_e)[:len(pick)]] = pick
+    args = [sc.wide_packed, sc.leaf_rows,
+            *_rays(sc, n_packets * packet_size, anyhit),
+            sc.meta["wide_leaf_recs"]]
+    kw = dict(anyhit=anyhit, deep_e=deep_e,
+              entries=torch.from_numpy(entries).to(dev),
+              packet_size=packet_size)
+    packet.reset_launches()
+    got = packet.packet_traverse_wide(*args, **kw)
+    mode = "packet8_deep" + ("_anyhit" if anyhit else "")
+    assert packet.launches[mode] == sum(packet.launches.values()) == 1
+    want = packet.packet_traverse_wide_reference(
+        *args, **{k: v for k, v in kw.items() if k != "deep_e"})
+    old = deep_variants.run("old", *args, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    deep_variants.compare("old", got, old)
+    assert (got[1] >= 0).any() or (anyhit and (got[0] < -1.0).any())
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("clipped", [False, True])
 def test_narrow_walk_matches_plain_version(dev, scene, clipped):

@@ -27,6 +27,9 @@ below the ray's final closest hit are emitted by every order: those sets
 must agree.
 """
 
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -46,6 +49,8 @@ from ray_tracer_tpu_torch.scene import builder as t_builder
 from torch_parity import (
     assert_images_match,
     assert_tri_ties,
+    deep_in_order,
+    nearest_first,
     route_rays,
     route_tmax,
     scene_arrays,
@@ -159,6 +164,188 @@ def test_treelet_roots_of_a_small_tree(tmp_path):
     empty = b.compile(device="cpu")
     assert empty.wide_troot.tolist() == [0]
     assert empty.meta["n_treelets"] == 0
+
+
+# ---- the DEEP walk: the list order, the padding lanes, and the entry-box
+# cull and nearest-first order of tools/deep_walk_variants.cu
+
+
+def _deep_tools():
+    sys.path.append(os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools"))
+    import deep_walk_variants
+
+    return deep_walk_variants
+
+
+@pytest.mark.parametrize("name", ["soup_leaf4", "soup_leaf8",
+                                  "sponza_proxy", "mesh_free"])
+def test_entry_box_table(name, tmp_path, monkeypatch):
+    """Row w of the variants' entry-box table is node w's child box in its
+    parent's row with flag 1, the root's a NaN box with flag 0; each
+    node's children lie inside its own box (the cull's premise)."""
+    if name == "mesh_free":
+        b = trt.SceneBuilder()
+        b.add_material(trt.Material())
+        b.add_sphere((0.0, 0.0, 0.0), 1.0, 0)
+        sc = b.compile(device="cpu")
+    elif name == "sponza_proxy":
+        sc = sponza_builders(str(tmp_path), monkeypatch, 8000)[1].compile(
+            device="cpu")
+    else:
+        sc = soup_scene(trt, str(tmp_path), n_tris=N_TRIS).compile(
+            device="cpu", max_leaf_tris=4 if name == "soup_leaf4" else 8)
+    wp = sc.wide_packed.numpy()
+    table = _deep_tools().entry_boxes(wp)
+    w = wp.shape[0]
+    assert table.shape == (w, 8) and table.dtype == np.float32
+    boxes = wp[:, :64].reshape(w, 8, 8)
+    want = np.full((w, 8), np.nan, np.float32)
+    want[:, 6:] = 0.0
+    for parent in range(w):
+        for c in range(8):
+            code = boxes[parent, c, 6]
+            if np.isfinite(boxes[parent, c, 0]) and code > 0:
+                assert want[int(code), 6] == 0.0  # one parent each
+                want[int(code), :6] = boxes[parent, c, :6]
+                want[int(code), 6] = 1.0
+    np.testing.assert_array_equal(table, want)  # NaN-equal
+    assert table[0, 6] == 0.0 and np.isnan(table[0, :6]).all()
+    assert table[:, 6].sum() == w - 1  # every other node has a parent
+    node, c = np.nonzero(np.isfinite(boxes[:, :, 0])
+                         & (table[:, 6] == 1.0)[:, None])
+    child = boxes[node, c, :6]
+    assert (child[:, :3] >= table[node, :3]).all()
+    assert (child[:, 3:] <= table[node, 3:6]).all()
+    assert (w == 1) == (name == "mesh_free")
+
+
+def _deep_lists(sc, rand, g, root_every=2):
+    """(g, E) entry lists of random wide nodes (nested ones too) at random
+    positions, -1 elsewhere; the root in every ``root_every``-th list."""
+    w = sc.wide_packed.shape[0]
+    ent = np.full((g, E), -1, np.int32)
+    for row in range(g):
+        k = rand.integers(1, E)
+        pick = rand.permutation(np.arange(1, w))[:k]
+        if row % root_every == 0:
+            pick[0] = 0
+        ent[row, rand.permutation(E)[:len(pick)]] = pick
+    return ent
+
+
+@pytest.fixture(scope="module")
+def merged_soup(tmp_path_factory):
+    """The soup with 16-record two-row leaf slots, without spatial splits
+    as the kernel tests' soup."""
+    tmp = str(tmp_path_factory.mktemp("merged"))
+    sc = soup_scene(trt, tmp, n_tris=N_TRIS).compile(
+        device="cpu", max_leaf_tris=8, merge_wide_leaves=True,
+        spatial_splits=False)
+    assert sc.meta["wide_leaf_recs"] == 16
+    return sc
+
+
+@pytest.mark.parametrize("case", ["closest", "clipped", "inactive",
+                                  "anyhit", "two_rows", "subnormal"])
+def test_deep_cull_is_exact(kscenes, merged_soup, case):
+    """The DEEP walk (the twin of deep_walk_kernel) against a chain of
+    single-entry walks, every entry untested, the last listed first (the
+    DEEP walk before its redesign), bit for bit; so is that chain with the
+    entry-box cull of tools/deep_walk_variants.cu; nearest first (the
+    variants' other order) hit masks are equal, ``dst`` within the parity tolerance and
+    ``prim`` up to exact-t ties (without spatial splits every hit lies
+    inside its leaf's box, so the order changes no more).  Entry lists of
+    random nodes, the root in half of them; "subnormal": direction
+    components of 1e-40 (1/d = inf past the zero guard) and of 1.5e-38
+    from origins 60 away (o/d overflows), where every box test fails."""
+    sc = merged_soup if case == "two_rows" else kscenes[1]
+    rand = np.random.default_rng(21)
+    p = 256
+    n = 4 * p
+    o, d, tmax = _rays(22, n, {"anyhit": "clipped", "two_rows": "clipped",
+                               "subnormal": "closest"}.get(case, case))
+    if case == "subnormal":
+        d[0::4, 0] = 1e-40
+        d[1::4, 1] = -1e-40
+        d[2::8, 2] = 1.5e-38
+        o[2::8] = o[2::8] + np.float32(60.0) * np.sign(o[2::8])
+        assert (1.0 / d[0::4, 0] == np.inf).all()
+    if case == "clipped":
+        tmax[::7] = -BIG
+    ent = torch.from_numpy(_deep_lists(sc, rand, n // p))
+    anyhit = case == "anyhit"
+    args = _kernel_args(sc, o, d, tmax)
+    box = torch.from_numpy(_deep_tools().entry_boxes(sc.wide_packed.numpy()))
+    t_packet.reset_launches()
+    twin = t_packet.packet_traverse_wide(*args, anyhit=anyhit, deep_e=E,
+                                         entries=ent, packet_size=p)
+    assert sum(t_packet.launches.values()) == 0  # CPU: the plain version
+    untested = deep_in_order(*args[:5], ent, p, args[5], anyhit=anyhit)
+    stats = {}
+    culled = deep_in_order(*args[:5], ent, p, args[5], anyhit=anyhit,
+                           entry_box=box, stats=stats)
+    near = deep_in_order(*args[:5], ent, p, args[5], anyhit=anyhit,
+                         entry_box=box, order=nearest_first(
+                             *args[2:4], ent, p, box))
+    for a, b, c in zip(twin, culled, untested):
+        assert torch.equal(a, c) and torch.equal(b, c)
+    assert stats["skipped"] > 0  # the cull skipped entries
+    hit = untested[1].numpy() >= 0
+    np.testing.assert_array_equal(near[1].numpy() >= 0, hit)
+    np.testing.assert_allclose(near[0].numpy(), untested[0].numpy(), **TOL)
+    if anyhit:
+        occ = untested[0].numpy() < -1.0
+        assert 0 < occ.sum() < n and (twin[1] == -1).all()
+    else:
+        assert_tri_ties(sc, o, d, _tris(sc, near[1].numpy()),
+                        _tris(sc, untested[1].numpy()), hit)
+    if case == "subnormal":
+        odd = np.zeros(n, bool)
+        odd[0::4] = odd[1::4] = odd[2::8] = True
+        assert not hit[odd].any() and hit[~odd].sum() > 50
+        np.testing.assert_array_equal(twin[0].numpy()[odd], tmax[odd])
+    elif not anyhit:
+        assert hit.sum() > 50
+
+
+def test_deep_padding_lanes_return_at_once(kscenes):
+    """Lanes with tmax0 <= 0 (the route's padding lanes hold -BIG) return
+    tmax0 and -1 and visit nothing: no record accepts a ray at a t below
+    their bound (t >= 0), so a walk of their entries returns the same."""
+    _, sc = kscenes
+    p = 256
+    o, d, tmax = _rays(23, 2 * p, "closest")
+    tmax[::2] = -BIG
+    tmax[1::4] = 0.0
+    off = tmax <= 0
+    ent = torch.from_numpy(_deep_lists(sc, np.random.default_rng(3), 2,
+                                       root_every=1))
+    args = _kernel_args(sc, o, d, tmax)
+    rec = sc.leaf_rows.reshape(-1, 16)
+    rec = rec[~rec[:, 0].isnan()]
+    dd = torch.from_numpy(np.where(d == 0.0, np.float32(1e-20), d)[off])
+    t, _, _, _, ok = t_packet.mt_test(rec[None], torch.from_numpy(o[off])[
+        :, None], dd[:, None])
+    assert not (ok & (t < torch.from_numpy(tmax[off])[:, None])).any()
+    live = torch.from_numpy(~off)
+    for anyhit in (False, True):
+        stats, live_stats = {}, {}
+        dst, prim = t_packet.packet_traverse_wide_reference(
+            *args, anyhit=anyhit, entries=ent, packet_size=p, stats=stats)
+        np.testing.assert_array_equal(dst.numpy()[off], tmax[off])
+        assert (prim.numpy()[off] == -1).all()
+        want = deep_in_order(*args[:5], ent, p, args[5], anyhit=anyhit)
+        assert torch.equal(dst, want[0]) and torch.equal(prim, want[1])
+        assert (prim.numpy()[~off] >= 0).sum() > 10 or anyhit
+        # the live lanes alone, one packet per lane: the same visits
+        t_packet.packet_traverse_wide_reference(
+            *(x[live].contiguous() if i in (2, 3, 4) else x
+              for i, x in enumerate(args)), anyhit=anyhit,
+            entries=ent[torch.arange(2 * p)[live] // p].contiguous(),
+            packet_size=1, stats=live_stats)
+        for k in ("interior", "leaf", "children", "records"):
+            assert stats[k] == live_stats[k], k
 
 
 # ---- the kernel modes against the JAX kernel

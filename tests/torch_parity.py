@@ -351,3 +351,69 @@ def aimed_chunks(tri_packed, starts, counts, cids, rand):
         f[::7] = 0.0
         feats[g] = f.T
     return feats
+
+
+def entry_dist(origin, direction, ent, entry_box):
+    """(N,E) entry distance of each lane into the entry boxes (rows of the
+    (W,8) ``entry_box`` table) of its entries ``ent`` (N,E): the kernels'
+    slab test, op for op, +inf on a miss, on entries without a box (the
+    root) and on -1."""
+    box = entry_box[ent.long().clamp(min=0)]
+    d = torch.where(direction == 0.0, 1e-20, direction)
+    inv = 1.0 / d
+    oi = origin * inv
+    t1 = box[:, :, 0:3] * inv[:, None] - oi[:, None]
+    t2 = box[:, :, 3:6] * inv[:, None] - oi[:, None]
+    lo, hi = torch.minimum(t1, t2), torch.maximum(t1, t2)
+    tmin = torch.maximum(torch.maximum(lo[..., 0], lo[..., 1]), lo[..., 2])
+    tmx = torch.minimum(torch.minimum(hi[..., 0], hi[..., 1]), hi[..., 2])
+    near = (tmx >= tmin) & (tmx > 0) & (box[:, :, 6] != 0) & (ent >= 0)
+    return torch.where(near, tmin, float("inf"))
+
+
+def deep_in_order(nodes, leaf_rows, origin, direction, tmax0, entries,
+                  packet_size, max_recs, anyhit=False, entry_box=None,
+                  order=None, stats=None):
+    """The DEEP walk of every lane, one entry's subtree after the other,
+    each bounded by the best so far: one single-entry DEEP walk per turn.
+    ``order`` (N,E) holds the list index of each lane's entry at each turn;
+    by default the list order, last entry first, which is the DEEP walk
+    before its redesign (its entries pushed untested in list order onto
+    the walk's stack).  With an ``entry_box`` table (``tools/deep_walk_variants.py::
+    entry_boxes``) an entry that has a box is walked only where the ray
+    enters it within the best so far (the cull); ``stats["skipped"]``
+    then counts the (lane, turn) pairs it skipped.  ``(dst, prim)``."""
+    from ray_tracer_tpu_torch.kernels import packet
+
+    n = origin.shape[0]
+    ent = entries[torch.arange(n) // packet_size]
+    if order is None:
+        order = torch.arange(ent.shape[1] - 1, -1, -1).expand(n, -1)
+    ent = ent.gather(1, order)
+    dst, prim = tmax0.clone(), torch.full((n,), -1, dtype=torch.int32)
+    skipped = 0
+    for turn in range(ent.shape[1]):
+        col = ent[:, turn:turn + 1]
+        if entry_box is not None:
+            boxed = (entry_box[col[:, 0].long().clamp(min=0), 6] != 0)
+            dist = entry_dist(origin, direction, col, entry_box)[:, 0]
+            skip = (col[:, 0] >= 0) & boxed & ~(dist < dst)
+            skipped += int(skip.sum())
+            col = torch.where(skip[:, None], -1, col)
+        d, p = packet.packet_traverse_wide_reference(
+            nodes, leaf_rows, origin, direction, dst, max_recs,
+            anyhit=anyhit, entries=col.contiguous(), packet_size=1)
+        prim = torch.where(p >= 0, p, prim)
+        dst = d
+    if stats is not None:
+        stats["skipped"] = skipped
+    return dst, prim
+
+
+def nearest_first(origin, direction, entries, packet_size, entry_box):
+    """(N,E) list indices of each lane's entries nearest first: by
+    :func:`entry_dist` (ties, the root and -1 at +inf, by list index)."""
+    n = origin.shape[0]
+    ent = entries[torch.arange(n) // packet_size]
+    key = entry_dist(origin, direction, ent, entry_box)
+    return torch.sort(key, dim=1, stable=True).indices
