@@ -3,24 +3,30 @@
     python3 chip_smoke.py
 
 Builds every CUDA kernel library from this checkout (in parallel), prints
-the main path's kernel (group_walk_kernel) as ptxas reports it, holds it
-against walk_kernel, the design it replaced, and times both in turns on
-bounce and shadow rays at 2^18 and 2^22 lanes (the frame's widest round),
-prints the cluster route's chunk kernels (cluster_pairs_kernel,
-box_hits_kernel) as ptxas reports them and holds each against the design
-it replaced (tools/cluster_test_variants.cu) on the route's chunks, timed
-in turns, prints the two-phase route's DEEP kernel (deep_walk_kernel) as
-ptxas reports it and holds it against the walk it replaced
-(tools/deep_walk_variants.cu) on the route's DEEP launches, timed in
-turns, checks each kernel mode against its plain torch version on the
-card at the main path's shapes, checks small card renders against the same
-renders on the CPU, and renders the benchmark frame (sponza_proxy,
-1920x1080, spp 2, bounce limit 8, one whole-frame tile) through each
-traversal route of the port: the group kernel (the default), the cluster
-route with packet and with box enumeration, the packet walk, the narrow
-binary-BVH walk, the rope walk and two-phase treelet traversal.  Every phase prints one line;
-any failure raises, so the exit code is non-zero and no result line is
-printed.  The line before the last lists the kernels; the last line is
+the main path's kernel (group_walk_kernel, which the packet walk from the
+root launches too) as ptxas reports it, holds it against walk_kernel's
+loop, the design it replaced (tools/packet_walk_variants.cu), and times
+both in turns on bounce and shadow rays at 2^18 and 2^22 lanes (the
+frame's widest round) and through the packet walk with one- and two-row
+leaf slots at 2^18 (packet_vs_old), prints the narrow walk's kernel
+(bvh2_walk_kernel) as ptxas reports it and holds it against the design it
+replaced (tools/narrow_walk_variants.cu), timed in turns at 2^18 and 2^22
+(narrow_vs_old), prints the cluster route's chunk kernels
+(cluster_pairs_kernel, box_hits_kernel) as ptxas reports them and holds
+each against the design it replaced (tools/cluster_test_variants.cu) on
+the route's chunks, timed in turns, prints the two-phase route's DEEP
+kernel (deep_walk_kernel) as ptxas reports it and holds it against the
+walk it replaced (tools/deep_walk_variants.cu) on the route's DEEP
+launches, timed in turns, checks each kernel mode against its plain torch
+version on the card at the main path's shapes, checks small card renders
+against the same renders on the CPU, and renders the benchmark frame
+(sponza_proxy, 1920x1080, spp 2, bounce limit 8, one whole-frame tile)
+through each traversal route of the port: the group kernel (the default),
+the cluster route with packet and with box enumeration, the packet walk,
+the narrow binary-BVH walk, the rope walk and two-phase treelet
+traversal.  Every phase prints one line; any failure raises, so the exit
+code is non-zero and no result line is printed.  The line before the last
+lists the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Needs a CUDA device; imports no JAX.
 """
 
@@ -55,6 +61,8 @@ from ray_tracer_tpu_torch.scene import presets  # noqa: E402
 
 import cluster_test_variants  # noqa: E402
 import deep_walk_variants  # noqa: E402
+import narrow_walk_variants  # noqa: E402
+import packet_walk_variants  # noqa: E402
 
 BIG = group.BIG
 FRAME = (1920, 1080)  # the benchmark frame: spp 2, bounce limit 8
@@ -75,7 +83,8 @@ ROUTES = {  # frame phase -> routing, timed frames
 KERNEL_MODULES = (group, packet, cluster, lanewalk)  # the launch counters
 # one nvcc build each
 LIBRARIES = (bvh8.build, cluster.build, packet.build_narrow, lanewalk.build,
-             cluster_test_variants.build, deep_walk_variants.build)
+             cluster_test_variants.build, deep_walk_variants.build,
+             packet_walk_variants.build, narrow_walk_variants.build)
 BVH8 = "ray_tracer_tpu_torch/csrc/bvh8_walk.cu"
 PACKET8 = "ray_tracer_tpu/kernels/packet.py:301"
 KERNELS = {  # mode -> (source, its CUDA kernel, the TPU kernel it replaces)
@@ -83,8 +92,8 @@ KERNELS = {  # mode -> (source, its CUDA kernel, the TPU kernel it replaces)
                        "ray_tracer_tpu/kernels/group.py:89"),
     "group_anyhit": (BVH8, "group_walk_kernel",
                      "ray_tracer_tpu/kernels/group.py:89"),
-    "packet8_wide": (BVH8, "walk_kernel", PACKET8),
-    "packet8_anyhit": (BVH8, "walk_kernel", PACKET8),
+    "packet8_wide": (BVH8, "group_walk_kernel", PACKET8),
+    "packet8_anyhit": (BVH8, "group_walk_kernel", PACKET8),
     "packet8_emit": (BVH8, "walk_kernel", PACKET8),
     "cluster_pairs": ("ray_tracer_tpu_torch/csrc/cluster_test.cu",
                       "cluster_pairs_kernel",
@@ -301,6 +310,12 @@ def ray_bytes(tmax0, out) -> int:
     return 24 * active + (4 + out) * tmax0.numel()
 
 
+def narrow_args(sc, rays, name):
+    """The narrow walk's arguments for one ray set, less the root word."""
+    return (sc.bvh_packed, sc.bvh_axis, sc.tri_packed, *rays[name],
+            sc.meta["bvh_root"])
+
+
 def narrow_checks(sc, rays):
     """The narrow walk (all five outputs) on the bounce set and, clipped at
     the light, on the shadow set, exact against the plain walk.  Bytes:
@@ -308,9 +323,9 @@ def narrow_checks(sc, rays):
     distinct triangle records tested; operations: 22 per box and 40 per
     triangle tested."""
     out = {}
-    root = int(sc.obj_bvh_root[0])
+    word = sc.meta["bvh_root_word"]
     for name in ("bounce", "shadow"):
-        args = (sc.bvh_packed, sc.bvh_axis, sc.tri_packed, *rays[name], root)
+        args = narrow_args(sc, rays, name)
         stats = {}
 
         def cost(args=args, stats=stats):
@@ -321,7 +336,7 @@ def narrow_checks(sc, rays):
                 stats["boxes"] * OPS_CHILD + stats["tris"] * OPS_RECORD)
 
         out["narrow_" + name] = measure(
-            "packet_narrow", lambda: packet.packet_traverse(*args),
+            "packet_narrow", lambda: packet.packet_traverse(*args, word),
             lambda: packet.packet_traverse_reference(*args, stats=stats),
             equal_all(f"narrow {name}"), cost,
             rays=name, n=N_CHECK, active=int((args[5] > -BIG).sum()),
@@ -404,36 +419,91 @@ def group_checks(sc, rays):
     return out
 
 
+def in_turns(new, old) -> dict:
+    """``new()`` and ``old()`` timed in turns (old, new, new, old; 10
+    launches each): their mean times, each turn's, and the speed-up."""
+    times = {"new": [], "old": []}
+    for which in ("old", "new", "new", "old"):
+        times[which].append(cuda_ms(new if which == "new" else old, 10))
+    rec = dict(new_ms=statistics.mean(times["new"]),
+               old_ms=statistics.mean(times["old"]),
+               new_ms_runs=times["new"], old_ms_runs=times["old"])
+    rec["speedup"] = rec["old_ms"] / rec["new_ms"]
+    return rec
+
+
 def group_vs_old(sc, rays, n):
-    """group_walk_kernel against walk_kernel, the design it replaced (the
-    packet walk with one-row slots), on the bounce and shadow sets of
-    ``n`` lanes: equal outputs (``torch.equal``), then each timed in turns
-    (old, new, new, old; 10 launches each).  The plain walk does not run
-    here."""
+    """group_walk_kernel against walk_kernel's loop, the design it replaced
+    (the old packet walk with one-row slots, tools/packet_walk_variants.cu),
+    on the bounce and shadow sets of ``n`` lanes: equal outputs
+    (``torch.equal``), then each timed in turns.  The plain walk does not
+    run here."""
     recs = sc.meta["wide_leaf_recs"]
     if recs > 8:
         raise AssertionError(f"the group walk reads one-row slots, not {recs}")
     for name, anyhit in (("bounce", False), ("shadow", True)):
         args = (sc.wide_packed, sc.leaf_rows, *rays[name])
-        runs = {
-            "new": lambda args=args, anyhit=anyhit: group.group_traverse(
-                *args, anyhit=anyhit),
-            "old": lambda args=args, anyhit=anyhit:
-                packet.packet_traverse_wide(*args, recs, anyhit=anyhit),
-        }
-        for a, b in zip(runs["new"](), runs["old"]()):
-            if not torch.equal(a, b):
-                raise AssertionError(f"{name} at {n} lanes: the group walk "
-                                     "and the packet walk differ")
-        times = {"new": [], "old": []}
-        for which in ("old", "new", "new", "old"):
-            times[which].append(cuda_ms(runs[which], 10))
-        rec = dict(new_ms=statistics.mean(times["new"]),
-                   old_ms=statistics.mean(times["old"]),
-                   new_ms_runs=times["new"], old_ms_runs=times["old"])
+
+        def new(args=args, anyhit=anyhit):
+            return group.group_traverse(*args, anyhit=anyhit)
+
+        def old(args=args, anyhit=anyhit):
+            return packet_walk_variants.run("old", *args, recs, anyhit=anyhit)
+
+        packet_walk_variants.compare(f"group walk, {name} at {n} lanes",
+                                     new(), old())
         phase("group_vs_old", rays=name, n=n, anyhit=anyhit, equal=True,
-              active=int((args[4] > -BIG).sum()),
-              speedup=rec["old_ms"] / rec["new_ms"], **rec)
+              active=int((args[4] > -BIG).sum()), **in_turns(new, old))
+
+
+def packet_vs_old(sc, sc16, rays):
+    """The packet walk from the root (group_walk_kernel through
+    ``packet_traverse_wide``) against walk_kernel's loop, the design it
+    replaced (tools/packet_walk_variants.cu), with one-row (``sc``) and
+    two-row (``sc16``) leaf slots, closest hit on the bounce set and
+    occlusion on the shadow set: dst and prim equal (``torch.equal``),
+    then each timed in turns.  Returns the records by (rows, ray set)."""
+    out = {}
+    for rows, s in ((1, sc), (2, sc16)):
+        recs = s.meta["wide_leaf_recs"]
+        for name, anyhit in (("bounce", False), ("shadow", True)):
+            args = (s.wide_packed, s.leaf_rows, *rays[name], recs)
+
+            def new(args=args, anyhit=anyhit):
+                return packet.packet_traverse_wide(*args, anyhit=anyhit)
+
+            def old(args=args, anyhit=anyhit):
+                return packet_walk_variants.run("old", *args, anyhit=anyhit)
+
+            packet_walk_variants.compare(f"packet walk, rows {rows}, {name}",
+                                         new(), old())
+            rec = in_turns(new, old)
+            phase("packet_vs_old", rows=rows, records=recs, rays=name,
+                  n=int(args[2].shape[0]), anyhit=anyhit, equal=True,
+                  active=int((args[4] > -BIG).sum()), **rec)
+            out[rows, name] = rec
+    return out
+
+
+def narrow_vs_old(sc, rays, n):
+    """The narrow walk (bvh2_walk_kernel) against the design it replaced
+    (old_bvh2_kernel of tools/narrow_walk_variants.cu) on the bounce set
+    and, clipped at the light, the shadow set of ``n`` lanes: all five
+    outputs equal (``torch.equal``), then each timed in turns."""
+    word = sc.meta["bvh_root_word"]
+    for name in ("bounce", "shadow"):
+        args = (*narrow_args(sc, rays, name), word)
+
+        def new(args=args):
+            return packet.packet_traverse(*args)
+
+        def old(args=args):
+            return narrow_walk_variants.run("old", *args)
+
+        narrow_walk_variants.compare(f"narrow walk, {name} at {n} lanes",
+                                     new(), old())
+        phase("narrow_vs_old", rays=name, n=n, equal=True,
+              active=int((args[5] > -BIG).sum()), **in_turns(new, old))
 
 
 def ptxas_of(lib, name):
@@ -579,17 +649,10 @@ def deep_vs_old(sc, rays):
             }
             deep_walk_variants.compare(f"DEEP round {round_} {name}",
                                        runs["new"](), runs["old"]())
-            times = {"new": [], "old": []}
-            for which in ("old", "new", "new", "old"):
-                times[which].append(cuda_ms(runs[which], 10))
-            rec = dict(new_ms=statistics.mean(times["new"]),
-                       old_ms=statistics.mean(times["old"]),
-                       new_ms_runs=times["new"], old_ms_runs=times["old"])
             tmax0 = args[4]
             phase("deep_vs_old", rays=name, round=round_, anyhit=anyhit,
                   lanes=int(tmax0.numel()), live=int((tmax0 > 0).sum()),
-                  equal=True,
-                  speedup=rec["old_ms"] / rec["new_ms"], **rec)
+                  equal=True, **in_turns(runs["new"], runs["old"]))
 
 
 def chunk_cost(feats, ids, per_page, unit_bytes, ops_unit, ops_lane,
@@ -675,15 +738,10 @@ def cluster_vs_old(chunks):
             if not torch.equal(a, b):
                 raise AssertionError(f"{name}: the new kernel and the old "
                                      "one differ")
-        times = {"new": [], "old": []}
-        for which in ("old", "new", "new", "old"):
-            times[which].append(cuda_ms(new if which == "new" else old, 10))
-        rec = dict(new_ms=statistics.mean(times["new"]),
-                   old_ms=statistics.mean(times["old"]),
-                   new_ms_runs=times["new"], old_ms_runs=times["old"])
+        rec = in_turns(new, old)
         phase("cluster_vs_old", kernel=name, equal=True,
               chunks=int(ids.numel()), live_chunks=int((ids >= 0).sum()),
-              speedup=rec["old_ms"] / rec["new_ms"], **rec)
+              **rec)
         out[name] = rec
     return out
 
@@ -816,11 +874,18 @@ def main() -> None:
     if sc.meta["rope_rows"] <= 0:
         raise AssertionError("no rope streams: the rope walk cannot run")
 
-    # its stack frame is the local stack array; nothing spills
+    # its stack frame is the local stack array; nothing spills (closest
+    # and occlusion, one- and two-row slots)
     walks = ptxas_of(bvh8.build(), "group_walk_kernel")
     phase("group_walk_ptxas", kernels=walks)
-    if len(walks) != 2 or any(w["spill_store_bytes"] != 0 for w in walks):
+    if len(walks) != 4 or any(w["spill_store_bytes"] != 0 for w in walks):
         raise AssertionError(f"group_walk_kernel spills: {walks}")
+
+    # the narrow walk: its stack of far children; no spills
+    narrow = ptxas_of(packet.build_narrow(), "bvh2_walk_kernel")
+    phase("narrow_walk_ptxas", kernels=narrow)
+    if len(narrow) != 1 or narrow[0]["spill_store_bytes"] != 0:
+        raise AssertionError(f"bvh2_walk_kernel spills: {narrow}")
 
     # the cluster chunk kernels: no spills
     chunk_kernels = [w for name in ("cluster_pairs_kernel", "box_hits_kernel")
@@ -840,7 +905,12 @@ def main() -> None:
     rays = check_rays(sc, dev)
     deep_vs_old(sc, rays)
     group_vs_old(sc, rays, N_CHECK)
-    group_vs_old(sc, check_rays(sc, dev, N_WIDE), N_WIDE)
+    packet_vs_old(sc, sc16, rays)
+    narrow_vs_old(sc, rays, N_CHECK)
+    wide_rays = check_rays(sc, dev, N_WIDE)
+    group_vs_old(sc, wide_rays, N_WIDE)
+    narrow_vs_old(sc, wide_rays, N_WIDE)
+    del wide_rays
     chunks = cluster_chunks(sc, rays)
     cluster_vs_old(chunks)
     checks = {**group_checks(sc, rays), **packet_checks(sc, sc16, rays),

@@ -1,10 +1,10 @@
 // BVH8 traversal, one thread per ray (sm_90a): closest hit, occlusion,
 // cluster enumeration and the two phases of treelet traversal.  Three
-// kernels: walk_kernel (rt_bvh8_walk), the packet walk from the root and
-// its TOP and emit modes; group_walk_kernel (rt_bvh8_group), the main
-// path's closest-hit and occlusion walk over one-row leaf slots; and
-// deep_walk_kernel (rt_bvh8_deep), the DEEP phase of treelet traversal.
-// The last two share one walk loop (walk_from).
+// kernels: group_walk_kernel (rt_bvh8_group), the closest-hit and occlusion
+// walk from the root over one- or two-row leaf slots, which serves the main
+// path and the packet walk; deep_walk_kernel (rt_bvh8_deep), the DEEP phase
+// of treelet traversal; and walk_kernel (rt_bvh8_walk), the emit and TOP
+// modes.  The first two share one walk loop (walk_from).
 //
 // Replaces two TPU kernels that compute the same walk per ray:
 //   ray_tracer_tpu/kernels/group.py::_group_kernel (closest-hit
@@ -70,7 +70,7 @@
 // every accept test is a comparison that is false on NaN, so an empty
 // child slot is never entered.
 //
-// What bounds walk_kernel: dependent global loads.  Each visit is one 256 B
+// What bounds walk_kernel (the emit and TOP modes): dependent global loads.  Each visit is one 256 B
 // node row (the 8 child boxes) or one leaf slot of 512 B or 1 KiB, whose
 // address depends on the previous visit; the arithmetic per visit is small.
 // The tables of the main-path scene (~27 MiB) sit in the 50 MB L2.  Rays
@@ -82,6 +82,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "walk_common.cuh"
+
 namespace {
 
 constexpr int kBlock = 128;
@@ -90,14 +92,6 @@ constexpr int kStack = 96;
 constexpr float kBig = 99999999.0f;
 enum WalkMode { kClosest = 0, kAnyhit = 1, kEmit = 2 };
 enum WalkStart { kRoot = 0, kTop = 1 };
-
-__device__ __forceinline__ float min_nan(float a, float b) {
-  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fminf(a, b);
-}
-
-__device__ __forceinline__ float max_nan(float a, float b) {
-  return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
-}
 
 struct Ray {
   float ox, oy, oz, dx, dy, dz, ix, iy, iz, oix, oiy, oiz;
@@ -317,65 +311,59 @@ int by_rows(int rows, const WalkArgs& a, cudaStream_t s) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <int kMode>
-int by_start(int start, int rows, const WalkArgs& a, cudaStream_t s) {
-  if (start == kRoot) return by_rows<kMode, kRoot>(rows, a, s);
-  if (start == kTop) return by_rows<kMode, kTop>(rows, a, s);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
 // ---------------------------------------------------------------------------
-// group_walk_kernel: the main path's walk (kernels/group.py::group_traverse)
+// group_walk_kernel: the walk from the root, closest hit and occlusion
+// (kernels/group.py::group_traverse, and kernels/packet.py::
+// packet_traverse_wide without a start table)
 //
 // Replaces ray_tracer_tpu/kernels/group.py::_group_kernel (closest hit, and
-// occlusion with anyhit=True) and computes exactly walk_kernel<kClosest |
-// kAnyhit, 1, kRoot>: the same visits in the same order, so dst and prim
-// equal walk_reference(..., rows=1) bit for bit.
+// occlusion with anyhit=True) and the walk from the root of
+// ray_tracer_tpu/kernels/packet.py::_packet8_kernel (closest hit and
+// occlusion over one-row or two-row leaf slots).  It computes exactly what
+// walk_kernel<kClosest | kAnyhit, kRows, kRoot> computed for both before
+// (that walk is now tools/packet_walk_variants.cu's "old" kernel): the same
+// visits in the same order, so dst and prim equal walk_reference(...,
+// rows=kRows) bit for bit.
 //
-// What bounds it on this card: instruction issue and latency within
-// divergent warps, not bytes and not the FP32 rate.  The tables (~27 MiB on
-// the main-path scene) sit in the 50 MB L2, and the FP32 work (22
-// operations per child box, 40 per record) is 2-3% of the FP32 peak in
-// the kernel's time.  Each thread walks its own ray, so a warp runs as long
-// as its longest ray and executes both the leaf and the interior branch
-// whenever its lanes split.  What the design does about it (each element
-// timed against its own removal by tools/measure_group_walk.py, whose
-// variants of this kernel are tools/group_walk_variants.cu; PERF.md):
+// What bounds it on this card: dependent-load latency and instruction
+// issue within divergent warps, not bytes and not the FP32 rate.  The
+// tables (~27 MiB on the main-path scene) sit in the 50 MB L2, and the FP32
+// work (22 operations per child box, 40 per record) is 2-3% of the FP32
+// peak in the kernel's time.  Each thread walks its own ray, so a warp runs
+// as long as its longest ray and executes both the leaf and the interior
+// branch whenever its lanes split.  What the design does about it (each
+// element timed against its own removal by tools/measure_group_walk.py,
+// whose variants of this kernel are tools/group_walk_variants.cu, and the
+// two-row pin by tools/measure_packet_walk.py; NVIDIA H100 80GB HBM3 at
+// 700 W; PERF.md):
 //   * min/max with NaN propagation is one instruction (PTX min.NaN.f32 /
-//     max.NaN.f32, sm_80+) instead of walk_kernel's compare-compare-or-
-//     fminf-select, 10 per child box.  Box-test values only feed
-//     comparisons, so the sign of a zero never changes a result.
+//     max.NaN.f32, walk_common.cuh) instead of walk_kernel's compare-
+//     compare-or-fminf-select, 10 per child box: 1.12-1.15x.
 //   * A leaf slot's records are tested only up to the count its code
-//     carries (payload & 15, written by scene/builder.py); the rest are NaN
-//     padding, which never hits, so dst and prim are unchanged.
+//     carries (payload & 15, written by scene/builder.py; on a two-row slot
+//     15 means 15 or 16); the rest are NaN padding, which never hits, so
+//     dst and prim are unchanged: 1.12-1.15x.
 //   * The sort axis is child 0's float 7, already loaded with the row.
 //   * The top stack word stays in a register; the words below it are a
 //     local array, as in walk_kernel (384 B of stack frame, no spills).
 //   * Registers pinned at 56 (9 blocks of 128 threads per SM): 48 runs as
 //     fast, 40 and fewer spill, and left to itself ptxas may take 80 and
-//     lose an eighth of the speed to the lower occupancy.
+//     lose an eighth of the speed to the lower occupancy.  Two-row slots
+//     keep the pin: 64 registers ran 0.99-1.02x of its time, 72 1.04-1.05x.
+// Against walk_kernel's loop, one row 1.21-1.38x, two rows 1.21-1.47x
+// faster (bounce and shadow sets, 2^18 and 2^22 rays).
 // Tried and left out (tools/group_walk_variants.cu): the words below the
 // top in shared memory, [level][thread] and sized by the tree's depth, ran
 // no faster than the local array, which hits L1; descending into the
 // nearest entered child with its code from registers (no reload) ran
 // slower, at more registers; eight lanes per ray is faster at 2^18 rays
-// but slower from 2^20 on and in the frame.
+// but slower from 2^20 on and in the frame.  The while-while order of the
+// narrow walk (tools/packet_walk_variants.cu) ran 0.97-1.04x of this loop's
+// time on one-row slots and 0.91-1.00x on two-row slots.
 // Built, like everything here, with --fmad=false and IEEE division.
 
 constexpr int kGroupBlock = 128;
 constexpr int kGroupMinBlocks = 9;  // blocks per SM: at most 56 registers
-
-__device__ __forceinline__ float min_ptx(float a, float b) {
-  float r;
-  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
-
-__device__ __forceinline__ float max_ptx(float a, float b) {
-  float r;
-  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
 
 struct GroupArgs {
   const float4* nodes;
@@ -504,7 +492,7 @@ __device__ __forceinline__ void walk_from(float code,
   }
 }
 
-template <bool kAnyhit>
+template <bool kAnyhit, int kRows>
 __global__ void __launch_bounds__(kGroupBlock, kGroupMinBlocks)
     group_walk_kernel(const GroupArgs a) {
   const int i = blockIdx.x * kGroupBlock + threadIdx.x;
@@ -513,8 +501,8 @@ __global__ void __launch_bounds__(kGroupBlock, kGroupMinBlocks)
   float best = a.tmax0[i];
   int prim = -1;
   uint32_t below[kStack - 1];  // the words under the top one
-  walk_from<kAnyhit, 1, true>(0.0f, a.nodes, a.leaf_rows, y, best, prim,
-                              below, [](float&) { return false; });
+  walk_from<kAnyhit, kRows, true>(0.0f, a.nodes, a.leaf_rows, y, best, prim,
+                                  below, [](float&) { return false; });
   a.dst[i] = best;
   a.prim[i] = prim;
 }
@@ -614,10 +602,10 @@ __global__ void __launch_bounds__(kGroupBlock, kDeepMinBlocks)
 
 }  // namespace
 
-// One launch of the main path's walk: closest hit (anyhit 0) or occlusion
-// (anyhit 1) of n rays over one-row leaf slots, with walk_kernel's
-// contract.  Returns the launch's CUDA error.
-extern "C" int rt_bvh8_group(int anyhit, const void* nodes,
+// One launch of the walk from the root: closest hit (anyhit 0) or
+// occlusion (anyhit 1) of n rays over rows-row leaf slots (1 or 2).
+// Returns the launch's CUDA error.
+extern "C" int rt_bvh8_group(int anyhit, int rows, const void* nodes,
                              const void* leaf_rows, const void* origin,
                              const void* direction, const void* tmax0,
                              void* dst, void* prim, int n, void* stream) {
@@ -626,12 +614,19 @@ extern "C" int rt_bvh8_group(int anyhit, const void* nodes,
       static_cast<const float*>(origin), static_cast<const float*>(direction),
       static_cast<const float*>(tmax0), static_cast<float*>(dst),
       static_cast<int*>(prim), n};
+  if (rows != 1 && rows != 2) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((n + kGroupBlock - 1) / kGroupBlock), block(kGroupBlock);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (anyhit) {
-    group_walk_kernel<true><<<grid, block, 0, s>>>(a);
+    if (rows == 1) {
+      group_walk_kernel<true, 1><<<grid, block, 0, s>>>(a);
+    } else {
+      group_walk_kernel<true, 2><<<grid, block, 0, s>>>(a);
+    }
+  } else if (rows == 1) {
+    group_walk_kernel<false, 1><<<grid, block, 0, s>>>(a);
   } else {
-    group_walk_kernel<false><<<grid, block, 0, s>>>(a);
+    group_walk_kernel<false, 2><<<grid, block, 0, s>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -671,10 +666,11 @@ extern "C" int rt_bvh8_deep(int anyhit, int rows, const void* nodes,
   return static_cast<int>(cudaGetLastError());
 }
 
-// One launch of the walk.  mode: 0 closest, 1 anyhit, 2 emit (one-row,
-// from the root); start: 0 root, 1 TOP (troot, slots, ovf, top_k).
-// Pointers a mode does not read may be null.  Returns the launch's CUDA
-// error code.
+// One launch of walk_kernel: mode 2 emit (one-row, start 0: from the
+// root), or mode 0 closest / 1 anyhit with start 1, TOP (troot, slots,
+// ovf, top_k).  The closest-hit and occlusion walks from the root are
+// rt_bvh8_group's: start 0 with mode 0 or 1 is refused.  Pointers a mode
+// does not read may be null.  Returns the launch's CUDA error code.
 extern "C" int rt_bvh8_walk(int mode, int rows, int start, const void* nodes,
                             const void* leaf_rows, const void* troot,
                             const void* origin, const void* direction,
@@ -693,10 +689,12 @@ extern "C" int rt_bvh8_walk(int mode, int rows, int start, const void* nodes,
     err = rows == 1 && start == kRoot
               ? launch<kEmit, 1, kRoot>(a, s)
               : static_cast<int>(cudaErrorInvalidValue);
+  } else if (start != kTop) {
+    err = static_cast<int>(cudaErrorInvalidValue);
   } else if (mode == kClosest) {
-    err = by_start<kClosest>(start, rows, a, s);
+    err = by_rows<kClosest, kTop>(rows, a, s);
   } else if (mode == kAnyhit) {
-    err = by_start<kAnyhit>(start, rows, a, s);
+    err = by_rows<kAnyhit, kTop>(rows, a, s);
   } else {
     err = static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,12 +1,13 @@
 """The BVH8 walk behind the group and packet traversal wrappers.
 
 ``csrc/bvh8_walk.cu`` is the one-thread-per-ray walk on the card, one
-library for both wrappers, with three kernels: ``kernels/group.py``
-launches ``group_walk_kernel`` (:func:`launch_group`, one-row leaf slots,
-closest hit and occlusion), ``kernels/packet.py`` launches
-``deep_walk_kernel`` (:func:`launch_deep`) for the DEEP start and
-``walk_kernel`` (:func:`launch`) with one- or two-row slots in every other
-mode.  ``walk_reference`` is the plain torch version of all three.
+library for both wrappers, with three kernels: ``group_walk_kernel``
+(:func:`launch_group`, the closest-hit and occlusion walk from the root
+over one- or two-row leaf slots), which ``kernels/group.py`` and
+``kernels/packet.py`` launch; ``deep_walk_kernel`` (:func:`launch_deep`),
+which ``kernels/packet.py`` launches for the DEEP start; and
+``walk_kernel`` (:func:`launch`), which it launches for the emit and TOP
+modes.  ``walk_reference`` is the plain torch version of all three.
 
 Tables (``CompiledScene.wide_packed`` / ``leaf_rows``):
 
@@ -114,24 +115,25 @@ def _load() -> ctypes.CDLL:
         )
         lib.rt_bvh8_group.restype = ctypes.c_int
         lib.rt_bvh8_group.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int]
+            [ctypes.c_int] * 2 + [ctypes.c_void_p] * 7 + [ctypes.c_int]
             + [ctypes.c_void_p]
         )
         _lib = lib
     return _lib
 
 
-def launch_group(nodes, leaf_rows, origin, direction, tmax0, anyhit: bool):
+def launch_group(nodes, leaf_rows, origin, direction, tmax0, anyhit: bool,
+                 rows: int = 1):
     """One launch of ``group_walk_kernel`` on the card: ``(dst, prim)`` as
-    :func:`walk_reference` with one-row slots returns them.  Inputs as
-    checked by :func:`check_walk_inputs`, on a CUDA device."""
+    :func:`walk_reference` with ``rows``-row slots (1 or 2) returns them.
+    Inputs as checked by :func:`check_walk_inputs`, on a CUDA device."""
     dev = origin.device
     n = origin.shape[0]
     dst = torch.empty(n, dtype=torch.float32, device=dev)
     prim = torch.empty(n, dtype=torch.int32, device=dev)
     if n:
         err = _load().rt_bvh8_group(
-            int(anyhit), nodes.data_ptr(), leaf_rows.data_ptr(),
+            int(anyhit), rows, nodes.data_ptr(), leaf_rows.data_ptr(),
             origin.data_ptr(), direction.data_ptr(), tmax0.data_ptr(),
             dst.data_ptr(), prim.data_ptr(), n,
             torch.cuda.current_stream(dev).cuda_stream,
@@ -168,10 +170,12 @@ def launch_deep(nodes, leaf_rows, entries, origin, direction, tmax0,
 
 def launch(nodes, leaf_rows, origin, direction, tmax0, mode: str,
            rows: int = 1, top_k: int = 0, troot=None):
-    """One launch of ``walk_kernel`` on the card (from the root, or TOP),
-    with :func:`walk_reference`'s arguments and results.  Inputs as checked
-    by :func:`check_walk_inputs` (and :func:`check_start_inputs`), on a
-    CUDA device."""
+    """One launch of ``walk_kernel`` on the card: the ``emit`` mode, or the
+    TOP start (``troot``), with :func:`walk_reference`'s arguments and
+    results.  The closest-hit and occlusion walks from the root are
+    :func:`launch_group`'s: the kernel refuses them.  Inputs as checked by
+    :func:`check_walk_inputs` (and :func:`check_start_inputs`), on a CUDA
+    device."""
     dev = origin.device
     n = origin.shape[0]
     start = _START_TOP if troot is not None else _START_ROOT

@@ -9,14 +9,18 @@ slots, the ``emit_leaves`` enumeration of candidate clusters, and the
 TOP (``top_k`` + ``troot``) and DEEP (``deep_e`` + ``entries``) phases
 of two-phase treelet traversal.  On CUDA tensors it launches the walk in
 ``csrc/bvh8_walk.cu`` (built with ``nvcc`` at first use, one library with
-``kernels/group.py``): ``deep_walk_kernel`` for the DEEP start,
-``walk_kernel`` for the others; on CPU tensors it runs
+``kernels/group.py``): ``group_walk_kernel`` for the closest-hit and
+occlusion walks from the root (the main path's kernel, here over one- or
+two-row slots), ``deep_walk_kernel`` for the DEEP start, ``walk_kernel``
+for the emit and TOP modes; on CPU tensors it runs
 :func:`packet_traverse_wide_reference`.
 
 ``packet_traverse`` is the port of ``_packet_kernel``, the narrow route's
 closest-hit walk over the binary BVH (``bvh_packed``, ``tri_packed``): on
 CUDA tensors ``csrc/bvh2_walk.cu``, on CPU tensors
-:func:`packet_traverse_reference`.  Nothing falls back: a CUDA tensor
+:func:`packet_traverse_reference`.  The kernel carries each node as a
+32-bit word (:func:`narrow_root_word`); the scene's compile stores the
+root's word in ``meta``.  Nothing falls back: a CUDA tensor
 that a kernel cannot take raises.
 
 Each kernel and its twin walk one ray per thread alike and round alike,
@@ -32,6 +36,7 @@ import ctypes
 import os
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..native_build import build_shared, nvcc_path
@@ -45,6 +50,7 @@ from .bvh8 import (
     check_walk_inputs,
     launch,
     launch_deep,
+    launch_group,
     mt_test,
     walk_reference,
 )
@@ -55,6 +61,12 @@ launches = {"packet8_wide": 0, "packet8_anyhit": 0, "packet8_emit": 0,
             "packet8_deep_anyhit": 0, "packet_narrow": 0}
 
 N_STACK = MAX_TREE_DEPTH + 32  # the narrow walk's stack (bvh2_walk.cu)
+# The narrow kernel's node word: first << NARROW_TAG_BITS | tag, tag = a
+# leaf's triangle count (1..NARROW_INTERIOR - 1) or NARROW_INTERIOR + an
+# interior node's split axis (0..2).
+NARROW_TAG_BITS = 5
+NARROW_INTERIOR = 29
+NARROW_MAX_FIRST = 2 ** (32 - NARROW_TAG_BITS) - 1
 _NARROW_SRC = os.path.join(CSRC, "bvh2_walk.cu")
 _narrow_lib: Optional[ctypes.CDLL] = None
 
@@ -127,14 +139,17 @@ def packet_traverse_wide(nodes, leaf_rows, origin, direction, tmax0,
             nodes, leaf_rows, origin, direction, tmax0, max_recs, **kw)
     if dev.type != "cuda":
         raise ValueError(f"no traversal kernel for device {dev}")
-    walk = "anyhit" if anyhit else "closest"
     if entries is not None:
         out = launch_deep(nodes, leaf_rows, entries, origin, direction,
                           tmax0, anyhit, rows, packet_size)
+    elif troot is None and not emit_leaves:
+        out = launch_group(nodes, leaf_rows, origin, direction, tmax0,
+                           anyhit, rows)
     else:
         out = launch(nodes, leaf_rows, origin, direction, tmax0,
-                     "emit" if emit_leaves else walk, rows, top_k=top_k,
-                     troot=troot)
+                     "emit" if emit_leaves else
+                     ("anyhit" if anyhit else "closest"),
+                     rows, top_k=top_k, troot=troot)
     if emit_leaves:
         mode = "packet8_emit"
     elif troot is not None or entries is not None:
@@ -196,24 +211,53 @@ def _load_narrow() -> ctypes.CDLL:
         lib = ctypes.CDLL(build_narrow())
         lib.rt_bvh2_walk.restype = ctypes.c_int
         lib.rt_bvh2_walk.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_void_p] * 5
-            + [ctypes.c_int, ctypes.c_void_p]
+            [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_uint]
+            + [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
         )
         _narrow_lib = lib
     return _narrow_lib
 
 
+def narrow_root_word(bvh_packed, bvh_axis, root: int) -> int:
+    """The narrow kernel's word of node ``root`` of the binary BVH
+    (``bvh_packed`` (B,8) f32 min3|max3|first|count, ``bvh_axis`` (B,)
+    i32; numpy arrays or CPU tensors): ``first << 5 | tag``, tag the
+    leaf's triangle count or ``NARROW_INTERIOR`` + the split axis.  Every
+    node's word is built from its table row the same way, so first the
+    whole table is checked against the word's limits (first at most
+    ``NARROW_MAX_FIRST``, leaf counts below ``NARROW_INTERIOR``, interior
+    axes 0..2): -1 where a node lies beyond them, and the narrow walk then
+    refuses the scene."""
+    ints = np.ascontiguousarray(np.asarray(bvh_packed, np.float32))
+    ints = ints.view(np.int32).astype(np.int64)
+    first, count = ints[:, 6], ints[:, 7]
+    axis = np.asarray(bvh_axis).astype(np.int64)
+    leaf = count > 0
+    if not 0 <= root < ints.shape[0]:
+        raise ValueError(f"root {root} is not a node of the BVH")
+    if (first.min() < 0 or first.max() > NARROW_MAX_FIRST
+            or count.min() < 0 or count.max() >= NARROW_INTERIOR
+            or not np.isin(axis[~leaf], (0, 1, 2)).all()):
+        return -1
+    tag = count[root] if leaf[root] else NARROW_INTERIOR + axis[root]
+    return int(first[root] << NARROW_TAG_BITS | tag)
+
+
 def packet_traverse(bvh_packed, bvh_axis, tri_packed, origin, direction,
-                    tmax0, root: int):
+                    tmax0, root: int, root_word: int):
     """The narrow route's closest-hit walk of N rays over the binary BVH
     -> ``(dst, prim, u, v, front)``, each (N,).
 
     ``bvh_packed`` (B,8) f32 min3|max3|first|count (int32 bitcasts),
     ``bvh_axis`` (B,) i32 split axes, ``tri_packed`` (T,16) f32
-    v0|e1|e2|n|front_only rows, ``root`` the root node.  ``dst``: the
-    closest accepted t (``tmax0`` on a miss; ``tmax0 = -BIG`` disables a
-    lane); ``prim``: its global triangle id, -1 on a miss; ``u``, ``v``:
-    its barycentrics (0 on a miss); ``front``: whether it faces the ray.
+    v0|e1|e2|n|front_only rows, ``root`` the root node and ``root_word``
+    its :func:`narrow_root_word` (``CompiledScene.meta["bvh_root"]`` and
+    ``["bvh_root_word"]``; -1, a table beyond the word's limits, raises
+    ``ValueError``; on CPU tensors the word is checked against the
+    tables).  ``dst``: the closest accepted t (``tmax0`` on a miss;
+    ``tmax0 = -BIG`` disables a lane); ``prim``: its global triangle id,
+    -1 on a miss; ``u``, ``v``: its barycentrics (0 on a miss); ``front``:
+    whether it faces the ray.
     """
     n = origin.shape[0]
     dev = origin.device
@@ -230,7 +274,16 @@ def packet_traverse(bvh_packed, bvh_axis, tri_packed, origin, direction,
         raise ValueError(f"root {root} is not a node of the BVH")
     if n >= 2**31 or tri_packed.shape[0] >= 2**31 // 16:
         raise ValueError("too many rays or triangles for 32-bit indices")
+    if root_word < 0:
+        raise ValueError(
+            "the BVH lies beyond the narrow walk's node word: leaf counts "
+            f"up to {NARROW_INTERIOR - 1}, first indices up to "
+            f"{NARROW_MAX_FIRST}, split axes 0..2")
     if dev.type == "cpu":
+        want = narrow_root_word(bvh_packed, bvh_axis, root)
+        if root_word != want:
+            raise ValueError(f"root_word {root_word} is not node {root}'s "
+                             f"word {want}")
         return packet_traverse_reference(bvh_packed, bvh_axis, tri_packed,
                                          origin, direction, tmax0, root)
     if dev.type != "cuda":
@@ -246,8 +299,9 @@ def packet_traverse(bvh_packed, bvh_axis, tri_packed, origin, direction,
         err = _load_narrow().rt_bvh2_walk(
             bvh_packed.data_ptr(), bvh_axis.data_ptr(), tri_packed.data_ptr(),
             origin.data_ptr(), direction.data_ptr(), tmax0.data_ptr(), root,
-            dst.data_ptr(), prim.data_ptr(), u.data_ptr(), v.data_ptr(),
-            front.data_ptr(), n, torch.cuda.current_stream(dev).cuda_stream,
+            root_word, dst.data_ptr(), prim.data_ptr(), u.data_ptr(),
+            v.data_ptr(), front.data_ptr(), n,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
         if err != 0:
             raise RuntimeError(f"narrow walk kernel launch failed: CUDA "

@@ -3,8 +3,9 @@
 Every shared library (the C++ scene compiler helpers and the CUDA kernels)
 is compiled from the checkout's own sources into
 ``<checkout>/build/ray_tracer_tpu_torch/``, keyed by a hash of the source
-text and the compiler command, so an edited source or flag rebuilds and a
-warm checkout reuses the library.  A failed build raises with the
+text, of the local headers it includes and of the compiler command, so an
+edited source, header or flag rebuilds and a warm checkout reuses the
+library.  A failed build raises with the
 compiler's output: the port never falls back to another implementation
 because a toolchain is missing.
 """
@@ -13,6 +14,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from typing import Sequence
@@ -22,6 +24,8 @@ BUILD_DIR = os.path.join(
     "build",
     "ray_tracer_tpu_torch",
 )
+
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 GXX = ("g++", "-O3", "-march=native", "-shared", "-fPIC")
 
@@ -38,15 +42,29 @@ def nvcc_path() -> str:
     return path
 
 
+def _source_text(path: str, seen: set = None) -> bytes:
+    """The text of ``path`` followed by that of every file it includes
+    with ``#include "..."``, recursively, each once."""
+    seen = set() if seen is None else seen
+    path = os.path.realpath(path)
+    if path in seen:
+        return b""
+    seen.add(path)
+    with open(path, "rb") as f:
+        text = f.read()
+    for name in _LOCAL_INCLUDE.findall(text):
+        text += _source_text(
+            os.path.join(os.path.dirname(path), name.decode()), seen)
+    return text
+
+
 def build_shared(src: str, stem: str, command: Sequence[str]) -> str:
     """Compile ``src`` with ``command`` into a shared library; return its path.
 
     The compiler's messages (``-Xptxas -v`` register reports included) are
     kept beside the library as ``<name>.log``.
     """
-    with open(src, "rb") as f:
-        text = f.read()
-    key = text + "\0".join(command).encode()
+    key = _source_text(src) + "\0".join(command).encode()
     tag = hashlib.sha256(key).hexdigest()[:16]
     so_path = os.path.join(BUILD_DIR, f"{stem}_{tag}.so")
     if os.path.exists(so_path):

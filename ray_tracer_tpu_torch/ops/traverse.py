@@ -254,10 +254,11 @@ def _two_phase_wide(scene, o, d, tmax0, rt, anyhit=False):
 
 
 def _narrow(scene, o, d, tmax0):
-    """The narrow walk over the binary BVH: ``(dst, prim)``."""
+    """The narrow walk over the binary BVH: ``(dst, prim)``; its root and
+    root word come from the scene's ``meta`` (no read from the device)."""
     dst, prim, _, _, _ = packet.packet_traverse(
         scene.bvh_packed, scene.bvh_axis, scene.tri_packed, o, d, tmax0,
-        int(scene.obj_bvh_root[0]))
+        scene.meta["bvh_root"], scene.meta["bvh_root_word"])
     return dst, prim
 
 

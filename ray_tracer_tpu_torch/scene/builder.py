@@ -27,6 +27,7 @@ from .types import (
     Material,
     RectLight,
     SphereDesc,
+    narrow_root_meta,
     resolve_device,
     rope_placeholder,
 )
@@ -781,6 +782,9 @@ class SceneBuilder:
                 "treelet_size": TREELET_SIZE,
                 "n_treelets": int(wide_troot.sum()) if flattened else 0,
                 "bvh_max_depth": forest.max_depth_seen,
+                **narrow_root_meta(dict(obj_bvh_root=obj_root,
+                                        bvh_packed=bvh_packed,
+                                        bvh_axis=forest.axis)),
                 "camera": (
                     tuple(self.camera.position),
                     tuple(self.camera.angles_deg),

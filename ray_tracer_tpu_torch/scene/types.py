@@ -157,6 +157,20 @@ def page_counts(arrays: dict, meta: dict) -> dict:
     )
 
 
+def narrow_root_meta(arrays: dict) -> dict:
+    """The narrow walk's root, read once on the host: ``bvh_root``, the
+    binary BVH's root node (the first object's, as the narrow route walks
+    the flattened tree), and ``bvh_root_word``, its word for the kernel
+    (``kernels/packet.py::narrow_root_word``, -1 where the table lies
+    beyond the word's limits)."""
+    from ..kernels.packet import narrow_root_word
+
+    roots = np.asarray(arrays["obj_bvh_root"])
+    root = int(roots[0]) if roots.size else 0
+    return dict(bvh_root=root, bvh_root_word=narrow_root_word(
+        arrays["bvh_packed"], arrays["bvh_axis"], root))
+
+
 ROPE_FIELDS = 16  # floats per rope-stream row
 ROPE_PAGE = 128  # rows per page of the JAX package's layout
 
@@ -314,11 +328,14 @@ class CompiledScene:
 
         ``arrays`` may be the JAX package's compiled scene fields: rope
         streams in the JAX layout (16*128 columns) are converted by
-        :func:`rope_rows_layout`, and the page counts it lacks are
-        derived by :func:`page_counts`.
+        :func:`rope_rows_layout`, and the page counts and narrow-walk root
+        it lacks are derived by :func:`page_counts` and
+        :func:`narrow_root_meta`.
         """
         dev = resolve_device(device)
         arrays = {**page_counts(arrays, meta), **arrays}
+        if "bvh_root_word" not in meta:
+            meta = {**meta, **narrow_root_meta(arrays)}
         rope = np.asarray(arrays["rope_streams"])
         if not meta.get("rope_rows", 0):
             arrays["rope_streams"] = rope_placeholder()

@@ -16,7 +16,13 @@ from ray_tracer_tpu_torch.kernels import bvh8, cluster, group, lanewalk, packet
 from ray_tracer_tpu_torch.ops import cluster_trace
 from ray_tracer_tpu_torch.scene import presets
 
-from torch_parity import aimed_chunks, deep_chain, hand_built_pages, soup_scene
+from torch_parity import (
+    aimed_chunks,
+    binary_chain,
+    deep_chain,
+    hand_built_pages,
+    soup_scene,
+)
 
 BIG = 99999999.0
 
@@ -125,21 +131,122 @@ def test_group_walk_matches_plain_version(dev, walk_scenes, name, n, anyhit):
         assert (prim >= 0).any() or (anyhit and (dst < -1.0).any())
 
 
+def _tools_module(name):
+    """A module of tools/ (the variants of the kernels, which the package
+    does not import)."""
+    import importlib
+    import os
+    import sys
+
+    tools = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools")
+    if tools not in sys.path:
+        sys.path.append(tools)
+    return importlib.import_module(name)
+
+
+@pytest.fixture(scope="module")
+def packet_variants(dev):
+    """tools/packet_walk_variants.py: the packet walk from the root before
+    its redesign (walk_kernel's loop)."""
+    return _tools_module("packet_walk_variants")
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", ["sponza", "soup_leaf8", "deep"])
 @pytest.mark.parametrize("anyhit", [False, True])
-def test_group_walk_matches_the_packet_walk(dev, walk_scenes, name, anyhit):
-    """The new kernel against walk_kernel (the packet walk, one-row slots)
-    on the same rays: the same visits, so the same outputs."""
+def test_group_walk_matches_the_packet_walk(dev, walk_scenes, packet_variants,
+                                            name, anyhit):
+    """The group kernel against the walk it replaced (walk_kernel's loop,
+    the old packet walk with one-row slots, tools/packet_walk_variants.cu)
+    on the same rays: the same visits, so the same outputs.  The packet
+    walk from the root is the group kernel now: its launch counts under
+    the packet walk's mode and equals it too."""
     nodes, rows, box = walk_scenes[name]
     args = [nodes, rows, *_walk_rays(box, 20000, anyhit, dev, seed=6)]
     got = group.group_traverse(*args, anyhit=anyhit)
     packet.reset_launches()
-    want = packet.packet_traverse_wide(*args, 8, anyhit=anyhit)
+    via_packet = packet.packet_traverse_wide(*args, 8, anyhit=anyhit)
     assert packet.launches["packet8_anyhit" if anyhit else "packet8_wide"] == 1
+    want = packet_variants.run("old", *args, 8, anyhit=anyhit)
     torch.cuda.synchronize()
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
+    for g, p, w in zip(got, via_packet, want):
+        assert torch.equal(g, w) and torch.equal(p, w)
+
+
+@pytest.fixture(scope="module")
+def packet_walk_cases(dev, scene, scene16):
+    """(nodes, leaf_rows, max_recs, rays box, inside) of the packet walk's
+    cases, for one- and two-row slots: the scene, and a loose chain as
+    deep as the walk's stack whose rays from its middle pointing up x fill
+    it (``inside``)."""
+    out = {}
+    for rows, sc in ((1, scene), (2, scene16)):
+        out[rows, "sponza"] = (sc.wide_packed, sc.leaf_rows,
+                               sc.meta["wide_leaf_recs"],
+                               sc.bvh_packed[0].cpu(), False)
+        nodes, leaf_rows = (torch.from_numpy(x).to(dev) for x in deep_chain(
+            bvh8.G_STACK, loose=True, rows=rows))
+        out[rows, "deep"] = (nodes, leaf_rows, 8 * rows,
+                             torch.tensor([-0.1] * 3 + [0.1] * 3), True)
+    return out
+
+
+def _case_rays(box, n, anyhit, dev, case, inside=False, seed=8):
+    """_walk_rays, with a direction component of 1e-40 (1/d = inf) on every
+    third lane (``case == "tiny"``), or pointing up every axis (``inside``:
+    the chains' stack-filling rays)."""
+    o, d, tmax = _walk_rays(box, n, anyhit, dev, seed=seed)
+    if inside:
+        d = d.abs() + 0.05
+        d = d / d.norm(dim=1, keepdim=True)
+    if case == "tiny":
+        d[::3, seed % 3] = 1e-40
+    return o, d.contiguous(), tmax
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["sponza", "tiny", "deep"])
+@pytest.mark.parametrize("rows", [1, 2])
+@pytest.mark.parametrize("anyhit", [False, True])
+def test_packet_walk_new_equals_twin_and_old(dev, packet_walk_cases,
+                                             packet_variants, case, rows,
+                                             anyhit):
+    """The packet walk from the root (group_walk_kernel<., rows>) against
+    its plain twin and against the old walk (walk_kernel's loop,
+    tools/packet_walk_variants.cu), bit for bit: on the scene, with 1e-40
+    direction components, and on a chain at the stack cap."""
+    nodes, leaf_rows, recs, box, inside = packet_walk_cases[
+        rows, "deep" if case == "deep" else "sponza"]
+    args = [nodes, leaf_rows, *_case_rays(box, 20000, anyhit, dev, case,
+                                          inside), recs]
+    packet.reset_launches()
+    got = packet.packet_traverse_wide(*args, anyhit=anyhit)
+    mode = "packet8_anyhit" if anyhit else "packet8_wide"
+    assert packet.launches[mode] == sum(packet.launches.values()) == 1
+    want = packet.packet_traverse_wide_reference(*args, anyhit=anyhit)
+    old = packet_variants.run("old", *args, anyhit=anyhit)
+    torch.cuda.synchronize()
+    packet_variants.compare("twin", got, want)
+    packet_variants.compare("old", got, old)
+    assert (got[1] >= 0).any() or (anyhit and (got[0] < -1.0).any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["regs_free", "regs72", "regs64", "regs56",
+                                  "regs48", "while_while"])
+@pytest.mark.parametrize("rows", [1, 2])
+def test_packet_walk_pins_match(dev, packet_walk_cases, packet_variants,
+                                name, rows):
+    """The register pins and the while-while order that
+    tools/measure_packet_walk.py times compute exactly what the shipped
+    walk computes."""
+    nodes, leaf_rows, recs, box, _ = packet_walk_cases[rows, "sponza"]
+    for anyhit in (False, True):
+        args = [nodes, leaf_rows, *_walk_rays(box, 20000, anyhit, dev), recs]
+        packet_variants.compare(
+            name, packet_variants.run(name, *args, anyhit=anyhit),
+            packet.packet_traverse_wide(*args, anyhit=anyhit))
 
 
 @pytest.mark.gpu
@@ -219,14 +326,7 @@ def test_treelet_modes_match_plain_version(dev, scene, start, anyhit):
 @pytest.fixture(scope="module")
 def deep_variants(dev):
     """tools/deep_walk_variants.py: the DEEP walk before its redesign."""
-    import os
-    import sys
-
-    sys.path.append(os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "tools"))
-    import deep_walk_variants
-
-    return deep_walk_variants
+    return _tools_module("deep_walk_variants")
 
 
 @pytest.mark.gpu
@@ -280,15 +380,85 @@ def test_deep_walk_matches_plain_version(dev, scene, scene16, deep_variants,
 def test_narrow_walk_matches_plain_version(dev, scene, clipped):
     o, d, tmax = _rays(scene, 20000, clipped)
     args = [scene.bvh_packed, scene.bvh_axis, scene.tri_packed, o, d, tmax,
-            int(scene.obj_bvh_root[0])]
+            scene.meta["bvh_root"]]
     packet.reset_launches()
-    got = packet.packet_traverse(*args)
+    got = packet.packet_traverse(*args, scene.meta["bvh_root_word"])
     assert packet.launches["packet_narrow"] == 1
     want = packet.packet_traverse_reference(*args)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert (got[1] >= 0).any()
+
+
+@pytest.fixture(scope="module")
+def narrow_variants(dev):
+    """tools/narrow_walk_variants.py: the narrow walk before its redesign
+    and the new one with each design element switched."""
+    return _tools_module("narrow_walk_variants")
+
+
+@pytest.fixture(scope="module")
+def narrow_cases(dev, scene):
+    """(tables, root, root word, rays box, inside) of the narrow walk's
+    cases: the scene, and binary chains of MAX_TREE_DEPTH interior levels
+    (the host's depth cap), loose (rays up every axis from the middle push
+    a leaf at every level) and tight."""
+    out = {"sponza": ((scene.bvh_packed, scene.bvh_axis, scene.tri_packed),
+                      scene.meta["bvh_root"], scene.meta["bvh_root_word"],
+                      scene.bvh_packed[0].cpu(), False)}
+    for name, loose in (("chain_loose", True), ("chain", False)):
+        tables = [torch.from_numpy(x) for x in binary_chain(
+            packet.MAX_TREE_DEPTH, loose=loose)]
+        word = packet.narrow_root_word(tables[0], tables[1], 0)
+        out[name] = (tuple(t.to(dev) for t in tables), 0, word,
+                     torch.tensor([-0.2] * 3 + [0.2] * 3), loose)
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["sponza", "tiny", "chain_loose", "chain"])
+@pytest.mark.parametrize("clipped", [False, True])
+def test_narrow_walk_new_equals_twin_and_old(dev, narrow_cases,
+                                             narrow_variants, case, clipped):
+    """The narrow walk (bvh2_walk_kernel) against its plain twin and the
+    old design (tools/narrow_walk_variants.cu), all five outputs bit for
+    bit: on the scene, with 1e-40 direction components, and on binary
+    chains at the depth cap."""
+    tables, root, word, box, inside = narrow_cases[
+        "sponza" if case == "tiny" else case]
+    args = [*tables, *_case_rays(box, 20000, clipped, dev, case, inside),
+            root]
+    packet.reset_launches()
+    got = packet.packet_traverse(*args, word)
+    assert packet.launches["packet_narrow"] == sum(
+        packet.launches.values()) == 1
+    want = packet.packet_traverse_reference(*args)
+    old = narrow_variants.run("old", *args, word)
+    torch.cuda.synchronize()
+    narrow_variants.compare("twin", got, want)
+    narrow_variants.compare("old", got, old)
+    assert (got[1] >= 0).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["shipped_copy", "single_loop",
+                                  "reload_on_pop", "two_words", "push_both",
+                                  "fminf_select_minmax", "none", "regs_free",
+                                  "regs80", "regs64", "regs56", "regs48",
+                                  "regs40"])
+def test_narrow_walk_variants_match(dev, narrow_cases, narrow_variants,
+                                    name):
+    """The variants that tools/measure_narrow_walk.py times compute exactly
+    what the shipped kernel computes."""
+    for case in ("sponza", "chain_loose"):
+        tables, root, word, box, inside = narrow_cases[case]
+        for clipped in (False, True):
+            args = [*tables, *_case_rays(box, 20000, clipped, dev, "",
+                                         inside), root, word]
+            narrow_variants.compare(
+                f"{name} on {case}", narrow_variants.run(name, *args),
+                packet.packet_traverse(*args))
 
 
 @pytest.mark.gpu
@@ -425,14 +595,7 @@ def test_box_hits_kernel_matches_plain_version(dev, scene, level, n_chunks):
 def variants(dev):
     """tools/cluster_test_variants.py: the chunk kernels before their
     redesign and the shipped walk at other settings."""
-    import os
-    import sys
-
-    sys.path.append(os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "tools"))
-    import cluster_test_variants
-
-    return cluster_test_variants
+    return _tools_module("cluster_test_variants")
 
 
 @pytest.fixture(scope="module")

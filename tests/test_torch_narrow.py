@@ -23,12 +23,14 @@ import ray_tracer_tpu as jrt
 from ray_tracer_tpu.config import Routing as JRouting
 from ray_tracer_tpu.kernels import packet as j_packet
 from ray_tracer_tpu.ops import traverse as j_traverse
+import ray_tracer_tpu_torch as trt
 from ray_tracer_tpu_torch import CompiledScene, Routing
 from ray_tracer_tpu_torch.kernels import packet as t_packet
 from ray_tracer_tpu_torch.ops import traverse as t_traverse
 
 from torch_parity import (
     assert_tri_ties,
+    binary_chain,
     room_scene,
     route_rays,
     route_tmax,
@@ -56,10 +58,10 @@ def scenes(request, tmp_path_factory):
 
 def _both(sc, o, d, tmax):
     args = (torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(tmax))
-    root = int(sc.obj_bvh_root[0])
+    root = sc.meta["bvh_root"]
     t_packet.reset_launches()
     got = t_packet.packet_traverse(sc.bvh_packed, sc.bvh_axis, sc.tri_packed,
-                                   *args, root)
+                                   *args, root, sc.meta["bvh_root_word"])
     assert t_packet.launches["packet_narrow"] == 0  # CPU: the plain version
     meta = torch.stack([sc.bvh_index, sc.bvh_tri_count, sc.bvh_axis,
                         torch.zeros_like(sc.bvh_index)], dim=1)
@@ -105,16 +107,21 @@ def test_narrow_walk_rejects_bad_inputs(scenes):
     n = 8
     args = [sc.bvh_packed, sc.bvh_axis, sc.tri_packed, torch.zeros(n, 3),
             torch.ones(n, 3), torch.full((n,), BIG)]
+    root, word = sc.meta["bvh_root"], sc.meta["bvh_root_word"]
     with pytest.raises(ValueError, match="root"):
-        t_packet.packet_traverse(*args, sc.bvh_packed.shape[0])
+        t_packet.packet_traverse(*args, sc.bvh_packed.shape[0], word)
     with pytest.raises(TypeError):
-        t_packet.packet_traverse(*args[:5], args[5].double(), 0)
+        t_packet.packet_traverse(*args[:5], args[5].double(), root, word)
     with pytest.raises(TypeError):
-        t_packet.packet_traverse(args[0], args[1].long(), *args[2:], 0)
+        t_packet.packet_traverse(args[0], args[1].long(), *args[2:], root,
+                                 word)
+    # the root word is checked against the tables on the CPU
+    with pytest.raises(ValueError, match="root_word"):
+        t_packet.packet_traverse(*args, root, word + 1)
     # only CPU tensors take the plain version: any other device launches
     # the kernel or raises
     with pytest.raises(ValueError, match="no traversal kernel"):
-        t_packet.packet_traverse(*(a.to("meta") for a in args), 0)
+        t_packet.packet_traverse(*(a.to("meta") for a in args), root, word)
 
 
 @pytest.mark.parametrize("case", ["closest", "clipped"])
@@ -159,3 +166,108 @@ def test_narrow_route_matches_jax(scenes, rand, case):
     np.testing.assert_array_equal(occ.numpy(), np.asarray(jocc))
     assert 0 < occ.sum() < act.sum()
     assert not occ.numpy()[~act].any()
+
+
+@pytest.mark.parametrize("compiler", ["port", "jax"])
+@pytest.mark.parametrize("name", list(SCENES))
+def test_meta_holds_the_narrow_root(name, compiler, tmp_path):
+    """The narrow route reads its root and the root's word from ``meta``
+    (no device read per call): both ways into a CompiledScene (the port's
+    compile, and from_numpy of the JAX compiler's arrays) store the first
+    object's BVH root and its word, which packs that node's row."""
+    make, kw = SCENES[name]
+    if compiler == "port":
+        sc = make(trt, str(tmp_path)).compile(device="cpu", **kw)
+    else:
+        jsc = make(jrt, str(tmp_path)).compile(**kw)
+        sc = CompiledScene.from_numpy(*scene_arrays(jsc), device="cpu")
+    root = sc.meta["bvh_root"]
+    assert root == int(sc.obj_bvh_root[0])
+    word = sc.meta["bvh_root_word"]
+    first, count = sc.bvh_packed[root].view(torch.int32)[6:].tolist()
+    tag = count if count > 0 else (t_packet.NARROW_INTERIOR
+                                   + int(sc.bvh_axis[root]))
+    assert word == first << t_packet.NARROW_TAG_BITS | tag
+    assert count == 0 and tag > t_packet.NARROW_INTERIOR - 1
+
+
+def _chain(depth, loose):
+    nodes, axis, tris = (torch.from_numpy(x)
+                         for x in binary_chain(depth, loose=loose))
+    return nodes, axis, tris, t_packet.narrow_root_word(nodes, axis, 0)
+
+
+def _chain_rays(n, seed, inside):
+    """Rays from the middle of a chain's innermost cubes: random
+    directions, or (``inside``) directions positive on every axis, which
+    enter both children of every node of a loose chain, the interior one
+    first."""
+    rand = np.random.default_rng(seed)
+    o = rand.uniform(-0.2, 0.2, (n, 3)).astype(np.float32)
+    d = rand.normal(size=(n, 3)).astype(np.float32)
+    if inside:
+        d = np.abs(d) + 0.05
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return o, d
+
+
+@pytest.mark.parametrize("loose", [False, True])
+def test_narrow_walk_on_a_chain_at_the_depth_cap_matches_jax(loose):
+    """A binary chain of MAX_TREE_DEPTH interior levels (the host's cap):
+    the plain walk holds one pushed leaf per level on rays that enter both
+    children everywhere, and equals the JAX kernel's walk."""
+    depth = t_packet.MAX_TREE_DEPTH
+    nodes, axis, tris, word = _chain(depth, loose)
+    assert word == 1 << t_packet.NARROW_TAG_BITS | (
+        t_packet.NARROW_INTERIOR + int(axis[0]))
+    o, d = _chain_rays(300, 9, inside=loose)
+    tmax = np.full(300, BIG, np.float32)
+    tmax[::7] = 2.0
+    stats = {}
+    got = t_packet.packet_traverse_reference(
+        nodes, axis, tris, *map(torch.from_numpy, (o, d, tmax)), 0,
+        stats=stats)
+    if loose:  # every leaf of the chain tested by every ray
+        assert stats["tris"] == 300 * len(tris)
+    direct = t_packet.packet_traverse(
+        nodes, axis, tris, *map(torch.from_numpy, (o, d, tmax)), 0, word)
+    for a, b in zip(got, direct):
+        assert torch.equal(a, b)
+    meta = torch.stack([nodes.view(torch.int32)[:, 6],
+                        nodes.view(torch.int32)[:, 7], axis,
+                        torch.zeros_like(axis)], dim=1)
+    want = j_packet.packet_traverse(
+        *(jnp.asarray(x.numpy()) for x in (nodes, meta, tris)),
+        *map(jnp.asarray, (o, d, tmax)), 0, max_leaf=3, interpret=True,
+        packet_size=1024)
+    (dst, prim, *_), (jdst, jprim, *_) = got, want
+    np.testing.assert_array_equal(prim.numpy() >= 0, np.asarray(jprim) >= 0)
+    assert (prim >= 0).sum() > 100
+    np.testing.assert_allclose(dst.numpy(), np.asarray(jdst), **TOL)
+
+
+@pytest.mark.parametrize("beyond", ["count", "first", "axis"])
+def test_narrow_word_limits_refuse_a_bvh_beyond_them(beyond):
+    """The compile-time check of the node word's fields: a hand-built BVH
+    with a leaf of NARROW_INTERIOR triangles, a first index past
+    NARROW_MAX_FIRST or an interior split axis of 3 gets the word -1, which
+    the narrow walk refuses with ValueError; the same BVH within the limits
+    walks."""
+    nodes, axis, tris, word = _chain(4, False)
+    assert word >= 0
+    ints = nodes.view(torch.int32)
+    leaf = int((ints[:, 7] > 0).nonzero()[-1, 0])
+    bad_nodes, bad_axis = nodes.clone(), axis.clone()
+    if beyond == "count":
+        bad_nodes.view(torch.int32)[leaf, 7] = t_packet.NARROW_INTERIOR
+    elif beyond == "first":
+        bad_nodes.view(torch.int32)[leaf, 6] = t_packet.NARROW_MAX_FIRST + 1
+    else:
+        bad_axis[0] = 3
+    assert t_packet.narrow_root_word(bad_nodes, bad_axis, 0) == -1
+    o, d = (torch.from_numpy(x) for x in _chain_rays(8, 2, inside=False))
+    tmax = torch.full((8,), BIG)
+    with pytest.raises(ValueError, match="beyond the narrow walk"):
+        t_packet.packet_traverse(bad_nodes, bad_axis, tris, o, d, tmax, 0, -1)
+    got = t_packet.packet_traverse(nodes, axis, tris, o, d, tmax, 0, word)
+    assert got[0].shape == (8,)

@@ -21,7 +21,7 @@ from ray_tracer_tpu.kernels import packet as j_packet
 from ray_tracer_tpu_torch import CompiledScene
 from ray_tracer_tpu_torch.kernels import packet as t_packet
 
-from torch_parity import scene_arrays, soup_scene
+from torch_parity import deep_chain, scene_arrays, soup_scene
 
 BIG = 99999999.0
 LEAVES = {  # records per slot, compile options
@@ -180,3 +180,44 @@ def test_merged_two_row_compile_matches_jax(tmp_path):
     for f in ("wide_packed", "leaf_rows", "leaf_map", "shade_slot"):
         np.testing.assert_array_equal(getattr(tsc, f).numpy(), jarr[f],
                                       err_msg=f)
+
+
+@pytest.mark.parametrize("loose", [False, True])
+@pytest.mark.parametrize("anyhit", [False, True])
+def test_two_row_walk_on_a_deep_chain_matches_jax(rand, anyhit, loose):
+    """The two-row (16-record) walk from the root, which the card runs in
+    group_walk_kernel<., 2>, against the JAX kernel on a hand-built chain
+    of 40 wide levels whose leaf slots hold 1-16 records (a code's count
+    capped at 15): the same hits, and a tie-free ``dst``."""
+    nodes, rows = (torch.from_numpy(x)
+                   for x in deep_chain(40, loose=loose, rows=2))
+    n = 600
+    o = rand.uniform(-0.2, 0.2, (n, 3)).astype(np.float32)
+    d = rand.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    tmax = np.full(n, BIG, np.float32)
+    if anyhit:
+        tmax = rand.uniform(0.01, 0.3, n).astype(np.float32)
+    tmax[::9] = -BIG
+    stats = {}
+    got = t_packet.packet_traverse_wide_reference(
+        nodes, rows, *map(torch.from_numpy, (o, d, tmax)), 16, anyhit=anyhit,
+        stats=stats)
+    assert stats["max_sp"] >= (40 if loose else 2)
+    want = j_packet.packet_traverse_wide(
+        _jax(nodes), _jax(rows), _jax(o), _jax(d), _jax(tmax), 0,
+        interpret=True, packet_size=256, max_recs=16, anyhit=anyhit,
+        need_uv=False)
+    dst, prim = (x.numpy() for x in got)
+    jdst, jprim = (np.asarray(x) for x in want[:2])
+    if anyhit:
+        occ = jdst < -1.0
+        live = tmax > 0
+        assert 0 < occ[live].sum() < live.sum()
+        np.testing.assert_array_equal(dst < -1.0, occ)
+        np.testing.assert_array_equal(dst[~occ], tmax[~occ])
+        return
+    hit = jprim >= 0
+    np.testing.assert_array_equal(prim >= 0, hit)
+    assert hit.sum() > 300 and (prim % 16 >= 8).any()  # second rows too
+    np.testing.assert_allclose(dst, jdst, rtol=1e-5, atol=1e-6)

@@ -17,6 +17,7 @@ import ray_tracer_tpu_torch as trt
 from ray_tracer_tpu.scene import presets as j_presets
 from ray_tracer_tpu_torch.scene import presets as t_presets
 from ray_tracer_tpu_torch.scene.types import (
+    narrow_root_meta,
     page_counts,
     rope_placeholder,
     rope_rows_layout,
@@ -56,6 +57,9 @@ def test_compiled_arrays_match_jax(name, tmp_path, monkeypatch):
         got, want = np.asarray(getattr(tsc, f)), jarr[f]
         assert got.dtype == want.dtype, f
         np.testing.assert_array_equal(got, want, err_msg=f)  # NaN-equal
+    # the narrow walk's root and root word, which the JAX package does not
+    # keep: the port's own equal those derived from the JAX tables
+    jmeta = {**jmeta, **narrow_root_meta(jarr)}
     for k, v in tsc.meta.items():
         assert jmeta[k] == v, k
     if name == "soup_leaf8":
@@ -66,7 +70,10 @@ def test_from_numpy_round_trip(tmp_path):
     jarr, jmeta = scene_arrays(room_scene(jrt, str(tmp_path)).compile())
     sc = trt.CompiledScene.from_numpy(jarr, jmeta, device="cpu")
     assert sc.device == torch.device("cpu")
-    assert sc.meta == jmeta and sc.meta is not jmeta
+    # from_numpy derives the narrow walk's root, which JAX's meta lacks
+    assert "bvh_root" not in jmeta
+    assert sc.meta == {**jmeta, **narrow_root_meta(jarr)}
+    assert sc.meta is not jmeta
     moved = sc.to("cpu")
     assert jmeta["rope_rows"] > 0
     jarr = dict(jarr, rope_streams=rope_rows_layout(jarr["rope_streams"]),

@@ -194,7 +194,7 @@ def assert_tri_ties(sc, o, d, prim, jprim, hit):
     return differ
 
 
-def deep_chain(depth, seed=5, leaves=3, loose=False):
+def deep_chain(depth, seed=5, leaves=3, loose=False, rows=1):
     """BVH8 tables (``wide_packed``, ``leaf_rows``) of a chain ``depth``
     wide nodes deep: node k holds node k+1's cube (half-size 4 * 0.97^(k+1))
     as an interior child and ``leaves`` leaf slots of one to three random
@@ -203,10 +203,12 @@ def deep_chain(depth, seed=5, leaves=3, loose=False):
     chain.  ``loose``: each leaf's box is its node's whole cube, so the
     interior child sorts first and a ray from inside the innermost cube
     pointing up x (or an occlusion ray) descends the chain before it tests
-    any leaf, holding one stack word per level."""
+    any leaf, holding one stack word per level.  ``rows=2``: two-row leaf
+    slots of one to sixteen triangles instead (the code's count capped at
+    15, as scene/builder.py writes it)."""
     rand = np.random.default_rng(seed)
     nodes = np.zeros((depth, 128), np.float32)
-    rows = []
+    leaf_rows = []
     for k in range(depth):
         half = 4.0 * 0.97 ** k
         children = []  # (box (6,), code)
@@ -214,9 +216,9 @@ def deep_chain(depth, seed=5, leaves=3, loose=False):
             inner = 4.0 * 0.97 ** (k + 1)
             children.append((np.r_[[-inner] * 3, [inner] * 3], k + 1))
         for _ in range(leaves):
-            cnt = int(rand.integers(1, 4))
+            cnt = int(rand.integers(1, 4 if rows == 1 else 17))
             v = rand.uniform(-half, half, (cnt, 3, 3)).astype(np.float32)
-            rec = np.full((8, 16), np.nan, np.float32)
+            rec = np.full((8 * rows, 16), np.nan, np.float32)
             e1, e2 = v[:, 1] - v[:, 0], v[:, 2] - v[:, 0]
             rec[:cnt, 0:3], rec[:cnt, 3:6], rec[:cnt, 6:9] = v[:, 0], e1, e2
             rec[:cnt, 9:12] = np.cross(e1, e2)
@@ -224,8 +226,8 @@ def deep_chain(depth, seed=5, leaves=3, loose=False):
             flat = v.reshape(-1, 3)
             box = (np.r_[[-half] * 3, [half] * 3] if loose
                    else np.r_[flat.min(axis=0), flat.max(axis=0)])
-            children.append((box, -(len(rows) * 16 + cnt) - 1))
-            rows.append(rec.reshape(128))
+            children.append((box, -(len(leaf_rows) * 16 + min(cnt, 15)) - 1))
+            leaf_rows.extend(rec.reshape(rows, 128))
         children.sort(key=lambda ch: float(ch[0][0] + ch[0][3]))
         nodes[k, :64] = np.nan
         nodes[k, 6:64:8] = 0.0
@@ -233,7 +235,51 @@ def deep_chain(depth, seed=5, leaves=3, loose=False):
             nodes[k, 8 * c:8 * c + 6] = box
             nodes[k, 8 * c + 6] = code
         nodes[k, 7] = 0.0  # the sort axis: x
-    return nodes, np.stack(rows)
+    return nodes, np.stack(leaf_rows)
+
+
+def binary_chain(depth, seed=5, loose=False):
+    """Binary-BVH tables (``bvh_packed`` (B,8), ``bvh_axis`` (B,) i32,
+    ``tri_packed`` (T,16)) of a chain of ``depth`` interior nodes, as the
+    narrow walk reads them: interior node k (id 0 for the root, 2k - 1
+    after it) holds the cube of half-size 4 * 0.97^k and has as children,
+    at ids 2k + 1 and 2k + 2, interior node k + 1 (the first child) and a
+    leaf of one to three random triangles inside its cube; the last
+    interior node has two such leaves.  Each split axis is random.  Every
+    cube holds the origin.  ``loose``: each leaf's box is its parent's
+    cube, so a ray from inside the innermost cube whose direction is
+    positive on every axis enters both children of every node, the
+    interior one first (it is the near child), and holds one pushed leaf
+    per level: ``depth`` words, the host's depth cap at ``depth`` 64."""
+    rand = np.random.default_rng(seed)
+    n_nodes = 2 * depth + 1
+    nodes = np.zeros((n_nodes, 8), np.float32)
+    ints = nodes.view(np.int32)
+    axis = rand.integers(0, 3, n_nodes).astype(np.int32)
+    tris = []
+
+    def leaf(node, half):
+        cnt = int(rand.integers(1, 4))
+        v = rand.uniform(-half, half, (cnt, 3, 3)).astype(np.float32)
+        rec = np.zeros((cnt, 16), np.float32)
+        e1, e2 = v[:, 1] - v[:, 0], v[:, 2] - v[:, 0]
+        rec[:, 0:3], rec[:, 3:6], rec[:, 6:9] = v[:, 0], e1, e2
+        rec[:, 9:12] = np.cross(e1, e2)
+        flat = v.reshape(-1, 3)
+        nodes[node, :6] = (np.r_[[-half] * 3, [half] * 3] if loose
+                           else np.r_[flat.min(axis=0), flat.max(axis=0)])
+        ints[node, 6], ints[node, 7] = len(tris), cnt
+        tris.extend(rec)
+
+    for k in range(depth):
+        node = 0 if k == 0 else 2 * k - 1
+        half = 4.0 * 0.97 ** k
+        nodes[node, :6] = np.r_[[-half] * 3, [half] * 3]
+        ints[node, 6], ints[node, 7] = 2 * k + 1, 0
+        if k + 1 == depth:
+            leaf(2 * k + 1, half)
+        leaf(2 * k + 2, half)
+    return nodes, axis, np.stack(tris)
 
 
 def cluster_pairs_full(clus_mt, feats, chunk_cid, t_c):

@@ -14,7 +14,6 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
-import hashlib
 import os
 from typing import Optional
 
@@ -44,13 +43,10 @@ _lib: Optional[ctypes.CDLL] = None
 
 
 def build() -> str:
-    """Compile the variants (once per source hash); return the path."""
-    # the variants include the shipped source: its text keys the build too
-    with open(bvh8._SRC, "rb") as f:
-        shipped = hashlib.sha256(f.read()).hexdigest()[:16]
+    """Compile the variants (once per hash of their source and of the
+    shipped source they include); return the path."""
     return build_shared(SRC, "deep_walk_variants",
-                        (nvcc_path(), *bvh8.NVCC_FLAGS,
-                         f"-DSHIPPED_SOURCE_{shipped}"))
+                        (nvcc_path(), *bvh8.NVCC_FLAGS))
 
 
 def lib() -> ctypes.CDLL:

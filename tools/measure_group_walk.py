@@ -7,8 +7,9 @@ Builds ``csrc/bvh8_walk.cu`` (the library as it ships) and
 switched, and the eight-lanes-per-ray design) in parallel, then, on the
 benchmark frame's scene (sponza_proxy), on chip_smoke's bounce and shadow
 sets at 2^18, 2^20 and 2^22 lanes, times ``group_walk_kernel``
-("shipped"), each variant, and ``walk_kernel`` ("old", the design it
-replaced: the packet walk with one-row slots).  Every output must equal
+("shipped"), each variant, and ``walk_kernel``'s loop ("old", the design
+it replaced: the old packet walk with one-row slots, built from
+tools/packet_walk_variants.cu).  Every output must equal
 the shipped kernel's (``torch.equal``).  CUDA events over 10 launches, in
 turns: in order, then in reverse.
 
@@ -19,7 +20,6 @@ one JSON line per ray set.  Needs a CUDA device; imports no JAX.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import json
 import os
 import statistics
@@ -34,7 +34,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 import chip_smoke  # noqa: E402
-from ray_tracer_tpu_torch.kernels import bvh8, group, packet  # noqa: E402
+import packet_walk_variants  # noqa: E402
+from ray_tracer_tpu_torch.kernels import bvh8, group  # noqa: E402
 from ray_tracer_tpu_torch.native_build import (  # noqa: E402
     build_shared,
     nvcc_path,
@@ -50,12 +51,10 @@ _SRC = os.path.join(REPO, "tools", "group_walk_variants.cu")
 
 
 def build_variants() -> ctypes.CDLL:
-    # the variants include the shipped source: its text keys the build too
-    with open(bvh8._SRC, "rb") as f:
-        shipped = hashlib.sha256(f.read()).hexdigest()[:16]
+    # keyed by the hash of the variants and of the shipped source they
+    # include
     path = build_shared(_SRC, "group_walk_variants",
-                        (nvcc_path(), *bvh8.NVCC_FLAGS,
-                         f"-DSHIPPED_SOURCE_{shipped}"))
+                        (nvcc_path(), *bvh8.NVCC_FLAGS))
     lib = ctypes.CDLL(path)
     lib.rt_group_variant.restype = ctypes.c_int
     lib.rt_group_variant.argtypes = (
@@ -124,8 +123,8 @@ def main() -> None:
             for v, k in enumerate(VARIANTS):
                 runs[k] = lambda v=v: launch_variant(lib, v, args, anyhit,
                                                      depth)
-            runs["old"] = lambda: packet.packet_traverse_wide(
-                *args, recs, anyhit=anyhit)
+            runs["old"] = lambda: packet_walk_variants.run(
+                "old", *args, recs, anyhit=anyhit)
             want = runs["shipped"]()
             for k, run in runs.items():
                 for a, b in zip(run(), want):
