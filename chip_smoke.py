@@ -11,7 +11,12 @@ frame's widest round) and through the packet walk with one- and two-row
 leaf slots at 2^18 (packet_vs_old), prints the narrow walk's kernel
 (bvh2_walk_kernel) as ptxas reports it and holds it against the design it
 replaced (tools/narrow_walk_variants.cu), timed in turns at 2^18 and 2^22
-(narrow_vs_old), prints the cluster route's chunk kernels
+(narrow_vs_old), prints the cluster enumeration walk (emit_walk_kernel)
+and the rope walk (rope_walk_kernel) as ptxas reports them and holds each
+against the design it replaced (tools/emit_walk_variants.cu,
+tools/rope_walk_variants.cu, the latter on the old 64 B-row streams),
+timed in turns at 2^18 and 2^22 (emit_vs_old, lanewalk_vs_old), prints
+the cluster route's chunk kernels
 (cluster_pairs_kernel, box_hits_kernel) as ptxas reports them and holds
 each against the design it replaced (tools/cluster_test_variants.cu) on
 the route's chunks, timed in turns, prints the two-phase route's DEEP
@@ -61,8 +66,10 @@ from ray_tracer_tpu_torch.scene import presets  # noqa: E402
 
 import cluster_test_variants  # noqa: E402
 import deep_walk_variants  # noqa: E402
+import emit_walk_variants  # noqa: E402
 import narrow_walk_variants  # noqa: E402
 import packet_walk_variants  # noqa: E402
+import rope_walk_variants  # noqa: E402
 
 BIG = group.BIG
 FRAME = (1920, 1080)  # the benchmark frame: spp 2, bounce limit 8
@@ -84,7 +91,8 @@ KERNEL_MODULES = (group, packet, cluster, lanewalk)  # the launch counters
 # one nvcc build each
 LIBRARIES = (bvh8.build, cluster.build, packet.build_narrow, lanewalk.build,
              cluster_test_variants.build, deep_walk_variants.build,
-             packet_walk_variants.build, narrow_walk_variants.build)
+             packet_walk_variants.build, narrow_walk_variants.build,
+             emit_walk_variants.build, rope_walk_variants.build)
 BVH8 = "ray_tracer_tpu_torch/csrc/bvh8_walk.cu"
 PACKET8 = "ray_tracer_tpu/kernels/packet.py:301"
 KERNELS = {  # mode -> (source, its CUDA kernel, the TPU kernel it replaces)
@@ -94,7 +102,7 @@ KERNELS = {  # mode -> (source, its CUDA kernel, the TPU kernel it replaces)
                      "ray_tracer_tpu/kernels/group.py:89"),
     "packet8_wide": (BVH8, "group_walk_kernel", PACKET8),
     "packet8_anyhit": (BVH8, "group_walk_kernel", PACKET8),
-    "packet8_emit": (BVH8, "walk_kernel", PACKET8),
+    "packet8_emit": (BVH8, "emit_walk_kernel", PACKET8),
     "cluster_pairs": ("ray_tracer_tpu_torch/csrc/cluster_test.cu",
                       "cluster_pairs_kernel",
                       "ray_tracer_tpu/kernels/cluster.py:36"),
@@ -104,10 +112,10 @@ KERNELS = {  # mode -> (source, its CUDA kernel, the TPU kernel it replaces)
                       "bvh2_walk_kernel",
                       "ray_tracer_tpu/kernels/packet.py:53"),
     "lanewalk_closest": ("ray_tracer_tpu_torch/csrc/lanewalk.cu",
-                         "lanewalk_kernel",
+                         "rope_walk_kernel",
                          "ray_tracer_tpu/kernels/lanewalk.py:167"),
     "lanewalk_anyhit": ("ray_tracer_tpu_torch/csrc/lanewalk.cu",
-                        "lanewalk_kernel",
+                        "rope_walk_kernel",
                         "ray_tracer_tpu/kernels/lanewalk.py:167"),
     "packet8_top": (BVH8, "walk_kernel", PACKET8),
     "packet8_top_anyhit": (BVH8, "walk_kernel", PACKET8),
@@ -134,13 +142,14 @@ OPS_RAY_BOX = 22  # one ray x box: 6 plane products (one non-zero page row
 # Bytes the function needs per unit: a node's 8 child boxes with codes
 # and axis, a record's v0|e1|e2|n|front_only, a triangle's non-zero page
 # coefficients (T 4, B 3, U 6, V 6, FO 1), a box's 6 planes, a binary
-# node's bvh_packed row, a rope-stream row.
+# node's bvh_packed row, a rope-stream BOX row's box, miss row and leaf
+# word.
 NODE_BYTES = 64 * 4
 RECORD_BYTES = 13 * 4
 TRI_BYTES = 20 * 4
 BOX_BYTES = 6 * 4
 NODE2_BYTES = 8 * 4
-ROPE_ROW_BYTES = 16 * 4
+ROPE_BOX_BYTES = 7 * 4
 
 
 def phase(title: str, /, **fields) -> None:
@@ -346,29 +355,40 @@ def narrow_checks(sc, rays):
 
 def lanewalk_checks(sc, rays):
     """The rope walk, closest hit on the bounce set and occlusion on the
-    shadow set, exact against the plain walk.  Bytes: the rays and the
-    distinct 64 B rows stepped on; operations: 22 per BOX row and 40 per
-    TRI row stepped."""
+    shadow set, exact against the plain walk.  Bytes: the rays, the
+    distinct BOX rows stepped on (28 B: box, miss row, leaf word) and the
+    distinct triangles tested (52 B records); operations: 22 per BOX step
+    and 40 per triangle test."""
     out = {}
     for name, anyhit in (("bounce", False), ("shadow", True)):
-        args = (sc.rope_streams, sc.meta["rope_rows"], *rays[name])
+        args = (sc.rope_streams, sc.tri_packed, sc.meta["rope_rows"],
+                *rays[name])
         stats = {}
 
         def cost(args=args, stats=stats):
-            return bound(
-                ray_bytes(args[4], 8)
-                + int(stats["row_seen"].sum()) * ROPE_ROW_BYTES,
-                stats["box"] * OPS_CHILD + stats["tri"] * OPS_RECORD)
+            box_rows = int(stats["row_seen"].sum())
+            tris = int(stats["tri_seen"].sum())
+            return dict(
+                bound(ray_bytes(args[5], 8) + box_rows * ROPE_BOX_BYTES
+                      + tris * RECORD_BYTES,
+                      stats["box"] * OPS_CHILD + stats["tri"] * OPS_RECORD),
+                box_steps=stats["box"], tri_tests=stats["tri"],
+                box_rows=box_rows, tris=tris)
 
+        # the kernel's time without the host read of its flag, which the
+        # route defers to the round's count read; the flag is read after
+        flag = lanewalk.error_flag(args[3].device)
         out["lanewalk_" + name] = measure(
             "lanewalk_anyhit" if anyhit else "lanewalk_closest",
-            lambda: lanewalk.lanewalk_traverse(*args, anyhit=anyhit),
+            lambda: lanewalk.lanewalk_traverse(*args, anyhit=anyhit,
+                                               err=flag),
             lambda: lanewalk.lanewalk_traverse_reference(
                 *args, anyhit=anyhit, stats=stats),
             equal_all(f"lanewalk {name}"), cost,
             rays=name, n=N_CHECK, anyhit=anyhit,
-            active=int((args[4] > -BIG).sum()),
+            active=int((args[5] > -BIG).sum()),
         )
+        lanewalk.raise_on_flag(int(flag.item()), sc.meta["rope_rows"])
     return out
 
 
@@ -506,6 +526,62 @@ def narrow_vs_old(sc, rays, n):
               active=int((args[5] > -BIG).sum()), **in_turns(new, old))
 
 
+def emit_vs_old(sc, rays, n):
+    """emit_walk_kernel against the enumeration walk it replaced
+    (walk_kernel's emit mode, tools/emit_walk_variants.cu's "old") on the
+    cluster BVH8, at the route's top_k, for the bounce and shadow sets of
+    ``n`` lanes: slots and ovf equal (``torch.equal``), then each timed in
+    turns."""
+    k = trt.Routing().cluster_k
+    for name in ("bounce", "shadow"):
+        o, d, tmax0 = rays[name]
+        args = (sc.cwide_packed, sc.cwide_packed, o, d, tmax0, 8)
+
+        def new(args=args):
+            return packet.packet_traverse_wide(*args, top_k=k,
+                                               emit_leaves=True)
+
+        def old(o=o, d=d, tmax0=tmax0):
+            return emit_walk_variants.run("old", sc.cwide_packed, o, d,
+                                          tmax0, k)
+
+        emit_walk_variants.compare(f"emit walk, {name} at {n} lanes",
+                                   new(), old())
+        phase("emit_vs_old", rays=name, n=n, top_k=k, equal=True,
+              active=int((tmax0 > -BIG).sum()), **in_turns(new, old))
+
+
+def lanewalk_vs_old(sc, old_rope, rays, n):
+    """rope_walk_kernel on the scene's BOX-row streams against the kernel
+    it replaced on the old 64 B-row streams (``old_rope``: the streams and
+    their rows, tools/rope_walk_variants.py), closest hit on the bounce set
+    and occlusion on the shadow set of ``n`` lanes: dst and prim equal
+    (``torch.equal``), then each timed in turns."""
+    streams, rows = old_rope
+    for name, anyhit in (("bounce", False), ("shadow", True)):
+        o, d, tmax0 = rays[name]
+        # both find the rays' octants; the new one takes a flag, read
+        # after the timing, so that its time holds no host read (as on
+        # the route)
+        flag = lanewalk.error_flag(d.device)
+
+        def new(o=o, d=d, tmax0=tmax0, anyhit=anyhit, flag=flag):
+            return lanewalk.lanewalk_traverse(
+                sc.rope_streams, sc.tri_packed, sc.meta["rope_rows"], o, d,
+                tmax0, anyhit=anyhit, err=flag)
+
+        def old(o=o, d=d, tmax0=tmax0, anyhit=anyhit):
+            return rope_walk_variants.run("old", streams, sc.tri_packed,
+                                          rows, o, d, tmax0, anyhit=anyhit)
+
+        rope_walk_variants.compare(f"rope walk, {name} at {n} lanes",
+                                   new(), old())
+        rec = in_turns(new, old)
+        lanewalk.raise_on_flag(int(flag.item()), sc.meta["rope_rows"])
+        phase("lanewalk_vs_old", rays=name, n=n, anyhit=anyhit, equal=True,
+              active=int((tmax0 > -BIG).sum()), **rec)
+
+
 def ptxas_of(lib, name):
     """``-Xptxas -v``'s report for each entry function of ``lib`` whose
     name holds ``name``: its lines, its stack frame and spill store
@@ -556,21 +632,13 @@ def packet_checks(sc, sc16, rays):
     args = (sc.cwide_packed, sc.cwide_packed, *rays["bounce"], 8)
     stats = {}
 
-    def compare_sets(got, want):
-        (slots, ovf), (rslots, rovf) = got, want
-        if not torch.equal(ovf, rovf):
-            raise AssertionError("emit: overflow flags differ")
-        if not torch.equal(slots.sort(dim=1).values,
-                           rslots.sort(dim=1).values):
-            raise AssertionError("emit: slot sets differ")
-
     out["packet_emit"] = measure(
         "packet8_emit",
         lambda: packet.packet_traverse_wide(*args, top_k=k,
                                             emit_leaves=True),
         lambda: packet.packet_traverse_wide_reference(
             *args, top_k=k, emit_leaves=True, stats=stats),
-        compare_sets,
+        equal_all("emit"),
         lambda: walk_cost(stats, args[4], emit_k=k),
         rays="bounce", n=N_CHECK, k=k,
         active=int((args[4] > -BIG).sum()),
@@ -848,17 +916,25 @@ def main() -> None:
     sc16 = presets.sponza_proxy(SCENE_TRIS).compile(merge_wide_leaves=True)
     t2 = time.perf_counter()
     dev = sc.device  # the card: compile() defaults to it
-    # the rope streams' share of the compile: the same build once more
+    # the rope streams' share of the compile: the same build once more;
+    # and the old streams (BOX and TRI rows of 64 B) for lanewalk_vs_old
     host = [getattr(sc, f).cpu().numpy() for f in (
         "bvh_min", "bvh_max", "bvh_index", "bvh_tri_count", "bvh_hit_link",
-        "bvh_miss_link", "tri_packed")]
+        "bvh_miss_link")]
     t3 = time.perf_counter()
-    lanewalk.build_rope_streams(*host)
+    lanewalk.build_rope_streams(*host, sc.tri_packed.shape[0])
     rope_s = time.perf_counter() - t3
     del host
+    t3 = time.perf_counter()
+    old_rope = rope_walk_variants.old_streams(sc)
+    torch.cuda.synchronize()
+    old_rope_s = time.perf_counter() - t3
     phase("compile", seconds=t1 - t0, seconds_16=t2 - t1,
           rope_rows=sc.meta["rope_rows"], rope_bytes=nbytes(sc.rope_streams),
-          rope_build_s=rope_s, B=int(sc.bvh_packed.shape[0]),
+          rope_build_s=rope_s, old_rope_rows=old_rope[1],
+          old_rope_bytes=nbytes(old_rope[0]), old_rope_build_s=old_rope_s,
+          tri_packed_bytes=nbytes(sc.tri_packed),
+          B=int(sc.bvh_packed.shape[0]),
           n_tris=sc.meta["n_tris"], W=int(sc.wide_packed.shape[0]),
           L=int(sc.leaf_rows.shape[0]),
           wide_leaf_recs=sc.meta["wide_leaf_recs"],
@@ -902,15 +978,30 @@ def main() -> None:
     if len(deep) != 4 or any(w["spill_store_bytes"] != 0 for w in deep):
         raise AssertionError(f"deep_walk_kernel spills: {deep}")
 
+    # the cluster enumeration walk (rows staged or in place) and the rope
+    # walk (closest and occlusion): no spills
+    emit = ptxas_of(bvh8.build(), "emit_walk_kernel")
+    phase("emit_walk_ptxas", kernels=emit)
+    if len(emit) != 2 or any(w["spill_store_bytes"] != 0 for w in emit):
+        raise AssertionError(f"emit_walk_kernel spills: {emit}")
+    rope = ptxas_of(lanewalk.build(), "rope_walk_kernel")
+    phase("rope_walk_ptxas", kernels=rope)
+    if len(rope) != 2 or any(w["spill_store_bytes"] != 0 for w in rope):
+        raise AssertionError(f"rope_walk_kernel spills: {rope}")
+
     rays = check_rays(sc, dev)
     deep_vs_old(sc, rays)
     group_vs_old(sc, rays, N_CHECK)
     packet_vs_old(sc, sc16, rays)
     narrow_vs_old(sc, rays, N_CHECK)
+    emit_vs_old(sc, rays, N_CHECK)
+    lanewalk_vs_old(sc, old_rope, rays, N_CHECK)
     wide_rays = check_rays(sc, dev, N_WIDE)
     group_vs_old(sc, wide_rays, N_WIDE)
     narrow_vs_old(sc, wide_rays, N_WIDE)
-    del wide_rays
+    emit_vs_old(sc, wide_rays, N_WIDE)
+    lanewalk_vs_old(sc, old_rope, wide_rays, N_WIDE)
+    del wide_rays, old_rope
     chunks = cluster_chunks(sc, rays)
     cluster_vs_old(chunks)
     checks = {**group_checks(sc, rays), **packet_checks(sc, sc16, rays),

@@ -1,10 +1,11 @@
 // BVH8 traversal, one thread per ray (sm_90a): closest hit, occlusion,
-// cluster enumeration and the two phases of treelet traversal.  Three
+// cluster enumeration and the two phases of treelet traversal.  Four
 // kernels: group_walk_kernel (rt_bvh8_group), the closest-hit and occlusion
 // walk from the root over one- or two-row leaf slots, which serves the main
 // path and the packet walk; deep_walk_kernel (rt_bvh8_deep), the DEEP phase
-// of treelet traversal; and walk_kernel (rt_bvh8_walk), the emit and TOP
-// modes.  The first two share one walk loop (walk_from).
+// of treelet traversal; emit_walk_kernel (rt_bvh8_emit), the cluster
+// enumeration; and walk_kernel (rt_bvh8_walk), the TOP phase.  The first
+// two share one walk loop (walk_from).
 //
 // Replaces two TPU kernels that compute the same walk per ray:
 //   ray_tracer_tpu/kernels/group.py::_group_kernel (closest-hit
@@ -70,8 +71,8 @@
 // every accept test is a comparison that is false on NaN, so an empty
 // child slot is never entered.
 //
-// What bounds walk_kernel (the emit and TOP modes): dependent global loads.  Each visit is one 256 B
-// node row (the 8 child boxes) or one leaf slot of 512 B or 1 KiB, whose
+// What bounds walk_kernel (the TOP mode): dependent global loads.  Each
+// visit is one 256 B node row (the 8 child boxes) or one leaf slot of 512 B or 1 KiB, whose
 // address depends on the previous visit; the arithmetic per visit is small.
 // The tables of the main-path scene (~27 MiB) sit in the 50 MB L2.  Rays
 // arrive sorted by the integrator's coherence bins (direction octant,
@@ -90,7 +91,7 @@ constexpr int kBlock = 128;
 // one (node, remaining-mask) word per wide level (kernels/bvh8.py G_STACK)
 constexpr int kStack = 96;
 constexpr float kBig = 99999999.0f;
-enum WalkMode { kClosest = 0, kAnyhit = 1, kEmit = 2 };
+enum WalkMode { kClosest = 0, kAnyhit = 1 };
 enum WalkStart { kRoot = 0, kTop = 1 };
 
 struct Ray {
@@ -145,10 +146,9 @@ __device__ __forceinline__ float record_t(const float4* __restrict__ rec,
 
 // The walk of one ray.  kClosest: closest accepted record (strict < so the
 // earliest record wins a tie).  kAnyhit: best = -kBig at the first record
-// inside best, then stop.  kEmit: leaf children are not entered; each leaf
-// child whose box the ray enters within best appends its slot field to
-// slots[0..top_k), past them ovf = 1; best never shrinks.  kTop: the same
-// for interior children flagged in troot, whose node id is appended.
+// inside best, then stop.  kTop: interior children flagged in troot are not
+// entered; each one whose box the ray enters within best appends its node
+// id to slots[0..top_k), past them ovf = 1.
 template <int kMode, int kRows, int kStart>
 __device__ __forceinline__ void walk(const float4* __restrict__ nodes,
                                      const float4* __restrict__ leaf_rows,
@@ -188,7 +188,7 @@ __device__ __forceinline__ void walk(const float4* __restrict__ nodes,
       }
     }
 
-    if (kMode != kEmit && leaf_slot >= 0) {
+    if (leaf_slot >= 0) {
       // kRows*8 records; record k of the slot is row leaf_slot*8 + k of
       // the (L*8,16) view, which is its padded id
       const float4* r = leaf_rows + leaf_slot * 32;
@@ -228,9 +228,7 @@ __device__ __forceinline__ void walk(const float4* __restrict__ nodes,
       const bool hit = tmx >= tmin && tmx > 0.0f && tmin < best;
       if (hit) m8 |= 1u << c;
       int id = -1;  // what this child emits, if it is emitted
-      if (kMode == kEmit && b.z < 0.0f) {
-        id = (static_cast<int>(-b.z) - 1) >> 4;  // the leaf's slot field
-      } else if (kStart == kTop && b.z > 0.0f) {
+      if (kStart == kTop && b.z > 0.0f) {
         const int child = static_cast<int>(b.z);
         if (__ldg(troot + child) == 1) id = child;  // a treelet root
       }
@@ -279,7 +277,7 @@ template <int kMode, int kRows, int kStart>
 __global__ void __launch_bounds__(kBlock) walk_kernel(const WalkArgs a) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.n) return;
-  constexpr bool kEmits = kMode == kEmit || kStart == kTop;
+  constexpr bool kEmits = kStart == kTop;
   int* slots = nullptr;
   if (kEmits) {
     slots = a.slots + static_cast<int64_t>(i) * a.top_k;
@@ -290,10 +288,8 @@ __global__ void __launch_bounds__(kBlock) walk_kernel(const WalkArgs a) {
   int prim = -1, ovf = 0;
   walk<kMode, kRows, kStart>(a.nodes, a.leaf_rows, a.troot, y, best, prim,
                              slots, a.top_k, ovf);
-  if (kMode != kEmit) {
-    a.dst[i] = best;
-    a.prim[i] = prim;
-  }
+  a.dst[i] = best;
+  a.prim[i] = prim;
   if (kEmits) a.ovf[i] = ovf;
 }
 
@@ -600,6 +596,197 @@ __global__ void __launch_bounds__(kGroupBlock, kDeepMinBlocks)
   a.prim[i] = prim;
 }
 
+
+// ---------------------------------------------------------------------------
+// emit_walk_kernel: the cluster enumeration walk (kernels/packet.py::
+// packet_traverse_wide with emit_leaves; the first step of the cluster
+// route, ops/cluster_trace.py)
+//
+// Replaces ray_tracer_tpu/kernels/packet.py::_packet8_kernel with
+// emit_leaves (`packet8_emit`).  Over the cluster BVH8 (leaf slot field =
+// cluster id), each ray walks the interior children whose boxes it enters
+// within tmax0 (best never shrinks), near-first, and appends the slot field
+// of every leaf child it enters to its row of slots (N, top_k), in child-
+// slot order within each visited node; past top_k of them ovf = 1.  The
+// same visits and emissions, in the same order, as walk_reference(...,
+// mode="emit") and as the walk it replaced (walk_kernel's emit mode, now
+// tools/emit_walk_variants.cu's "old" kernel): slots and ovf equal both bit
+// for bit.
+//
+// What bounds it on this card: by the bound's count, bytes, and most of
+// them are the output, (top_k + 1) x 4 B per ray against 28 B of ray; the
+// cluster BVH8 (724 nodes, 185 KB on the main-path scene) stays in L2.  In
+// practice the walk's dependent node loads within divergent warps, and the
+// output's scattered stores.  What the design does (each element timed
+// against its own removal by tools/measure_emit_walk.py, whose variants of
+// this kernel are tools/emit_walk_variants.cu, at top_k 16 on bounce and
+// shadow rays of the main-path frame, 2^18 and 2^22 of them; NVIDIA H100
+// 80GB HBM3 at 700 W; PERF.md):
+//   * The block's slot rows are staged in shared memory, [thread][k] as
+//     the output is laid out: the -1 fill and the emitted ids go there, and
+//     the block writes its contiguous (block, top_k) region once, in 16 B
+//     coalesced stores, with ovf beside it; in place of top_k strided
+//     -1 stores per ray and a strided store per emitted id: 1.3-2.5x.
+//     Which path each top_k takes (shared memory at most kEmitStageBytes,
+//     which needs no opt-in): top_k <= 96 in blocks of 128 threads, <= 192
+//     of 64, <= 384 of 32; past 384 the rows go straight to global memory,
+//     in blocks of 128 (-1 fill and ids by each thread in its own row).
+//   * Emit never enters a leaf: a leaf child is recognised, and emitted,
+//     from the code loaded with its box (q.z), so an emitted leaf costs no
+//     load of its own, and only interior children are pushed.
+//   * min/max with NaN propagation in one instruction (walk_common.cuh):
+//     1.04-1.12x.
+//   * The top stack word in a register, the words under it a local array,
+//     as the group walk keeps them: within 4% of the whole stack in the
+//     array, either way.
+//   * Registers pinned at 56 (kEmitMinBlocks blocks of 128 threads per
+//     SM); the pin does not bind: ptxas takes 36-37.
+// Against the walk it replaced 1.48-2.57x.  Measured and left out
+// (tools/emit_walk_variants.cu): the entered interior children pushed by
+// node id (no code reload on a pop), 0.98-1.12x of this kernel's time.
+
+constexpr int kEmitBlock = 128;
+constexpr int kEmitMinBlocks = 9;  // blocks per SM: at most 56 registers
+constexpr int kEmitStageBytes = 48 * 1024;
+
+struct EmitArgs {
+  const float4* nodes;
+  const float* origin;
+  const float* direction;
+  const float* tmax0;
+  int* slots;
+  int* ovf;
+  int n, top_k;
+};
+
+// The enumeration walk of one ray from the root: appends the slot field of
+// each leaf child entered within best to row[0 .. top_k) and counts them;
+// past top_k, ovf = 1.
+__device__ __forceinline__ void emit_walk(const float4* __restrict__ nodes,
+                                          const Ray& y, const float best,
+                                          int* row, const int top_k,
+                                          int& ovf) {
+  const float* nodes_f = reinterpret_cast<const float*>(nodes);
+  uint32_t below[kStack - 1];  // the words under the top one
+  uint32_t top = 0u;  // (node << 9 | reversed << 8 | remaining mask)
+  int held = 0;       // words held: top, then below[0 .. held-2]
+  int node = 0;
+  int cnt = 0;
+  for (;;) {
+    // 8-child slab test of `node`: leaf children emitted, interior pushed
+    const float4* r = nodes + node * 32;
+    uint32_t m8 = 0u;
+    float axis_f = 0.0f;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const float4 p = __ldg(r + 2 * c);      // min.xyz, max.x
+      const float4 q = __ldg(r + 2 * c + 1);  // max.yz, code, axis/pad
+      const float t1x = p.x * y.ix - y.oix, t2x = p.w * y.ix - y.oix;
+      const float t1y = p.y * y.iy - y.oiy, t2y = q.x * y.iy - y.oiy;
+      const float t1z = p.z * y.iz - y.oiz, t2z = q.y * y.iz - y.oiz;
+      const float tmin = max_ptx(
+          max_ptx(min_ptx(t1x, t2x), min_ptx(t1y, t2y)), min_ptx(t1z, t2z));
+      const float tmx = min_ptx(
+          min_ptx(max_ptx(t1x, t2x), max_ptx(t1y, t2y)), max_ptx(t1z, t2z));
+      const bool hit = tmx >= tmin && tmx > 0.0f && tmin < best;
+      if (q.z < 0.0f) {  // a leaf child: its slot field, in slot order
+        if (hit) {
+          if (cnt < top_k) {
+            row[cnt] = (static_cast<int>(-q.z) - 1) >> 4;
+          } else {
+            ovf = 1;
+          }
+          ++cnt;
+        }
+      } else if (hit) {
+        m8 |= 1u << c;
+      }
+      if (c == 0) axis_f = q.w;
+    }
+    if (m8 != 0u) {
+      // near-first: children ascend along the node's sort axis
+      uint32_t word = m8;
+      const int axis = static_cast<int>(axis_f);
+      const float dax = axis == 0 ? y.dx : (axis == 1 ? y.dy : y.dz);
+      if (dax < 0.0f) word = (__brev(m8) >> 24) | 0x100u;
+      if (held > 0) {
+        if (held >= kStack) __trap();  // unreachable: the host caps depth
+        below[held - 1] = top;
+      }
+      top = word | (static_cast<uint32_t>(node) << 9);
+      ++held;
+    }
+    if (held == 0) return;
+    // pop: the next child of the top word, its code from the parent's row
+    const uint32_t mask = top & 0xFFu;
+    const int c = __ffs(mask) - 1;
+    const int slot = (top & 0x100u) ? 7 - c : c;
+    const int parent = static_cast<int>(top >> 9);
+    const uint32_t rem = mask & (mask - 1u);
+    if (rem != 0u) {
+      top = top - mask + rem;
+    } else if (--held > 0) {
+      top = below[held - 1];
+    }
+    // the code is a VALUE: convert, never bitcast (scene/types.py)
+    node = static_cast<int>(__ldg(nodes_f + parent * 128 + 8 * slot + 6));
+  }
+}
+
+// kStaged: the block's rows in dynamic shared memory (blockDim.x * top_k
+// ints), written out once; else each thread's row in place.
+template <bool kStaged>
+__global__ void __launch_bounds__(kEmitBlock, kEmitMinBlocks)
+    emit_walk_kernel(const EmitArgs a) {
+  extern __shared__ int4 stage4[];
+  int* stage = reinterpret_cast<int*>(stage4);
+  const int t = threadIdx.x;
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * blockDim.x;
+  const int i = static_cast<int>(first) + t;
+  const int k_n = a.top_k;
+  int* row;
+  if (kStaged) {
+    for (int j = t; j < static_cast<int>(blockDim.x) * k_n; j += blockDim.x) {
+      stage[j] = -1;
+    }
+    __syncthreads();
+    row = stage + t * k_n;
+  } else {
+    row = a.slots + static_cast<int64_t>(i) * k_n;
+    if (i < a.n) {
+      for (int k = 0; k < k_n; ++k) row[k] = -1;
+    }
+  }
+  if (i < a.n) {
+    const Ray y = load_ray(a.origin, a.direction, i);
+    int ovf = 0;
+    emit_walk(a.nodes, y, a.tmax0[i], row, k_n, ovf);
+    a.ovf[i] = ovf;
+  }
+  if (kStaged) {
+    __syncthreads();
+    // the block's rows are one contiguous region of slots, 16 B aligned
+    const int rows = static_cast<int>(
+        min(static_cast<int64_t>(blockDim.x), a.n - first));
+    const int total = rows * k_n;
+    int* out = a.slots + first * k_n;
+    const int n4 = total >> 2;
+    for (int j = t; j < n4; j += blockDim.x) {
+      reinterpret_cast<int4*>(out)[j] = stage4[j];
+    }
+    for (int j = 4 * n4 + t; j < total; j += blockDim.x) out[j] = stage[j];
+  }
+}
+
+// The block size that stages a block's rows of top_k slots within
+// kEmitStageBytes (128, 64 or 32 threads), or 0: write them in place.
+int emit_block(int top_k) {
+  for (int b = kEmitBlock; b >= 32; b /= 2) {
+    if (static_cast<int64_t>(b) * top_k * 4 <= kEmitStageBytes) return b;
+  }
+  return 0;
+}
+
 }  // namespace
 
 // One launch of the walk from the root: closest hit (anyhit 0) or
@@ -666,12 +853,39 @@ extern "C" int rt_bvh8_deep(int anyhit, int rows, const void* nodes,
   return static_cast<int>(cudaGetLastError());
 }
 
-// One launch of walk_kernel: mode 2 emit (one-row, start 0: from the
-// root), or mode 0 closest / 1 anyhit with start 1, TOP (troot, slots,
-// ovf, top_k).  The closest-hit and occlusion walks from the root are
-// rt_bvh8_group's: start 0 with mode 0 or 1 is refused.  Pointers a mode
-// does not read may be null.  Returns the launch's CUDA error code.
-extern "C" int rt_bvh8_walk(int mode, int rows, int start, const void* nodes,
+// One launch of the cluster enumeration walk: n rays over the cluster BVH8
+// `nodes`, slots (n, top_k) i32 (16 B aligned) and ovf (n,) i32 written
+// whole.  Returns the launch's CUDA error.
+extern "C" int rt_bvh8_emit(const void* nodes, const void* origin,
+                            const void* direction, const void* tmax0,
+                            void* slots, void* ovf, int n, int top_k,
+                            void* stream) {
+  if (top_k < 1 || reinterpret_cast<uintptr_t>(slots) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const EmitArgs a{
+      static_cast<const float4*>(nodes), static_cast<const float*>(origin),
+      static_cast<const float*>(direction), static_cast<const float*>(tmax0),
+      static_cast<int*>(slots), static_cast<int*>(ovf), n, top_k};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int block = emit_block(top_k);
+  if (block > 0) {
+    emit_walk_kernel<true><<<(n + block - 1) / block, block,
+                             block * top_k * 4, s>>>(a);
+  } else {
+    emit_walk_kernel<false><<<(n + kEmitBlock - 1) / kEmitBlock, kEmitBlock,
+                              0, s>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One launch of walk_kernel's TOP walk: closest hit (anyhit 0) or
+// occlusion (anyhit 1) of n rays over rows-row leaf slots (1 or 2) from
+// the root, the treelet roots flagged in troot emitted to slots (n, top_k)
+// and ovf.  The walks from the root without a TOP table are
+// rt_bvh8_group's, the cluster enumeration rt_bvh8_emit's.  Returns the
+// launch's CUDA error code.
+extern "C" int rt_bvh8_walk(int anyhit, int rows, const void* nodes,
                             const void* leaf_rows, const void* troot,
                             const void* origin, const void* direction,
                             const void* tmax0, void* dst, void* prim,
@@ -684,19 +898,7 @@ extern "C" int rt_bvh8_walk(int mode, int rows, int start, const void* nodes,
       static_cast<float*>(dst), static_cast<int*>(prim),
       static_cast<int*>(slots), static_cast<int*>(ovf), n, top_k};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int err;
-  if (mode == kEmit) {
-    err = rows == 1 && start == kRoot
-              ? launch<kEmit, 1, kRoot>(a, s)
-              : static_cast<int>(cudaErrorInvalidValue);
-  } else if (start != kTop) {
-    err = static_cast<int>(cudaErrorInvalidValue);
-  } else if (mode == kClosest) {
-    err = by_rows<kClosest, kTop>(rows, a, s);
-  } else if (mode == kAnyhit) {
-    err = by_rows<kAnyhit, kTop>(rows, a, s);
-  } else {
-    err = static_cast<int>(cudaErrorInvalidValue);
-  }
+  const int err = anyhit ? by_rows<kAnyhit, kTop>(rows, a, s)
+                         : by_rows<kClosest, kTop>(rows, a, s);
   return err != 0 ? err : static_cast<int>(cudaGetLastError());
 }

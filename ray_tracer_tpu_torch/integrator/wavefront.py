@@ -8,9 +8,10 @@ regenerates finished paths with their pixel's next sample, bins the lanes
 by (direction octant, origin morton cell) with one stable argsort and one
 packed state permute, and traces the merged wavefront: closest hit for
 bounce and camera rays, any-hit occlusion for the NEE shadow rays.  Both
-traversals run the BVH8 kernels.  The loop is a
-Python ``while`` whose exit test is one ``.item()`` per round; multi-phase
-drain shrinks the state arrays as lanes retire.  The traversal route
+traversals run the BVH8 kernels.  The loop is a Python ``while`` whose
+exit test is one device-to-host read per round (the live count, and on
+the rope-walk route its error flag beside it); multi-phase drain shrinks
+the state arrays as lanes retire.  The traversal route
 (group kernel, packet walk or cluster route) follows ``cfg.routing``; see
 ``ops/traverse.py``.
 
@@ -27,6 +28,7 @@ from typing import NamedTuple
 import torch
 
 from ..config import RenderConfig
+from ..kernels import lanewalk
 from ..ops import env as env_ops
 from ..ops import intersect, traverse
 from ..ops.intersect import cross, dot, norm, sqrt
@@ -367,6 +369,19 @@ def _trace_wave_lanes(scene, rot, pos, fov, aspect, near, pixel_id,
         return raygen(rot, pos, fov, aspect, near, pix, cfg.width,
                       cfg.height, jitter)
 
+    # the rope walk's error flag, read with each round's live count
+    rope_err = traverse.rope_error_flag(scene, rt, dev)
+
+    def n_live(w: Wave) -> int:
+        """Live lanes: one device-to-host copy per round, of the count and,
+        on the rope-walk route, its error flag beside it."""
+        if rope_err is None:
+            return int(w.alive.sum())
+        count, err = torch.cat([w.alive.sum().view(1),
+                                rope_err.long()]).tolist()
+        lanewalk.raise_on_flag(err, scene.meta["rope_rows"])
+        return count
+
     pix0 = pixel_id.to(I32)
     s0 = torch.zeros(n, dtype=I32, device=dev)
     sb0 = sample_base.to(I32)
@@ -374,6 +389,7 @@ def _trace_wave_lanes(scene, rot, pos, fov, aspect, near, pixel_id,
     hit0 = traverse.traverse(
         scene, rays0.origin, rays0.direction,
         torch.ones(n, dtype=torch.bool, device=dev), routing=rt,
+        rope_err=rope_err,
     )
     f3 = lambda v: torch.full((n, 3), v, dtype=F32, device=dev)
     w = Wave(
@@ -554,7 +570,7 @@ def _trace_wave_lanes(scene, rot, pos, fov, aspect, near, pixel_id,
 
         # ---- traverse the merged wavefront (bounce ++ regenerated primary)
         hit_next = traverse.traverse(scene, new_origin, new_dir, alive,
-                                     routing=rt)
+                                     routing=rt, rope_err=rope_err)
 
         # ---- NEE shadow query for continuing diffuse lanes
         if scene.n_lights == 0:
@@ -563,7 +579,7 @@ def _trace_wave_lanes(scene, rot, pos, fov, aspect, near, pixel_id,
         else:
             occluded = traverse.traverse_anyhit(
                 scene, nee_origin, l_dir, nee_active,
-                tmax=l_dist * (1.0 - 1e-3), routing=rt,
+                tmax=l_dist * (1.0 - 1e-3), routing=rt, rope_err=rope_err,
             )
             reached = nee_active & ~occluded
             l_emit = lights.rect_light_emission(scene, li.long())
@@ -597,7 +613,7 @@ def _trace_wave_lanes(scene, rot, pos, fov, aspect, near, pixel_id,
     banked_acc, banked_slot = [], []
     for i in range(len(widths)):
         nxt = widths[i + 1] if i + 1 < len(widths) else 0
-        while int(w.alive.sum()) > nxt:
+        while n_live(w) > nxt:
             w = round_(w)
         if nxt:
             banked_acc.append(w.acc[nxt:])

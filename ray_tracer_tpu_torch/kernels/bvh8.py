@@ -1,13 +1,14 @@
 """The BVH8 walk behind the group and packet traversal wrappers.
 
 ``csrc/bvh8_walk.cu`` is the one-thread-per-ray walk on the card, one
-library for both wrappers, with three kernels: ``group_walk_kernel``
+library for both wrappers, with four kernels: ``group_walk_kernel``
 (:func:`launch_group`, the closest-hit and occlusion walk from the root
 over one- or two-row leaf slots), which ``kernels/group.py`` and
 ``kernels/packet.py`` launch; ``deep_walk_kernel`` (:func:`launch_deep`),
-which ``kernels/packet.py`` launches for the DEEP start; and
-``walk_kernel`` (:func:`launch`), which it launches for the emit and TOP
-modes.  ``walk_reference`` is the plain torch version of all three.
+which ``kernels/packet.py`` launches for the DEEP start;
+``emit_walk_kernel`` (:func:`launch_emit`), which it launches for the emit
+mode; and ``walk_kernel`` (:func:`launch_top`), which it launches for
+the TOP start.  ``walk_reference`` is the plain torch version of all four.
 
 Tables (``CompiledScene.wide_packed`` / ``leaf_rows``):
 
@@ -89,7 +90,6 @@ NVCC_FLAGS = (
 _SRC = os.path.join(CSRC, "bvh8_walk.cu")
 
 MODES = ("closest", "anyhit", "emit")
-_START_ROOT, _START_TOP = 0, 1
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -105,7 +105,7 @@ def _load() -> ctypes.CDLL:
         lib = ctypes.CDLL(build())
         lib.rt_bvh8_walk.restype = ctypes.c_int
         lib.rt_bvh8_walk.argtypes = (
-            [ctypes.c_int] * 3 + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 2
+            [ctypes.c_int] * 2 + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 2
             + [ctypes.c_void_p]
         )
         lib.rt_bvh8_deep.restype = ctypes.c_int
@@ -113,6 +113,9 @@ def _load() -> ctypes.CDLL:
             [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
             + [ctypes.c_void_p]
         )
+        lib.rt_bvh8_emit.restype = ctypes.c_int
+        lib.rt_bvh8_emit.argtypes = (
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
         lib.rt_bvh8_group.restype = ctypes.c_int
         lib.rt_bvh8_group.argtypes = (
             [ctypes.c_int] * 2 + [ctypes.c_void_p] * 7 + [ctypes.c_int]
@@ -168,39 +171,52 @@ def launch_deep(nodes, leaf_rows, entries, origin, direction, tmax0,
     return dst, prim
 
 
-def launch(nodes, leaf_rows, origin, direction, tmax0, mode: str,
-           rows: int = 1, top_k: int = 0, troot=None):
-    """One launch of ``walk_kernel`` on the card: the ``emit`` mode, or the
-    TOP start (``troot``), with :func:`walk_reference`'s arguments and
-    results.  The closest-hit and occlusion walks from the root are
-    :func:`launch_group`'s: the kernel refuses them.  Inputs as checked by
-    :func:`check_walk_inputs` (and :func:`check_start_inputs`), on a CUDA
-    device."""
+def launch_emit(nodes, origin, direction, tmax0, top_k: int):
+    """One launch of ``emit_walk_kernel`` on the card: ``(slots, ovf)`` as
+    :func:`walk_reference` returns them in the ``emit`` mode, for any
+    ``top_k >= 1``.  Inputs as checked by :func:`check_walk_inputs`, on a
+    CUDA device."""
     dev = origin.device
     n = origin.shape[0]
-    start = _START_TOP if troot is not None else _START_ROOT
-    emits = mode == "emit" or start == _START_TOP
-    dst = prim = slots = ovf = None
-    if mode != "emit":
-        dst = torch.empty(n, dtype=torch.float32, device=dev)
-        prim = torch.empty(n, dtype=torch.int32, device=dev)
-    if emits:
-        slots = torch.empty((n, top_k), dtype=torch.int32, device=dev)
-        ovf = torch.empty(n, dtype=torch.int32, device=dev)
-    ptr = lambda t: None if t is None else t.data_ptr()
+    slots = torch.empty((n, top_k), dtype=torch.int32, device=dev)
+    ovf = torch.empty(n, dtype=torch.int32, device=dev)
     if n:
-        err = _load().rt_bvh8_walk(
-            MODES.index(mode), rows, start, ptr(nodes), ptr(leaf_rows),
-            ptr(troot), ptr(origin), ptr(direction), ptr(tmax0), ptr(dst),
-            ptr(prim), ptr(slots), ptr(ovf), n, top_k,
+        err = _load().rt_bvh8_emit(
+            nodes.data_ptr(), origin.data_ptr(), direction.data_ptr(),
+            tmax0.data_ptr(), slots.data_ptr(), ovf.data_ptr(), n, top_k,
             torch.cuda.current_stream(dev).cuda_stream,
         )
         if err != 0:
             raise RuntimeError(
-                f"BVH8 walk kernel launch failed: CUDA error {err}")
-    if mode == "emit":
-        return slots, ovf
-    return (dst, prim, slots, ovf) if emits else (dst, prim)
+                f"BVH8 emit walk kernel launch failed: CUDA error {err}")
+    return slots, ovf
+
+
+def launch_top(nodes, leaf_rows, troot, origin, direction, tmax0,
+               anyhit: bool, rows: int, top_k: int):
+    """One launch of ``walk_kernel`` on the card: the TOP start of the
+    closest-hit (or ``anyhit``) walk, ``(dst, prim, slots, ovf)`` as
+    :func:`walk_reference` returns them with ``troot``.  Inputs as checked
+    by :func:`check_walk_inputs` and :func:`check_start_inputs`, on a CUDA
+    device."""
+    dev = origin.device
+    n = origin.shape[0]
+    dst = torch.empty(n, dtype=torch.float32, device=dev)
+    prim = torch.empty(n, dtype=torch.int32, device=dev)
+    slots = torch.empty((n, top_k), dtype=torch.int32, device=dev)
+    ovf = torch.empty(n, dtype=torch.int32, device=dev)
+    if n:
+        err = _load().rt_bvh8_walk(
+            int(anyhit), rows, nodes.data_ptr(), leaf_rows.data_ptr(),
+            troot.data_ptr(), origin.data_ptr(), direction.data_ptr(),
+            tmax0.data_ptr(), dst.data_ptr(), prim.data_ptr(),
+            slots.data_ptr(), ovf.data_ptr(), n, top_k,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+        if err != 0:
+            raise RuntimeError(
+                f"BVH8 TOP walk kernel launch failed: CUDA error {err}")
+    return dst, prim, slots, ovf
 
 
 def check_tensors(device, dtype, **named) -> None:

@@ -11,8 +11,9 @@ of two-phase treelet traversal.  On CUDA tensors it launches the walk in
 ``csrc/bvh8_walk.cu`` (built with ``nvcc`` at first use, one library with
 ``kernels/group.py``): ``group_walk_kernel`` for the closest-hit and
 occlusion walks from the root (the main path's kernel, here over one- or
-two-row slots), ``deep_walk_kernel`` for the DEEP start, ``walk_kernel``
-for the emit and TOP modes; on CPU tensors it runs
+two-row slots), ``deep_walk_kernel`` for the DEEP start,
+``emit_walk_kernel`` for the emit mode, ``walk_kernel`` for the TOP start;
+on CPU tensors it runs
 :func:`packet_traverse_wide_reference`.
 
 ``packet_traverse`` is the port of ``_packet_kernel``, the narrow route's
@@ -48,9 +49,10 @@ from .bvh8 import (
     check_start_inputs,
     check_tensors,
     check_walk_inputs,
-    launch,
     launch_deep,
+    launch_emit,
     launch_group,
+    launch_top,
     mt_test,
     walk_reference,
 )
@@ -142,14 +144,14 @@ def packet_traverse_wide(nodes, leaf_rows, origin, direction, tmax0,
     if entries is not None:
         out = launch_deep(nodes, leaf_rows, entries, origin, direction,
                           tmax0, anyhit, rows, packet_size)
-    elif troot is None and not emit_leaves:
+    elif emit_leaves:
+        out = launch_emit(nodes, origin, direction, tmax0, top_k)
+    elif troot is None:
         out = launch_group(nodes, leaf_rows, origin, direction, tmax0,
                            anyhit, rows)
     else:
-        out = launch(nodes, leaf_rows, origin, direction, tmax0,
-                     "emit" if emit_leaves else
-                     ("anyhit" if anyhit else "closest"),
-                     rows, top_k=top_k, troot=troot)
+        out = launch_top(nodes, leaf_rows, troot, origin, direction, tmax0,
+                         anyhit, rows, top_k)
     if emit_leaves:
         mode = "packet8_emit"
     elif troot is not None or entries is not None:

@@ -102,6 +102,18 @@ def _lanewalk_on(scene: CompiledScene, routing: Routing) -> bool:
     return True
 
 
+def rope_error_flag(scene: CompiledScene, routing: Routing, device):
+    """A cleared error flag for the rope walks of a run of traversals on
+    the card (their ``rope_err``), or None where the route is not the rope
+    walk or the device is the CPU (whose plain walk raises at once).  The
+    caller reads it (``lanewalk.raise_on_flag``) with what it reads from
+    the device anyway."""
+    if torch.device(device).type != "cuda" or not _lanewalk_on(scene,
+                                                                routing):
+        return None
+    return lanewalk.error_flag(device)
+
+
 def _cluster_on(scene: CompiledScene, routing: Routing) -> bool:
     return cluster_trace.use_cluster(scene, routing)
 
@@ -276,12 +288,15 @@ def traverse(
     active: torch.Tensor,
     tmax: torch.Tensor = None,
     routing: Routing = None,
+    rope_err: torch.Tensor = None,
 ) -> Hit:
     """Closest hit for a batch of world-space rays.
 
     ``active`` masks lanes (inactive lanes report no hit); ``tmax`` is an
     optional per-lane search radius (default BIG).  Triangle ``prim`` is in
     :func:`prim_space` of ``routing`` (default ``Routing()``).
+    ``rope_err``: the rope walk's error flag (:func:`rope_error_flag`),
+    which the caller reads; without it a malformed stream raises here.
     """
     rt = routing if routing is not None else Routing()
     n = origin.shape[0]
@@ -309,7 +324,8 @@ def traverse(
     o, d = origin.contiguous(), direction.contiguous()
     if _lanewalk_on(scene, rt):
         t_dst, t_prim = lanewalk.lanewalk_traverse(
-            scene.rope_streams, scene.meta["rope_rows"], o, d, tmax0)
+            scene.rope_streams, scene.tri_packed, scene.meta["rope_rows"],
+            o, d, tmax0, err=rope_err)
     elif _cluster_on(scene, rt):
         t_dst, t_prim = cluster_trace.cluster_traverse(
             scene, o, d, tmax0, rt)
@@ -340,12 +356,14 @@ def traverse_anyhit(
     active: torch.Tensor,
     tmax: torch.Tensor,
     routing: Routing = None,
+    rope_err: torch.Tensor = None,
 ) -> torch.Tensor:
     """Occlusion query: is there ANY hit strictly inside ``tmax``?
 
     Returns (N,) bool; inactive lanes report unoccluded.  The narrow route
     has no occlusion walk: its closest hit clipped at ``tmax`` (a closest
-    hit inside ``tmax`` exists iff any hit does).
+    hit inside ``tmax`` exists iff any hit does).  ``rope_err`` as in
+    :func:`traverse`.
     """
     rt = routing if routing is not None else Routing()
     occ = torch.zeros((origin.shape[0],), dtype=torch.bool,
@@ -359,8 +377,8 @@ def traverse_anyhit(
     o, d = origin.contiguous(), direction.contiguous()
     if _lanewalk_on(scene, rt):
         dst, _ = lanewalk.lanewalk_traverse(
-            scene.rope_streams, scene.meta["rope_rows"], o, d, tmax0,
-            anyhit=True)
+            scene.rope_streams, scene.tri_packed, scene.meta["rope_rows"],
+            o, d, tmax0, anyhit=True, err=rope_err)
     elif _cluster_on(scene, rt):
         dst, _ = cluster_trace.cluster_traverse(scene, o, d, tmax0, rt,
                                                 anyhit=True)

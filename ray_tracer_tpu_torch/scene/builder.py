@@ -251,12 +251,12 @@ class SceneBuilder:
         (:class:`~ray_tracer_tpu_torch.accel.cluster.ClusterCapacityError`)
         gets none, unless ``clusters=True`` forced them: then it raises.
 
-        ``rope_streams``: build the rope-walk route's per-octant row
+        ``rope_streams``: build the rope-walk route's per-octant BOX-row
         streams (``kernels/lanewalk.py``; flattened triangle scenes only).
-        Off by default: at 64 B a row, 8 streams of one row per node and
-        per triangle reference (about 200 MB for ``sponza_proxy()``) that
-        only ``Routing(lanewalk="force")`` reads.  The JAX package builds
-        them unless ``RT_ROPE_BUILD=0``.
+        Off by default: 8 streams of one 32 B row per node (25 MB for
+        ``sponza_proxy()``) that only ``Routing(lanewalk="force")`` reads.
+        The JAX package builds its own (BOX and TRI rows) unless
+        ``RT_ROPE_BUILD=0``.
 
         The treelet-root table ``wide_troot`` of two-phase traversal is
         always built (:func:`treelet_roots`).
@@ -696,7 +696,7 @@ class SceneBuilder:
             rope, rope_rows = build_rope_streams(
                 forest.node_min, forest.node_max, forest.index,
                 forest.tri_count, forest.hit_link, forest.miss_link,
-                tri_packed,
+                tri_packed.shape[0],
             )
 
         # Slot-space mirror of the fat shading rows: indexed directly by the

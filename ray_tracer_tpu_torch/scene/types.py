@@ -6,8 +6,8 @@ transforms, and a per-``usemtl``-group BVH forest.  ``CompiledScene`` is the
 flat SoA table set uploaded to the device as torch tensors — the
 replacement for the reference's nine storage-buffer bindings
 (``shaders/raytrace.comp:120-148``).  The field layout is the JAX
-package's (``ray_tracer_tpu/scene/types.py``), with the rope streams in a
-row-major layout (:func:`rope_rows_layout`).
+package's (``ray_tracer_tpu/scene/types.py``), except the rope streams,
+which hold only the tree's boxes (:func:`rope_box_rows`).
 """
 
 from __future__ import annotations
@@ -171,14 +171,101 @@ def narrow_root_meta(arrays: dict) -> dict:
         arrays["bvh_packed"], arrays["bvh_axis"], root))
 
 
-ROPE_FIELDS = 16  # floats per rope-stream row
+ROPE_FIELDS = 16  # floats per row of the JAX package's rope streams
 ROPE_PAGE = 128  # rows per page of the JAX package's layout
+ROPE_BOX_FIELDS = 8  # floats per BOX row of this package's rope streams
+ROPE_DEAD = 1 << 24  # the miss row that ends a walk, f32-exact
+# A leaf's word: count << ROPE_FIRST_BITS | first.  count 1..ROPE_MAX_COUNT
+# and first below 2^ROPE_FIRST_BITS keep the word's bits a finite float's.
+ROPE_FIRST_BITS = 24
+ROPE_MAX_COUNT = 126
+
+
+def rope_leaf_words(first, count, n_tris: int) -> np.ndarray:
+    """The rope streams' leaf words, (B,) int32: ``count << 24 | first``
+    where ``count > 0`` (a leaf of triangles first .. first + count - 1),
+    0 elsewhere (an interior node).  Raises ``ValueError`` where a leaf
+    lies beyond the word's limits or past the ``n_tris`` triangles."""
+    first = np.asarray(first, np.int64)
+    count = np.asarray(count, np.int64)
+    leaf = count > 0
+    f, c = first[leaf], count[leaf]
+    if leaf.any() and (int(c.max()) > ROPE_MAX_COUNT
+                       or int(f.min()) < 0
+                       or int(f.max()) >= 1 << ROPE_FIRST_BITS
+                       or int((f + c).max()) > n_tris):
+        raise ValueError(
+            f"a rope-walk leaf lies beyond the leaf word's limits: at most "
+            f"{ROPE_MAX_COUNT} triangles from a first triangle below "
+            f"2^{ROPE_FIRST_BITS}, within the scene's {n_tris}")
+    return np.where(leaf, count << ROPE_FIRST_BITS | first, 0).astype(
+        np.int32)
+
+
+def rope_box_rows(streams: np.ndarray, n_rows: int, n_tris: int):
+    """The JAX package's rope streams as this package's: ``(box_streams,
+    n_box)``, (8, n_box, 8) f32 and the BOX rows per octant.
+
+    ``streams`` are the JAX package's (8, n_pages, 16*128) page-major
+    streams, or the same rows row-major, (8, R_pad, 16), of which the
+    first ``n_rows`` per octant are real (BOX rows: 0:3 bmin | 3:6 bmax |
+    6 hit row | 7 miss row | 15 type 0; TRI rows: ... 12 next row | 14
+    global triangle id | 15 type 1).  The TRI rows go; each BOX row keeps
+    its box, its miss row renumbered among the BOX rows (``ROPE_DEAD``
+    stays), and a leaf word (:func:`rope_leaf_words`): ``first`` from its
+    first TRI row's float 14, ``count`` from the run of TRI rows after
+    it.  Raises ``ValueError`` unless every BOX row's hit row is the next
+    row, every miss row a BOX row or ``ROPE_DEAD``, and each leaf's TRI
+    rows consecutive triangles chained to the leaf's miss row.
+    """
+    s = np.asarray(streams)
+    if s.shape[-1] == ROPE_FIELDS * ROPE_PAGE:
+        s = rope_rows_layout(s)
+    out = []
+    for o in range(s.shape[0]):
+        r = s[o, :n_rows]
+        box = np.nonzero(r[:, 15] <= 0.5)[0]
+        new_id = np.full(n_rows + 1, -1, np.int64)
+        new_id[box] = np.arange(box.size)
+        if not np.array_equal(r[box, 6], (box + 1).astype(np.float32)):
+            raise ValueError(f"octant {o}: a BOX row's hit row is not the "
+                             "next row")
+        miss = r[box, 7].astype(np.int64)
+        dead = miss >= ROPE_DEAD
+        renum = new_id[np.clip(miss, 0, n_rows)]
+        if (~dead & ((miss < 0) | (renum < 0))).any():
+            raise ValueError(f"octant {o}: a miss row is not a BOX row")
+        count = np.diff(np.append(box, n_rows)) - 1
+        leaf = count > 0
+        first = np.zeros(box.size, np.int64)
+        first[leaf] = r[box[leaf] + 1, 14].astype(np.int64)
+        # the TRI rows of each leaf: consecutive ids, chained in order,
+        # the last one to the leaf's miss row
+        tri = np.nonzero(r[:, 15] > 0.5)[0]
+        owner = np.searchsorted(box, tri) - 1
+        k = tri - box[owner] - 1
+        last = k == count[owner] - 1
+        nxt = np.where(last, r[box[owner], 7], tri + 1)
+        if (owner < 0).any() or not (
+                np.array_equal(r[tri, 14].astype(np.int64),
+                               first[owner] + k)
+                and np.array_equal(r[tri, 12], nxt.astype(np.float32))):
+            raise ValueError(f"octant {o}: a leaf's TRI rows are not its "
+                             "consecutive triangles")
+        rows = np.zeros((box.size, ROPE_BOX_FIELDS), np.float32)
+        rows[:, 0:6] = r[box, 0:6]
+        rows[:, 6] = np.where(dead, ROPE_DEAD, renum)
+        rows.view(np.int32)[:, 7] = rope_leaf_words(first, count, n_tris)
+        out.append(rows)
+    if len({x.shape[0] for x in out}) != 1:
+        raise ValueError("the octants' streams hold different trees")
+    return np.ascontiguousarray(np.stack(out)), out[0].shape[0]
 
 
 def rope_rows_layout(streams: np.ndarray) -> np.ndarray:
     """The JAX package's page-major, field-major rope streams (8, n_pages,
-    16*128) as this package's row-major (8, n_pages*128, 16) rows: field f
-    of row r of page p sits at column f*128 + r there."""
+    16*128) as row-major (8, n_pages*128, 16) rows: field f of row r of
+    page p sits at column f*128 + r there."""
     s = np.asarray(streams)
     n_oct, n_pages = s.shape[:2]
     return np.ascontiguousarray(
@@ -190,7 +277,7 @@ def rope_rows_layout(streams: np.ndarray) -> np.ndarray:
 
 def rope_placeholder() -> np.ndarray:
     """The one-row ``rope_streams`` of a scene compiled without them."""
-    return np.zeros((1, 1, ROPE_FIELDS), np.float32)
+    return np.zeros((1, 1, ROPE_BOX_FIELDS), np.float32)
 
 
 @dataclass
@@ -202,7 +289,7 @@ class CompiledScene:
     tensors; :meth:`to` copies a scene to another device.  Integer ids
     stored in float rows are f32 *values*, never
     bitcasts, except ``bvh_packed`` columns 6-7 (index/count bitcast, as in
-    the reference package).
+    the reference package) and ``rope_streams`` column 7 (the leaf word).
     """
 
     # Spheres (padded to a static count; radius 0 rows are inert).
@@ -290,11 +377,12 @@ class CompiledScene:
     super_cstart: Any  # (S,) i32 first cluster id per super
 
     # Rope-walk route (kernels/lanewalk.py): per direction octant, the
-    # binary tree in that octant's preorder as 16-float rows (interior ->
-    # one BOX row, leaf -> a BOX row and its TRI rows), padded to a
-    # multiple of 128 rows.  meta: rope_rows, the rows per octant (0 = not
+    # binary tree in that octant's preorder, one 8-float BOX row per node
+    # (box | miss row as an f32 VALUE | leaf word, i32 bits: count << 24 |
+    # first, the leaf's tri_packed rows; 0 on interior nodes).  meta:
+    # rope_rows, the BOX rows per octant, one per binary node (0 = not
     # built; the array is then a one-row placeholder).
-    rope_streams: Any  # (8,R_pad,16) f32
+    rope_streams: Any  # (8,R,8) f32
 
     # NEE lights.
     light_corner: Any  # (L,3) f32
@@ -326,11 +414,11 @@ class CompiledScene:
         """Scene from numpy arrays keyed by field name, as tensors on
         ``device`` (default: the CUDA device; see :func:`resolve_device`).
 
-        ``arrays`` may be the JAX package's compiled scene fields: rope
-        streams in the JAX layout (16*128 columns) are converted by
-        :func:`rope_rows_layout`, and the page counts and narrow-walk root
-        it lacks are derived by :func:`page_counts` and
-        :func:`narrow_root_meta`.
+        ``arrays`` may be the JAX package's compiled scene fields: its
+        rope streams (BOX and TRI rows, 16 floats each) are converted by
+        :func:`rope_box_rows`, which sets ``meta["rope_rows"]`` to the BOX
+        rows, and the page counts and narrow-walk root it lacks are
+        derived by :func:`page_counts` and :func:`narrow_root_meta`.
         """
         dev = resolve_device(device)
         arrays = {**page_counts(arrays, meta), **arrays}
@@ -339,8 +427,11 @@ class CompiledScene:
         rope = np.asarray(arrays["rope_streams"])
         if not meta.get("rope_rows", 0):
             arrays["rope_streams"] = rope_placeholder()
-        elif rope.shape[-1] == ROPE_FIELDS * ROPE_PAGE:
-            arrays["rope_streams"] = rope_rows_layout(rope)
+        elif rope.shape[-1] != ROPE_BOX_FIELDS:
+            arrays["rope_streams"], n_box = rope_box_rows(
+                rope, meta["rope_rows"],
+                np.asarray(arrays["tri_packed"]).shape[0])
+            meta = {**meta, "rope_rows": n_box}
         return cls(
             meta=dict(meta),
             **{

@@ -268,6 +268,64 @@ def test_packet_walk_matches_plain_version(dev, scene, scene16, rows,
     assert (prim >= 0).any() or anyhit
 
 
+@pytest.fixture(scope="module")
+def emit_variants(dev):
+    """tools/emit_walk_variants.py: the enumeration walk before its
+    redesign (walk_kernel's emit mode) and emit_walk_kernel's variants."""
+    return _tools_module("emit_walk_variants")
+
+
+def _emit_rays(scene, n, seed=11):
+    """Rays from inside the scene; every 13th direction component 1e-40
+    (a subnormal: its inverse overflows to inf), inactive and clipped
+    lanes."""
+    o, d, tmax = _rays(scene, n, False, seed)
+    d = d.clone()
+    d[::13, 0] = 1e-40
+    d[5::13, 2] = -1e-40
+    return o, d.contiguous(), tmax
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("top_k", [1, 16, 120, 300, 400])
+@pytest.mark.parametrize("n", [1, 129, 20000])
+def test_emit_walk_equals_twin_and_old(dev, scene, emit_variants, top_k, n):
+    """emit_walk_kernel bit for bit against its plain twin and the walk it
+    replaced, at top_k 1 and 16 (blocks of 128 staging their rows), 120
+    (64), 300 (32) and 400 (past the staging: rows in place), overflow
+    included."""
+    o, d, tmax = _emit_rays(scene, n)
+    args = [scene.cwide_packed, scene.cwide_packed, o, d, tmax, 8]
+    packet.reset_launches()
+    slots, ovf = packet.packet_traverse_wide(*args, top_k=top_k,
+                                             emit_leaves=True)
+    assert packet.launches["packet8_emit"] == 1
+    rslots, rovf = packet.packet_traverse_wide_reference(
+        *args, top_k=top_k, emit_leaves=True)
+    old = emit_variants.run("old", scene.cwide_packed, o, d, tmax, top_k)
+    torch.cuda.synchronize()
+    assert torch.equal(slots, rslots) and torch.equal(ovf, rovf)
+    emit_variants.compare(f"old at top_k {top_k}", (slots, ovf), old)
+    if n == 20000:
+        assert (slots >= 0).any()
+        assert (ovf > 0).any() or top_k > 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["shipped_copy", "fminf_select_minmax",
+                                  "stack_local", "push_ids", "rows_in_place",
+                                  "regs_free", "regs64", "regs48", "regs40",
+                                  "none"])
+@pytest.mark.parametrize("top_k", [3, 16])
+def test_emit_walk_variants_match(dev, scene, emit_variants, name, top_k):
+    o, d, tmax = _emit_rays(scene, 5000)
+    want = packet.packet_traverse_wide(
+        scene.cwide_packed, scene.cwide_packed, o, d, tmax, 8, top_k=top_k,
+        emit_leaves=True)
+    emit_variants.compare(name, emit_variants.run(
+        name, scene.cwide_packed, o, d, tmax, top_k), want)
+
+
 @pytest.mark.gpu
 def test_packet_emit_matches_plain_version(dev, scene):
     o, d, tmax = _rays(scene, 20000, False)
@@ -464,7 +522,7 @@ def test_narrow_walk_variants_match(dev, narrow_cases, narrow_variants,
 @pytest.mark.gpu
 @pytest.mark.parametrize("anyhit", [False, True])
 def test_rope_walk_matches_plain_version(dev, scene, anyhit):
-    args = [scene.rope_streams, scene.meta["rope_rows"],
+    args = [scene.rope_streams, scene.tri_packed, scene.meta["rope_rows"],
             *_rays(scene, 20000, anyhit)]
     lanewalk.reset_launches()
     dst, prim = lanewalk.lanewalk_traverse(*args, anyhit=anyhit)
@@ -481,10 +539,93 @@ def test_rope_walk_raises_on_a_malformed_stream(dev, scene):
     """A stream whose links loop raises through the kernel's error flag
     instead of hanging the card."""
     streams = scene.rope_streams.clone()
-    streams[:, :, 6:8] = 0.0  # every BOX row links back to row 0
+    streams[:, :, 6] = 0.0  # every miss links back to row 0
     with pytest.raises(RuntimeError, match="did not end"):
-        lanewalk.lanewalk_traverse(streams, scene.meta["rope_rows"],
+        lanewalk.lanewalk_traverse(streams, scene.tri_packed,
+                                   scene.meta["rope_rows"],
                                    *_rays(scene, 256, False))
+
+
+@pytest.fixture(scope="module")
+def rope_variants(dev):
+    """tools/rope_walk_variants.py: the rope walk before its redesign, on
+    the old streams, and rope_walk_kernel's variants."""
+    return _tools_module("rope_walk_variants")
+
+
+@pytest.fixture(scope="module")
+def old_rope(scene, rope_variants):
+    return rope_variants.old_streams(scene)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 129, 20000])
+@pytest.mark.parametrize("anyhit", [False, True])
+def test_rope_walk_equals_twin_and_old(dev, scene, rope_variants, old_rope,
+                                       n, anyhit):
+    """rope_walk_kernel bit for bit against its plain twin on the BOX-row
+    streams and against the kernel it replaced on the old streams, 1e-40
+    direction components included; the twin's stats count what it
+    walked."""
+    o, d, tmax = _emit_rays(scene, n)
+    if anyhit:
+        tmax = torch.where(tmax > 1e6, 5.0, tmax)
+    args = [scene.rope_streams, scene.tri_packed, scene.meta["rope_rows"],
+            o, d, tmax]
+    lanewalk.reset_launches()
+    dst, prim = lanewalk.lanewalk_traverse(*args, anyhit=anyhit)
+    assert sum(lanewalk.launches.values()) == 1
+    stats = {}
+    rdst, rprim = lanewalk.lanewalk_traverse_reference(*args, anyhit=anyhit,
+                                                       stats=stats)
+    old = rope_variants.run("old", old_rope[0], scene.tri_packed,
+                            old_rope[1], o, d, tmax, anyhit=anyhit)
+    torch.cuda.synchronize()
+    assert torch.equal(dst, rdst) and torch.equal(prim, rprim)
+    rope_variants.compare(f"old, anyhit {anyhit}", (dst, prim), old)
+    assert stats["box"] >= int((tmax > -BIG / 2).sum())
+    if n == 20000:
+        assert (prim >= 0).any() or (anyhit and (dst < -1.0).any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["shipped_copy", "baseline", "one_row",
+                                  "rows64", "leaf_in_one_step",
+                                  "fminf_select_minmax", "while_while",
+                                  "prefetch_next", "branch_first",
+                                  "regs_free", "regs64", "regs48", "regs40",
+                                  "none", "branch_pair"])
+@pytest.mark.parametrize("anyhit", [False, True])
+def test_rope_walk_variants_match(dev, scene, rope_variants, old_rope, name,
+                                  anyhit):
+    o, d, tmax = _emit_rays(scene, 5000)
+    rows = scene.meta["rope_rows"]
+    want = lanewalk.lanewalk_traverse(scene.rope_streams, scene.tri_packed,
+                                      rows, o, d, tmax, anyhit=anyhit)
+    streams, n_rows = ((old_rope if name in rope_variants.OLD_LAYOUT
+                        else (scene.rope_streams, rows)))
+    rope_variants.compare(name, rope_variants.run(
+        name, streams, scene.tri_packed, n_rows, o, d, tmax,
+        anyhit=anyhit), want)
+
+
+@pytest.mark.gpu
+def test_rope_walk_error_flag_is_read_by_the_caller(dev, scene):
+    """With a flag of the caller's, the walk ORs into it and raises
+    nothing; the flag stays set across calls until the caller reads and
+    clears it."""
+    streams = scene.rope_streams.clone()
+    streams[:, :, 6] = float(scene.meta["rope_rows"])  # misses leave it
+    flag = lanewalk.error_flag(dev)
+    args = [scene.tri_packed, scene.meta["rope_rows"],
+            *_rays(scene, 256, False)]
+    lanewalk.lanewalk_traverse(scene.rope_streams, *args, err=flag)
+    assert int(flag.item()) == 0
+    lanewalk.lanewalk_traverse(streams, *args, err=flag)
+    lanewalk.lanewalk_traverse(scene.rope_streams, *args, err=flag)
+    assert int(flag.item()) == 1
+    with pytest.raises(RuntimeError, match="left its stream"):
+        lanewalk.raise_on_flag(int(flag.item()), scene.meta["rope_rows"])
 
 
 @pytest.mark.gpu

@@ -19,8 +19,8 @@ from ray_tracer_tpu_torch.scene import presets as t_presets
 from ray_tracer_tpu_torch.scene.types import (
     narrow_root_meta,
     page_counts,
+    rope_box_rows,
     rope_placeholder,
-    rope_rows_layout,
 )
 
 from torch_parity import room_scene, scene_arrays, soup_scene, sponza_builders
@@ -46,8 +46,11 @@ def test_compiled_arrays_match_jax(name, tmp_path, monkeypatch):
     kw = {"max_leaf_tris": 8} if name == "soup_leaf8" else {}
     jarr, jmeta = scene_arrays(jb.compile(**kw))
     tsc = tb.compile(device="cpu", rope_streams=True, **kw)
-    if jmeta["rope_rows"]:  # the port keeps the streams row-major
-        jarr["rope_streams"] = rope_rows_layout(jarr["rope_streams"])
+    if jmeta["rope_rows"]:  # the port keeps only the BOX rows
+        jarr["rope_streams"], n_box = rope_box_rows(
+            jarr["rope_streams"], jmeta["rope_rows"],
+            jarr["tri_packed"].shape[0])
+        jmeta = {**jmeta, "rope_rows": n_box}
     else:
         jarr["rope_streams"] = rope_placeholder()
     # the cluster tables' page counts, which the JAX package does not keep:
@@ -72,12 +75,14 @@ def test_from_numpy_round_trip(tmp_path):
     assert sc.device == torch.device("cpu")
     # from_numpy derives the narrow walk's root, which JAX's meta lacks
     assert "bvh_root" not in jmeta
-    assert sc.meta == {**jmeta, **narrow_root_meta(jarr)}
+    assert jmeta["rope_rows"] > 0
+    box, n_box = rope_box_rows(jarr["rope_streams"], jmeta["rope_rows"],
+                               jarr["tri_packed"].shape[0])
+    # and the rope streams' BOX rows, where JAX counts BOX and TRI rows
+    assert sc.meta == {**jmeta, **narrow_root_meta(jarr), "rope_rows": n_box}
     assert sc.meta is not jmeta
     moved = sc.to("cpu")
-    assert jmeta["rope_rows"] > 0
-    jarr = dict(jarr, rope_streams=rope_rows_layout(jarr["rope_streams"]),
-                **page_counts(jarr, jmeta))
+    jarr = dict(jarr, rope_streams=box, **page_counts(jarr, jmeta))
     for f in trt.CompiledScene.array_fields():
         t = getattr(moved, f)
         assert isinstance(t, torch.Tensor), f
