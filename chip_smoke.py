@@ -22,7 +22,11 @@ each against the design it replaced (tools/cluster_test_variants.cu) on
 the route's chunks, timed in turns, prints the two-phase route's DEEP
 kernel (deep_walk_kernel) as ptxas reports it and holds it against the
 walk it replaced (tools/deep_walk_variants.cu) on the route's DEEP
-launches, timed in turns, checks each kernel mode against its plain torch
+launches, timed in turns, prints the route's TOP kernel (top_walk_kernel)
+as ptxas reports it and holds it against its plain twin over the scene's
+TOP table and the walk it replaced (walk_kernel's TOP mode,
+tools/top_walk_variants.cu) on the route's TOP inputs at 2^18 and 2^22
+lanes, timed in turns (top_vs_old), checks each kernel mode against its plain torch
 version on the card at the main path's shapes, checks small card renders
 against the same renders on the CPU, and renders the benchmark frame
 (sponza_proxy, 1920x1080, spp 2, bounce limit 8, one whole-frame tile)
@@ -70,6 +74,7 @@ import emit_walk_variants  # noqa: E402
 import narrow_walk_variants  # noqa: E402
 import packet_walk_variants  # noqa: E402
 import rope_walk_variants  # noqa: E402
+import top_walk_variants  # noqa: E402
 
 BIG = group.BIG
 FRAME = (1920, 1080)  # the benchmark frame: spp 2, bounce limit 8
@@ -92,7 +97,8 @@ KERNEL_MODULES = (group, packet, cluster, lanewalk)  # the launch counters
 LIBRARIES = (bvh8.build, cluster.build, packet.build_narrow, lanewalk.build,
              cluster_test_variants.build, deep_walk_variants.build,
              packet_walk_variants.build, narrow_walk_variants.build,
-             emit_walk_variants.build, rope_walk_variants.build)
+             emit_walk_variants.build, rope_walk_variants.build,
+             top_walk_variants.build)
 BVH8 = "ray_tracer_tpu_torch/csrc/bvh8_walk.cu"
 PACKET8 = "ray_tracer_tpu/kernels/packet.py:301"
 KERNELS = {  # mode -> (source, its CUDA kernel, the TPU kernel it replaces)
@@ -117,8 +123,8 @@ KERNELS = {  # mode -> (source, its CUDA kernel, the TPU kernel it replaces)
     "lanewalk_anyhit": ("ray_tracer_tpu_torch/csrc/lanewalk.cu",
                         "rope_walk_kernel",
                         "ray_tracer_tpu/kernels/lanewalk.py:167"),
-    "packet8_top": (BVH8, "walk_kernel", PACKET8),
-    "packet8_top_anyhit": (BVH8, "walk_kernel", PACKET8),
+    "packet8_top": (BVH8, "top_walk_kernel", PACKET8),
+    "packet8_top_anyhit": (BVH8, "top_walk_kernel", PACKET8),
     "packet8_deep": (BVH8, "deep_walk_kernel", PACKET8),
     "packet8_deep_anyhit": (BVH8, "deep_walk_kernel", PACKET8),
 }
@@ -291,11 +297,13 @@ def walk_cost(stats, tmax0, leaf_rows=None, rows=1, emit_k=0, nodes=None,
     """Bytes and FP32 operations of one walk, from the plain walk's
     ``stats``: active rays read o, d (every lane its tmax and its
     outputs: dst and prim, and ``emit_k`` slots and a flag where it
-    emits), the distinct nodes and the real records of the distinct leaf
-    slots the rays visited are read once, and every real child box and
-    record visited is tested.  ``nodes`` (the TOP walk's tree): the troot
-    flags of the visited nodes' interior children are read too;
-    ``extra_bytes``: other inputs read once (DEEP entry lists)."""
+    emits), the distinct nodes (256 B rows) and the real records of the
+    distinct leaf slots the rays visited are read once, and every real
+    child box and record visited is tested.  ``nodes`` (the TOP walk's
+    tree, its (W,128) rows or its TOP table, as ``stats`` counted them):
+    the troot flags of the visited nodes' interior children are read too,
+    the old layout's bound; ``extra_bytes``: other inputs read once (DEEP
+    entry lists)."""
     out = (0 if leaf_rows is None else 8) + (4 * emit_k + 4 if emit_k else 0)
     rec_bytes = 0
     if leaf_rows is not None:
@@ -667,12 +675,13 @@ def treelet_checks(sc, rays):
         for (args, kw), step in zip(calls, ("top", "deep1", "deep2")):
             kernel = "packet8_" + step[:4] + ("_anyhit" if anyhit else "")
             stats = {}
-            plain_kw = {k: v for k, v in kw.items() if k != "deep_e"}
+            plain_kw = {k: v for k, v in kw.items()
+                        if k not in ("deep_e", "wide_top")}
 
             def cost(args=args, kw=kw, stats=stats):
                 if "troot" in kw:
-                    return walk_cost(stats, args[4], sc.leaf_rows,
-                                     emit_k=kw["top_k"], nodes=sc.wide_packed)
+                    return top_cost(stats, args[4], sc.leaf_rows, recs,
+                                    kw["top_k"], sc.wide_packed)
                 return walk_cost(stats, args[4], sc.leaf_rows,
                                  extra_bytes=nbytes(kw["entries"]))
 
@@ -690,6 +699,11 @@ def treelet_checks(sc, rays):
             )
             out[f"{step}_{name}"] = rec
             if step == "top":
+                twin = bvh8.top_walk_reference(
+                    kw["wide_top"], args[1], *args[2:5], anyhit,
+                    2 if recs > 8 else 1, kw["top_k"])
+                equal_all(f"{kernel} {name} against its twin")(
+                    packet.packet_traverse_wide(*args, **kw), twin)
                 slots, ovf = packet.packet_traverse_wide(*args, **kw)[2:]
                 phase("two_phase_stats", rays=name, anyhit=anyhit,
                       n_treelets=sc.meta["n_treelets"], top_k=kw["top_k"],
@@ -721,6 +735,67 @@ def deep_vs_old(sc, rays):
             phase("deep_vs_old", rays=name, round=round_, anyhit=anyhit,
                   lanes=int(tmax0.numel()), live=int((tmax0 > 0).sum()),
                   equal=True, **in_turns(runs["new"], runs["old"]))
+
+
+def top_cost(stats, tmax0, leaf_rows, recs, top_k, nodes) -> dict:
+    """The TOP walk's bound in the TOP table's layout (256 B rows, no flag
+    bytes; ``bound_ms``) and in the layout it replaced (the same rows and
+    a troot flag per interior child of a visited node; ``old_layout``),
+    from the plain walk's ``stats`` over ``nodes``."""
+    rows = 2 if recs > 8 else 1
+    new = walk_cost(stats, tmax0, leaf_rows, rows, emit_k=top_k)
+    old = walk_cost(stats, tmax0, leaf_rows, rows, emit_k=top_k, nodes=nodes)
+    return dict(new, old_layout=old)
+
+
+def top_vs_old(sc, rays, n):
+    """top_walk_kernel (``packet_traverse_wide`` with the scene's TOP table)
+    against its plain twin over the table (``bvh8.top_walk_reference``) and
+    the walk it replaced (walk_kernel's TOP mode, tools/top_walk_variants.cu)
+    on the TOP walk's inputs of the two-phase route (the bounce set for
+    closest hit, the shadow set for occlusion, at the route's top_k), ``n``
+    lanes each: dst, prim, slots and ovf equal (``torch.equal``), then the
+    new and the old walk timed in turns, with the bound in both layouts
+    (from the twin's counts) and the share of each."""
+    k = ROUTES["frame_two_phase"][0].top_k
+    recs = sc.meta["wide_leaf_recs"]
+    rows = 2 if recs > 8 else 1
+    for name, anyhit in (("bounce", False), ("shadow", True)):
+        o, d, tmax0 = rays[name]
+        args = (sc.wide_packed, sc.leaf_rows, o, d, tmax0, recs)
+        kw = dict(anyhit=anyhit, top_k=k, troot=sc.wide_troot,
+                  wide_top=sc.wide_top)
+
+        def new(args=args, kw=kw):
+            return packet.packet_traverse_wide(*args, **kw)
+
+        def old(o=o, d=d, tmax0=tmax0, anyhit=anyhit):
+            return top_walk_variants.run(
+                "old", *top_walk_variants.scene_args(sc), o, d, tmax0, recs,
+                k, anyhit=anyhit)
+
+        stats = {}
+        got = new()
+        twin = bvh8.top_walk_reference(sc.wide_top, sc.leaf_rows, o, d,
+                                       tmax0, anyhit, rows, k, stats=stats)
+        top_walk_variants.compare(f"TOP walk, {name} at {n} lanes, twin",
+                                  got, twin)
+        top_walk_variants.compare(f"TOP walk, {name} at {n} lanes, old",
+                                  got, old())
+        del twin
+        cost = top_cost(stats, tmax0, sc.leaf_rows, recs, k, sc.wide_top)
+        rec = in_turns(new, old)
+        old_bound = cost["old_layout"]["bound_ms"]
+        phase("top_vs_old", rays=name, n=n, top_k=k, anyhit=anyhit,
+              equal=True, active=int((tmax0 > -BIG).sum()),
+              mean_entries=float((got[2] >= 0).sum()) / n,
+              overflow_share=float((got[3] > 0).float().mean()),
+              top_rows=int(sc.wide_top.shape[0]), max_stack=stats["max_sp"],
+              bound_ms=cost["bound_ms"], bound_by=cost["bound_by"],
+              old_layout_bound_ms=old_bound,
+              share_new=cost["bound_ms"] / rec["new_ms"],
+              share_new_old_bound=old_bound / rec["new_ms"],
+              share_old=old_bound / rec["old_ms"], **rec)
 
 
 def chunk_cost(feats, ids, per_page, unit_bytes, ops_unit, ops_lane,
@@ -989,7 +1064,15 @@ def main() -> None:
     if len(rope) != 2 or any(w["spill_store_bytes"] != 0 for w in rope):
         raise AssertionError(f"rope_walk_kernel spills: {rope}")
 
+    # the TOP kernel (closest and occlusion, one- and two-row slots, rows
+    # staged or in place): its stack sized for the top level; no spills
+    top = ptxas_of(bvh8.build(), "top_walk_kernel")
+    phase("top_walk_ptxas", kernels=top)
+    if len(top) != 8 or any(w["spill_store_bytes"] != 0 for w in top):
+        raise AssertionError(f"top_walk_kernel spills: {top}")
+
     rays = check_rays(sc, dev)
+    top_vs_old(sc, rays, N_CHECK)
     deep_vs_old(sc, rays)
     group_vs_old(sc, rays, N_CHECK)
     packet_vs_old(sc, sc16, rays)
@@ -997,6 +1080,7 @@ def main() -> None:
     emit_vs_old(sc, rays, N_CHECK)
     lanewalk_vs_old(sc, old_rope, rays, N_CHECK)
     wide_rays = check_rays(sc, dev, N_WIDE)
+    top_vs_old(sc, wide_rays, N_WIDE)
     group_vs_old(sc, wide_rays, N_WIDE)
     narrow_vs_old(sc, wide_rays, N_WIDE)
     emit_vs_old(sc, wide_rays, N_WIDE)

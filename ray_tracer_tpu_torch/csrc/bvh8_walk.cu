@@ -1,11 +1,15 @@
 // BVH8 traversal, one thread per ray (sm_90a): closest hit, occlusion,
-// cluster enumeration and the two phases of treelet traversal.  Four
-// kernels: group_walk_kernel (rt_bvh8_group), the closest-hit and occlusion
-// walk from the root over one- or two-row leaf slots, which serves the main
-// path and the packet walk; deep_walk_kernel (rt_bvh8_deep), the DEEP phase
-// of treelet traversal; emit_walk_kernel (rt_bvh8_emit), the cluster
-// enumeration; and walk_kernel (rt_bvh8_walk), the TOP phase.  The first
-// two share one walk loop (walk_from).
+// cluster enumeration and the two phases of treelet traversal, in four
+// kernels, each designed for its mode:
+//   group_walk_kernel (rt_bvh8_group): the closest-hit and occlusion walk
+//     from the root over one- or two-row leaf slots; the main path and the
+//     packet walk;
+//   deep_walk_kernel (rt_bvh8_deep): the DEEP phase of treelet traversal,
+//     the subtrees of a packet's entry list;
+//   emit_walk_kernel (rt_bvh8_emit): the cluster enumeration;
+//   top_walk_kernel (rt_bvh8_top): the TOP phase of treelet traversal, over
+//     the scene's compact table of the top level.
+// group, DEEP and TOP share one walk loop (walk_from); emit has its own.
 //
 // Replaces two TPU kernels that compute the same walk per ray:
 //   ray_tracer_tpu/kernels/group.py::_group_kernel (closest-hit
@@ -34,11 +38,17 @@
 //                           its records, capped at 15), float 7 =
 //                           child-sort axis.  Empty child slots hold NaN
 //                           boxes and code 0.
+//   top        (T,64) f32   the TOP table (scene/builder.py::top_table):
+//                           the first 64 floats of each top-level node's
+//                           row (the nodes reached from the root without
+//                           entering a treelet root, the root first), the
+//                           codes rewritten as VALUES: a top-level child
+//                           its row in this table (< T), a treelet root
+//                           T + its node id, a leaf's code unchanged.
 //   leaf_rows  (L,128) f32  8 records of v0|e1|e2|n|front_only|pad per row;
 //                           a slot spans kRows consecutive rows, record k of
 //                           slot s has the padded id s*8 + k.  NaN records
 //                           never hit.
-//   troot      (W,) i32     1 on treelet roots (TOP mode only).
 //   entries    (G,E) i32    per-packet entry lists, -1 padded (DEEP only).
 // Contract:
 //   walk: origin, direction (N,3) f32, tmax0 (N,) f32 (-BIG = inactive
@@ -62,8 +72,7 @@
 // Each ray keeps a private stack of (node << 9 | reversed << 8 | remaining
 // child mask) words.  Mask bits are stored in visit order (reversed when
 // the ray points down the node's sort axis), so the lowest set bit is
-// always the next child; in walk_kernel mask 0 is the start (visit the
-// root itself).
+// always the next child.
 //
 // Exactness: built with --fmad=false and without fast math, every
 // expression rounds like the torch twin's separate ops.  min/max propagate
@@ -71,14 +80,8 @@
 // every accept test is a comparison that is false on NaN, so an empty
 // child slot is never entered.
 //
-// What bounds walk_kernel (the TOP mode): dependent global loads.  Each
-// visit is one 256 B node row (the 8 child boxes) or one leaf slot of 512 B or 1 KiB, whose
-// address depends on the previous visit; the arithmetic per visit is small.
-// The tables of the main-path scene (~27 MiB) sit in the 50 MB L2.  Rays
-// arrive sorted by the integrator's coherence bins (direction octant,
-// origin morton cell), so the threads of a warp walk overlapping node sets
-// and their row loads hit the same L2 lines; rows are read as float4, 16 B
-// per load.
+// The generic walk of the port's first kernels (walk_kernel<mode, rows,
+// start>), which each of these replaced, lives in tools/old_bvh8_walk.cuh.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -87,12 +90,9 @@
 
 namespace {
 
-constexpr int kBlock = 128;
 // one (node, remaining-mask) word per wide level (kernels/bvh8.py G_STACK)
 constexpr int kStack = 96;
 constexpr float kBig = 99999999.0f;
-enum WalkMode { kClosest = 0, kAnyhit = 1 };
-enum WalkStart { kRoot = 0, kTop = 1 };
 
 struct Ray {
   float ox, oy, oz, dx, dy, dz, ix, iy, iz, oix, oiy, oiz;
@@ -144,169 +144,6 @@ __device__ __forceinline__ float record_t(const float4* __restrict__ rec,
   return ok ? t : kBig;
 }
 
-// The walk of one ray.  kClosest: closest accepted record (strict < so the
-// earliest record wins a tie).  kAnyhit: best = -kBig at the first record
-// inside best, then stop.  kTop: interior children flagged in troot are not
-// entered; each one whose box the ray enters within best appends its node
-// id to slots[0..top_k), past them ovf = 1.
-template <int kMode, int kRows, int kStart>
-__device__ __forceinline__ void walk(const float4* __restrict__ nodes,
-                                     const float4* __restrict__ leaf_rows,
-                                     const int* __restrict__ troot,
-                                     const Ray& y, float& best, int& prim,
-                                     int* __restrict__ slots, int top_k,
-                                     int& ovf) {
-  uint32_t stack[kStack];
-  int sp = 0;
-  int cnt = 0;
-  stack[sp++] = 0u;
-  const float* nodes_f = reinterpret_cast<const float*>(nodes);
-
-  while (sp > 0) {
-    const uint32_t w = stack[sp - 1];
-    const uint32_t mask = w & 0xFFu;
-    const int node = static_cast<int>(w >> 9);
-    int target = node;
-    int leaf_slot = -1;
-    if (mask == 0u) {
-      --sp;
-    } else {
-      const int c = __ffs(mask) - 1;
-      const int slot = (w & 0x100u) ? 7 - c : c;
-      const uint32_t rem = mask & (mask - 1u);
-      if (rem == 0u) {
-        --sp;
-      } else {
-        stack[sp - 1] = w - mask + rem;
-      }
-      // the code is a VALUE: convert, never bitcast (scene/types.py)
-      const float code = __ldg(nodes_f + node * 128 + 8 * slot + 6);
-      if (code >= 0.0f) {
-        target = static_cast<int>(code);
-      } else {
-        leaf_slot = (static_cast<int>(-code) - 1) >> 4;
-      }
-    }
-
-    if (leaf_slot >= 0) {
-      // kRows*8 records; record k of the slot is row leaf_slot*8 + k of
-      // the (L*8,16) view, which is its padded id
-      const float4* r = leaf_rows + leaf_slot * 32;
-      bool occluded = false;
-#pragma unroll
-      for (int k = 0; k < 8 * kRows; ++k) {
-        const float tk = record_t(r + 4 * k, y);
-        if (kMode == kAnyhit) {
-          occluded = occluded || tk < best;
-        } else if (tk < best) {  // strict: the lowest record wins a tie
-          best = tk;
-          prim = leaf_slot * 8 + k;
-        }
-      }
-      if (kMode == kAnyhit && occluded) {
-        best = -kBig;
-        return;
-      }
-      continue;
-    }
-
-    // 8-child slab test of `target`, against the current best
-    const float4* r = nodes + target * 32;
-    uint32_t m8 = 0u;
-    uint32_t emit_bits = 0u;  // children emitted instead of pushed
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const float4 a = __ldg(r + 2 * c);      // min.xyz, max.x
-      const float4 b = __ldg(r + 2 * c + 1);  // max.yz, code, axis/pad
-      const float t1x = a.x * y.ix - y.oix, t2x = a.w * y.ix - y.oix;
-      const float t1y = a.y * y.iy - y.oiy, t2y = b.x * y.iy - y.oiy;
-      const float t1z = a.z * y.iz - y.oiz, t2z = b.y * y.iz - y.oiz;
-      const float tmin = max_nan(max_nan(min_nan(t1x, t2x), min_nan(t1y, t2y)),
-                                 min_nan(t1z, t2z));
-      const float tmx = min_nan(min_nan(max_nan(t1x, t2x), max_nan(t1y, t2y)),
-                                max_nan(t1z, t2z));
-      const bool hit = tmx >= tmin && tmx > 0.0f && tmin < best;
-      if (hit) m8 |= 1u << c;
-      int id = -1;  // what this child emits, if it is emitted
-      if (kStart == kTop && b.z > 0.0f) {
-        const int child = static_cast<int>(b.z);
-        if (__ldg(troot + child) == 1) id = child;  // a treelet root
-      }
-      if (id >= 0) {
-        emit_bits |= 1u << c;
-        if (hit) {  // in slot order
-          if (cnt < top_k) {
-            slots[cnt] = id;
-          } else {
-            ovf = 1;
-          }
-          ++cnt;
-        }
-      }
-    }
-    m8 &= ~emit_bits;
-    if (m8 == 0u) continue;
-    uint32_t word = m8;
-    if (kMode != kAnyhit) {
-      // near-first: children ascend along the node's sort axis, so a ray
-      // pointing down that axis visits them from slot 7
-      const int axis = static_cast<int>(__ldg(nodes_f + target * 128 + 7));
-      const float dax = axis == 0 ? y.dx : (axis == 1 ? y.dy : y.dz);
-      if (dax < 0.0f) word = (__brev(m8) >> 24) | 0x100u;
-    }
-    if (sp >= kStack) __trap();  // unreachable: the host caps tree depth
-    stack[sp++] = (static_cast<uint32_t>(target) << 9) | word;
-  }
-}
-
-struct WalkArgs {
-  const float4* nodes;
-  const float4* leaf_rows;
-  const int* troot;
-  const float* origin;
-  const float* direction;
-  const float* tmax0;
-  float* dst;
-  int* prim;
-  int* slots;
-  int* ovf;
-  int n, top_k;
-};
-
-template <int kMode, int kRows, int kStart>
-__global__ void __launch_bounds__(kBlock) walk_kernel(const WalkArgs a) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= a.n) return;
-  constexpr bool kEmits = kStart == kTop;
-  int* slots = nullptr;
-  if (kEmits) {
-    slots = a.slots + static_cast<int64_t>(i) * a.top_k;
-    for (int k = 0; k < a.top_k; ++k) slots[k] = -1;
-  }
-  const Ray y = load_ray(a.origin, a.direction, i);
-  float best = a.tmax0[i];
-  int prim = -1, ovf = 0;
-  walk<kMode, kRows, kStart>(a.nodes, a.leaf_rows, a.troot, y, best, prim,
-                             slots, a.top_k, ovf);
-  a.dst[i] = best;
-  a.prim[i] = prim;
-  if (kEmits) a.ovf[i] = ovf;
-}
-
-template <int kMode, int kRows, int kStart>
-int launch(const WalkArgs& a, cudaStream_t s) {
-  const dim3 grid((a.n + kBlock - 1) / kBlock), block(kBlock);
-  walk_kernel<kMode, kRows, kStart><<<grid, block, 0, s>>>(a);
-  return 0;
-}
-
-template <int kMode, int kStart>
-int by_rows(int rows, const WalkArgs& a, cudaStream_t s) {
-  if (rows == 1) return launch<kMode, 1, kStart>(a, s);
-  if (rows == 2) return launch<kMode, 2, kStart>(a, s);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
 // ---------------------------------------------------------------------------
 // group_walk_kernel: the walk from the root, closest hit and occlusion
 // (kernels/group.py::group_traverse, and kernels/packet.py::
@@ -317,7 +154,7 @@ int by_rows(int rows, const WalkArgs& a, cudaStream_t s) {
 // ray_tracer_tpu/kernels/packet.py::_packet8_kernel (closest hit and
 // occlusion over one-row or two-row leaf slots).  It computes exactly what
 // walk_kernel<kClosest | kAnyhit, kRows, kRoot> computed for both before
-// (that walk is now tools/packet_walk_variants.cu's "old" kernel): the same
+// (tools/old_bvh8_walk.cuh; tools/packet_walk_variants.cu's "old"): the same
 // visits in the same order, so dst and prim equal walk_reference(...,
 // rows=kRows) bit for bit.
 //
@@ -372,22 +209,36 @@ struct GroupArgs {
   int n;
 };
 
+// The emit rule of the walks that emit nothing: every child whose box the
+// ray enters is pushed (interior) or tested (leaf).
+struct NoEmit {
+  __device__ __forceinline__ bool operator()(float, bool) const {
+    return false;
+  }
+};
+
 // The walk of one ray through the subtree of wide node `code` (a node id
 // as an f32 value), then through those of the nodes that next(code) sets
 // as long as it returns true: closest hit (or occlusion, kAnyhit) over
 // kRows-row leaf slots, folding into best and prim.  One loop walks them
 // all, so a lane that finishes a subtree starts the next while the other
-// lanes of its warp are still in theirs.  The stack: kTopReg, the top word
-// in a register and the kStack - 1 words under it in `stack`; else all
-// kStack words in `stack`.  A record inside best ends an occlusion walk
-// with best = -kBig.
-template <bool kAnyhit, int kRows, bool kTopReg, class Next>
+// lanes of its warp are still in theirs.  `nodes` holds rows of kRowF4
+// float4s (32: the (W,128) tables; 16: the TOP table's 64-float rows).
+// emit(q.z, hit) is called for each child of a visited node in slot order
+// c = 0..7, with the child's code and whether the ray enters its box within
+// best; a child for which it returns true is neither pushed nor entered
+// (the TOP walk's treelet roots).  The stack holds kDepth words: kTopReg,
+// the top word in a register and the kDepth - 1 words under it in `stack`;
+// else all kDepth words in `stack`.  A record inside best ends an
+// occlusion walk with best = -kBig.
+template <bool kAnyhit, int kRows, bool kTopReg, int kRowF4 = 32,
+          int kDepth = kStack, class Next, class Emit = NoEmit>
 __device__ __forceinline__ void walk_from(float code,
                                           const float4* __restrict__ nodes,
                                           const float4* __restrict__ leaf_rows,
                                           const Ray& y, float& best,
                                           int& prim, uint32_t* stack,
-                                          Next next) {
+                                          Next next, Emit emit = Emit()) {
   const float* nodes_f = reinterpret_cast<const float*>(nodes);
   uint32_t top = 0u;  // kTopReg: the top (node << 9 | reversed << 8 | mask)
   int held = 0;       // words held: top, then stack[0 .. held-2]; or all
@@ -396,7 +247,7 @@ __device__ __forceinline__ void walk_from(float code,
     if (code >= 0.0f) {
       // 8-child slab test of wide node `code`, against the current best
       const int node = static_cast<int>(code);
-      const float4* r = nodes + node * 32;
+      const float4* r = nodes + node * kRowF4;
       uint32_t m8 = 0u;
       float axis_f = 0.0f;
 #pragma unroll
@@ -410,7 +261,8 @@ __device__ __forceinline__ void walk_from(float code,
             max_ptx(min_ptx(t1x, t2x), min_ptx(t1y, t2y)), min_ptx(t1z, t2z));
         const float tmx = min_ptx(
             min_ptx(max_ptx(t1x, t2x), max_ptx(t1y, t2y)), max_ptx(t1z, t2z));
-        if (tmx >= tmin && tmx > 0.0f && tmin < best) m8 |= 1u << c;
+        const bool hit = tmx >= tmin && tmx > 0.0f && tmin < best;
+        if (!emit(q.z, hit) && hit) m8 |= 1u << c;
         if (c == 0) axis_f = q.w;
       }
       if (m8 != 0u) {
@@ -423,12 +275,12 @@ __device__ __forceinline__ void walk_from(float code,
         word |= static_cast<uint32_t>(node) << 9;
         if (kTopReg) {
           if (held > 0) {
-            if (held >= kStack) __trap();  // unreachable: the host caps depth
+            if (held >= kDepth) __trap();  // unreachable: the host caps depth
             stack[held - 1] = top;
           }
           top = word;
         } else {
-          if (held >= kStack) __trap();  // unreachable: the host caps depth
+          if (held >= kDepth) __trap();  // unreachable: the host caps depth
           stack[held] = word;
         }
         ++held;
@@ -484,7 +336,7 @@ __device__ __forceinline__ void walk_from(float code,
       top = stack[held - 1];
     }
     // the code is a VALUE: convert, never bitcast (scene/types.py)
-    code = __ldg(nodes_f + node * 128 + 8 * slot + 6);
+    code = __ldg(nodes_f + node * (4 * kRowF4) + 8 * slot + 6);
   }
 }
 
@@ -787,6 +639,145 @@ int emit_block(int top_k) {
   return 0;
 }
 
+// ---------------------------------------------------------------------------
+// top_walk_kernel: the TOP phase of two-phase treelet traversal
+// (kernels/packet.py::packet_traverse_wide with top_k and the scene's TOP
+// table; ops/traverse.py::_two_phase_wide launches it first)
+//
+// Replaces ray_tracer_tpu/kernels/packet.py::_packet8_kernel with top_k +
+// troot (packet.py:333-339, :841-879), closest hit and occlusion over one-
+// or two-row leaf slots.  Each ray walks the top level from the root: the
+// closest hit (or, under occlusion, -kBig) among the top level's leaves
+// within tmax0, and the node id of every treelet root whose box it enters
+// within the current best, in visit order and child-slot order c = 0..7
+// within each node, to its row of slots (N, top_k), -1 padded; past top_k
+// of them ovf = 1.  The same visits and emissions, in the same order, as
+// walk_reference(..., troot=..., top_k=...) and as the walk it replaced
+// (walk_kernel<., ., kTop>, tools/old_bvh8_walk.cuh): dst, prim, slots and
+// ovf equal both bit for bit.
+//
+// What bounds it on this card: by the bound's count, bytes, and the output
+// is most of them (the slots and ovf, (top_k + 1) x 4 B per ray, against
+// 28 B of ray and 8 B of dst and prim); the top level (90 wide nodes on the
+// main-path scene, 23 KB) and its leaves stay in L1 and L2.  In practice
+// the walk's dependent loads within divergent warps.  What the design does
+// (each element timed against its own removal by tools/measure_top_walk.py,
+// whose variants of this kernel are tools/top_walk_variants.cu; PERF.md):
+//   * The TOP table (scene/builder.py::top_table, built once at compile):
+//     the top level's rows alone, 256 B each (no 128-float TPU padding),
+//     a treelet-root child's class carried by its code (T + node id), so
+//     the slab test's own load (q.z) tells it: no troot flag loads, which
+//     were a second dependent load round on every visit.
+//   * group_walk_kernel's walk (walk_from): min.NaN/max.NaN, the sort axis
+//     from the loaded row, leaf records only up to the code's count, the
+//     top stack word in a register; the emit rule takes the emitted
+//     children out of the pushed set.
+//   * The block's slot rows staged in shared memory and written once,
+//     coalesced, with ovf beside them, as emit_walk_kernel does (the same
+//     block sizes: top_k <= 96 in blocks of 128 threads, <= 192 of 64, <=
+//     384 of 32; past that the rows are written in place).
+//   * A stack of kTopStack words (checked against the top level's depth at
+//     compile), not kStack.
+//   * Registers pinned at kTopMinBlocks blocks of 128 threads per SM.
+// Lanes at -BIG walk like the others: a box can hold the origin, so the
+// root's test does not fail for them, and their slots must match.
+
+constexpr int kTopStack = 32;      // kernels/bvh8.py TOP_STACK
+constexpr int kTopMinBlocks = 8;   // blocks per SM: at most 64 registers
+constexpr int kTopRowF4 = 16;      // float4s per row of the TOP table
+
+struct TopArgs {
+  const float4* top;
+  const float4* leaf_rows;
+  const float* origin;
+  const float* direction;
+  const float* tmax0;
+  float* dst;
+  int* prim;
+  int* slots;
+  int* ovf;
+  int n, top_k, n_top;
+};
+
+// kStaged: the block's rows in dynamic shared memory (blockDim.x * top_k
+// ints), written out once; else each thread's row in place.
+template <bool kAnyhit, int kRows, bool kStaged>
+__global__ void __launch_bounds__(kGroupBlock, kTopMinBlocks)
+    top_walk_kernel(const TopArgs a) {
+  extern __shared__ int4 top_stage4[];
+  int* stage = reinterpret_cast<int*>(top_stage4);
+  const int t = threadIdx.x;
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * blockDim.x;
+  const int i = static_cast<int>(first) + t;
+  const int k_n = a.top_k;
+  int* row;
+  if (kStaged) {
+    for (int j = t; j < static_cast<int>(blockDim.x) * k_n; j += blockDim.x) {
+      stage[j] = -1;
+    }
+    __syncthreads();
+    row = stage + t * k_n;
+  } else {
+    row = a.slots + static_cast<int64_t>(i) * k_n;
+    if (i < a.n) {
+      for (int k = 0; k < k_n; ++k) row[k] = -1;
+    }
+  }
+  if (i < a.n) {
+    const Ray y = load_ray(a.origin, a.direction, i);
+    float best = a.tmax0[i];
+    int prim = -1, cnt = 0, ovf = 0;
+    const int n_top = a.n_top;
+    const float n_top_f = static_cast<float>(n_top);  // exact: < 2^24
+    // a code of T or more is a treelet root: its node id, code - T, is
+    // emitted where the ray enters its box (in slot order), never entered
+    auto emit = [&](float code, bool hit) {
+      if (code < n_top_f) return false;
+      if (hit) {
+        if (cnt < k_n) {
+          row[cnt] = static_cast<int>(code) - n_top;
+        } else {
+          ovf = 1;
+        }
+        ++cnt;
+      }
+      return true;
+    };
+    uint32_t below[kTopStack - 1];  // the words under the top one
+    walk_from<kAnyhit, kRows, true, kTopRowF4, kTopStack>(
+        0.0f, a.top, a.leaf_rows, y, best, prim, below,
+        [](float&) { return false; }, emit);
+    a.dst[i] = best;
+    a.prim[i] = prim;
+    a.ovf[i] = ovf;
+  }
+  if (kStaged) {
+    __syncthreads();
+    // the block's rows are one contiguous region of slots, 16 B aligned
+    const int rows = static_cast<int>(
+        min(static_cast<int64_t>(blockDim.x), a.n - first));
+    const int total = rows * k_n;
+    int* out = a.slots + first * k_n;
+    const int n4 = total >> 2;
+    for (int j = t; j < n4; j += blockDim.x) {
+      reinterpret_cast<int4*>(out)[j] = top_stage4[j];
+    }
+    for (int j = 4 * n4 + t; j < total; j += blockDim.x) out[j] = stage[j];
+  }
+}
+
+template <bool kAnyhit, int kRows>
+void launch_top(const TopArgs& a, cudaStream_t s) {
+  const int block = emit_block(a.top_k);
+  if (block > 0) {
+    top_walk_kernel<kAnyhit, kRows, true>
+        <<<(a.n + block - 1) / block, block, block * a.top_k * 4, s>>>(a);
+  } else {
+    top_walk_kernel<kAnyhit, kRows, false>
+        <<<(a.n + kGroupBlock - 1) / kGroupBlock, kGroupBlock, 0, s>>>(a);
+  }
+}
+
 }  // namespace
 
 // One launch of the walk from the root: closest hit (anyhit 0) or
@@ -879,26 +870,37 @@ extern "C" int rt_bvh8_emit(const void* nodes, const void* origin,
   return static_cast<int>(cudaGetLastError());
 }
 
-// One launch of walk_kernel's TOP walk: closest hit (anyhit 0) or
-// occlusion (anyhit 1) of n rays over rows-row leaf slots (1 or 2) from
-// the root, the treelet roots flagged in troot emitted to slots (n, top_k)
-// and ovf.  The walks from the root without a TOP table are
-// rt_bvh8_group's, the cluster enumeration rt_bvh8_emit's.  Returns the
-// launch's CUDA error code.
-extern "C" int rt_bvh8_walk(int anyhit, int rows, const void* nodes,
-                            const void* leaf_rows, const void* troot,
-                            const void* origin, const void* direction,
-                            const void* tmax0, void* dst, void* prim,
-                            void* slots, void* ovf, int n, int top_k,
-                            void* stream) {
-  const WalkArgs a{
-      static_cast<const float4*>(nodes), static_cast<const float4*>(leaf_rows),
-      static_cast<const int*>(troot), static_cast<const float*>(origin),
-      static_cast<const float*>(direction), static_cast<const float*>(tmax0),
-      static_cast<float*>(dst), static_cast<int*>(prim),
-      static_cast<int*>(slots), static_cast<int*>(ovf), n, top_k};
+// One launch of the TOP walk: closest hit (anyhit 0) or occlusion
+// (anyhit 1) of n rays over rows-row leaf slots (1 or 2) from the root of
+// the TOP table `top` (n_top rows of 64 floats, scene/builder.py::
+// top_table), the treelet roots entered written to slots (n, top_k) i32
+// (16 B aligned) and ovf (n,) i32 whole.  Returns the launch's CUDA error.
+extern "C" int rt_bvh8_top(int anyhit, int rows, const void* top, int n_top,
+                           const void* leaf_rows, const void* origin,
+                           const void* direction, const void* tmax0,
+                           void* dst, void* prim, void* slots, void* ovf,
+                           int n, int top_k, void* stream) {
+  if (top_k < 1 || n_top < 1 || (rows != 1 && rows != 2) ||
+      reinterpret_cast<uintptr_t>(slots) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const TopArgs a{
+      static_cast<const float4*>(top), static_cast<const float4*>(leaf_rows),
+      static_cast<const float*>(origin), static_cast<const float*>(direction),
+      static_cast<const float*>(tmax0), static_cast<float*>(dst),
+      static_cast<int*>(prim), static_cast<int*>(slots),
+      static_cast<int*>(ovf), n, top_k, n_top};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int err = anyhit ? by_rows<kAnyhit, kTop>(rows, a, s)
-                         : by_rows<kClosest, kTop>(rows, a, s);
-  return err != 0 ? err : static_cast<int>(cudaGetLastError());
+  if (anyhit) {
+    if (rows == 1) {
+      launch_top<true, 1>(a, s);
+    } else {
+      launch_top<true, 2>(a, s);
+    }
+  } else if (rows == 1) {
+    launch_top<false, 1>(a, s);
+  } else {
+    launch_top<false, 2>(a, s);
+  }
+  return static_cast<int>(cudaGetLastError());
 }

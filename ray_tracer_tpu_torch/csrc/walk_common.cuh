@@ -5,7 +5,7 @@
 //   min_ptx / max_ptx: one instruction each (PTX min.NaN.f32 /
 //     max.NaN.f32, sm_80+).
 //   min_nan / max_nan: compare, compare, or, fminf, select; the kernels'
-//     first form, kept for the walks that still use it.
+//     first form, kept for the old walks of tools/ that time against it.
 // The two may differ only in the sign of a zero result, and the kernels
 // feed these values to comparisons only, where -0 and +0 are equal.
 

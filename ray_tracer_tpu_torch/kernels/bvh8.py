@@ -7,8 +7,11 @@ over one- or two-row leaf slots), which ``kernels/group.py`` and
 ``kernels/packet.py`` launch; ``deep_walk_kernel`` (:func:`launch_deep`),
 which ``kernels/packet.py`` launches for the DEEP start;
 ``emit_walk_kernel`` (:func:`launch_emit`), which it launches for the emit
-mode; and ``walk_kernel`` (:func:`launch_top`), which it launches for
-the TOP start.  ``walk_reference`` is the plain torch version of all four.
+mode; and ``top_walk_kernel`` (:func:`launch_top`), which it launches for
+the TOP start, over the scene's TOP table (``wide_top``,
+``scene/builder.py::top_table``).  ``walk_reference`` is the plain torch
+version of all four; :func:`top_walk_reference` is the TOP kernel's own
+twin, the same walk over the TOP table.
 
 Tables (``CompiledScene.wide_packed`` / ``leaf_rows``):
 
@@ -42,7 +45,9 @@ and where the walk starts (the two phases of treelet traversal):
   occlusion walk from the root, except that an interior child flagged in
   ``troot`` (a treelet root) is never pushed: when the ray enters its box
   within the current best, its node id goes to the lane's next free slot
-  (child-slot order), past ``top_k`` of them ``ovf`` is set;
+  (child-slot order), past ``top_k`` of them ``ovf`` is set.  Over the
+  TOP table (``top_t`` = T, its rows, given instead of ``troot``) the
+  same walk: a code of T or more is a treelet root, emitted as code - T;
 * DEEP (``entries`` (G,E) i32, -1 padded, and ``packet_size`` P with
   N = G*P): lane i starts with one mask-0 word per entry of row i // P,
   pushed untested in list order, and walks on as the closest-hit or
@@ -76,6 +81,11 @@ BIG = 99999999.0
 G_STACK = 96
 MAX_TREE_DEPTH = 64
 MAX_DEEP_E = G_STACK - MAX_TREE_DEPTH - 1
+# The TOP walk's stack (top_walk_kernel's kTopStack): one word per level of
+# the top level, which scene/builder.py::top_table checks at compile.
+TOP_STACK = 32
+# Codes of the TOP table reach T + W: below 2^24 every one is exact in f32.
+TOP_CODE_LIMIT = 2**24
 
 CSRC = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc"
@@ -103,10 +113,10 @@ def _load() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(build())
-        lib.rt_bvh8_walk.restype = ctypes.c_int
-        lib.rt_bvh8_walk.argtypes = (
-            [ctypes.c_int] * 2 + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 2
-            + [ctypes.c_void_p]
+        lib.rt_bvh8_top.restype = ctypes.c_int
+        lib.rt_bvh8_top.argtypes = (
+            [ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_int]
+            + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
         )
         lib.rt_bvh8_deep.restype = ctypes.c_int
         lib.rt_bvh8_deep.argtypes = (
@@ -192,13 +202,14 @@ def launch_emit(nodes, origin, direction, tmax0, top_k: int):
     return slots, ovf
 
 
-def launch_top(nodes, leaf_rows, troot, origin, direction, tmax0,
-               anyhit: bool, rows: int, top_k: int):
-    """One launch of ``walk_kernel`` on the card: the TOP start of the
-    closest-hit (or ``anyhit``) walk, ``(dst, prim, slots, ovf)`` as
-    :func:`walk_reference` returns them with ``troot``.  Inputs as checked
-    by :func:`check_walk_inputs` and :func:`check_start_inputs`, on a CUDA
-    device."""
+def launch_top(top, leaf_rows, origin, direction, tmax0, anyhit: bool,
+               rows: int, top_k: int):
+    """One launch of ``top_walk_kernel`` on the card: the TOP walk over the
+    TOP table ``top`` (T,64), ``(dst, prim, slots, ovf)`` as
+    :func:`walk_reference` returns them with ``troot`` and as
+    :func:`top_walk_reference` with ``top``, for any ``top_k >= 1``.
+    Inputs as checked by :func:`check_walk_inputs` and
+    :func:`check_top_table`, on a CUDA device."""
     dev = origin.device
     n = origin.shape[0]
     dst = torch.empty(n, dtype=torch.float32, device=dev)
@@ -206,9 +217,9 @@ def launch_top(nodes, leaf_rows, troot, origin, direction, tmax0,
     slots = torch.empty((n, top_k), dtype=torch.int32, device=dev)
     ovf = torch.empty(n, dtype=torch.int32, device=dev)
     if n:
-        err = _load().rt_bvh8_walk(
-            int(anyhit), rows, nodes.data_ptr(), leaf_rows.data_ptr(),
-            troot.data_ptr(), origin.data_ptr(), direction.data_ptr(),
+        err = _load().rt_bvh8_top(
+            int(anyhit), rows, top.data_ptr(), top.shape[0],
+            leaf_rows.data_ptr(), origin.data_ptr(), direction.data_ptr(),
             tmax0.data_ptr(), dst.data_ptr(), prim.data_ptr(),
             slots.data_ptr(), ovf.data_ptr(), n, top_k,
             torch.cuda.current_stream(dev).cuda_stream,
@@ -217,6 +228,29 @@ def launch_top(nodes, leaf_rows, troot, origin, direction, tmax0,
             raise RuntimeError(
                 f"BVH8 TOP walk kernel launch failed: CUDA error {err}")
     return dst, prim, slots, ovf
+
+
+def check_top_table(top, nodes, device) -> None:
+    """Raise unless ``top`` is a TOP table the kernel on ``device`` can
+    walk: (T,64) f32, contiguous, on ``device``, 1 <= T and T + W below
+    :data:`TOP_CODE_LIMIT` (W: the rows of ``nodes``).  An empty table is
+    the mark of a scene whose top level lies beyond the TOP walk's limits
+    (``scene/builder.py::top_table_or_empty``)."""
+    if top is None:
+        raise ValueError(
+            "the TOP walk on the card needs the scene's TOP table "
+            "(wide_top=scene.wide_top, built by compile())")
+    if top.dim() != 2 or top.shape[1] != 64:
+        raise ValueError(f"the TOP table must have shape (T, 64), got "
+                         f"{tuple(top.shape)}")
+    if top.shape[0] == 0:
+        raise ValueError(
+            "the scene's TOP table is empty: its top level lies beyond the "
+            f"TOP walk's limits ({TOP_STACK} levels; codes below 2^24), as "
+            "compile() found")
+    check_tensors(device, torch.float32, wide_top=(top, tuple(top.shape)))
+    if top.shape[0] + nodes.shape[0] >= TOP_CODE_LIMIT:
+        raise ValueError("the TOP table's codes reach 2^24: not exact in f32")
 
 
 def check_tensors(device, dtype, **named) -> None:
@@ -325,13 +359,14 @@ def _slab_mask(boxes, inv, oi, best):
 def walk_reference(nodes, leaf_rows, origin, direction, tmax0,
                    mode: str = "closest", rows: int = 1, top_k: int = 0,
                    troot=None, entries=None, packet_size: int = 0,
-                   stats: dict = None):
+                   stats: dict = None, top_t: int = 0):
     """The CUDA walk in plain torch, vectorized over the live lanes.
 
     Returns ``(dst, prim)`` for ``closest``/``anyhit`` (from the root, or
     DEEP from ``entries``), ``(dst, prim, slots, ovf)`` in TOP mode
-    (``troot``) and ``(slots, ovf)`` ((N,top_k) i32 with -1 padding, (N,)
-    i32) for ``emit``.  Raises if a lane needs more than E*(W+L+1) steps
+    (``troot``, or ``top_t`` > 0 with ``nodes`` the TOP table of ``top_t``
+    rows) and ``(slots, ovf)`` ((N,top_k) i32 with -1 padding, (N,) i32)
+    for ``emit``.  Raises if a lane needs more than E*(W+L+1) steps
     (each node and leaf slot is visited at most once per entry; E = 1
     from the root) or overflows its stack.  ``stats``, if given, receives
     the walk's visit counts summed over the rays: ``interior`` (8-child
@@ -351,7 +386,7 @@ def walk_reference(nodes, leaf_rows, origin, direction, tmax0,
     oi = origin * inv
     dst = tmax0.clone()
     prim = torch.full((n,), -1, dtype=torch.int32, device=dev)
-    top = troot is not None
+    top = troot is not None or top_t > 0
     slots = torch.full((n, max(top_k, 1)), -1, dtype=torch.int32,
                        device=dev)
     cnt = torch.zeros(n, dtype=torch.int64, device=dev)
@@ -452,10 +487,13 @@ def walk_reference(nodes, leaf_rows, origin, direction, tmax0,
             m8 = _slab_mask(boxes[tg], inv[il], oi[il], dst[il])
             if mode == "emit" or top:
                 ccodes = codes[tg]  # (K,8)
-                if top:  # interior children flagged as treelet roots
+                if troot is not None:  # children flagged as treelet roots
                     child = torch.where(ccodes > 0, ccodes, 0).long()
                     is_em = (ccodes > 0) & (troot.long()[child] == 1)
                     val = child
+                elif top:  # TOP table: codes of T or more, T + node id
+                    is_em = ccodes >= top_t
+                    val = ccodes.long() - top_t
                 else:  # leaf children: their slot fields
                     is_em = ccodes < 0
                     val = ((-ccodes).long() - 1) // 16
@@ -488,3 +526,19 @@ def walk_reference(nodes, leaf_rows, origin, direction, tmax0,
     if lanes.numel() == 0:
         return result()
     raise RuntimeError(f"traversal did not finish within {max_steps} steps")
+
+
+def top_walk_reference(top, leaf_rows, origin, direction, tmax0,
+                       anyhit: bool, rows: int, top_k: int,
+                       stats: dict = None):
+    """``top_walk_kernel``'s twin: the TOP walk over the TOP table ``top``
+    (T,64) in plain torch, ``(dst, prim, slots, ovf)``.  It visits and
+    emits what :func:`walk_reference` does over the scene's ``nodes`` and
+    ``troot``, in the same order, so the two agree bit for bit; ``stats``
+    counts the table's rows.  Used by the tests and ``chip_smoke.py``; the
+    wrapper's CPU path runs :func:`walk_reference` over ``troot``."""
+    if top.shape[0] < 1:
+        raise ValueError("an empty TOP table has no root to walk from")
+    return walk_reference(top, leaf_rows, origin, direction, tmax0,
+                          mode="anyhit" if anyhit else "closest", rows=rows,
+                          top_k=top_k, stats=stats, top_t=top.shape[0])

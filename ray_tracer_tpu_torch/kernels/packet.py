@@ -12,8 +12,8 @@ of two-phase treelet traversal.  On CUDA tensors it launches the walk in
 ``kernels/group.py``): ``group_walk_kernel`` for the closest-hit and
 occlusion walks from the root (the main path's kernel, here over one- or
 two-row slots), ``deep_walk_kernel`` for the DEEP start,
-``emit_walk_kernel`` for the emit mode, ``walk_kernel`` for the TOP start;
-on CPU tensors it runs
+``emit_walk_kernel`` for the emit mode, ``top_walk_kernel`` for the TOP
+start (over the scene's TOP table, ``wide_top``); on CPU tensors it runs
 :func:`packet_traverse_wide_reference`.
 
 ``packet_traverse`` is the port of ``_packet_kernel``, the narrow route's
@@ -48,6 +48,7 @@ from .bvh8 import (
     NVCC_FLAGS,
     check_start_inputs,
     check_tensors,
+    check_top_table,
     check_walk_inputs,
     launch_deep,
     launch_emit,
@@ -89,7 +90,7 @@ def packet_traverse_wide(nodes, leaf_rows, origin, direction, tmax0,
                          max_recs: int, anyhit: bool = False, top_k: int = 0,
                          emit_leaves: bool = False, troot=None,
                          deep_e: int = 0, entries=None,
-                         packet_size: int = 0):
+                         packet_size: int = 0, wide_top=None):
     """The packet walk of N rays over a BVH8.
 
     Walk (the default): returns ``(dst, prim)`` — ``dst`` the closest
@@ -108,7 +109,10 @@ def packet_traverse_wide(nodes, leaf_rows, origin, direction, tmax0,
     the walk from the root that does not descend into treelet roots and
     emits the node ids of those it enters instead -> ``(dst, prim, slots,
     ovf)``: the closest top-level hit, and the entries and overflow flags
-    as in the emit mode.
+    as in the emit mode.  On the card the kernel walks the scene's TOP
+    table, ``wide_top`` (T,64) f32 (``compile()`` builds it); a CUDA call
+    without it raises.  On the CPU the plain walk takes ``troot`` (a
+    ``wide_top`` given is checked all the same).
 
     DEEP (``deep_e > 0`` + ``entries`` (G,deep_e) i32, -1 padded, with
     N = G * ``packet_size``): each lane of packet g walks the subtrees of
@@ -134,6 +138,11 @@ def packet_traverse_wide(nodes, leaf_rows, origin, direction, tmax0,
                          f"deep_e is {deep_e}")
     check_start_inputs(nodes, origin, troot, entries, packet_size)
     dev = origin.device
+    if wide_top is not None and troot is None:
+        raise ValueError("wide_top is the TOP mode's table: it needs troot "
+                         "and top_k")
+    if troot is not None and (wide_top is not None or dev.type == "cuda"):
+        check_top_table(wide_top, nodes, dev)
     kw = dict(anyhit=anyhit, top_k=top_k, emit_leaves=emit_leaves,
               troot=troot, entries=entries, packet_size=packet_size)
     if dev.type == "cpu":
@@ -150,7 +159,7 @@ def packet_traverse_wide(nodes, leaf_rows, origin, direction, tmax0,
         out = launch_group(nodes, leaf_rows, origin, direction, tmax0,
                            anyhit, rows)
     else:
-        out = launch_top(nodes, leaf_rows, troot, origin, direction, tmax0,
+        out = launch_top(wide_top, leaf_rows, origin, direction, tmax0,
                          anyhit, rows, top_k)
     if emit_leaves:
         mode = "packet8_emit"

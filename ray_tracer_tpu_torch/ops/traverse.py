@@ -224,7 +224,7 @@ def _two_phase_wide(scene, o, d, tmax0, rt, anyhit=False):
     dst_a, prim_a, slots, ovf = packet.packet_traverse_wide(
         scene.wide_packed, scene.leaf_rows, o, d, tmax0,
         scene.meta.get("wide_leaf_recs", 8), anyhit=anyhit, top_k=k,
-        troot=scene.wide_troot)
+        troot=scene.wide_troot, wide_top=scene.wide_top)
     root_only = torch.full((k,), -1, dtype=torch.int32, device=dev)
     root_only[0] = 0
     slots = torch.where((ovf > 0)[:, None], root_only, slots)

@@ -17,6 +17,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from ..accel.bvh import build_forest
+from ..kernels.bvh8 import TOP_CODE_LIMIT, TOP_STACK
 from ..utils.transforms import trs_matrix
 from . import mtlio, objio, textures
 from .types import (
@@ -64,6 +65,65 @@ def treelet_roots(wide_packed: np.ndarray) -> np.ndarray:
     roots = has & ~small[:, None] & small[np.maximum(child, 0)]
     troot[child[roots]] = 1
     return troot
+
+
+def top_table(wide_packed: np.ndarray, troot: np.ndarray) -> np.ndarray:
+    """The TOP table of two-phase traversal, (T,64) f32: the rows of the
+    top level, the wide nodes reached from the root without entering a
+    treelet root (``troot``), the root first and the others in node order.
+
+    Each row is the node's first 64 floats (8 child boxes, codes and the
+    sort axis; the 128-float row's padding goes), its children's boxes
+    copied bit for bit and their codes rewritten as f32 VALUES: a top-level
+    child to its row in the table (below T), a treelet root to T + its node
+    id, a leaf's (negative) code and an empty slot's 0 unchanged.  The TOP
+    walk (``kernels/bvh8.py::top_walk_reference``, ``top_walk_kernel``)
+    then tells a treelet root by its code alone.  Raises ``ValueError``
+    where T + W reaches 2^24 (a code would not be exact in f32) or the top
+    level has more levels than the walk's stack holds
+    (``kernels/bvh8.py::TOP_STACK``)."""
+    n_wide = wide_packed.shape[0]
+    codes = wide_packed[:, 6:64:8]
+    child = np.where(codes > 0, codes, 0).astype(np.int64)
+    inner = (codes > 0) & (troot[child] == 0)  # top-level children
+    depth = np.full(n_wide, -1, np.int64)
+    depth[0] = 0
+    level = np.zeros(1, np.int64)
+    levels = 0
+    while level.size:
+        levels += 1
+        if levels > min(n_wide, TOP_STACK):
+            raise ValueError(
+                f"the top level of two-phase traversal holds more than "
+                f"{TOP_STACK} levels: the TOP walk's stack holds "
+                f"{TOP_STACK} (kernels/bvh8.py TOP_STACK)")
+        level = child[level][inner[level]]
+        depth[level] = levels
+    top_ids = np.nonzero(depth >= 0)[0]
+    n_top = top_ids.size
+    if n_top + n_wide >= TOP_CODE_LIMIT:
+        raise ValueError(f"the TOP table's codes reach T + W = "
+                         f"{n_top + n_wide}: at 2^24 or more they are not "
+                         "exact in f32")
+    row = np.full(n_wide, -1, np.int64)
+    row[top_ids] = np.arange(n_top)
+    table = np.ascontiguousarray(wide_packed[top_ids, :64], np.float32)
+    c = codes[top_ids]
+    ch = child[top_ids]
+    new = np.where(inner[top_ids], row[ch], c)
+    new = np.where((c > 0) & ~inner[top_ids], n_top + ch, new)
+    table[:, 6:64:8] = new.astype(np.float32)
+    return table
+
+
+def top_table_or_empty(wide_packed, troot) -> np.ndarray:
+    """:func:`top_table`, or a (0,64) table where the scene lies beyond
+    its limits: the TOP walk's wrapper raises on it at use (as the narrow
+    walk's root word of -1 does), and the scene's other routes run."""
+    try:
+        return top_table(np.asarray(wide_packed), np.asarray(troot))
+    except ValueError:
+        return np.zeros((0, 64), np.float32)
 
 
 @dataclass
@@ -557,10 +617,10 @@ class SceneBuilder:
                             )
                         leaf_map_list.append(ids)
                         # payload cnt: the records packed into the slot.
-                        # The group walk (csrc/bvh8_walk.cu) tests only
-                        # that many of a one-row slot (rec_cap 8); cap it
-                        # to keep the slot field unambiguous (walk_kernel
-                        # tests every record of a two-row slot)
+                        # The walks (csrc/bvh8_walk.cu) test only that
+                        # many; capped at 15 to keep the slot field
+                        # unambiguous, so on a two-row slot they read 15
+                        # as 15 or 16
                         children.append(
                             (box, f32(-(slot * 16 + min(off, 15)) - 1))
                         )
@@ -748,6 +808,7 @@ class SceneBuilder:
             leaf_rows=leaf_rows,
             leaf_map=leaf_map,
             wide_troot=wide_troot,
+            wide_top=top_table_or_empty(wide_packed, wide_troot),
             **cluster_arrays,
             rope_streams=rope,
             light_corner=li_corner,

@@ -358,6 +358,12 @@ class CompiledScene:
     # subtree holds at most meta["treelet_size"] wide nodes under a parent
     # whose subtree holds more (meta["n_treelets"] of them).
     wide_troot: Any  # (W,) i32
+    # The TOP walk's table (builder.py::top_table): the top level's rows
+    # (the nodes reached from the root without entering a treelet root),
+    # 64 floats each, a top-level child's code its row here, a treelet
+    # root's T + its node id; (0,64) where the scene lies beyond the TOP
+    # walk's limits.
+    wide_top: Any  # (T,64) f32
 
     # Cluster route (accel/cluster.py): transposed Moller-Trumbore
     # coefficient pages per <= t_c-triangle cluster, the clusters' global
@@ -417,11 +423,17 @@ class CompiledScene:
         ``arrays`` may be the JAX package's compiled scene fields: its
         rope streams (BOX and TRI rows, 16 floats each) are converted by
         :func:`rope_box_rows`, which sets ``meta["rope_rows"]`` to the BOX
-        rows, and the page counts and narrow-walk root it lacks are
-        derived by :func:`page_counts` and :func:`narrow_root_meta`.
+        rows, and the page counts, narrow-walk root and TOP table it lacks
+        are derived by :func:`page_counts`, :func:`narrow_root_meta` and
+        ``builder.py::top_table``.
         """
         dev = resolve_device(device)
         arrays = {**page_counts(arrays, meta), **arrays}
+        if "wide_top" not in arrays:
+            from .builder import top_table_or_empty
+
+            arrays["wide_top"] = top_table_or_empty(arrays["wide_packed"],
+                                                    arrays["wide_troot"])
         if "bvh_root_word" not in meta:
             meta = {**meta, **narrow_root_meta(arrays)}
         rope = np.asarray(arrays["rope_streams"])

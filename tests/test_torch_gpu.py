@@ -353,7 +353,7 @@ def test_treelet_modes_match_plain_version(dev, scene, start, anyhit):
             *_rays(scene, n_packets * packet_size, anyhit),
             scene.meta["wide_leaf_recs"]]
     if start == "top":
-        kw = dict(top_k=5, troot=scene.wide_troot)
+        kw = dict(top_k=5, troot=scene.wide_troot, wide_top=scene.wide_top)
     else:  # each packet: up to 16 treelet roots, the root in every third
         rand = np.random.default_rng(3)
         roots = scene.wide_troot.nonzero()[:, 0].cpu().numpy()
@@ -371,6 +371,7 @@ def test_treelet_modes_match_plain_version(dev, scene, start, anyhit):
     mode = f"packet8_{start}" + ("_anyhit" if anyhit else "")
     assert packet.launches[mode] == sum(packet.launches.values()) == 1
     kw.pop("deep_e", None)
+    kw.pop("wide_top", None)
     want = packet.packet_traverse_wide_reference(*args, anyhit=anyhit, **kw)
     torch.cuda.synchronize()
     assert len(got) == len(want) == (4 if start == "top" else 2)
@@ -379,6 +380,110 @@ def test_treelet_modes_match_plain_version(dev, scene, start, anyhit):
     assert (got[1] >= 0).any() or (anyhit and (got[0] < -1.0).any())
     if start == "top":
         assert (got[2] >= 0).any()
+
+
+@pytest.fixture(scope="module")
+def top_variants(dev):
+    """tools/top_walk_variants.py: the TOP walk before its redesign
+    (walk_kernel's TOP mode) and top_walk_kernel's variants."""
+    return _tools_module("top_walk_variants")
+
+
+@pytest.fixture(scope="module")
+def top_cases(dev, scene, scene16):
+    """(nodes, troot, TOP table, leaf_rows, max_recs, rays box, inside) of
+    the TOP walk's cases: the scene with one- and two-row slots, and a
+    loose chain whose top level is as deep as the TOP walk's stack, whose
+    rays from its middle pointing up x fill it (``inside``)."""
+    from ray_tracer_tpu_torch.scene import builder
+
+    out = {}
+    for rows, sc in ((1, scene), (2, scene16)):
+        assert sc.meta["n_treelets"] > 0
+        out[rows, "sponza"] = (sc.wide_packed, sc.wide_troot, sc.wide_top,
+                               sc.leaf_rows, sc.meta["wide_leaf_recs"],
+                               sc.bvh_packed[0].cpu(), False)
+        nodes, leaf_rows = deep_chain(bvh8.TOP_STACK + 64, loose=True,
+                                      rows=rows)
+        troot = builder.treelet_roots(nodes)
+        top = builder.top_table(nodes, troot)
+        assert top.shape[0] == bvh8.TOP_STACK
+        out[rows, "deep"] = (*(torch.from_numpy(x).to(dev) for x in (
+            nodes, troot, top, leaf_rows)), 8 * rows,
+            torch.tensor([-0.1] * 3 + [0.1] * 3), True)
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("top_k", [1, 5, 16, 120])
+@pytest.mark.parametrize("case", ["sponza", "tiny", "deep"])
+@pytest.mark.parametrize("rows", [1, 2])
+@pytest.mark.parametrize("anyhit", [False, True])
+def test_top_walk_equals_twin_and_old(dev, top_cases, top_variants, top_k,
+                                      case, rows, anyhit):
+    """top_walk_kernel bit for bit against its twin over the TOP table,
+    against the plain walk over the (W,128) rows and troot, and against the
+    walk it replaced (walk_kernel's TOP mode, tools/top_walk_variants.cu):
+    at top_k 1, 5, 16 (blocks of 128 staging their rows) and 120 (64),
+    overflow included, on one- and two-row slots, with 1e-40 direction
+    components (``tiny``) and on a chain whose top level fills the
+    stack."""
+    nodes, troot, top, leaf_rows, recs, box, inside = top_cases[
+        rows, "deep" if case == "deep" else "sponza"]
+    o, d, tmax = _case_rays(box, 20000, anyhit, dev, case, inside)
+    args = [nodes, leaf_rows, o, d, tmax, recs]
+    packet.reset_launches()
+    got = packet.packet_traverse_wide(*args, anyhit=anyhit, top_k=top_k,
+                                      troot=troot, wide_top=top)
+    mode = "packet8_top" + ("_anyhit" if anyhit else "")
+    assert packet.launches[mode] == sum(packet.launches.values()) == 1
+    twin = bvh8.top_walk_reference(top, leaf_rows, o, d, tmax, anyhit, rows,
+                                   top_k)
+    plain = packet.packet_traverse_wide_reference(
+        *args, anyhit=anyhit, top_k=top_k, troot=troot)
+    old = top_variants.run("old", nodes, troot, top, leaf_rows, o, d, tmax,
+                           recs, top_k, anyhit=anyhit)
+    torch.cuda.synchronize()
+    top_variants.compare("twin", got, twin)
+    top_variants.compare("plain", got, plain)
+    top_variants.compare("old", got, old)
+    assert (got[2] >= 0).any()
+    assert (got[3] > 0).any() or top_k > 1 or case == "deep"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["shipped_copy", "troot_gathers",
+                                  "fminf_select_minmax", "every_record",
+                                  "stack_local", "stack96", "rows_in_place",
+                                  "regs_free", "regs72", "regs56", "regs48",
+                                  "smem_table", "none"])
+@pytest.mark.parametrize("top_k", [3, 16])
+def test_top_walk_variants_match(dev, top_cases, top_variants, name, top_k):
+    """Every variant that tools/measure_top_walk.py times computes exactly
+    what the shipped kernel computes, closest hit and occlusion."""
+    nodes, troot, top, leaf_rows, recs, box, _ = top_cases[1, "sponza"]
+    for anyhit in (False, True):
+        o, d, tmax = _case_rays(box, 5000, anyhit, dev, "tiny")
+        want = packet.packet_traverse_wide(
+            nodes, leaf_rows, o, d, tmax, recs, anyhit=anyhit, top_k=top_k,
+            troot=troot, wide_top=top)
+        top_variants.compare(name, top_variants.run(
+            name, nodes, troot, top, leaf_rows, o, d, tmax, recs, top_k,
+            anyhit=anyhit), want)
+
+
+@pytest.mark.gpu
+def test_top_walk_needs_the_table(dev, scene):
+    """On the card the TOP walk raises without the scene's TOP table, or
+    with an empty one (a scene beyond the walk's limits)."""
+    args = [scene.wide_packed, scene.leaf_rows, *_rays(scene, 100, False),
+            scene.meta["wide_leaf_recs"]]
+    with pytest.raises(ValueError, match="compile()"):
+        packet.packet_traverse_wide(*args, top_k=5, troot=scene.wide_troot)
+    with pytest.raises(ValueError, match="limits"):
+        packet.packet_traverse_wide(
+            *args, top_k=5, troot=scene.wide_troot,
+            wide_top=scene.wide_top[:0])
 
 
 @pytest.fixture(scope="module")

@@ -16,6 +16,7 @@ import ray_tracer_tpu as jrt
 import ray_tracer_tpu_torch as trt
 from ray_tracer_tpu.scene import presets as j_presets
 from ray_tracer_tpu_torch.scene import presets as t_presets
+from ray_tracer_tpu_torch.scene.builder import top_table_or_empty
 from ray_tracer_tpu_torch.scene.types import (
     narrow_root_meta,
     page_counts,
@@ -56,6 +57,10 @@ def test_compiled_arrays_match_jax(name, tmp_path, monkeypatch):
     # the cluster tables' page counts, which the JAX package does not keep:
     # the port's own equal those derived from the JAX range starts
     jarr.update(page_counts(jarr, jmeta))
+    # and the TOP walk's table, which it does not keep either: the port's
+    # equals the one derived from the JAX tables
+    jarr["wide_top"] = top_table_or_empty(jarr["wide_packed"],
+                                          jarr["wide_troot"])
     for f in trt.CompiledScene.array_fields():
         got, want = np.asarray(getattr(tsc, f)), jarr[f]
         assert got.dtype == want.dtype, f
@@ -82,7 +87,9 @@ def test_from_numpy_round_trip(tmp_path):
     assert sc.meta == {**jmeta, **narrow_root_meta(jarr), "rope_rows": n_box}
     assert sc.meta is not jmeta
     moved = sc.to("cpu")
-    jarr = dict(jarr, rope_streams=box, **page_counts(jarr, jmeta))
+    jarr = dict(jarr, rope_streams=box, **page_counts(jarr, jmeta),
+                wide_top=top_table_or_empty(jarr["wide_packed"],
+                                            jarr["wide_troot"]))
     for f in trt.CompiledScene.array_fields():
         t = getattr(moved, f)
         assert isinstance(t, torch.Tensor), f

@@ -27,6 +27,7 @@ below the ray's final closest hit are emitted by every order: those sets
 must agree.
 """
 
+import functools
 import os
 import sys
 
@@ -42,6 +43,7 @@ from ray_tracer_tpu.kernels import packet as j_packet
 from ray_tracer_tpu.ops import traverse as j_traverse
 import ray_tracer_tpu_torch as trt
 from ray_tracer_tpu_torch import CompiledScene, Routing
+from ray_tracer_tpu_torch.kernels import bvh8 as t_bvh8
 from ray_tracer_tpu_torch.kernels import packet as t_packet
 from ray_tracer_tpu_torch.ops import traverse as t_traverse
 from ray_tracer_tpu_torch.scene import builder as t_builder
@@ -49,6 +51,7 @@ from ray_tracer_tpu_torch.scene import builder as t_builder
 from torch_parity import (
     assert_images_match,
     assert_tri_ties,
+    deep_chain,
     deep_in_order,
     nearest_first,
     route_rays,
@@ -164,6 +167,281 @@ def test_treelet_roots_of_a_small_tree(tmp_path):
     empty = b.compile(device="cpu")
     assert empty.wide_troot.tolist() == [0]
     assert empty.meta["n_treelets"] == 0
+
+
+# ---- the TOP table (scene/builder.py::top_table) and the TOP walk over it
+
+
+def _top_direct(wp, troot):
+    """The TOP table derived node by node, apart from builder.top_table: a
+    depth-first walk from the root that does not enter treelet roots; the
+    rows in node order, each child's code rewritten by its class."""
+    ids, todo = [], [0]
+    while todo:
+        node = todo.pop()
+        ids.append(node)
+        for c in range(8):
+            code = wp[node, 8 * c + 6]
+            if code > 0 and troot[int(code)] == 0:
+                todo.append(int(code))
+    ids = sorted(ids)
+    row = {node: i for i, node in enumerate(ids)}
+    t = len(ids)
+    table = wp[ids, :64].copy()
+    for i, node in enumerate(ids):
+        for c in range(8):
+            code = wp[node, 8 * c + 6]
+            if code > 0:
+                table[i, 8 * c + 6] = (row[int(code)] if troot[int(code)] == 0
+                                       else t + int(code))
+    return table, ids
+
+
+def _compiled(name, tmp, monkeypatch):
+    """The port's scene ``name``, compiled for the CPU."""
+    if name == "mesh_free":
+        b = trt.SceneBuilder()
+        b.add_material(trt.Material())
+        b.add_sphere((0.0, 0.0, 0.0), 1.0, 0)
+        return b.compile(device="cpu")
+    if name == "sponza_proxy":
+        return sponza_builders(tmp, monkeypatch, 8000)[1].compile(
+            device="cpu")
+    kw = dict(max_leaf_tris=4 if name == "soup_leaf4" else 8)
+    if name == "soup_merged":
+        kw.update(merge_wide_leaves=True)
+    return soup_scene(trt, tmp, n_tris=N_TRIS).compile(device="cpu", **kw)
+
+
+@pytest.mark.parametrize("name", ["soup_leaf4", "soup_leaf8", "soup_merged",
+                                  "sponza_proxy", "mesh_free"])
+def test_top_table_from_the_tree(name, tmp_path, monkeypatch):
+    """The compiled TOP table equals a node-by-node derivation from
+    wide_packed and wide_troot: its rows are the nodes with more than
+    TREELET_SIZE wide nodes in their subtree (the root alone where there
+    are no treelets), root first; each treelet root is one code T + id;
+    boxes, leaf and empty codes and the sort axis are the rows' own bits."""
+    sc = _compiled(name, str(tmp_path), monkeypatch)
+    wp, troot = sc.wide_packed.numpy(), sc.wide_troot.numpy()
+    top = sc.wide_top.numpy()
+    assert top.dtype == np.float32 and top.flags.c_contiguous
+    want, ids = _top_direct(wp, troot)
+    t = len(ids)
+    assert top.shape == (t, 64) and ids[0] == 0
+    np.testing.assert_array_equal(top, want)  # NaN-equal
+    keep = np.ones(64, bool)
+    keep[6::8] = False  # every float but the codes, bit for bit
+    np.testing.assert_array_equal(top[:, keep].view(np.int32),
+                                  wp[ids, :64][:, keep].view(np.int32))
+    codes, old = top[:, 6::8], wp[ids, 6:64:8]
+    assert np.array_equal(codes[old <= 0], old[old <= 0])
+    roots = codes >= t
+    assert roots.sum() == sc.meta["n_treelets"] == troot.sum()
+    assert (troot[(codes[roots] - t).astype(np.int64)] == 1).all()
+    inner = (old > 0) & ~roots
+    assert np.array_equal(np.array(ids)[codes[inner].astype(np.int64)],
+                          old[inner].astype(np.int64))
+    if sc.meta["n_treelets"]:
+        # the top level: the nodes whose subtree is not small
+        @functools.lru_cache(maxsize=None)
+        def size(w):
+            kids = wp[w, 6:64:8]
+            return 1 + sum(size(int(c)) for c in kids[kids > 0])
+
+        assert ids == [w for w in range(len(wp))
+                       if size(w) > t_builder.TREELET_SIZE]
+    else:
+        assert t == len(wp)
+
+
+@pytest.mark.parametrize("name", ["soup_leaf4", "soup_leaf8",
+                                  "sponza_proxy"])
+def test_top_table_of_both_compilers(name, tmp_path, monkeypatch):
+    """The port's compile() and from_numpy() of the JAX package's compiled
+    scene (which has no TOP table: from_numpy derives it) give the same
+    table, the one builder.top_table derives from those arrays."""
+    tmp = str(tmp_path)
+    if name == "sponza_proxy":
+        jb, tb = sponza_builders(tmp, monkeypatch, 8000)
+        kw = {}
+    else:
+        jb = soup_scene(jrt, tmp, n_tris=N_TRIS)
+        tb = soup_scene(trt, tmp, n_tris=N_TRIS)
+        kw = dict(max_leaf_tris=4 if name == "soup_leaf4" else 8)
+    jarr, jmeta = scene_arrays(jb.compile(**kw))
+    assert "wide_top" not in jarr
+    sc = tb.compile(device="cpu", **kw)
+    kept = CompiledScene.from_numpy(jarr, jmeta, device="cpu")
+    direct = t_builder.top_table(jarr["wide_packed"], jarr["wide_troot"])
+    t = kept.wide_top.shape[0]
+    assert int((kept.wide_top[:, 6::8] >= t).sum()) == jmeta["n_treelets"] > 0
+    for table in (sc.wide_top, kept.wide_top):
+        np.testing.assert_array_equal(table.numpy(), direct)
+
+
+def _top_case(case, kscenes, merged_soup):
+    """(nodes, troot, TOP table, leaf_rows, rows, origin, direction, tmax)
+    of a TOP walk case, 1500 rays, every fifth at -BIG: the soup (its top
+    level is the root, whose children are treelet roots: emission), a
+    chain with one- or two-row slots whose top level holds TOP_STACK nodes
+    with leaves and one treelet root below (leaf tests and the deepest
+    stack), and the merged soup, which has no treelets (the TOP walk is
+    the whole walk)."""
+    if case in ("chain", "chain2"):
+        rows = 2 if case == "chain2" else 1
+        nodes, leaf_rows = deep_chain(t_bvh8.TOP_STACK + 64, rows=rows)
+        troot = t_builder.treelet_roots(nodes)
+        top = t_builder.top_table(nodes, troot)
+        rand = np.random.default_rng(27)
+        o = rand.uniform(-0.1, 0.1, (1500, 3)).astype(np.float32)
+        d = rand.normal(size=(1500, 3)).astype(np.float32)
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        tmax = np.where(rand.uniform(size=1500) < 0.5, BIG,
+                        rand.uniform(0.5, 4.0, 1500)).astype(np.float32)
+        tables = [torch.from_numpy(x) for x in (nodes, troot, top,
+                                                 leaf_rows)]
+    else:
+        sc = merged_soup if case == "merged" else kscenes[1]
+        rows = 2 if case == "merged" else 1
+        o, d, tmax = _rays(24, 1500, "clipped")
+        tables = [sc.wide_packed, sc.wide_troot, sc.wide_top, sc.leaf_rows]
+    tmax[::5] = -BIG
+    return (*tables, rows, *(torch.from_numpy(x) for x in (o, d, tmax)))
+
+
+@pytest.mark.parametrize("k", [1, 5, 16])
+@pytest.mark.parametrize("case", ["soup", "chain", "chain2", "merged"])
+@pytest.mark.parametrize("anyhit", [False, True])
+def test_top_twin_matches_walk_reference(kscenes, merged_soup, k, case,
+                                         anyhit):
+    """top_walk_kernel's twin over the TOP table equals walk_reference's TOP
+    mode over the (W,128) rows and troot with torch.equal on dst, prim,
+    slots and ovf, and so does the wrapper's CPU path given the table:
+    closest hit and occlusion, one- and two-row slots, with lanes that
+    overflow their slots and -BIG lanes."""
+    nodes, troot, top, leaf_rows, rows, o, d, tmax = _top_case(
+        case, kscenes, merged_soup)
+    args = (nodes, leaf_rows, o, d, tmax)
+    mode = "anyhit" if anyhit else "closest"
+    want = t_bvh8.walk_reference(*args, mode=mode, rows=rows, top_k=k,
+                                 troot=troot)
+    stats = {}
+    twin = t_bvh8.top_walk_reference(top, *args[1:], anyhit, rows, k,
+                                     stats=stats)
+    t_packet.reset_launches()
+    cpu = t_packet.packet_traverse_wide(*args, 8 * rows, anyhit=anyhit,
+                                        top_k=k, troot=troot, wide_top=top)
+    assert sum(t_packet.launches.values()) == 0  # CPU: the plain version
+    for a, b, c in zip(twin, want, cpu):
+        assert torch.equal(a, b) and torch.equal(c, b)
+    dst, prim, slots, ovf = want
+    assert (dst[::5] == -BIG).all() and (prim[::5] == -1).all()
+    assert stats["node_seen"].shape == (top.shape[0],)
+    assert 1 <= stats["max_sp"] <= t_bvh8.TOP_STACK
+    n_roots = int(troot.sum())
+    if case != "merged":
+        # occlusion rays in the chain stop at a leaf above its treelet root
+        if case == "soup" or not anyhit:
+            assert (slots >= 0).sum() > 100
+        assert (ovf > 0).any() == (k < n_roots and case == "soup")
+    else:
+        assert n_roots == 0 and top.shape[0] == nodes.shape[0]
+        assert (slots < 0).all() and (ovf == 0).all()
+    if case != "soup":  # the soup's top level has no leaves
+        if anyhit:
+            assert int((dst[tmax > -BIG] < -1.0).sum()) > 100
+        else:
+            assert (prim >= 0).sum() > 100
+    if case.startswith("chain") and not anyhit:
+        assert stats["max_sp"] >= 20
+
+
+def test_route_passes_the_top_table(scenes, monkeypatch):
+    """The two-phase route hands its TOP walk the scene's TOP table."""
+    _, sc = scenes
+    o, d, tmax = (torch.from_numpy(x) for x in _rays(25, 200, "clipped"))
+    tables = []
+    walk = t_packet.packet_traverse_wide
+
+    def record(*args, **kw):
+        if kw.get("troot") is not None:
+            tables.append(kw.get("wide_top"))
+        return walk(*args, **kw)
+
+    monkeypatch.setattr(t_packet, "packet_traverse_wide", record)
+    act = torch.ones(200, dtype=torch.bool)
+    t_traverse.traverse(sc, o, d, act, routing=Routing(two_phase=True))
+    t_traverse.traverse_anyhit(sc, o, d, act, tmax,
+                               routing=Routing(two_phase=True))
+    assert len(tables) == 2 and all(t is sc.wide_top for t in tables)
+
+
+def test_wrapper_rejects_bad_top_tables(kscenes):
+    """The TOP table's checks, which run before any launch: a CUDA call
+    without it raises naming compile() (the validation path, called here
+    for a CUDA device); a table of the wrong shape, type, layout or
+    device, an empty one, or one given without troot raises on the CPU
+    path too."""
+    _, sc = kscenes
+    n = 300
+    args = _kernel_args(sc, *_rays(26, n, "closest"))
+    top, troot = sc.wide_top, sc.wide_troot
+    cuda = torch.device("cuda")
+    with pytest.raises(ValueError, match=r"compile\(\)"):
+        t_bvh8.check_top_table(None, sc.wide_packed, cuda)
+    with pytest.raises(ValueError, match="is on cpu"):
+        t_bvh8.check_top_table(top, sc.wide_packed, cuda)
+    bad = {
+        "shape": torch.zeros((top.shape[0], 128)),
+        "limits": top[:0],
+        "contiguous": torch.zeros((64, 3)).T,
+    }
+    for match, table in bad.items():
+        with pytest.raises(ValueError, match=match):
+            t_packet.packet_traverse_wide(*args, top_k=4, troot=troot,
+                                          wide_top=table)
+    with pytest.raises(TypeError):
+        t_packet.packet_traverse_wide(*args, top_k=4, troot=troot,
+                                      wide_top=top.double())
+    with pytest.raises(ValueError, match="needs troot"):
+        t_packet.packet_traverse_wide(*args, wide_top=top)
+    with pytest.raises(ValueError, match="empty TOP table"):
+        t_bvh8.top_walk_reference(top[:0], *args[1:5], False, 1, 4)
+
+
+def test_top_table_limits(monkeypatch):
+    """The compile-time checks of the TOP table: a top level deeper than
+    the TOP walk's stack (a chain whose nodes each hold more than
+    TREELET_SIZE nodes below them) and codes T + W at the f32 limit raise
+    in top_table; compile() stores an empty table for such a scene
+    (top_table_or_empty), on which the TOP walk's wrapper raises."""
+    depth = t_bvh8.TOP_STACK + t_builder.TREELET_SIZE
+    for extra, fits in ((0, True), (1, False)):
+        nodes, _ = deep_chain(depth + extra)
+        troot = t_builder.treelet_roots(nodes)
+        assert troot.sum() == 1
+        if fits:
+            top = t_builder.top_table(nodes, troot)
+            assert top.shape == (t_bvh8.TOP_STACK, 64)
+            w, t = nodes.shape[0], top.shape[0]
+        else:
+            with pytest.raises(ValueError, match="levels"):
+                t_builder.top_table(nodes, troot)
+            assert t_builder.top_table_or_empty(nodes, troot).shape == (0, 64)
+    small, _ = deep_chain(t_bvh8.TOP_STACK + 1)  # no treelets, too deep
+    with pytest.raises(ValueError, match="levels"):
+        t_builder.top_table(small, t_builder.treelet_roots(small))
+    nodes, _ = deep_chain(depth)
+    troot = t_builder.treelet_roots(nodes)
+    monkeypatch.setattr(t_builder, "TOP_CODE_LIMIT", w + t)
+    with pytest.raises(ValueError, match="2\\^24"):
+        t_builder.top_table(nodes, troot)
+    monkeypatch.setattr(t_builder, "TOP_CODE_LIMIT", w + t + 1)
+    assert t_builder.top_table(nodes, troot).shape == (t, 64)
+    monkeypatch.setattr(t_bvh8, "TOP_CODE_LIMIT", w + t)
+    with pytest.raises(ValueError, match="2\\^24"):
+        t_bvh8.check_top_table(torch.from_numpy(top), torch.from_numpy(
+            nodes), torch.device("cpu"))
 
 
 # ---- the DEEP walk: the list order, the padding lanes, and the entry-box

@@ -53,7 +53,7 @@
 // variant_deep_kernel<kAnyhit, true, false, 0, true, true, true, false, 8>
 // is deep_walk_kernel<kAnyhit, 1> as it ships.
 
-#include "../ray_tracer_tpu_torch/csrc/bvh8_walk.cu"
+#include "old_bvh8_walk.cuh"  // and csrc/bvh8_walk.cu
 
 namespace {
 

@@ -31,7 +31,7 @@
 //   variant_emit_kernel<true, true, false, true, kEmitMinBlocks> is
 //   emit_walk_kernel as it ships.
 
-#include "../ray_tracer_tpu_torch/csrc/bvh8_walk.cu"
+#include "old_bvh8_walk.cuh"  // and csrc/bvh8_walk.cu
 
 namespace {
 

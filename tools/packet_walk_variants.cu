@@ -7,7 +7,8 @@
 // the same visits in the same order (the callers hold them together with
 // torch.equal).
 //
-//   old        walk_kernel<kClosest | kAnyhit, kRows, kRoot>, the loop of
+//   old        walk_kernel<kClosest | kAnyhit, kRows, kRoot>
+//              (tools/old_bvh8_walk.cuh), the loop of
 //              the packet walk from the root until group_walk_kernel took
 //              it over: compare-select min/max, every record of a leaf
 //              slot tested, the whole stack in a local array, registers
@@ -19,7 +20,7 @@
 //   while_while  group_walk_kernel's walk in the while-while order that
 //              the narrow walk ships (csrc/bvh2_walk.cu).
 
-#include "../ray_tracer_tpu_torch/csrc/bvh8_walk.cu"
+#include "old_bvh8_walk.cuh"  // and csrc/bvh8_walk.cu
 
 namespace {
 

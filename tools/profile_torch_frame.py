@@ -45,7 +45,7 @@ ROUTES = {
 # the port's CUDA kernels, by a part of their names ("walk_kernel" matches
 # the four kernels of bvh8_walk.cu, group_walk_kernel (the group route and
 # the packet walk from the root), deep_walk_kernel, emit_walk_kernel and
-# walk_kernel (TOP), and bvh2_walk_kernel and rope_walk_kernel)
+# top_walk_kernel, and bvh2_walk_kernel and rope_walk_kernel)
 OWN_KERNELS = ("walk_kernel", "cluster_pairs_kernel",
                "box_hits_kernel")
 
