@@ -33,8 +33,18 @@ against the same renders on the CPU, and renders the benchmark frame
 through each traversal route of the port: the group kernel (the default),
 the cluster route with packet and with box enumeration, the packet walk,
 the narrow binary-BVH walk, the rope walk and two-phase treelet
-traversal.  Every phase prints one line; any failure raises, so the exit
-code is non-zero and no result line is printed.  The line before the last
+traversal.  Then it drives what a user calls besides ``render`` on the
+same scene: ``ProgressiveRenderer`` at the benchmark frame (three steps,
+a checkpoint after the second resumed by a fresh renderer, and two
+steps at 64x36 against the CPU), the static-scan integrator
+(``path_regen=False``) at the benchmark frame and each estimator at 64x36
+against the CPU, the debug heatmap at the viewer's preview size with
+its counts at 64x36 against the CPU's, the CLI as subprocesses (a
+progressive render with a checkpoint, run twice so that the second
+resumes, and the bench line) and the viewer (its render loop and HTTP
+server in threads, every endpoint requested).  Every phase prints one
+line; any failure raises, so the exit code is non-zero and no result
+line is printed.  The line before the last
 lists the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Needs a CUDA device; imports no JAX.
 """
@@ -45,8 +55,11 @@ import contextlib
 import json
 import os
 import statistics
+import struct
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -57,8 +70,9 @@ sys.path.insert(0, REPO)
 sys.path.append(os.path.join(REPO, "tools"))
 
 import ray_tracer_tpu_torch as trt  # noqa: E402
+from ray_tracer_tpu_torch import api  # noqa: E402
 from ray_tracer_tpu_torch.api import _camera_arrays, scene_camera  # noqa: E402
-from ray_tracer_tpu_torch.integrator import wavefront  # noqa: E402
+from ray_tracer_tpu_torch.integrator import film, wavefront  # noqa: E402
 from ray_tracer_tpu_torch.kernels import (  # noqa: E402
     bvh8, cluster, group, lanewalk, packet,
 )
@@ -79,6 +93,7 @@ import top_walk_variants  # noqa: E402
 BIG = group.BIG
 FRAME = (1920, 1080)  # the benchmark frame: spp 2, bounce limit 8
 SMALL = (64, 36)  # the card-vs-CPU frame
+PREVIEW = (480, 270)  # the viewer's preview of the benchmark frame
 N_CHECK = 1 << 18  # rays per kernel-vs-plain check
 N_WIDE = 1 << 22  # the frame's widest round (4,147,200 lanes), rounded up
 SCENE_TRIS = 260_000  # sponza_proxy's triangle target (its default)
@@ -889,20 +904,27 @@ def cluster_vs_old(chunks):
     return out
 
 
-def card_vs_cpu(sc, sc_cpu, title, routing=None):
+def card_vs_cpu(sc, sc_cpu, title, routing=None, **kw):
     cfg = trt.RenderConfig(width=SMALL[0], height=SMALL[1],
                            samples_per_pixel=2, bounce_limit=8,
-                           routing=routing)
+                           routing=routing, **kw)
     t0 = time.perf_counter()
     gpu = trt.render(sc, cfg).cpu()
     t1 = time.perf_counter()
     cpu = trt.render(sc_cpu, cfg)
     t2 = time.perf_counter()
+    images_agree(title, gpu, cpu, card_s=t1 - t0, cpu_s=t2 - t1, **kw)
+
+
+def images_agree(title, gpu, cpu, **fields):
+    """The card's image against the CPU's: >= 99% of pixels within 2e-3
+    and a mean |diff| below 1e-3, else raise."""
+    gpu = gpu.cpu()
     diff = (gpu - cpu).abs()
     within = float((diff.amax(dim=-1) <= 2e-3).float().mean())
     phase(title, size=f"{SMALL[0]}x{SMALL[1]}", spp=2, bounce=8,
           pixels_within_2e3=within, mean_abs_diff=float(diff.mean()),
-          max_abs_diff=float(diff.max()), card_s=t1 - t0, cpu_s=t2 - t1)
+          max_abs_diff=float(diff.max()), **fields)
     if not bool(torch.isfinite(gpu).all()):
         raise AssertionError(f"{title}: card image not finite")
     if within < 0.99 or float(diff.mean()) >= 1e-3:
@@ -954,6 +976,298 @@ def frame(sc, dev, title, routing, timed, main=None):
         raise AssertionError(f"{title}: checksum or rays_sem off the main "
                              f"frame's by 1% or more: {rec['vs_main']}")
     return rec
+
+
+def frame_cfg(**kw):
+    """The benchmark frame's configuration (one whole-frame tile)."""
+    return trt.RenderConfig(width=FRAME[0], height=FRAME[1],
+                            samples_per_pixel=2, bounce_limit=8,
+                            max_rays_per_batch=1 << 21, **kw)
+
+
+def nondeterministic_ops(fn) -> list:
+    """The ops of ``fn`` that torch flags as nondeterministic on the card
+    (its deterministic-algorithms check, as warnings)."""
+    import warnings
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return sorted({str(w.message).split("\n")[0] for w in caught
+                   if "deterministic" in str(w.message)})
+
+
+def progressive(sc, sc_cpu, tmp):
+    """ProgressiveRenderer at the benchmark frame: three steps with the
+    state saved after the second; a fresh renderer loads it and steps
+    once, and its accumulation must be the third step's (bit for bit when
+    two renders of the frame on the card are).  Then two steps at 64x36
+    on the card against the CPU."""
+    cfg = frame_cfg()
+    first = trt.render_frame(sc, cfg)
+    again = trt.render_frame(sc, cfg)
+    deterministic = bool(torch.equal(first, again))
+    render_diff = float((first - again).abs().max())
+    del first, again
+    pr = trt.ProgressiveRenderer(sc, cfg)
+    state = os.path.join(tmp, "progressive.npz")
+    reset_launches()
+    step_s = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pr.step()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        if i == 1:
+            pr.save_state(state)
+    launches = all_launches()
+    resumed = trt.ProgressiveRenderer(sc, cfg)
+    resumed.load_state(state)
+    if resumed.frame != 2 or resumed.accum.device != sc.device:
+        raise AssertionError(f"progressive: resumed at frame "
+                             f"{resumed.frame} on {resumed.accum.device}")
+    resumed.step()
+    equal = bool(torch.equal(resumed.accum, pr.accum))
+    resume_diff = float((resumed.accum - pr.accum).abs().max())
+    ops = [] if deterministic else nondeterministic_ops(
+        lambda: trt.render_frame(sc, cfg))
+    phase("progressive", size=f"{FRAME[0]}x{FRAME[1]}", spp=2, bounce=8,
+          step_s=step_s, launches=launches, renders_bit_identical=deterministic,
+          render_max_abs_diff=render_diff, resumed_equal=equal,
+          resumed_max_abs_diff=resume_diff, nondeterministic_ops=ops,
+          finite=bool(torch.isfinite(pr.accum).all()))
+    if launches["group_traverse"] <= 0 or launches["group_anyhit"] <= 0:
+        raise AssertionError(f"progressive: the group walk never ran: "
+                             f"{launches}")
+    if not bool(torch.isfinite(pr.accum).all()):
+        raise AssertionError("progressive: accumulation not finite")
+    if deterministic and not equal:
+        raise AssertionError(f"progressive: the resumed step differs from "
+                             f"the third by {resume_diff}")
+    if not deterministic:
+        images_agree("progressive_resumed", resumed.accum, pr.accum.cpu())
+    del pr, resumed
+    small = trt.RenderConfig(width=SMALL[0], height=SMALL[1],
+                             samples_per_pixel=2, bounce_limit=8)
+    card = trt.ProgressiveRenderer(sc, small)
+    host = trt.ProgressiveRenderer(sc_cpu, small)
+    for _ in range(2):
+        card.step()
+        host.step()
+    images_agree("card_vs_cpu_progressive", card.accum, host.accum, steps=2)
+
+
+def static_scan(sc, sc_cpu):
+    """The static-scan integrator (path_regen=False) at the benchmark
+    frame, then each estimator at 64x36 on the card against the CPU."""
+    cfg = frame_cfg(path_regen=False)
+    trt.render(sc, cfg)  # warm-up
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = trt.render(sc, cfg)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = all_launches()
+    finite = bool(torch.isfinite(img).all())
+    phase("static_scan", size=f"{FRAME[0]}x{FRAME[1]}", spp=2, bounce=8,
+          frame_s=dt, checksum=float(img.sum()), image_mean=float(img.mean()),
+          finite=finite, launches=launches)
+    if img.shape != (FRAME[1], FRAME[0], 3) or not finite:
+        raise AssertionError(f"static_scan: bad frame {tuple(img.shape)}")
+    if launches["group_traverse"] <= 0 or launches["group_anyhit"] <= 0:
+        raise AssertionError(f"static_scan: the group walk never ran: "
+                             f"{launches}")
+    del img
+    for est in ("mis", "cosine", "uniform"):
+        card_vs_cpu(sc, sc_cpu, f"card_vs_cpu_static_{est}",
+                    path_regen=False, estimator=est)
+
+
+def debug_heatmap(sc, sc_cpu):
+    """render_debug (mode 2) at the viewer's preview size, and the box and
+    triangle counts at 64x36 on the card against the CPU's."""
+    cfg = trt.RenderConfig(width=PREVIEW[0], height=PREVIEW[1],
+                           samples_per_pixel=1, bounce_limit=8)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = trt.render_debug(sc, cfg, mode=2)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    small = cfg.replace(width=SMALL[0], height=SMALL[1])
+    box, tri = (x.cpu() for x in api.debug_counts(sc, small))
+    box_c, tri_c = api.debug_counts(sc_cpu, small)
+    differ = (box != box_c) | (tri != tri_c)
+    phase("debug_heatmap", size=f"{PREVIEW[0]}x{PREVIEW[1]}", spp=1,
+          bounce=8, seconds=dt, image_mean=float(img.mean()),
+          small=f"{SMALL[0]}x{SMALL[1]}", pixels_differ=int(differ.sum()),
+          pixels=int(differ.numel()),
+          max_box_diff=float((box - box_c).abs().max()),
+          max_tri_diff=float((tri - tri_c).abs().max()),
+          mean_box_tests=float(box_c.mean()),
+          mean_tri_tests=float(tri_c.mean()))
+    if img.shape != (PREVIEW[1], PREVIEW[0], 3) or not bool(
+            torch.isfinite(img).all()) or float(img.max()) <= 0.0:
+        raise AssertionError("debug_heatmap: bad heatmap")
+    if float(differ.float().mean()) > 0.01:
+        raise AssertionError(f"debug_heatmap: {int(differ.sum())} pixels' "
+                             "counts differ from the CPU's")
+
+
+def png_size(data: bytes):
+    if data[:8] != b"\x89PNG\r\n\x1a\n" or data[12:16] != b"IHDR":
+        raise AssertionError("not a PNG")
+    return struct.unpack(">II", data[16:24])
+
+
+def cli(tmp):
+    """The port's CLI as a user runs it: a progressive render with a
+    checkpoint, twice (the second resumes), and the bench line."""
+    base = [sys.executable, "-m", "ray_tracer_tpu_torch.cli"]
+    frame_args = ["--preset", "sponza_proxy", "--width", str(FRAME[0]),
+                  "--height", str(FRAME[1]), "--spp", "2"]
+    out_png = os.path.join(tmp, "o.png")
+    render = base + ["render", *frame_args, "--progressive", "2",
+                     "--checkpoint", os.path.join(tmp, "s.npz"),
+                     "-o", out_png]
+    runs = []
+    for i in range(2):
+        t0 = time.perf_counter()
+        out = subprocess.run(render, capture_output=True, text=True,
+                             cwd=REPO, timeout=300)
+        wall = time.perf_counter() - t0
+        if out.returncode != 0:
+            raise AssertionError(f"cli render: rc {out.returncode}: "
+                                 f"{out.stderr[-2000:]}")
+        report = json.loads(out.stdout.strip().splitlines()[-1])
+        resumed = "resumed at frame 2" in out.stderr
+        if resumed != (i == 1):
+            raise AssertionError(f"cli render run {i}: resumed={resumed}")
+        with open(out_png, "rb") as f:
+            size = png_size(f.read(24))
+        if size != FRAME:
+            raise AssertionError(f"cli render: PNG of {size}")
+        runs.append(dict(process_s=wall, report=report, resumed=resumed))
+    t0 = time.perf_counter()
+    out = subprocess.run(base + ["bench", *frame_args], capture_output=True,
+                         text=True, cwd=REPO, timeout=300)
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"cli bench: rc {out.returncode}: "
+                             f"{out.stderr[-2000:]}")
+    bench = json.loads(out.stdout.strip().splitlines()[-1])
+    phase("cli", render=runs, bench=bench, bench_process_s=wall)
+    if bench["device"] != torch.cuda.get_device_name(0):
+        raise AssertionError(f"cli bench: device {bench['device']!r}")
+
+
+def viewer_phase():
+    """The viewer over the sponza_proxy builder at the benchmark frame's
+    size (spp 1) on the card: its render loop and an HTTP server on
+    127.0.0.1:0, each in a thread, and every endpoint requested."""
+    import urllib.request
+
+    from ray_tracer_tpu_torch import viewer
+
+    cfg = trt.RenderConfig(width=FRAME[0], height=FRAME[1],
+                           samples_per_pixel=1, bounce_limit=8)
+    t0 = time.perf_counter()
+    state = viewer.ViewerState(presets.sponza_proxy(SCENE_TRIS), cfg)
+    build_s = time.perf_counter() - t0
+    ticks = []
+    tick = state._tick
+
+    def timed_tick():
+        tick()
+        ticks.append((state.latest_is_preview, state.frame_ms))
+
+    state._tick = timed_tick
+    srv = viewer._make_server(state, "127.0.0.1", 0)
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    threads = [threading.Thread(target=srv.serve_forever, daemon=True),
+               threading.Thread(target=state.loop, daemon=True)]
+    for t in threads:
+        t.start()
+
+    def get(path, timeout=120):
+        return urllib.request.urlopen(url + path, timeout=timeout).read()
+
+    def wait(cond, what, limit=120.0):
+        end = time.perf_counter() + limit
+        while not cond():
+            if time.perf_counter() > end:
+                raise AssertionError(f"viewer: timed out waiting for {what}")
+            time.sleep(0.01)
+
+    try:
+        page = get("/")
+        if b"ray_tracer_tpu_torch" not in page:
+            raise AssertionError("viewer: bad page")
+        wait(lambda: ticks, "the first tick")
+        sizes = [png_size(get("/image.png"))]  # the preview
+        wait(lambda: state.renderer.frame >= 3, "three full frames")
+        sizes.append(png_size(get("/image.png")))
+        stats = json.loads(get("/stats"))
+        before = stats["frame"]
+        get("/set?py=-1.9")
+        after = json.loads(get("/stats"))["frame"]
+        req = urllib.request.Request(
+            url + "/edit", method="POST",
+            data=json.dumps({"materials": {"1": {
+                "albedo": [0.8, 0.1, 0.1]}}}).encode())
+        t1 = time.perf_counter()
+        edit = json.loads(urllib.request.urlopen(req, timeout=300).read())
+        edit_s = time.perf_counter() - t1
+        albedo = state.renderer.scene.mat_albedo[1].tolist()
+        t1 = time.perf_counter()
+        dbg = png_size(get("/debug.png?mode=2", timeout=600))
+        debug_s = time.perf_counter() - t1
+        wait(lambda: state.renderer.frame >= 2, "frames after the edit")
+    finally:
+        state.running = False
+        srv.shutdown()
+        for t in threads:
+            t.join(timeout=120)
+        srv.server_close()
+    full = [ms for preview, ms in ticks if not preview]
+    # a tick's parts: the sRGB bytes to the host, and the PNG at the
+    # viewer's zlib level (0, stored), at 1 and at 6 (Pillow's default)
+    accum = state.renderer.accum
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    rgb = film.to_uint8_srgb(accum)
+    encode = {"srgb_to_host_s": time.perf_counter() - t1}
+    for level in sorted({viewer.PNG_LEVEL, 1, 6}):
+        t1 = time.perf_counter()
+        data = film.encode_png_uint8(rgb, level)
+        encode[f"deflate_level{level}"] = dict(
+            s=time.perf_counter() - t1, bytes=len(data))
+    phase("viewer", size=f"{FRAME[0]}x{FRAME[1]}", spp=1, bounce=8,
+          build_s=build_s, image_sizes=sizes, frame_before_set=before,
+          frame_after_set=after, edit=edit, edit_s=edit_s,
+          debug_png=dbg, debug_s=debug_s,
+          encode=encode,
+          ticks=[dict(preview=p, frame_ms=ms) for p, ms in ticks],
+          full_frame_ms_median=statistics.median(full))
+    preview = (state.preview.cfg.width, state.preview.cfg.height)
+    if sizes != [preview, FRAME] or FRAME[0] >= 64 * 4 and preview != \
+            PREVIEW:
+        raise AssertionError(f"viewer: image sizes {sizes}")
+    if not edit.get("ok") or albedo != [0.800000011920929,
+                                        0.10000000149011612,
+                                        0.10000000149011612]:
+        raise AssertionError(f"viewer: edit {edit}, albedo {albedo}")
+    if after >= before or dbg != (FRAME[0] // 2, FRAME[1] // 2):
+        raise AssertionError(f"viewer: /set left frame {after} (was "
+                             f"{before}); debug PNG {dbg}")
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("viewer: a thread did not stop")
 
 
 def build_all() -> None:
@@ -1102,7 +1416,6 @@ def main() -> None:
                 ROUTES["frame_lanewalk"][0])
     card_vs_cpu(sc, sc_cpu, "card_vs_cpu_two_phase",
                 ROUTES["frame_two_phase"][0])
-    del sc_cpu
 
     frames = {"frame": frame(sc, dev, "frame", None, TIMED_FRAMES)}
     for title, (routing, timed) in ROUTES.items():
@@ -1124,6 +1437,16 @@ def main() -> None:
         if min(got[m] for m in modes) <= 0:
             raise AssertionError(f"{title}: a kernel mode never launched: "
                                  f"{got}")
+
+    # the modules a user drives besides render: ProgressiveRenderer, the
+    # static scan, the debug heatmaps, the CLI and the viewer
+    with tempfile.TemporaryDirectory(prefix="rt_smoke_") as tmp:
+        progressive(sc, sc_cpu, tmp)
+        static_scan(sc, sc_cpu)
+        debug_heatmap(sc, sc_cpu)
+        del sc_cpu
+        cli(tmp)
+    viewer_phase()
 
     source = {  # mode -> (its check, the frame phase of its launches)
         "group_traverse": ("group_bounce", "frame"),

@@ -8,13 +8,21 @@ C++ scene-compiler helpers) are built on first
 use, so importing the package needs neither a GPU nor a compiler.
 """
 
-from .api import render, render_frame, scene_camera
+from .api import (
+    ProgressiveRenderer,
+    render,
+    render_debug,
+    render_frame,
+    scene_camera,
+)
 from .config import RenderConfig, Routing
 from .scene.builder import SceneBuilder
 from .scene.types import Camera, CompiledScene, Environment, Material
 
 __all__ = [
+    "ProgressiveRenderer",
     "render",
+    "render_debug",
     "render_frame",
     "scene_camera",
     "RenderConfig",

@@ -2,7 +2,8 @@
 
 ``RenderConfig`` keeps the field names and defaults of the JAX package's
 (``ray_tracer_tpu/config.py``), so one configuration reads the same in
-both.  ``Routing`` keeps only what this package reads: the coherence-bin
+both, except ``max_rays_per_batch``, whose JAX default is a TPU memory
+ceiling.  ``Routing`` keeps only what this package reads: the coherence-bin
 key widths and flavour, ``nee_prebin`` so that asking for it fails
 loudly, and the traversal-route switches (``wide``, ``groups``,
 ``anyhit_group``, ``cluster``, ``cluster_k``, ``cluster_enum``,
@@ -118,8 +119,12 @@ class RenderConfig:
     enable_normal_maps: bool = False
     bump_scale: float = 1.0
     # Pixels per traversal batch: render() tiles the image into chunks of
-    # this many pixels so the live wavefront state stays bounded.
-    max_rays_per_batch: int = 1 << 17
+    # this many pixels so the live wavefront state stays bounded (its lanes
+    # are capped by lane_pool anyway).  2^21 holds a 1920x1080 frame in
+    # one tile; the JAX package's 2^17 is its TPU memory ceiling, and on
+    # the card 16 tiles of it cost a 1920x1080 frame 6.5-9.2x
+    # (tools/measure_tiles.py).
+    max_rays_per_batch: int = 1 << 21
     # Read by the JAX package only (its TPU watchdog split); every tile here
     # traces all of its samples in one wavefront.
     max_spp_per_dispatch: int = 32
@@ -128,19 +133,23 @@ class RenderConfig:
     lane_pool: int = 0
     # Multi-phase drain divisor; 0 = auto (4).
     drain_div: int = 0
-    # Read by the JAX package's static-scan integrator only.
+    # Static scan with nee_anyhit=False only: move dead lanes last before
+    # the combined bounce + shadow launch (None = off).
     sort_bounce_rays: "bool | None" = None
     # NEE shadow rays as any-hit occlusion queries; False (closest-hit
-    # resolve) is not ported (raises).
+    # resolve in one launch with the bounce rays) runs on the static scan
+    # only, and raises on the path-regeneration wavefront.
     nee_anyhit: bool = True
-    # Path regeneration; False (the static scan) is not ported (raises).
+    # Path regeneration (integrator/wavefront.py::trace_wave); False runs
+    # the static scan (wavefront.trace).
     path_regen: bool = True
     # Coherence binning of every wavefront round; None (auto) and True
     # both bin, as the kernel route always does.  False is not ported.
     bin_rays: "bool | None" = None
     # Multiply specular/dielectric bounce radiance by the material albedo.
     tint_spec_diel: bool = False
-    # Estimator ablation; only "mis" is ported (raises otherwise).
+    # Estimator ablation: "mis" (NEE + MIS), or "cosine" / "uniform"
+    # hemisphere sampling with no NEE, which run on the static scan.
     estimator: str = "mis"
     routing: Optional[Routing] = None
 
@@ -154,20 +163,32 @@ class RenderConfig:
     def n_pixels(self) -> int:
         return self.width * self.height
 
+    @property
+    def wavefront(self) -> bool:
+        """Does ``render`` take the path-regeneration wavefront (else the
+        static scan)?  As the JAX package routes: ``path_regen`` and the
+        ``"mis"`` estimator."""
+        return self.path_regen and self.estimator == "mis"
+
     def check(self) -> None:
-        """Raise ``NotImplementedError`` for values this package lacks."""
+        """Raise ``ValueError`` for an unknown estimator and
+        ``NotImplementedError`` for values this package lacks."""
+        if self.estimator not in ("mis", "cosine", "uniform"):
+            raise ValueError(f"estimator={self.estimator!r}: expected "
+                             "'mis', 'cosine' or 'uniform'")
         rt = self.resolved_routing()
         missing = [
-            (not self.path_regen, "path_regen=False (the static-scan "
-             "integrator)", 3),
-            (self.estimator != "mis", f"estimator={self.estimator!r}", 3),
-            (not self.nee_anyhit, "nee_anyhit=False (closest-hit NEE "
-             "resolve)", 4),
+            (self.wavefront and not self.nee_anyhit, "nee_anyhit=False on "
+             "the path-regeneration wavefront (closest-hit NEE resolve)",
+             4),
             (self.enable_normal_maps, "enable_normal_maps=True", 4),
-            (rt.bin_mode != "morton", f"bin_mode={rt.bin_mode!r}", 4),
-            (rt.nee_prebin != "off", f"nee_prebin={rt.nee_prebin!r}", 4),
-            (self.bin_rays is False, "bin_rays=False (unbinned "
-             "wavefront)", 4),
+            # the wavefront's binning; the static scan bins nothing
+            (self.wavefront and rt.bin_mode != "morton",
+             f"bin_mode={rt.bin_mode!r}", 4),
+            (self.wavefront and rt.nee_prebin != "off",
+             f"nee_prebin={rt.nee_prebin!r}", 4),
+            (self.wavefront and self.bin_rays is False,
+             "bin_rays=False (unbinned wavefront)", 4),
         ]
         for bad, what, item in missing:
             if bad:

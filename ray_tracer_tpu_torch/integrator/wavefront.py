@@ -1,4 +1,5 @@
-"""Wavefront path-tracing integrator with path regeneration.
+"""Wavefront path-tracing integrators: path regeneration and the static
+scan.
 
 Port of ``ray_tracer_tpu/integrator/wavefront.py``'s main path
 (``trace_wave`` / ``_trace_wave_lanes``): every wavefront round shades the
@@ -14,6 +15,11 @@ the rope-walk route its error flag beside it); multi-phase drain shrinks
 the state arrays as lanes retire.  The traversal route
 (group kernel, packet walk or cluster route) follows ``cfg.routing``; see
 ``ops/traverse.py``.
+
+:func:`trace` is the static scan (``path_regen=False``, and every
+``estimator`` ablation): one sample per lane through ``bounce_limit + 1``
+masked bounces, with the debug heatmaps' counting walk under
+``with_heatmap``.
 
 Radiometric semantics are the reference package's (its module docstring
 lists the reference shader's quirks this reproduces): the 0/1-NEE pending
@@ -237,6 +243,288 @@ def _resolve_direct(real_l_pdf, n_lights_w, cos_pdf_at_l, l_emit, nee_k,
     )[:, None]
     new_direct = torch.where(is_diff[:, None], direct_diff, -1.0)
     return torch.where(fresh_direct[:, None], new_direct, direct_base)
+
+
+def trace(scene: CompiledScene, rays: CameraRays, pixel_id, frame: int,
+          sample: int, cfg: RenderConfig, with_stats: bool = False,
+          with_heatmap: bool = False):
+    """The static scan: one path-traced sample for a batch of rays -> (N,3)
+    linear radiance (the JAX package's ``trace``, ``path_regen=False``).
+
+    ``bounce_limit + 1`` bounces over every lane, dead lanes masked, in a
+    Python loop where the JAX package scans.  With ``with_stats`` also the
+    (2,) f32 ray counts (semantic, traced); with ``with_heatmap`` also the
+    per-lane ``(box_tests, tri_tests)`` over the whole path, every
+    traversal through the counting walk
+    (``ops/traverse.py::traverse_with_stats``) with the NEE shadow rays
+    resolved by closest hit and folded into their lane.
+
+    The ``estimator`` ablations ``"cosine"`` and ``"uniform"`` trace no
+    shadow rays: every lobe defers to the next hit's emission.  Without
+    the heatmap, ``nee_anyhit=True`` takes closest hit and occlusion from
+    the routes of ``cfg.routing``; ``nee_anyhit=False`` traces bounce and
+    shadow rays in one closest-hit launch, dead lanes moved last first
+    when ``sort_bounce_rays`` (a stable two-bucket partition).
+    """
+    cfg.check()
+    n = rays.origin.shape[0]
+    dev = rays.origin.device
+    f3 = lambda v: torch.full((n, 3), v, dtype=F32, device=dev)
+    rt = cfg.resolved_routing()
+    use_raw = cfg.nee_anyhit and not with_heatmap
+    space = traverse.prim_space(scene, rt) if not with_heatmap else "tri"
+    mis = cfg.estimator == "mis"
+    ones = torch.ones(n, dtype=torch.bool, device=dev)
+    if with_heatmap:
+        hit, (box, tri) = traverse.traverse_with_stats(
+            scene, rays.origin, rays.direction, ones)
+    else:
+        hit = traverse.traverse(scene, rays.origin, rays.direction, ones,
+                                routing=rt)
+        box = tri = None
+    origin, direction = rays.origin, rays.direction
+    atten, total, direct = f3(1.0), f3(0.0), f3(0.0)
+    alive = ones
+    bad = torch.zeros(n, dtype=torch.bool, device=dev)
+    n_rays = torch.full((2,), float(n), dtype=F32, device=dev)
+
+    for j in range(cfg.bounce_limit + 1):
+        did = alive & hit.did_hit
+        (hp, normal, uv, albedo, emission, reflectance, ior, tex_id,
+         sampler, metal_tex, alpha_tex, front) = _shade_fetch(
+            scene, CameraRays(origin, direction), hit, space
+        )
+        albedo, emission, reflectance, cutout = _apply_material_maps(
+            scene, cfg, uv, sampler, albedo, emission, reflectance,
+            tex_id, metal_tex, alpha_tex,
+        )
+
+        # ---- pending light resolve (raytrace.comp:500-505)
+        was_delta = direct[:, 0] == -1.0
+        final_light = torch.where(was_delta[:, None], emission, direct)
+        contrib = final_light + emission if j == 0 else final_light
+        total = torch.where(did[:, None], total + contrib * atten, total)
+        bad = bad | (
+            did & (torch.isnan(total).any(dim=-1) | (total < 0).any(dim=-1))
+        )
+
+        # ---- escape: environment light (raytrace.comp:531-534)
+        esc = alive & ~hit.did_hit
+        env_l = env_ops.environment_light(scene, direction)
+        total = torch.where(esc[:, None], total + atten * env_l, total)
+
+        shaded = did & ~bad
+        alive = shaded
+
+        # ---- BSDF lobes (branchless; raytrace.comp:507-515)
+        u6 = rng.uniforms(cfg.seed, pixel_id, frame, sample, j, 7)
+        is_spec = reflectance != 0.0
+        is_diel = ~is_spec & (ior != -1.0)
+        is_diff = ~is_spec & ~is_diel
+
+        nee_origin = hp + normal * 0.01  # raytrace.comp:432
+        l_dir, li, n_lights_w, l_dist = lights.sample_rect_light(
+            scene, nee_origin, u6[:, 0], u6[:, 1], u6[:, 2]
+        )
+        cos_pdf_at_l = bsdf.cosine_hemisphere_pdf(normal, l_dir)
+        if cfg.estimator == "uniform":
+            cos_dir = bsdf.uniform_hemisphere_dir(normal, u6[:, 3], u6[:, 4])
+            real_cos_pdf = torch.full((n,), 0.5 * INV_PI, dtype=F32,
+                                      device=dev)
+        else:
+            cos_dir = bsdf.cosine_hemisphere_dir(normal, u6[:, 3], u6[:, 4])
+            real_cos_pdf = bsdf.cosine_hemisphere_pdf(normal, cos_dir)
+        rad_diff = (
+            albedo
+            * INV_PI
+            * (dot(normal, cos_dir) / torch.clamp(real_cos_pdf, min=1e-20))[
+                :, None
+            ]
+        )
+        nee_k = albedo * (
+            INV_PI * torch.clamp(dot(normal, l_dir), min=0.0)
+        )[:, None]
+
+        dir_spec = intersect.reflect(direction, normal)
+        ior_eff = torch.where(front, 1.0 / ior, ior)
+        cosine = dot(-direction, normal)
+        sine = sqrt(torch.clamp(1.0 - cosine * cosine, min=0.0))
+        solution = (ior_eff * sine > 1.0) | (
+            bsdf.schlick(cosine, ior_eff) > u6[:, 5]
+        )
+        dir_diel = torch.where(
+            solution[:, None], dir_spec,
+            intersect.refract(direction, normal, ior_eff),
+        )
+        sign_diel = torch.where(
+            solution, 1.0, torch.sign(dot(normal, direction))
+        )
+        new_dir = torch.where(
+            is_spec[:, None], dir_spec,
+            torch.where(is_diel[:, None], dir_diel, cos_dir),
+        )
+        sec_rad = albedo if cfg.tint_spec_diel else 1.0
+        radiance = torch.where(is_diff[:, None], rad_diff, sec_rad)
+        origin_sign = torch.where(is_diel, sign_diel, 1.0)
+        # alpha cutout: pass-through delta bounce (see _apply_material_maps)
+        new_dir = torch.where(cutout[:, None], direction, new_dir)
+        radiance = torch.where(cutout[:, None], 1.0, radiance)
+        is_diff = is_diff & ~cutout
+        atten = atten * torch.where(alive[:, None], radiance, 1.0)
+
+        # ---- russian roulette (raytrace.comp:519-524)
+        if j <= cfg.rr_start_bounce:
+            rr = torch.ones(n, dtype=F32, device=dev)
+        else:
+            rr = torch.clamp(atten.max(dim=-1).values, max=cfg.rr_clamp)
+        alive = alive & ~(u6[:, 6] > rr)
+        atten = atten / torch.clamp(rr, min=1e-20)[:, None]
+        # the last bounce's traversal results are never read
+        alive = alive & (j < cfg.bounce_limit)
+        nee_sem = alive & is_diff
+        nee_active = nee_sem & (dot(normal, l_dir) > 0.0)
+        if not mis:
+            nee_active = torch.zeros_like(nee_active)
+            nee_sem = torch.zeros_like(nee_sem)
+
+        new_origin = hp + normal * (origin_sign * 1e-5)[:, None]
+        new_origin = torch.where(
+            cutout[:, None], hp + direction * 1e-4, new_origin
+        )
+        new_origin = torch.where(alive[:, None], new_origin, origin)
+        new_dir = torch.where(alive[:, None], new_dir, direction)
+
+        if (use_raw and scene.n_lights == 0) or (not mis
+                                                and not with_heatmap):
+            # no shadow launch: NEE cannot contribute (no rect lights) or
+            # the estimator takes none
+            hit = traverse.traverse(scene, new_origin, new_dir, alive,
+                                    routing=rt)
+            nee_active = torch.zeros_like(nee_active)
+            nee_sem = torch.zeros_like(nee_sem)
+            l_emit = f3(0.0)
+            real_l_pdf = torch.zeros(n, dtype=F32, device=dev)
+        elif use_raw:
+            # closest-hit bounce rays + any-hit shadow rays; the light pdf
+            # is analytic at the sampled distance
+            hit = traverse.traverse(scene, new_origin, new_dir, alive,
+                                    routing=rt)
+            occluded = traverse.traverse_anyhit(
+                scene, nee_origin, l_dir, nee_active,
+                tmax=l_dist * (1.0 - 1e-3), routing=rt,
+            )
+            reached = nee_active & ~occluded
+            l_emit = lights.rect_light_emission(scene, li.long())
+            real_l_pdf = torch.where(
+                reached,
+                lights.rect_light_pdf_analytic(scene, li.long(), l_dir,
+                                               l_dist),
+                0.0,
+            )
+        else:
+            # one closest-hit launch: bounce rays ++ shadow rays, the
+            # shadow rays clipped just past the sampled light point
+            hit, nee_hit, nee_tri, counts = _combined_closest(
+                scene, cfg, rt, new_origin, new_dir, alive, nee_origin,
+                l_dir, nee_active, l_dist * 1.002 + 1e-3, with_heatmap)
+            if with_heatmap:
+                box, tri = box + counts[0], tri + counts[1]
+            is_sph = nee_hit.kind == traverse.KIND_SPHERE
+            is_tri = nee_hit.kind == traverse.KIND_TRI
+            owner = traverse.tri_owner(scene, torch.where(is_tri, nee_tri, 0))
+            nee_mat = torch.where(
+                is_sph,
+                scene.sphere_mat[torch.where(is_sph, nee_hit.prim, 0).long()],
+                scene.obj_mat[torch.where(is_tri, owner, 0).long()],
+            )
+            nee_mat = torch.where(nee_hit.did_hit, nee_mat, 0).long()
+            nee_strength = scene.mat_emission_strength[nee_mat]
+            l_emit = scene.mat_emission[nee_mat] * nee_strength[:, None]
+            hit_emissive = nee_hit.did_hit & (nee_strength > 0.0)
+            real_l_pdf = lights.rect_light_pdf(
+                scene, li, l_dir, nee_hit.dst, hit_emissive)
+
+        real_l_pdf = real_l_pdf / n_lights_w  # uniform light pick
+        w1 = real_l_pdf**2 / (real_l_pdf**2 + cos_pdf_at_l**2)
+        w1 = torch.where(torch.isnan(w1), 0.0, w1)
+        # sign-preserving: a back-side sample's negative pdf trips the
+        # bad-sample zeroing (raytrace.comp:460,505)
+        direct_diff = l_emit * nee_k * torch.where(
+            real_l_pdf == 0.0, 0.0, w1 / real_l_pdf
+        )[:, None]
+        if mis:
+            new_direct = torch.where(is_diff[:, None], direct_diff, -1.0)
+        else:
+            new_direct = f3(-1.0)
+        direct = torch.where(shaded[:, None], new_direct, direct)
+
+        n_alive = alive.sum().to(F32)
+        n_rays = n_rays + torch.stack([
+            n_alive + nee_sem.sum().to(F32),
+            n_alive + nee_active.sum().to(F32),
+        ])
+        origin, direction = new_origin, new_dir
+
+    color = torch.where(bad[:, None], 0.0, total)
+    if with_heatmap:
+        return color, (box, tri)
+    if with_stats:
+        return color, n_rays
+    return color
+
+
+def _combined_closest(scene, cfg, rt, o, d, alive, nee_o, nee_d,
+                      nee_active, nee_tmax, with_heatmap):
+    """Closest hit of the bounce rays and the shadow rays in one launch:
+    ``(hit, nee_hit, nee_tri, counts)``.  ``nee_tri`` is the shadow hits'
+    global triangle ids; ``counts`` the shadow-lane-folded
+    ``(box_tests, tri_tests)`` of the counting walk with the heatmap,
+    else None."""
+    n = o.shape[0]
+    o_both = torch.cat([o, nee_o])
+    d_both = torch.cat([d, nee_d])
+    a_both = torch.cat([alive, nee_active])
+    t_both = torch.cat([torch.full((n,), intersect.BIG, dtype=F32,
+                                   device=o.device), nee_tmax])
+    counts = None
+    if with_heatmap:
+        both, (sb, st) = traverse.traverse_with_stats(
+            scene, o_both, d_both, a_both, tmax=t_both)
+        counts = (sb[:n] + sb[n:], st[:n] + st[n:])
+    elif cfg.sort_bounce_rays:
+        # alive-first: a stable two-bucket partition, undone after
+        alive_i = a_both.to(torch.int64)
+        n_alive = alive_i.sum()
+        dest = torch.where(a_both, torch.cumsum(alive_i, 0) - 1,
+                           n_alive + torch.cumsum(1 - alive_i, 0) - 1)
+        order = torch.empty_like(dest)
+        order[dest] = torch.arange(dest.shape[0], device=dest.device)
+        both = traverse.traverse(
+            scene, o_both[order], d_both[order], a_both[order],
+            tmax=t_both[order], routing=rt)
+        both = traverse.Hit(*(x[dest] for x in both))
+    else:
+        both = traverse.traverse(scene, o_both, d_both, a_both, tmax=t_both,
+                                 routing=rt)
+    hit = traverse.Hit(*(x[:n] for x in both))
+    nee_hit = traverse.Hit(*(x[n:] for x in both))
+    nee_tri = nee_hit.prim
+    if not with_heatmap and traverse.prim_space(scene, rt) == "slot":
+        nee_tri = scene.leaf_map[torch.clamp(nee_tri, min=0).long()]
+    return hit, nee_hit, nee_tri, counts
+
+
+def render_sample(scene: CompiledScene, rot, pos, fov, aspect, near,
+                  pixel_id, frame: int, sample: int, cfg: RenderConfig):
+    """One path-traced sample per listed pixel through the static scan ->
+    (N,3)."""
+    jitter = None
+    if cfg.aa_jitter:
+        jitter = rng.uniforms(cfg.seed ^ 0xA11A5, pixel_id, frame, sample,
+                              999, 2) - 0.5
+    rays = raygen(rot, pos, fov, aspect, near, pixel_id, cfg.width,
+                  cfg.height, jitter)
+    return trace(scene, rays, pixel_id, frame, sample, cfg)
 
 
 def _bin_key(scene: CompiledScene, origin, direction, alive, mb=5, db=0):

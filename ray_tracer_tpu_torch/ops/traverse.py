@@ -17,12 +17,18 @@ order:
   (``kernels/group.py``): closest hit when ``groups > 0`` and not
   ``two_phase``, occlusion when ``anyhit_group`` too, on scenes with
   one-row (<= 8-record) leaf slots;
-* under ``two_phase=True``, on a scene with treelets, two-phase treelet
-  traversal (:func:`_two_phase_wide`: the TOP and DEEP modes of the
-  packet walk), for closest hit and, ahead of the group kernel, occlusion;
+* under ``two_phase=True``, on a scene with treelets and a TOP table,
+  two-phase treelet traversal (:func:`_two_phase_wide`: the TOP and DEEP
+  modes of the packet walk), for closest hit and, ahead of the group
+  kernel, occlusion;
 * otherwise, still wide, the packet walk (``kernels/packet.py``), which
   also reads the 16-record two-row slots of ``merge_wide_leaves=True``
   scenes.
+
+:func:`traverse_with_stats`, the debug heatmaps' closest hit, counts each
+ray's box and triangle tests on a plain torch walk of the binary BVH
+(the JAX package's counting gather walk, which is not a Pallas kernel
+either).
 
 Triangle hits come back in :func:`prim_space`: padded leaf-slot ids
 (``shade_slot`` rows) on the group, two-phase and packet routes, global
@@ -132,14 +138,17 @@ def _group_on(scene: CompiledScene, routing: Routing) -> bool:
 
 
 def _two_phase_ok(scene: CompiledScene, routing: Routing) -> bool:
-    """Two-phase treelet traversal?  ``two_phase``, the wide route and a
-    scene with treelets, as in the JAX package; its TPU conditions (the
-    node table in VMEM, the SMEM meta mirror within 600 kB) have no
-    counterpart here.  A scene without treelets takes the packet walk."""
+    """Two-phase treelet traversal?  ``two_phase``, the wide route, a
+    scene with treelets and a TOP table, as in the JAX package; its TPU
+    conditions (the node table in VMEM, the SMEM meta mirror within
+    600 kB) have no counterpart here.  A scene without treelets, or whose
+    top level lies beyond the TOP walk's limits (an empty ``wide_top``),
+    takes the packet walk."""
     return (
         routing.two_phase
         and routing.wide
         and scene.meta.get("n_treelets", 0) > 0
+        and scene.wide_top.shape[0] > 0
     )
 
 
@@ -281,6 +290,29 @@ def _sphere_dst(scene, origin, direction):
     return torch.where(s_hit, s_dst, BIG), s_front
 
 
+def _sphere_hits(scene, origin, direction, active, tmax):
+    """The closest sphere hit of each active ray inside ``tmax`` (default
+    BIG) as ``(dst, kind, prim, front)``; ``dst`` is the bound where none
+    is hit."""
+    n = origin.shape[0]
+    dev = origin.device
+    dst = torch.full((n,), BIG, device=dev) if tmax is None else tmax
+    kind = torch.zeros((n,), dtype=torch.int32, device=dev)
+    prim = torch.zeros((n,), dtype=torch.int32, device=dev)
+    front = torch.zeros((n,), dtype=torch.bool, device=dev)
+    if scene.n_spheres > 0:
+        s_dst, s_front = _sphere_dst(scene, origin, direction)
+        si = torch.argmin(s_dst, dim=1, keepdim=True)  # first index on ties
+        sd = torch.gather(s_dst, 1, si)[:, 0]
+        sf = torch.gather(s_front, 1, si)[:, 0]
+        better = active & (sd < dst)
+        dst = torch.where(better, sd, dst)
+        kind = torch.where(better, KIND_SPHERE, kind).to(torch.int32)
+        prim = torch.where(better, si[:, 0].to(torch.int32), prim)
+        front = torch.where(better, sf, front)
+    return dst, kind, prim, front
+
+
 def traverse(
     scene: CompiledScene,
     origin: torch.Tensor,
@@ -299,23 +331,8 @@ def traverse(
     which the caller reads; without it a malformed stream raises here.
     """
     rt = routing if routing is not None else Routing()
-    n = origin.shape[0]
-    dev = origin.device
-    dst = torch.full((n,), BIG, device=dev) if tmax is None else tmax
-    kind = torch.zeros((n,), dtype=torch.int32, device=dev)
-    prim = torch.zeros((n,), dtype=torch.int32, device=dev)
-    front = torch.zeros((n,), dtype=torch.bool, device=dev)
-
-    if scene.n_spheres > 0:
-        s_dst, s_front = _sphere_dst(scene, origin, direction)
-        si = torch.argmin(s_dst, dim=1, keepdim=True)  # first index on ties
-        sd = torch.gather(s_dst, 1, si)[:, 0]
-        sf = torch.gather(s_front, 1, si)[:, 0]
-        better = active & (sd < dst)
-        dst = torch.where(better, sd, dst)
-        kind = torch.where(better, KIND_SPHERE, kind).to(torch.int32)
-        prim = torch.where(better, si[:, 0].to(torch.int32), prim)
-        front = torch.where(better, sf, front)
+    dst, kind, prim, front = _sphere_hits(scene, origin, direction, active,
+                                          tmax)
 
     if not _has_tris(scene):
         return Hit(dst, kind, prim, front)
@@ -395,3 +412,117 @@ def traverse_anyhit(
             scene.wide_packed, scene.leaf_rows, o, d, tmax0,
             scene.meta.get("wide_leaf_recs", 8), anyhit=True)
     return (occ | (dst < -1.0)) & active
+
+
+_SENTINEL = 2**31 - 1  # the walk's end: no next node
+
+
+def tri_owner(scene: CompiledScene, tri_id) -> torch.Tensor:
+    """The owning instance of global triangles ``tri_id``: the i32 bits of
+    ``tri_packed`` column 13."""
+    return scene.tri_packed[tri_id.long(), 13].contiguous().view(torch.int32)
+
+
+def traverse_with_stats(scene: CompiledScene, origin, direction, active,
+                        tmax=None):
+    """Closest hit plus ``(box_tests, tri_tests)`` per ray, (N,) f32 each.
+
+    The debug heatmaps' traversal (the JAX package's
+    ``traverse_with_stats``): spheres merge as in :func:`traverse` but are
+    not counted (the reference's sphere loop counts nothing); triangles
+    come from :func:`_walk_stats`, a plain torch walk of the binary BVH
+    that counts every box and triangle test.  Triangle ``prim`` is a
+    global triangle id (``prim_space`` ``'tri'``).
+    """
+    dst, kind, prim, front = _sphere_hits(scene, origin, direction, active,
+                                          tmax)
+    # the walk updates these in place
+    dst, kind, prim, front = (x.clone() for x in (dst, kind, prim, front))
+    box = torch.zeros(origin.shape[:1], dtype=torch.float32,
+                      device=origin.device)
+    tri = torch.zeros_like(box)
+    if _has_tris(scene):
+        _walk_stats(scene, origin, direction, active, dst, kind, prim,
+                    front, box, tri)
+    return Hit(dst, kind, prim, front), (box, tri)
+
+
+def _walk_stats(scene, o, d, active, dst, kind, prim, front, box, tri):
+    """The stackless octant-threaded walk of the flattened binary BVH
+    (``bvh_packed`` rows, ``links_packed`` hit|miss links per octant),
+    counting per ray one box test per node visited and one triangle test
+    per leaf record tested, as the JAX package's ``_walk`` does.  Updates
+    the closest-hit tensors and the counters in place.
+
+    Each step works on the live lanes only: the walk gathers them into
+    dense arrays and compacts those whenever half of them have finished,
+    writing the finished lanes' results back; it tests only as many leaf
+    records as the fullest leaf entered in that step holds.
+    """
+    n_nodes = scene.bvh_index.shape[0]
+    max_steps = n_nodes + 1  # each node is visited at most once
+    max_leaf = scene.meta.get("max_leaf_tris", 2)
+    inv_dir = 1.0 / d
+    octant = ((inv_dir[:, 0] < 0).to(torch.int64)
+              + 2 * (inv_dir[:, 1] < 0).to(torch.int64)
+              + 4 * (inv_dir[:, 2] < 0).to(torch.int64))
+    root = int(scene.obj_bvh_root[0])
+    lane = torch.nonzero(active).flatten()
+    st = dict(
+        lane=lane, node=torch.full_like(lane, root), o=o[lane],
+        d=d[lane], inv=inv_dir[lane], base=octant[lane] * n_nodes,
+        dst=dst[lane], kind=kind[lane], prim=prim[lane],
+        front=front[lane], box=box[lane], tri=tri[lane],
+    )
+    outs = dict(dst=dst, kind=kind, prim=prim, front=front, box=box,
+                tri=tri)
+
+    def write_back(keep):
+        done = ~keep
+        at = st["lane"][done]
+        for k, out in outs.items():
+            out[at] = st[k][done]
+
+    steps = 0
+    live = torch.ones_like(lane, dtype=torch.bool)
+    while st["lane"].numel() and steps < max_steps:
+        ni = torch.where(live, st["node"], 0)
+        row = scene.bvh_packed[ni]
+        idx = row[:, 6].contiguous().view(torch.int32).long()
+        cnt = row[:, 7].contiguous().view(torch.int32).long()
+        t_box = intersect.slab_test(st["o"], st["inv"], row[:, 0:3],
+                                    row[:, 3:6])
+        box_hit = live & (t_box < st["dst"])
+        is_leaf = cnt > 0
+        st["box"] = st["box"] + live.to(torch.float32)
+        leaf_hit = box_hit & is_leaf
+        # records to test this step: the most any lane's leaf holds (the
+        # rest of the JAX walk's max_leaf_tris tests are masked no-ops)
+        n_rec = min(max_leaf, int(torch.where(leaf_hit, cnt, 0).max()))
+        for k in range(n_rec):
+            valid = leaf_hit & (k < cnt)
+            ti = torch.where(valid, idx + k, 0)
+            trow = scene.tri_packed[ti]
+            t, _, _, _, fr, hit = intersect.intersect_tris(
+                st["o"], st["d"], trow[:, 0:3], trow[:, 3:6], trow[:, 6:9],
+                trow[:, 9:12], trow[:, 12] > 0.5)
+            closer = valid & hit & (t < st["dst"])
+            st["tri"] = st["tri"] + valid.to(torch.float32)
+            st["dst"] = torch.where(closer, t, st["dst"])
+            st["kind"] = torch.where(closer, KIND_TRI, st["kind"]).to(
+                torch.int32)
+            st["prim"] = torch.where(closer, ti.to(torch.int32), st["prim"])
+            st["front"] = torch.where(closer, fr, st["front"])
+        links = scene.links_packed[st["base"] + ni]
+        nxt = torch.where(box_hit & ~is_leaf, links[:, 0], links[:, 1])
+        live = live & (nxt != _SENTINEL)
+        st["node"] = nxt.long()
+        steps += 1
+        n_live = int(live.sum())
+        if n_live == 0 or steps >= max_steps:
+            break
+        if 2 * n_live <= live.numel():
+            write_back(live)
+            st = {k: v[live] for k, v in st.items()}
+            live = torch.ones_like(st["lane"], dtype=torch.bool)
+    write_back(torch.zeros_like(live))

@@ -37,6 +37,17 @@ def cosine_hemisphere_pdf(normal, direction):
     return torch.clamp(dot(direction, normal) * INV_PI, min=0.0)
 
 
+def uniform_hemisphere_dir(normal, r1, r2):
+    """Uniform hemisphere sample (pdf 1/2pi) for the ``estimator="uniform"``
+    ablation: a uniform sphere point mirrored into the normal's
+    hemisphere."""
+    phi = 2.0 * math.pi * r1
+    z = 2.0 * r2 - 1.0
+    s = sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    d = torch.stack([s * torch.cos(phi), s * torch.sin(phi), z], dim=-1)
+    return torch.where((dot(d, normal) < 0.0)[:, None], -d, d)
+
+
 def schlick(cosine, refraction_index):
     """raytrace.comp:177-181."""
     r0 = (1.0 - refraction_index) / (1.0 + refraction_index)

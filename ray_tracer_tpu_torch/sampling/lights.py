@@ -52,3 +52,13 @@ def rect_light_emission(scene, li):
         ]
     mat = scene.light_mat[li]
     return scene.mat_emission[mat] * scene.mat_emission_strength[mat][:, None]
+
+
+def rect_light_pdf(scene, li, direction, hit_dst, hit_emissive):
+    """Solid-angle pdf of the sampled direction given the shadow ray's
+    closest hit (``lightSamplePDF``, raytrace.comp:389-403): zero unless
+    the ray reached an emissive surface, else ``dst^2 / (cos * area)``."""
+    li = li.long()
+    cos_theta = dot(scene.light_normal[li], direction)
+    pdf = hit_dst * hit_dst / (cos_theta * scene.light_area[li])
+    return torch.where(hit_emissive, pdf, 0.0)

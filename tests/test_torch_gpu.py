@@ -929,3 +929,67 @@ def test_render_routes_on_card(dev, scene, route):
               **lanewalk.launches}
     assert all(counts[m] > 0 for m in modes), counts
     assert counts["group_traverse"] == counts["group_anyhit"] == 0
+
+
+def _card_vs_cpu(gpu, cpu):
+    """The card's image against the CPU's: chip_smoke.py's thresholds
+    (>= 99% of pixels within 2e-3, mean |diff| < 1e-3)."""
+    assert gpu.device.type == "cuda" and bool(torch.isfinite(gpu).all())
+    diff = (gpu.cpu() - cpu).abs()
+    assert float((diff.amax(dim=-1) <= 2e-3).float().mean()) >= 0.99
+    assert float(diff.mean()) < 1e-3
+
+
+@pytest.mark.gpu
+def test_progressive_on_card_matches_cpu(dev, scene, tmp_path):
+    """Two progressive steps at 64x36 on the card against the CPU's; the
+    state saved on the card resumes on the card."""
+    cfg = trt.RenderConfig(width=64, height=36, samples_per_pixel=2,
+                           bounce_limit=8)
+    card = trt.ProgressiveRenderer(scene, cfg)
+    host = trt.ProgressiveRenderer(scene.to("cpu"), cfg)
+    group.reset_launches()
+    for _ in range(2):
+        card.step()
+        host.step()
+    assert card.accum.device.type == "cuda"
+    assert group.launches["group_traverse"] > 0
+    _card_vs_cpu(card.accum, host.accum)
+    path = str(tmp_path / "state.npz")
+    card.save_state(path)
+    resumed = trt.ProgressiveRenderer(scene, cfg)
+    resumed.load_state(path)
+    assert resumed.accum.device.type == "cuda"
+    assert torch.equal(resumed.accum, card.accum)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("estimator", ["mis", "cosine", "uniform"])
+def test_static_scan_on_card_matches_cpu(dev, scene, estimator):
+    cfg = trt.RenderConfig(width=64, height=36, samples_per_pixel=2,
+                           bounce_limit=8, path_regen=False,
+                           estimator=estimator)
+    group.reset_launches()
+    gpu = trt.render(scene, cfg)
+    torch.cuda.synchronize()
+    assert group.launches["group_traverse"] > 0
+    if estimator == "mis":
+        assert group.launches["group_anyhit"] > 0
+    _card_vs_cpu(gpu, trt.render(scene.to("cpu"), cfg))
+
+
+@pytest.mark.gpu
+def test_debug_heatmap_on_card_matches_cpu(dev, scene):
+    """The counting walk's box and triangle counts on the card against
+    the CPU's, at 64x36, spp 1."""
+    from ray_tracer_tpu_torch.api import debug_counts
+
+    cfg = trt.RenderConfig(width=64, height=36, samples_per_pixel=1,
+                           bounce_limit=8)
+    gb, gt = (x.cpu() for x in debug_counts(scene, cfg))
+    cb, ct = debug_counts(scene.to("cpu"), cfg)
+    assert float(cb.mean()) > 10
+    assert float((gb != cb).float().mean()) <= 0.01
+    assert float((gt != ct).float().mean()) <= 0.01
+    img = trt.render_debug(scene, cfg, mode=2)
+    assert img.device.type == "cuda" and img.shape == (36, 64, 3)

@@ -200,8 +200,6 @@ def test_room_drain_phases_match_jax(room):
 
 
 @pytest.mark.parametrize("change", [
-    {"path_regen": False},
-    {"estimator": "cosine"},
     {"nee_anyhit": False},
     {"enable_normal_maps": True},
     {"bin_rays": False},

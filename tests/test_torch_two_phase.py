@@ -27,6 +27,7 @@ below the ray's final closest hit are emitted by every order: those sets
 must agree.
 """
 
+import dataclasses
 import functools
 import os
 import sys
@@ -892,3 +893,49 @@ def test_render_matches_group_route(tmp_path, monkeypatch):
     ref = trt.render(sc, cfg)
     assert_images_match(img.numpy(), ref.numpy())
     assert float(np.abs(img.numpy() - ref.numpy()).max()) < 1e-6
+
+
+def test_empty_top_table_takes_the_packet_walk(tmp_path, monkeypatch):
+    """A scene whose top level lies beyond the TOP walk's limits holds an
+    empty (0,64) TOP table: ``Routing(two_phase=True)`` then takes the
+    packet walk, as the JAX route falls back, and raises nowhere.  The
+    2000-triangle soup under the sky, 24x24, spp 2, bounce 3: the route
+    equals the port's packet route (``dst`` exact, ``prim`` up to exact-t
+    ties) and its image the JAX ``render`` with ``two_phase=True``."""
+    tmp = str(tmp_path)
+
+    def lit_soup(pkg):
+        b = soup_scene(pkg, tmp, n_tris=N_TRIS)
+        b.set_environment(pkg.Environment(enabled=True))
+        b.set_camera(pkg.Camera(position=(0.0, -0.5, -6.0)))
+        return b
+
+    full = lit_soup(trt).compile(device="cpu", max_leaf_tris=4)
+    assert full.meta["n_treelets"] > 0 and full.wide_top.shape[0] > 0
+    sc = dataclasses.replace(full, wide_top=torch.zeros((0, 64)))
+    rt = Routing(two_phase=True)
+    o, d, tmax = (torch.from_numpy(x) for x in _rays(18, 600, "clipped"))
+    act = torch.ones(600, dtype=torch.bool)
+    calls = _count_calls(monkeypatch)
+    got = t_traverse.traverse(sc, o, d, act, routing=rt)
+    occ = t_traverse.traverse_anyhit(sc, o, d, act, tmax, routing=rt)
+    assert calls == ["root", "root"]
+    packet_rt = Routing(groups=0, anyhit_group=False)
+    want = t_traverse.traverse(sc, o, d, act, routing=packet_rt)
+    assert torch.equal(got.dst, want.dst)
+    assert torch.equal(got.kind, want.kind)
+    hit = want.kind.numpy() == 2
+    assert hit.sum() > 100
+    assert_tri_ties(sc, o.numpy(), d.numpy(),
+                    _tris(sc, np.where(hit, got.prim.numpy(), -1)),
+                    _tris(sc, np.where(hit, want.prim.numpy(), -1)), hit)
+    assert torch.equal(occ, t_traverse.traverse_anyhit(
+        sc, o, d, act, tmax, routing=packet_rt))
+
+    cfg = dict(width=24, height=24, samples_per_pixel=2, bounce_limit=3)
+    img = trt.render(sc, trt.RenderConfig(routing=rt, **cfg))
+    ref = jrt.render(lit_soup(jrt).compile(max_leaf_tris=4).device_put(),
+                     jrt.RenderConfig(routing=JRouting(two_phase=True),
+                                      **cfg))
+    assert float(img.mean()) > 0.01
+    np.testing.assert_allclose(img.numpy(), np.asarray(ref), atol=2e-3)

@@ -463,3 +463,96 @@ def nearest_first(origin, direction, entries, packet_size, entry_box):
     ent = entries[torch.arange(n) // packet_size]
     key = entry_dist(origin, direction, ent, entry_box)
     return torch.sort(key, dim=1, stable=True).indices
+
+
+def _textured_box(path, mtllib=None, groups=("box",)):
+    """The unit box with per-face uvs and normals; its faces split among
+    ``groups`` (``usemtl`` names when ``mtllib`` is given)."""
+    verts, faces = unit_box()
+    lines = [f"mtllib {mtllib}\n"] if mtllib else []
+    lines += [f"v {v[0]:.6f} {v[1]:.6f} {v[2]:.6f}\n" for v in verts]
+    lines += ["vt 0 0\n", "vt 1 0\n", "vt 1 1\n", "vt 0.25 0.75\n"]
+    lines += ["vn 0 0 -1\n", "vn 0 1 0\n"]
+    per = -(-len(faces) // len(groups))
+    for g, name in enumerate(groups):
+        if mtllib:
+            lines.append(f"usemtl {name}\n")
+        for k, (a, b, c) in enumerate(faces[g * per:(g + 1) * per]):
+            n = 1 + k % 2
+            lines.append(f"f {a}/1/{n} {b}/2/{n} {c}/3/{n}\n")
+    with open(path, "w") as f:
+        f.write("".join(lines))
+    return path
+
+
+def _png(path, seed):
+    from ray_tracer_tpu_torch.integrator import film
+
+    rgb = np.random.default_rng(seed).integers(0, 256, (6, 5, 3), np.uint8)
+    with open(path, "wb") as f:
+        f.write(film.encode_png_uint8(rgb))
+    return path
+
+
+def stand_in_assets(tmp):
+    """Stand-ins for the files the asset-backed presets read: small OBJs
+    under the shipped names (2 x 2 quads for the Cornell walls, the
+    skylight quad for the light, a textured box for every model), seeded PNGs for their maps, and the
+    bobadog OBJ with its MTL (two ``usemtl`` groups, one ``map_Ka``
+    texture).  Returns the directory, for the presets' ``assets=``."""
+    for name, n in (("plane", 2), ("ceiling", 1)):  # 2 x 2 walls
+        verts, faces = quad_grid(n)
+        write_obj(os.path.join(tmp, f"{name}.obj"),
+                  [(2 * x, y, 2 * z) for x, y, z in verts], faces)
+    light = [(x / 3.0, 0.0, z / 3.0) for x, z in
+             ((-1, -1), (1, -1), (1, 1), (-1, 1))]
+    write_obj(os.path.join(tmp, "light2.obj"), light, [(1, 2, 3), (1, 3, 4)])
+    for k, name in enumerate(("cube", "monkey", "dread", "rb", "squeezer",
+                              "slosher", "bunny")):
+        _textured_box(os.path.join(tmp, f"{name}.obj"))
+        for m, suffix in enumerate(("alb", "mtl")):
+            _png(os.path.join(tmp, f"{name}_{suffix}.png"), 2 * k + m)
+    dog = os.path.join(tmp, "bobadog")
+    os.makedirs(dog, exist_ok=True)
+    _textured_box(os.path.join(dog, "bobadog.obj"), mtllib="bobadog.mtl",
+                  groups=("body", "eyes"))
+    with open(os.path.join(dog, "bobadog.mtl"), "w") as f:
+        f.write("newmtl body\nKa 1 1 1\nKd 0.8 0.6 0.9\n"
+                "map_Ka bobaxture2.png\n"
+                "newmtl eyes\nKd 0.1 0.1 0.1\n")
+    _png(os.path.join(dog, "bobaxture2.png"), 99)
+    return tmp
+
+
+def assert_tables_match(jax_scene, tsc):
+    """Every table of the port's compiled scene (compiled with
+    ``rope_streams=True``) equals the JAX package's for the same builder
+    script, NaN-equal, and so does its ``meta``; the tables that only the
+    port keeps equal those derived from the JAX tables."""
+    from ray_tracer_tpu_torch import CompiledScene
+    from ray_tracer_tpu_torch.scene.builder import top_table_or_empty
+    from ray_tracer_tpu_torch.scene.types import (
+        narrow_root_meta,
+        page_counts,
+        rope_box_rows,
+        rope_placeholder,
+    )
+
+    jarr, jmeta = scene_arrays(jax_scene)
+    if jmeta["rope_rows"]:
+        jarr["rope_streams"], n_box = rope_box_rows(
+            jarr["rope_streams"], jmeta["rope_rows"],
+            jarr["tri_packed"].shape[0])
+        jmeta = {**jmeta, "rope_rows": n_box}
+    else:
+        jarr["rope_streams"] = rope_placeholder()
+    jarr.update(page_counts(jarr, jmeta))
+    jarr["wide_top"] = top_table_or_empty(jarr["wide_packed"],
+                                          jarr["wide_troot"])
+    for f in CompiledScene.array_fields():
+        got, want = np.asarray(getattr(tsc, f)), jarr[f]
+        assert got.dtype == want.dtype, f
+        np.testing.assert_array_equal(got, want, err_msg=f)
+    jmeta = {**jmeta, **narrow_root_meta(jarr)}
+    for k, v in tsc.meta.items():
+        assert jmeta[k] == v, k
