@@ -42,7 +42,16 @@ against the CPU, the debug heatmap at the viewer's preview size with
 its counts at 64x36 against the CPU's, the CLI as subprocesses (a
 progressive render with a checkpoint, run twice so that the second
 resumes, and the bench line) and the viewer (its render loop and HTTP
-server in threads, every endpoint requested).  Every phase prints one
+server in threads, every endpoint requested).  The configuration values
+(``config_values``: the leaf and hier bin keys, pre-permute NEE sorted
+and not, the unbinned wavefront, each equal to the main frame bit for
+bit; closest-hit NEE within 1% of it and at 64x36 against the CPU), bump
+maps on a scene built here (``normal_maps``), ``sponza_proxy`` compiled
+as a forest (``forest``: 64x36 against the CPU, the benchmark frame
+through the narrow walk per instance), the static scan's occupancy
+profile, and an NCCL world of one (``sharded``: ``render_frame_sharded``
+on a (1, 1) mesh equal to ``render_frame``, then the port's
+``dryrun_multichip(1)``).  Every phase prints one
 line; any failure raises, so the exit code is non-zero and no result
 line is printed.  The line before the last
 lists the kernels; the last line is
@@ -916,13 +925,13 @@ def card_vs_cpu(sc, sc_cpu, title, routing=None, **kw):
     images_agree(title, gpu, cpu, card_s=t1 - t0, cpu_s=t2 - t1, **kw)
 
 
-def images_agree(title, gpu, cpu, **fields):
+def images_agree(title, gpu, cpu, spp=2, **fields):
     """The card's image against the CPU's: >= 99% of pixels within 2e-3
     and a mean |diff| below 1e-3, else raise."""
     gpu = gpu.cpu()
     diff = (gpu - cpu).abs()
     within = float((diff.amax(dim=-1) <= 2e-3).float().mean())
-    phase(title, size=f"{SMALL[0]}x{SMALL[1]}", spp=2, bounce=8,
+    phase(title, size=f"{SMALL[0]}x{SMALL[1]}", spp=spp, bounce=8,
           pixels_within_2e3=within, mean_abs_diff=float(diff.mean()),
           max_abs_diff=float(diff.max()), **fields)
     if not bool(torch.isfinite(gpu).all()):
@@ -931,17 +940,22 @@ def images_agree(title, gpu, cpu, **fields):
         raise AssertionError(f"{title}: card and CPU renders disagree")
 
 
-def frame(sc, dev, title, routing, timed, main=None):
+def frame(sc, dev, title, routing, timed, main=None, **kw):
     """The benchmark frame through ``render`` (the launch counts are this
-    call's), then ``timed`` frames of bench.py's measure (frame index 1,
-    ray counts from the wavefront): their median time, and the checksum
-    and ray counts, which must agree with ``main``'s within 1%."""
+    call's; its image is kept as ``image``, not printed), then ``timed``
+    frames of bench.py's measure (frame index 1, ray counts from the
+    wavefront): their median time, and the checksum and ray counts, which
+    must agree with ``main``'s within 1%.  ``kw``: more RenderConfig
+    values."""
     cfg = trt.RenderConfig(width=FRAME[0], height=FRAME[1],
                            samples_per_pixel=2, bounce_limit=8,
-                           max_rays_per_batch=1 << 21, routing=routing)
+                           max_rays_per_batch=1 << 21, routing=routing, **kw)
     reset_launches()
+    torch.cuda.synchronize()
+    t_render = time.perf_counter()
     img = trt.render(sc, cfg)
     torch.cuda.synchronize()
+    render_s = time.perf_counter() - t_render
     launches = all_launches()
     finite = bool(torch.isfinite(img).all())
     if img.shape != (FRAME[1], FRAME[0], 3) or not finite:
@@ -960,9 +974,9 @@ def frame(sc, dev, title, routing, timed, main=None):
         times.append(time.perf_counter() - t0)
     dt = statistics.median(times)
     rays_sem, rays_traced = (int(x) for x in n_rays.tolist())
-    rec = dict(frame_s=dt, frame_s_all=times, rays_sem=rays_sem,
-               rays_traced=rays_traced, checksum=checksum,
-               launches=launches)
+    rec = dict(frame_s=dt, frame_s_all=times, render_s=render_s,
+               rays_sem=rays_sem, rays_traced=rays_traced,
+               checksum=checksum, launches=launches)
     if main is not None:
         rec["vs_main"] = {
             k: rec[k] / main[k] - 1.0 for k in ("checksum", "rays_sem")}
@@ -975,6 +989,7 @@ def frame(sc, dev, title, routing, timed, main=None):
             >= 0.01:
         raise AssertionError(f"{title}: checksum or rays_sem off the main "
                              f"frame's by 1% or more: {rec['vs_main']}")
+    rec["image"] = img
     return rec
 
 
@@ -1076,9 +1091,22 @@ def static_scan(sc, sc_cpu):
     dt = time.perf_counter() - t0
     launches = all_launches()
     finite = bool(torch.isfinite(img).all())
+    # the occupancy profile: one sample of every pixel
+    rot, pos, fov, aspect, near = _camera_arrays(scene_camera(sc), cfg,
+                                                 sc.device)
+    ids = torch.arange(cfg.n_pixels, dtype=torch.int32, device=sc.device)
+    rays = wavefront.raygen(rot, pos, fov, aspect, near, ids, cfg.width,
+                            cfg.height)
+    _, n_rays, (alive, nee) = wavefront.trace(sc, rays, ids, 0, 0, cfg,
+                                              with_profile=True)
+    profile = dict(lanes=cfg.n_pixels, alive=alive.tolist(),
+                   nee_active=nee.tolist(), rays=n_rays.tolist())
     phase("static_scan", size=f"{FRAME[0]}x{FRAME[1]}", spp=2, bounce=8,
           frame_s=dt, checksum=float(img.sum()), image_mean=float(img.mean()),
-          finite=finite, launches=launches)
+          finite=finite, launches=launches, profile=profile)
+    if len(profile["alive"]) != 9 or profile["alive"][0] <= 0 or \
+            profile["alive"][-1] != 0.0:
+        raise AssertionError(f"static_scan: bad profile {profile}")
     if img.shape != (FRAME[1], FRAME[0], 3) or not finite:
         raise AssertionError(f"static_scan: bad frame {tuple(img.shape)}")
     if launches["group_traverse"] <= 0 or launches["group_anyhit"] <= 0:
@@ -1270,6 +1298,205 @@ def viewer_phase():
         raise AssertionError("viewer: a thread did not stop")
 
 
+CONFIG_VALUES = {  # phase key -> the RenderConfig values of a frame
+    "bin_leaf": dict(routing=trt.Routing(bin_mode="leaf")),
+    "bin_hier": dict(routing=trt.Routing(bin_mode="hier")),
+    "prebin_sort": dict(routing=trt.Routing(nee_prebin="sort")),
+    "prebin_nosort": dict(routing=trt.Routing(nee_prebin="nosort")),
+    "unbinned": dict(bin_rays=False),
+}
+
+
+def config_values(sc, sc_cpu, dev, main):
+    """The wavefront's configuration values at the benchmark frame: the
+    bin modes, pre-permute NEE and the unbinned wavefront only re-order
+    lanes, so each image must equal the main frame's bit for bit; the
+    closest-hit NEE resolve (``nee_anyhit=False``) must agree with its
+    checksum and ray counts within 1%, and at 64x36 with the CPU."""
+    out = {}
+    for key, kw in CONFIG_VALUES.items():
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = trt.render(sc, frame_cfg(**kw))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        equal = bool(torch.equal(img, main["image"]))
+        out[key] = dict(frame_s=dt, equal_to_main=equal,
+                        launches=all_launches())
+        del img
+        if not equal:
+            raise AssertionError(f"config_values: {key}'s frame differs "
+                                 "from the main frame")
+    closest = frame(sc, dev, "frame_closest_nee", None, 1, main=main,
+                    nee_anyhit=False)
+    del closest["image"]
+    phase("config_values", size=f"{FRAME[0]}x{FRAME[1]}", spp=2, bounce=8,
+          main_render_s=main["render_s"], **out)
+    card_vs_cpu(sc, sc_cpu, "card_vs_cpu_closest_nee", nee_anyhit=False)
+    return closest
+
+
+def bump_scene(tmp):
+    """A scene built here with a generated height map: a 48x48-quad wall
+    facing the camera, its uv tiled 4 times over a 128x128 height map of
+    round bumps (a PNG written by ``film``), a dark wall behind the
+    camera and a rect light in front of the textured wall, offset to
+    +x."""
+    n, tiles = 48, 4.0
+    verts, uvs, faces = [], [], []
+    for j in range(n + 1):
+        for i in range(n + 1):
+            verts.append((3.0 * i / n - 1.5, 3.0 * j / n - 1.5, 0.0))
+            uvs.append((tiles * i / n, tiles * j / n))
+    for j in range(n):
+        for i in range(n):
+            a = j * (n + 1) + i + 1
+            faces.append((a, a + n + 2, a + 1))
+            faces.append((a, a + n + 1, a + n + 2))
+    lines = [f"v {x} {y} {z}\n" for x, y, z in verts]
+    lines += [f"vt {u} {v}\n" for u, v in uvs]
+    lines += ["vn 0 0 -1\n"]
+    lines += [f"f {a}/{a}/1 {b}/{b}/1 {c}/{c}/1\n" for a, b, c in faces]
+    wall = os.path.join(tmp, "bump_wall.obj")
+    with open(wall, "w") as f:
+        f.write("".join(lines))
+    back = os.path.join(tmp, "bump_back.obj")
+    with open(back, "w") as f:
+        f.write("v -9 -9 -3.2\nv 9 -9 -3.2\nv 9 9 -3.2\nv -9 9 -3.2\n"
+                "vt 0 0\nvt 1 0\nvt 1 1\nvt 0 1\nvn 0 0 1\n"
+                "f 1/1/1 2/2/1 3/3/1\nf 1/1/1 3/3/1 4/4/1\n")
+    y, x = torch.meshgrid(torch.arange(128.0), torch.arange(128.0),
+                          indexing="ij")
+    height = 0.5 + 0.5 * torch.cos(x * (torch.pi / 16)) * torch.cos(
+        y * (torch.pi / 16))
+    gray = (height * 255).round().to(torch.uint8)
+    png = os.path.join(tmp, "bump_height.png")
+    with open(png, "wb") as f:
+        f.write(film.encode_png_uint8(gray[..., None].expand(-1, -1, 3)
+                                      .numpy()))
+    b = trt.SceneBuilder()
+    tex = b.add_texture(png)
+    mat = b.add_material(trt.Material(albedo=(0.8, 0.8, 0.8), bump_tex=tex))
+    dark = b.add_material(trt.Material(albedo=(0.25, 0.25, 0.25)))
+    glow = b.add_material(trt.Material(emission_color=(1, 1, 1),
+                                       emission_strength=6.0))
+    b.add_obj(wall, material=mat, sampler=1)
+    b.add_obj(back, material=dark)
+    b.add_rect_light((1.8, -0.6, -1.6), (0.6, 0.0, 0.0), (0.0, 1.2, 0.0),
+                     (0.0, 0.0, -1.0), glow)
+    b.set_environment(trt.Environment(enabled=False))
+    b.set_camera(trt.Camera(position=(0, 0, -2.8), angles_deg=(0, 0, 0)))
+    return b
+
+
+def normal_maps(tmp):
+    """Bump mapping on a scene built here (``bump_scene``): 64x36 on the
+    card against the CPU with the map on, and the 1920x1080 frame's time
+    with the map on and off; the map must move the image."""
+    b = bump_scene(tmp)
+    sc = b.compile()
+    if sc.tex_size.tolist() != [[128, 128]] or sc.meta["n_bump_maps"] != 1:
+        raise AssertionError(f"normal_maps: the height map did not load: "
+                             f"{sc.tex_size.tolist()}")
+    on = dict(enable_normal_maps=True, bump_scale=4.0)
+    card_vs_cpu(sc, b.compile(device="cpu"), "card_vs_cpu_normal_maps", **on)
+    times, imgs = {}, {}
+    for key, kw in (("on", on), ("off", {})):
+        trt.render(sc, frame_cfg(**kw))  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        imgs[key] = trt.render(sc, frame_cfg(**kw))
+        torch.cuda.synchronize()
+        times[key] = time.perf_counter() - t0
+    moved = float((imgs["on"] - imgs["off"]).abs().mean())
+    phase("normal_maps", size=f"{FRAME[0]}x{FRAME[1]}", spp=2, bounce=8,
+          n_tris=sc.meta["n_tris"], frame_s_on=times["on"],
+          frame_s_off=times["off"], image_mean_on=float(imgs["on"].mean()),
+          image_mean_off=float(imgs["off"].mean()), mean_abs_moved=moved)
+    if not bool(torch.isfinite(imgs["on"]).all()) or moved < 1e-3:
+        raise AssertionError(f"normal_maps: the map moved the frame by "
+                             f"{moved}")
+
+
+def forest(dev, main):
+    """``sponza_proxy`` compiled as a forest (one BVH per mesh, the
+    instances walked in turn by the narrow walk): 64x36 (spp 1) on the
+    card against the CPU, then the benchmark frame, whose checksum and
+    ray counts must agree with the main frame's within 1%; its image's
+    mean |diff| from the main frame is printed (the forest's trees have
+    no spatial splits, so the frames differ only at exact-t ties)."""
+    t0 = time.perf_counter()
+    sc = presets.sponza_proxy(SCENE_TRIS).compile(flatten_instances=False)
+    compile_s = time.perf_counter() - t0
+    cfg = trt.RenderConfig(width=SMALL[0], height=SMALL[1],
+                           samples_per_pixel=1, bounce_limit=8)
+    t0 = time.perf_counter()
+    gpu = trt.render(sc, cfg)
+    t1 = time.perf_counter()
+    cpu = trt.render(sc.to("cpu"), cfg)
+    images_agree("card_vs_cpu_forest", gpu, cpu, spp=1, card_s=t1 - t0,
+                 cpu_s=time.perf_counter() - t1)
+    rec = frame(sc, dev, "frame_forest", None, 1, main=main)
+    diff = (rec.pop("image") - main["image"]).abs()
+    phase("forest", size=f"{FRAME[0]}x{FRAME[1]}", spp=2, bounce=8,
+          compile_s=compile_s, n_objects=sc.meta["n_objects"],
+          n_tris=sc.meta["n_tris"], bvh_nodes=int(sc.bvh_packed.shape[0]),
+          bvh_max_depth=sc.meta["bvh_max_depth"], frame_s=rec["frame_s"],
+          render_s=rec["render_s"],
+          narrow_launches=rec["launches"]["packet_narrow"],
+          mean_abs_diff_vs_main=float(diff.mean()),
+          pixels_within_2e3=float((diff.amax(dim=-1) <= 2e-3).float()
+                                  .mean()))
+    if rec["launches"]["packet_narrow"] <= 0:
+        raise AssertionError("forest: the narrow walk never ran")
+    return rec
+
+
+def sharded(sc):
+    """An NCCL world of one on the card: ``render_frame_sharded`` on a
+    (1, 1) mesh must equal ``render_frame`` of the whole frame bit for
+    bit; then the port's ``dryrun_multichip(1)`` (one spawned rank)."""
+    import torch.distributed as dist
+
+    from ray_tracer_tpu_torch.parallel import entry, mesh
+
+    t0 = time.perf_counter()
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{mesh.free_port()}", rank=0,
+        world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        m = mesh.make_mesh(n_data=1, n_sample=1)
+        init_s = time.perf_counter() - t0
+        cfg = frame_cfg()
+        sharded_s = []  # the first sets up the NCCL communicators
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            img = mesh.render_frame_sharded(sc, cfg, m)
+            torch.cuda.synchronize()
+            sharded_s.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = trt.render_frame(sc, cfg)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        equal = bool(torch.equal(img, want))
+    finally:
+        dist.destroy_process_group()
+    t0 = time.perf_counter()
+    summary = entry.dryrun_multichip(1, timeout=600)
+    dryrun_s = time.perf_counter() - t0
+    phase("sharded", size=f"{FRAME[0]}x{FRAME[1]}", spp=2, bounce=8,
+          backend="nccl", world=1, init_s=init_s,
+          frame_s_first=sharded_s[0], frame_s=sharded_s[1],
+          render_frame_s=plain_s, equal_to_render_frame=equal,
+          dryrun=summary, dryrun_s=dryrun_s)
+    if not equal:
+        raise AssertionError("sharded: the (1, 1) mesh's frame differs from "
+                             "render_frame's")
+
+
 def build_all() -> None:
     """Every kernel library, one nvcc each, all started together."""
     t0 = time.perf_counter()
@@ -1421,6 +1648,7 @@ def main() -> None:
     for title, (routing, timed) in ROUTES.items():
         frames[title] = frame(sc, dev, title, routing, timed,
                               main=frames["frame"])
+        del frames[title]["image"]
     must = {  # the frame phase that drives each mode, and its modes
         "frame": ("group_traverse", "group_anyhit"),
         "frame_cluster": ("packet8_emit", "cluster_pairs", "packet8_wide",
@@ -1438,6 +1666,15 @@ def main() -> None:
             raise AssertionError(f"{title}: a kernel mode never launched: "
                                  f"{got}")
 
+    # the configuration values, bump maps and forest scenes
+    with tempfile.TemporaryDirectory(prefix="rt_smoke_") as tmp:
+        frames["frame_closest_nee"] = config_values(sc, sc_cpu, dev,
+                                                    frames["frame"])
+        normal_maps(tmp)
+    frames["frame_forest"] = forest(dev, frames["frame"])
+    if frames["frame_closest_nee"]["launches"]["group_traverse"] <= 0:
+        raise AssertionError("frame_closest_nee: the group walk never ran")
+
     # the modules a user drives besides render: ProgressiveRenderer, the
     # static scan, the debug heatmaps, the CLI and the viewer
     with tempfile.TemporaryDirectory(prefix="rt_smoke_") as tmp:
@@ -1447,6 +1684,8 @@ def main() -> None:
         del sc_cpu
         cli(tmp)
     viewer_phase()
+    # sharded rendering over torch.distributed
+    sharded(sc)
 
     source = {  # mode -> (its check, the frame phase of its launches)
         "group_traverse": ("group_bounce", "frame"),

@@ -45,6 +45,40 @@ def scene_camera(scene: CompiledScene) -> Camera:
     return Camera(position=pos, angles_deg=angles, fov=fov, near_plane=near)
 
 
+def trace_pixels(scene: CompiledScene, cfg: RenderConfig, camera: Camera,
+                 pixel_id: torch.Tensor, frame: int, n_samples: int,
+                 sample_base: int = 0) -> torch.Tensor:
+    """Trace ``n_samples`` samples of each listed pixel -> (N,3) float32
+    mean radiance, on the scene's device.  The pixels are traced in tiles
+    of ``cfg.max_rays_per_batch``, the last one padded with its last
+    pixel; ``path_regen`` with the ``"mis"`` estimator traces each tile in
+    one wavefront, anything else through the static scan one sample at a
+    time."""
+    dev = scene.device
+    rot, pos, fov, aspect, near = _camera_arrays(camera, cfg, dev)
+    n = pixel_id.shape[0]
+    tile = max(1, min(n, cfg.max_rays_per_batch))
+    outs = []
+    for start in range(0, n, tile):
+        at = torch.clamp(torch.arange(start, start + tile, device=dev),
+                         max=n - 1)
+        ids = pixel_id[at]
+        if cfg.wavefront:
+            acc = wavefront.trace_wave(
+                scene, rot, pos, fov, aspect, near, ids, frame, sample_base,
+                n_samples, cfg,
+            )
+        else:
+            acc = torch.zeros((tile, 3), dtype=torch.float32, device=dev)
+            for s in range(n_samples):
+                acc = acc + wavefront.render_sample(
+                    scene, rot, pos, fov, aspect, near, ids, frame,
+                    sample_base + s, cfg,
+                )
+        outs.append(acc / n_samples)
+    return torch.cat(outs)[:n]
+
+
 def render_frame(
     scene: CompiledScene,
     cfg: RenderConfig,
@@ -56,30 +90,10 @@ def render_frame(
     """Trace one frame (``n_samples`` spp, default the config's) -> (H,W,3)
     float32 mean radiance, on the scene's device."""
     cfg.check()
-    dev = scene.device
-    cam = camera or scene_camera(scene)
-    rot, pos, fov, aspect, near = _camera_arrays(cam, cfg, dev)
     spp = cfg.samples_per_pixel if n_samples is None else n_samples
-    n_pix = cfg.n_pixels
-    tile = max(1, min(n_pix, cfg.max_rays_per_batch))
-    outs = []
-    for start in range(0, n_pix, tile):
-        ids = torch.arange(start, start + tile, dtype=torch.int32, device=dev)
-        ids = torch.clamp(ids, max=n_pix - 1)
-        if cfg.wavefront:
-            acc = wavefront.trace_wave(
-                scene, rot, pos, fov, aspect, near, ids, frame, sample_base,
-                spp, cfg,
-            )
-        else:
-            acc = torch.zeros((tile, 3), dtype=torch.float32, device=dev)
-            for s in range(spp):
-                acc = acc + wavefront.render_sample(
-                    scene, rot, pos, fov, aspect, near, ids, frame,
-                    sample_base + s, cfg,
-                )
-        outs.append(acc / spp)
-    out = torch.cat(outs)[:n_pix]
+    ids = torch.arange(cfg.n_pixels, dtype=torch.int32, device=scene.device)
+    out = trace_pixels(scene, cfg, camera or scene_camera(scene), ids, frame,
+                       spp, sample_base)
     return out.reshape(cfg.height, cfg.width, 3)
 
 

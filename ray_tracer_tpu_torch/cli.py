@@ -9,8 +9,16 @@
 ``render --progressive N`` runs N progressive frames, with
 ``--checkpoint state.npz`` saving the state after them and resuming from
 it when the file exists; ``--orbit N`` renders N frames sweeping the
-camera's yaw by +/-15 degrees.  Every subcommand prints one JSON report
-line (``info``: the compiled scene's statistics) with the JAX CLI's keys.
+camera's yaw by +/-15 degrees; ``--sharded`` splits the frame's pixels
+over the ranks of a ``torch.distributed`` world, one CUDA device each
+(``parallel/mesh.py``; rank 0 writes the image)::
+
+    torchrun --nproc-per-node 4 -m ray_tracer_tpu_torch.cli render \
+        --sharded --preset sponza_proxy -o out.png
+
+Without ``torchrun`` it runs as a world of one (with ``--cpu``: gloo on
+the CPU).  Every subcommand prints one JSON report line (``info``: the
+compiled scene's statistics) with the JAX CLI's keys.
 
 Everything runs on the CUDA device unless ``--cpu`` is given; without a
 card and without ``--cpu`` the scene compile raises.
@@ -69,8 +77,8 @@ def _parser() -> argparse.ArgumentParser:
     pr.add_argument("--checkpoint",
                     help="progressive state file to save/resume")
     pr.add_argument("--sharded", action="store_true",
-                    help="shard pixels over all visible devices (not "
-                         "ported: raises)")
+                    help="shard the pixels over the ranks of the torchrun "
+                         "world, one device each (alone: a world of one)")
     pr.add_argument("--orbit", type=int, default=0, metavar="FRAMES",
                     help="render FRAMES frames sweeping camera yaw +/-15deg")
 
@@ -125,24 +133,69 @@ def _profiler(out_dir):
     return run()
 
 
-def main(argv=None) -> int:
-    args = _parser().parse_args(argv)
-    if getattr(args, "sharded", False):
-        raise NotImplementedError(
-            "render --sharded (multi-device rendering) is not ported yet "
-            "(ROADMAP Queue A item 6)")
+def _config(args):
+    from . import RenderConfig
 
-    from . import ProgressiveRenderer, RenderConfig, render_frame
-    from .integrator import film
-
-    device = "cpu" if args.cpu else None
-    cfg = RenderConfig(
+    return RenderConfig(
         width=args.width,
         height=args.height,
         samples_per_pixel=args.spp,
         bounce_limit=args.bounces,
         seed=args.seed,
     )
+
+
+def _report(args, cfg, scene, img, t0, compile_s, spp):
+    """Write the image, print the render report line."""
+    from .integrator import film
+
+    _sync(scene.device)
+    dt = time.perf_counter() - t0
+    film.write_png(args.output, img)
+    print(json.dumps({
+        "output": args.output,
+        "resolution": f"{cfg.width}x{cfg.height}",
+        "spp": spp,
+        "wall_s": round(dt, 3),
+        "scene_compile_s": round(compile_s, 3),
+        "tris": scene.meta.get("n_tris", 0),
+        "bvh_nodes": int(scene.bvh_index.shape[0]),
+    }))
+
+
+def _render_sharded(args) -> int:
+    """``render --sharded``: join the torchrun world (or form a world of
+    one), render the frame on a (world, 1) mesh; rank 0 writes it."""
+    import torch.distributed as dist
+
+    from .parallel import mesh as pmesh
+
+    _, world, device = pmesh.init_from_env(cpu=args.cpu)
+    try:
+        cfg = _config(args)
+        t0 = time.perf_counter()
+        scene = _build_scene(args).compile(device=device)
+        compile_s = time.perf_counter() - t0
+        img = pmesh.render_frame_sharded(scene, cfg,
+                                         pmesh.make_mesh(n_data=world))
+        if dist.get_rank() == 0:
+            _report(args, cfg, scene, img, t0, compile_s,
+                    cfg.samples_per_pixel)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def main(argv=None) -> int:
+    args = _parser().parse_args(argv)
+    if getattr(args, "sharded", False):
+        return _render_sharded(args)
+
+    from . import ProgressiveRenderer, render_frame
+    from .integrator import film
+
+    device = "cpu" if args.cpu else None
+    cfg = _config(args)
     t0 = time.perf_counter()
     builder = _build_scene(args)
     scene = builder.compile(device=device)
@@ -224,20 +277,8 @@ def main(argv=None) -> int:
             pr_.save_state(args.checkpoint)
     else:
         img = render_frame(scene, cfg)
-
-    _sync(dev)
-    dt = time.perf_counter() - t0
-    film.write_png(args.output, img)
-    report = {
-        "output": args.output,
-        "resolution": f"{cfg.width}x{cfg.height}",
-        "spp": cfg.samples_per_pixel * max(1, args.progressive),
-        "wall_s": round(dt, 3),
-        "scene_compile_s": round(compile_s, 3),
-        "tris": scene.meta.get("n_tris", 0),
-        "bvh_nodes": int(scene.bvh_index.shape[0]),
-    }
-    print(json.dumps(report))
+    _report(args, cfg, scene, img, t0, compile_s,
+            cfg.samples_per_pixel * max(1, args.progressive))
     return 0
 
 

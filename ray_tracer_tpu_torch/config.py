@@ -4,17 +4,16 @@
 (``ray_tracer_tpu/config.py``), so one configuration reads the same in
 both, except ``max_rays_per_batch``, whose JAX default is a TPU memory
 ceiling.  ``Routing`` keeps only what this package reads: the coherence-bin
-key widths and flavour, ``nee_prebin`` so that asking for it fails
-loudly, and the traversal-route switches (``wide``, ``groups``,
-``anyhit_group``, ``cluster``, ``cluster_k``, ``cluster_enum``,
-``lanewalk``, ``two_phase``, ``top_k``).  The TPU placement and
+key widths and flavour (``bin_bits``, ``bin_dir_bits``, ``bin_mode``), the
+pre-permute NEE switch ``nee_prebin``, and the traversal-route switches
+(``wide``, ``groups``, ``anyhit_group``, ``cluster``, ``cluster_k``,
+``cluster_enum``, ``lanewalk``, ``two_phase``, ``top_k``).  The TPU placement and
 packet-shape knobs (``packet``, ``packet_size``, ``vmem_budget``,
 ``mask_mode``, ``multi_pop``, ``groups_packet``, ``anyhit_groups``,
 ``cluster_enum_packet``) have no counterpart here: every route runs its
-hand-written CUDA kernels one thread per ray.
-
-Values the port does not implement yet raise ``NotImplementedError`` naming
-the ROADMAP item ("Queue A") that ports them; see :meth:`RenderConfig.check`.
+hand-written CUDA kernels one thread per ray.  The switches are fields
+only: unlike the JAX package's ``Routing.from_env`` nothing here reads an
+environment variable.
 """
 
 from __future__ import annotations
@@ -29,9 +28,17 @@ class Routing:
     # |direction| bits inside the octant.
     bin_bits: int = 6
     bin_dir_bits: int = 0
-    # Bounce-round key flavour; only the (octant, morton) key is ported.
+    # Bounce-round key flavour: "morton" (octant, origin morton cell);
+    # "leaf" (octant, previous-hit primitive; camera lanes by pixel id);
+    # "hier" (morton cells, lanes inside a cell by previous-hit
+    # primitive: two stable argsorts).  Each is a pure re-permutation of
+    # the lanes: the image is bit-identical.
     bin_mode: str = "morton"
-    # Pre-permute NEE; only "off" (shadow query after the permute) is ported.
+    # Pre-permute NEE (occlusion NEE only): "off" traces the shadow rays
+    # after the state permute; "nosort" traces and resolves them before
+    # it, in the lanes' order, and "sort" in the order of their own bin
+    # key.  The permute then carries the resolved ``direct`` instead of
+    # the NEE inputs.  Bit-identical to "off".
     nee_prebin: str = "off"
     # BVH8 routes (True) or the narrow route (False): closest hit through
     # the binary-BVH walk (kernels/packet.py::packet_traverse), occlusion
@@ -86,6 +93,12 @@ class Routing:
             raise ValueError(f"Routing.lanewalk={self.lanewalk!r}: expected "
                              "'auto', 'off' or 'force' ('interpret' is the "
                              "JAX package's TPU interpreter)")
+        if self.bin_mode not in ("morton", "leaf", "hier"):
+            raise ValueError(f"Routing.bin_mode={self.bin_mode!r}: expected "
+                             "'morton', 'leaf' or 'hier'")
+        if self.nee_prebin not in ("off", "sort", "nosort"):
+            raise ValueError(f"Routing.nee_prebin={self.nee_prebin!r}: "
+                             "expected 'off', 'sort' or 'nosort'")
         if self.cluster_enum not in ("packet", "boxes"):
             raise ValueError(f"Routing.cluster_enum={self.cluster_enum!r}: "
                              "expected 'packet' or 'boxes'")
@@ -115,7 +128,9 @@ class RenderConfig:
     # Pixel-center jitter for anti-aliasing (off = the reference's corner
     # sampling).
     aa_jitter: bool = False
-    # Height-map bump mapping: not ported (raises).
+    # Height-map bump mapping (the shade fetch's tangent frame and 3-tap
+    # height gradient) on flattened scenes with bump maps and textures;
+    # forest scenes ignore it, as in the JAX package.
     enable_normal_maps: bool = False
     bump_scale: float = 1.0
     # Pixels per traversal batch: render() tiles the image into chunks of
@@ -136,15 +151,18 @@ class RenderConfig:
     # Static scan with nee_anyhit=False only: move dead lanes last before
     # the combined bounce + shadow launch (None = off).
     sort_bounce_rays: "bool | None" = None
-    # NEE shadow rays as any-hit occlusion queries; False (closest-hit
-    # resolve in one launch with the bounce rays) runs on the static scan
-    # only, and raises on the path-regeneration wavefront.
+    # NEE shadow rays as any-hit occlusion queries; False resolves them by
+    # closest hit (the hit's material and the light pdf at its distance):
+    # on the static scan in one launch with the bounce rays, on the
+    # path-regeneration wavefront after them.
     nee_anyhit: bool = True
     # Path regeneration (integrator/wavefront.py::trace_wave); False runs
     # the static scan (wavefront.trace).
     path_regen: bool = True
     # Coherence binning of every wavefront round; None (auto) and True
-    # both bin, as the kernel route always does.  False is not ported.
+    # both bin, as the kernel route always does.  False runs the rounds at
+    # full width in lane order (no key, no permute, no drain): the image
+    # is bit-identical.
     bin_rays: "bool | None" = None
     # Multiply specular/dielectric bounce radiance by the material albedo.
     tint_spec_diel: bool = False
@@ -171,27 +189,7 @@ class RenderConfig:
         return self.path_regen and self.estimator == "mis"
 
     def check(self) -> None:
-        """Raise ``ValueError`` for an unknown estimator and
-        ``NotImplementedError`` for values this package lacks."""
+        """Raise ``ValueError`` for an unknown estimator."""
         if self.estimator not in ("mis", "cosine", "uniform"):
             raise ValueError(f"estimator={self.estimator!r}: expected "
                              "'mis', 'cosine' or 'uniform'")
-        rt = self.resolved_routing()
-        missing = [
-            (self.wavefront and not self.nee_anyhit, "nee_anyhit=False on "
-             "the path-regeneration wavefront (closest-hit NEE resolve)",
-             4),
-            (self.enable_normal_maps, "enable_normal_maps=True", 4),
-            # the wavefront's binning; the static scan bins nothing
-            (self.wavefront and rt.bin_mode != "morton",
-             f"bin_mode={rt.bin_mode!r}", 4),
-            (self.wavefront and rt.nee_prebin != "off",
-             f"nee_prebin={rt.nee_prebin!r}", 4),
-            (self.wavefront and self.bin_rays is False,
-             "bin_rays=False (unbinned wavefront)", 4),
-        ]
-        for bad, what, item in missing:
-            if bad:
-                raise NotImplementedError(
-                    f"{what} is not ported yet (ROADMAP Queue A item {item})"
-                )

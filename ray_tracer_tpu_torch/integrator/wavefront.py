@@ -85,55 +85,93 @@ def raygen(cam_rotation, cam_pos, fov, aspect, near, pixel_id, width,
 
 
 def _shade_fetch(scene: CompiledScene, rays: CameraRays,
-                 hit: traverse.Hit, space: str = "slot"):
+                 hit: traverse.Hit, space: str = "slot",
+                 cfg: RenderConfig = None):
     """All deferred shading attributes from ONE fat-row gather, from
     ``shade_slot`` or, where triangle hits are global ids (``space`` is
     ``traverse.prim_space``'s ``'tri'``), ``shade_tri``.
 
     Returns ``(hp, normal, uv, albedo, emission, reflectance, ior, tex_id,
-    sampler, metal_tex, alpha_tex, front)``.  Triangle barycentrics and
-    facing are RE-DERIVED from the row's geometry fields (32:44) with the
-    kernel's Moller-Trumbore formulas, since the traversal returns only
-    (dst, prim).  Sphere lanes keep the sphere intersector's facing bit.
-    No-hit lanes (and every lane of a mesh-free scene, whose ``shade_slot``
-    is a placeholder) read row 0: junk that every consumer masks by
-    ``did_hit`` or replaces with the sphere's material.
+    sampler, metal_tex, alpha_tex, front)``.  On a flattened scene triangle
+    barycentrics and facing are RE-DERIVED from the row's geometry fields
+    (32:44) with the kernel's Moller-Trumbore formulas, since the
+    traversal returns only (dst, prim); a forest scene's rows are in
+    object space, so there they are the walk's (``hit.u``, ``hit.v``,
+    ``hit.front``), the normal goes through ``obj_transform[hit.obj]``
+    (the reference's M, not its inverse transpose) and the material and
+    sampler are the instance's (``obj_mat``, ``obj_sampler``).  Sphere
+    lanes keep the sphere intersector's facing bit.  With
+    ``cfg.enable_normal_maps`` (and textures) a flattened scene's bump
+    maps perturb the normal (:func:`_bump`).  No-hit lanes (and every lane
+    of a mesh-free scene, whose ``shade_slot`` is a placeholder) read row
+    0: junk that every consumer masks by ``did_hit`` or replaces with the
+    sphere's material.
     """
+    flat = scene.meta.get("flattened", False)
     hp = rays.origin + rays.direction * hit.dst[:, None]
     is_tri = hit.kind == traverse.KIND_TRI
     tri_i = torch.where(is_tri, hit.prim, 0).long()
     table = scene.shade_tri if space == "tri" else scene.shade_slot
     srow = table[tri_i]  # (N,48): the ONE hot gather
 
-    d_eps = torch.where(rays.direction == 0.0, 1e-20, rays.direction)
-    r3 = rays.origin - srow[:, 32:35]
-    q3 = cross(r3, d_eps)
-    d0 = -dot(d_eps, srow[:, 41:44])
-    dinv = 1.0 / torch.where(d0 == 0.0, 1e-20, d0)
-    hu = torch.where(is_tri, dot(srow[:, 38:41], q3) * dinv, 0.0)
-    hv = torch.where(is_tri, -dot(srow[:, 35:38], q3) * dinv, 0.0)
-    front = torch.where(is_tri, d0 >= 1e-8, hit.front)
+    if flat:
+        d_eps = torch.where(rays.direction == 0.0, 1e-20, rays.direction)
+        r3 = rays.origin - srow[:, 32:35]
+        q3 = cross(r3, d_eps)
+        d0 = -dot(d_eps, srow[:, 41:44])
+        dinv = 1.0 / torch.where(d0 == 0.0, 1e-20, d0)
+        hu = torch.where(is_tri, dot(srow[:, 38:41], q3) * dinv, 0.0)
+        hv = torch.where(is_tri, -dot(srow[:, 35:38], q3) * dinv, 0.0)
+        front = torch.where(is_tri, d0 >= 1e-8, hit.front)
+    else:
+        hu, hv, front = hit.u, hit.v, hit.front
 
     w = 1.0 - hu - hv
     vn0, vn1, vn2 = srow[:, 0:3], srow[:, 3:6], srow[:, 6:9]
     n_obj = vn0 * w[:, None] + vn1 * hu[:, None] + vn2 * hv[:, None]
     n_obj = n_obj * torch.where(front, 1.0, -1.0)[:, None]
-    # flattened geometry is world space; the other scenes here carry
-    # identity instance transforms
-    normal = n_obj / torch.clamp(norm(n_obj, keepdim=True), min=1e-20)
+    obj_i = torch.where(is_tri, hit.obj, 0).long()
+    if flat:
+        # geometry and vertex normals were baked to world space
+        n_world = n_obj
+    else:
+        m = scene.obj_transform[obj_i]
+        n_world = torch.stack(
+            [m[:, i, 0] * n_obj[:, 0] + m[:, i, 1] * n_obj[:, 1]
+             + m[:, i, 2] * n_obj[:, 2] for i in range(3)], dim=-1)
+    normal = n_world / torch.clamp(norm(n_world, keepdim=True), min=1e-20)
 
     uv0, uv1, uv2 = srow[:, 9:11], srow[:, 11:13], srow[:, 13:15]
     uv = uv0 * w[:, None] + uv1 * hu[:, None] + uv2 * hv[:, None]
     uv = torch.where(srow[:, 15:16] > 0.5, 0.5, uv)  # raytrace.comp:254-256
 
-    albedo = srow[:, 16:19]
-    emission = srow[:, 19:22]
-    reflectance = srow[:, 22]
-    ior = srow[:, 23]
-    tex_id = srow[:, 24].to(I32)
-    sampler = srow[:, 25].to(I32)
-    metal_tex = srow[:, 29].to(I32)
-    alpha_tex = srow[:, 30].to(I32)
+    if (cfg is not None and cfg.enable_normal_maps and cfg.enable_textures
+            and flat and scene.meta.get("n_bump_maps", 0) > 0
+            and scene.meta.get("n_textures", 0) > 0):
+        normal = _bump(scene, cfg, srow, uv, normal, is_tri)
+
+    if flat:
+        albedo = srow[:, 16:19]
+        emission = srow[:, 19:22]
+        reflectance = srow[:, 22]
+        ior = srow[:, 23]
+        tex_id = srow[:, 24].to(I32)
+        sampler = srow[:, 25].to(I32)
+        metal_tex = srow[:, 29].to(I32)
+        alpha_tex = srow[:, 30].to(I32)
+    else:
+        # instances share their mesh's rows: the material and sampler are
+        # the instance's (quirk Q11's forest layout)
+        mat = scene.obj_mat[obj_i].long()
+        albedo = scene.mat_albedo[mat]
+        emission = (scene.mat_emission[mat]
+                    * scene.mat_emission_strength[mat][:, None])
+        reflectance = scene.mat_reflectance[mat]
+        ior = scene.mat_ior[mat]
+        tex_id = scene.mat_albedo_tex[mat]
+        sampler = scene.obj_sampler[obj_i]
+        metal_tex = scene.mat_metalness_tex[mat]
+        alpha_tex = scene.mat_alpha_tex[mat]
 
     if scene.n_spheres > 0:
         is_sphere = hit.kind == traverse.KIND_SPHERE
@@ -165,6 +203,45 @@ def _shade_fetch(scene: CompiledScene, rays: CameraRays,
 
     return (hp, normal, uv, albedo, emission, reflectance, ior, tex_id,
             sampler, metal_tex, alpha_tex, front)
+
+
+def _bump(scene, cfg, srow, uv, normal, is_tri):
+    """Height-map bump mapping (the JAX package's ``_shade_fetch``
+    branch): the tangent frame solved from the row's edges and UV deltas,
+    ``[E1; E2] = [T B] . [[du1, dv1], [du2, dv2]]^T``, made orthonormal
+    against the shading normal (Gram-Schmidt), and the normal tilted by
+    ``cfg.bump_scale`` times the height gradient: three taps of the bump
+    texture's red channel (column 31), one texel apart in u and in v."""
+    bump_tex = srow[:, 31].to(I32)
+    e1, e2 = srow[:, 35:38], srow[:, 38:41]
+    uv0, uv1, uv2 = srow[:, 9:11], srow[:, 11:13], srow[:, 13:15]
+    duv1 = uv1 - uv0
+    duv2 = uv2 - uv0
+    det = duv1[:, 0] * duv2[:, 1] - duv2[:, 0] * duv1[:, 1]
+    ok_det = torch.abs(det) > 1e-12
+    inv = 1.0 / torch.where(ok_det, det, 1.0)
+    t_vec = (e1 * duv2[:, 1:2] - e2 * duv1[:, 1:2]) * inv[:, None]
+    b_vec = (e2 * duv1[:, 0:1] - e1 * duv2[:, 0:1]) * inv[:, None]
+    t_vec = t_vec - normal * dot(t_vec, normal)[:, None]
+    t_hat = t_vec / torch.clamp(norm(t_vec, keepdim=True), min=1e-20)
+    b_vec = (b_vec - normal * dot(b_vec, normal)[:, None]
+             - t_hat * dot(b_vec, t_hat)[:, None])
+    b_hat = b_vec / torch.clamp(norm(b_vec, keepdim=True), min=1e-20)
+    hw = scene.tex_size[torch.clamp(bump_tex, min=0).long()].to(F32)
+    step_u = 1.0 / torch.clamp(hw[:, 1], min=2.0)
+    step_v = 1.0 / torch.clamp(hw[:, 0], min=2.0)
+    zeros = torch.zeros_like(step_u)
+    smp = srow[:, 25].to(I32)  # the instance's sampler
+    h0 = _sample_texture(scene, bump_tex, uv, smp)[:, 0]
+    h_u = _sample_texture(scene, bump_tex,
+                          uv + torch.stack([step_u, zeros], 1), smp)[:, 0]
+    h_v = _sample_texture(scene, bump_tex,
+                          uv + torch.stack([zeros, step_v], 1), smp)[:, 0]
+    pert = normal - cfg.bump_scale * (
+        (h_u - h0)[:, None] * t_hat + (h_v - h0)[:, None] * b_hat)
+    pert = pert / torch.clamp(norm(pert, keepdim=True), min=1e-20)
+    use = is_tri & (bump_tex >= 0) & ok_det
+    return torch.where(use[:, None], pert, normal)
 
 
 def _apply_material_maps(scene, cfg, uv, sampler, albedo, emission,
@@ -230,6 +307,36 @@ def _sample_texture(scene: CompiledScene, tex_id, uv, sampler):
     return torch.where((sampler == 1)[:, None], bilinear, nearest)
 
 
+def _occlusion(scene, rt, o, d, active, tmax, rope_err=None,
+               sort: bool = False):
+    """Occlusion of the NEE shadow rays inside ``tmax``; under ``sort``
+    (``nee_prebin="sort"``) traced in the order of their own bin key and
+    scattered back, which changes no lane's result."""
+    if not sort:
+        return traverse.traverse_anyhit(scene, o, d, active, tmax=tmax,
+                                        routing=rt, rope_err=rope_err)
+    order = torch.argsort(_bin_key(scene, o, d, active, rt.bin_bits,
+                                   rt.bin_dir_bits), stable=True)
+    occ_sorted = traverse.traverse_anyhit(
+        scene, o[order], d[order], active[order], tmax=tmax[order],
+        routing=rt, rope_err=rope_err)
+    occ = torch.empty_like(occ_sorted)
+    occ[order] = occ_sorted
+    return occ
+
+
+def _analytic_nee(scene, li, l_dir, l_dist, reached):
+    """Occlusion NEE's light side: the sampled light's emission and its
+    pdf at the sampled distance where the shadow ray ``reached`` it, else
+    0 -> ``(l_emit, real_l_pdf)``."""
+    li = li.long()
+    l_emit = lights.rect_light_emission(scene, li)
+    real_l_pdf = torch.where(
+        reached, lights.rect_light_pdf_analytic(scene, li, l_dir, l_dist),
+        0.0)
+    return l_emit, real_l_pdf
+
+
 def _resolve_direct(real_l_pdf, n_lights_w, cos_pdf_at_l, l_emit, nee_k,
                     is_diff, fresh_direct, direct_base):
     """MIS light-sample resolve -> next round's pending ``direct``: the
@@ -245,15 +352,41 @@ def _resolve_direct(real_l_pdf, n_lights_w, cos_pdf_at_l, l_emit, nee_k,
     return torch.where(fresh_direct[:, None], new_direct, direct_base)
 
 
+def _closest_nee(scene: CompiledScene, li, l_dir, nee_hit: traverse.Hit):
+    """Closest-hit NEE resolve (``nee_anyhit=False``; the JAX package's,
+    its ``wavefront.py:679-690`` and ``:1351-1372``): the emission of the
+    material the shadow ray hit (a sphere's, or its triangle instance's,
+    ``nee_hit.obj``) and the light pdf at the hit's distance, 0 unless
+    that material emits -> ``(l_emit, real_l_pdf)``.  ``nee_hit`` comes
+    from a traversal with ``raw=False``."""
+    is_sph = nee_hit.kind == traverse.KIND_SPHERE
+    is_tri = nee_hit.kind == traverse.KIND_TRI
+    nee_mat = torch.where(
+        is_sph,
+        scene.sphere_mat[torch.where(is_sph, nee_hit.prim, 0).long()],
+        scene.obj_mat[torch.where(is_tri, nee_hit.obj, 0).long()],
+    )
+    nee_mat = torch.where(nee_hit.did_hit, nee_mat, 0).long()
+    nee_strength = scene.mat_emission_strength[nee_mat]
+    l_emit = scene.mat_emission[nee_mat] * nee_strength[:, None]
+    hit_emissive = nee_hit.did_hit & (nee_strength > 0.0)
+    real_l_pdf = lights.rect_light_pdf(scene, li, l_dir, nee_hit.dst,
+                                       hit_emissive)
+    return l_emit, real_l_pdf
+
+
 def trace(scene: CompiledScene, rays: CameraRays, pixel_id, frame: int,
           sample: int, cfg: RenderConfig, with_stats: bool = False,
-          with_heatmap: bool = False):
+          with_profile: bool = False, with_heatmap: bool = False):
     """The static scan: one path-traced sample for a batch of rays -> (N,3)
     linear radiance (the JAX package's ``trace``, ``path_regen=False``).
 
     ``bounce_limit + 1`` bounces over every lane, dead lanes masked, in a
     Python loop where the JAX package scans.  With ``with_stats`` also the
-    (2,) f32 ray counts (semantic, traced); with ``with_heatmap`` also the
+    (2,) f32 ray counts (semantic, traced); with ``with_profile``
+    ``(color, n_rays, per_bounce)``, ``per_bounce`` the occupancy counts
+    ``(alive, nee_active)``, two (bounce_limit + 1,) f32 tensors stacked
+    over the bounce loop; with ``with_heatmap`` also the
     per-lane ``(box_tests, tri_tests)`` over the whole path, every
     traversal through the counting walk
     (``ops/traverse.py::traverse_with_stats``) with the NEE shadow rays
@@ -271,8 +404,10 @@ def trace(scene: CompiledScene, rays: CameraRays, pixel_id, frame: int,
     dev = rays.origin.device
     f3 = lambda v: torch.full((n, 3), v, dtype=F32, device=dev)
     rt = cfg.resolved_routing()
+    # occlusion NEE keeps the route's own prim space; the closest-hit
+    # resolve reads every hit as a global triangle with its instance
     use_raw = cfg.nee_anyhit and not with_heatmap
-    space = traverse.prim_space(scene, rt) if not with_heatmap else "tri"
+    space = traverse.prim_space(scene, rt) if use_raw else "tri"
     mis = cfg.estimator == "mis"
     ones = torch.ones(n, dtype=torch.bool, device=dev)
     if with_heatmap:
@@ -280,8 +415,9 @@ def trace(scene: CompiledScene, rays: CameraRays, pixel_id, frame: int,
             scene, rays.origin, rays.direction, ones)
     else:
         hit = traverse.traverse(scene, rays.origin, rays.direction, ones,
-                                routing=rt)
+                                routing=rt, raw=use_raw)
         box = tri = None
+    prof_alive, prof_nee = [], []
     origin, direction = rays.origin, rays.direction
     atten, total, direct = f3(1.0), f3(0.0), f3(0.0)
     alive = ones
@@ -292,7 +428,7 @@ def trace(scene: CompiledScene, rays: CameraRays, pixel_id, frame: int,
         did = alive & hit.did_hit
         (hp, normal, uv, albedo, emission, reflectance, ior, tex_id,
          sampler, metal_tex, alpha_tex, front) = _shade_fetch(
-            scene, CameraRays(origin, direction), hit, space
+            scene, CameraRays(origin, direction), hit, space, cfg
         )
         albedo, emission, reflectance, cutout = _apply_material_maps(
             scene, cfg, uv, sampler, albedo, emission, reflectance,
@@ -399,7 +535,7 @@ def trace(scene: CompiledScene, rays: CameraRays, pixel_id, frame: int,
             # no shadow launch: NEE cannot contribute (no rect lights) or
             # the estimator takes none
             hit = traverse.traverse(scene, new_origin, new_dir, alive,
-                                    routing=rt)
+                                    routing=rt, raw=use_raw)
             nee_active = torch.zeros_like(nee_active)
             nee_sem = torch.zeros_like(nee_sem)
             l_emit = f3(0.0)
@@ -409,40 +545,19 @@ def trace(scene: CompiledScene, rays: CameraRays, pixel_id, frame: int,
             # is analytic at the sampled distance
             hit = traverse.traverse(scene, new_origin, new_dir, alive,
                                     routing=rt)
-            occluded = traverse.traverse_anyhit(
-                scene, nee_origin, l_dir, nee_active,
-                tmax=l_dist * (1.0 - 1e-3), routing=rt,
-            )
-            reached = nee_active & ~occluded
-            l_emit = lights.rect_light_emission(scene, li.long())
-            real_l_pdf = torch.where(
-                reached,
-                lights.rect_light_pdf_analytic(scene, li.long(), l_dir,
-                                               l_dist),
-                0.0,
-            )
+            occluded = _occlusion(scene, rt, nee_origin, l_dir, nee_active,
+                                  l_dist * (1.0 - 1e-3))
+            l_emit, real_l_pdf = _analytic_nee(scene, li, l_dir, l_dist,
+                                               nee_active & ~occluded)
         else:
             # one closest-hit launch: bounce rays ++ shadow rays, the
             # shadow rays clipped just past the sampled light point
-            hit, nee_hit, nee_tri, counts = _combined_closest(
+            hit, nee_hit, counts = _combined_closest(
                 scene, cfg, rt, new_origin, new_dir, alive, nee_origin,
                 l_dir, nee_active, l_dist * 1.002 + 1e-3, with_heatmap)
             if with_heatmap:
                 box, tri = box + counts[0], tri + counts[1]
-            is_sph = nee_hit.kind == traverse.KIND_SPHERE
-            is_tri = nee_hit.kind == traverse.KIND_TRI
-            owner = traverse.tri_owner(scene, torch.where(is_tri, nee_tri, 0))
-            nee_mat = torch.where(
-                is_sph,
-                scene.sphere_mat[torch.where(is_sph, nee_hit.prim, 0).long()],
-                scene.obj_mat[torch.where(is_tri, owner, 0).long()],
-            )
-            nee_mat = torch.where(nee_hit.did_hit, nee_mat, 0).long()
-            nee_strength = scene.mat_emission_strength[nee_mat]
-            l_emit = scene.mat_emission[nee_mat] * nee_strength[:, None]
-            hit_emissive = nee_hit.did_hit & (nee_strength > 0.0)
-            real_l_pdf = lights.rect_light_pdf(
-                scene, li, l_dir, nee_hit.dst, hit_emissive)
+            l_emit, real_l_pdf = _closest_nee(scene, li, l_dir, nee_hit)
 
         real_l_pdf = real_l_pdf / n_lights_w  # uniform light pick
         w1 = real_l_pdf**2 / (real_l_pdf**2 + cos_pdf_at_l**2)
@@ -459,15 +574,22 @@ def trace(scene: CompiledScene, rays: CameraRays, pixel_id, frame: int,
         direct = torch.where(shaded[:, None], new_direct, direct)
 
         n_alive = alive.sum().to(F32)
+        n_nee_act = nee_active.sum().to(F32)
         n_rays = n_rays + torch.stack([
             n_alive + nee_sem.sum().to(F32),
-            n_alive + nee_active.sum().to(F32),
+            n_alive + n_nee_act,
         ])
+        if with_profile:
+            prof_alive.append(n_alive)
+            prof_nee.append(n_nee_act)
         origin, direction = new_origin, new_dir
 
     color = torch.where(bad[:, None], 0.0, total)
     if with_heatmap:
         return color, (box, tri)
+    if with_profile:
+        return color, n_rays, (torch.stack(prof_alive),
+                               torch.stack(prof_nee))
     if with_stats:
         return color, n_rays
     return color
@@ -475,9 +597,9 @@ def trace(scene: CompiledScene, rays: CameraRays, pixel_id, frame: int,
 
 def _combined_closest(scene, cfg, rt, o, d, alive, nee_o, nee_d,
                       nee_active, nee_tmax, with_heatmap):
-    """Closest hit of the bounce rays and the shadow rays in one launch:
-    ``(hit, nee_hit, nee_tri, counts)``.  ``nee_tri`` is the shadow hits'
-    global triangle ids; ``counts`` the shadow-lane-folded
+    """Closest hit of the bounce rays and the shadow rays in one launch,
+    triangles as global ids with their instance (``raw=False``):
+    ``(hit, nee_hit, counts)``, ``counts`` the shadow-lane-folded
     ``(box_tests, tri_tests)`` of the counting walk with the heatmap,
     else None."""
     n = o.shape[0]
@@ -501,17 +623,14 @@ def _combined_closest(scene, cfg, rt, o, d, alive, nee_o, nee_d,
         order[dest] = torch.arange(dest.shape[0], device=dest.device)
         both = traverse.traverse(
             scene, o_both[order], d_both[order], a_both[order],
-            tmax=t_both[order], routing=rt)
+            tmax=t_both[order], routing=rt, raw=False)
         both = traverse.Hit(*(x[dest] for x in both))
     else:
         both = traverse.traverse(scene, o_both, d_both, a_both, tmax=t_both,
-                                 routing=rt)
+                                 routing=rt, raw=False)
     hit = traverse.Hit(*(x[:n] for x in both))
     nee_hit = traverse.Hit(*(x[n:] for x in both))
-    nee_tri = nee_hit.prim
-    if not with_heatmap and traverse.prim_space(scene, rt) == "slot":
-        nee_tri = scene.leaf_map[torch.clamp(nee_tri, min=0).long()]
-    return hit, nee_hit, nee_tri, counts
+    return hit, nee_hit, counts
 
 
 def render_sample(scene: CompiledScene, rot, pos, fov, aspect, near,
@@ -527,16 +646,21 @@ def render_sample(scene: CompiledScene, rot, pos, fov, aspect, near,
     return trace(scene, rays, pixel_id, frame, sample, cfg)
 
 
-def _bin_key(scene: CompiledScene, origin, direction, alive, mb=5, db=0):
-    """Traversal-coherence sort key (int32): (direction octant [+ optional
-    finer direction bits], origin morton cell); dead lanes key to the end.
-    Bounds come from the flattened BVH's root box; mesh-free scenes key by
-    octant only."""
-    oct_ = (
+def _octant(direction):
+    """Direction octant, (N,) i32: bit k set where component k < 0."""
+    return (
         (direction[:, 0] < 0).to(I32)
         + 2 * (direction[:, 1] < 0).to(I32)
         + 4 * (direction[:, 2] < 0).to(I32)
     )
+
+
+def _bin_key(scene: CompiledScene, origin, direction, alive, mb=5, db=0):
+    """Traversal-coherence sort key (int32): (direction octant [+ optional
+    finer direction bits], origin morton cell); dead lanes key to the end.
+    Bounds come from the flattened BVH's root box; mesh-free and forest
+    scenes key by octant only."""
+    oct_ = _octant(direction)
     key = oct_ << (3 * mb + 3 * db)
     if db:
         dq = torch.clamp(
@@ -558,6 +682,34 @@ def _bin_key(scene: CompiledScene, origin, direction, alive, mb=5, db=0):
                 morton = morton | (((cell[:, ax] >> b) & 1) << (3 * b + ax))
         key = key | morton
     return torch.where(alive, key, 1 << 30).to(I32)
+
+
+def _bin_order(scene, rt, origin, direction, alive, continuing,
+               hit: traverse.Hit, pix):
+    """The lanes' order after a round's binning (dead lanes last), by
+    ``rt.bin_mode``: ``"morton"`` sorts by :func:`_bin_key`; ``"leaf"``
+    keys continuing lanes by (octant, previous-hit primitive; spheres
+    after the triangles) and regenerated camera lanes by pixel id;
+    ``"hier"`` keeps the morton order and sorts the lanes inside each key
+    by that primitive or pixel (two stable argsorts).  Each is a pure
+    re-permutation (the JAX package's ``wavefront.py:1213-1268``)."""
+    if rt.bin_mode == "morton":
+        return torch.argsort(_bin_key(scene, origin, direction, alive,
+                                      rt.bin_bits, rt.bin_dir_bits),
+                             stable=True)
+    pk = torch.clamp(hit.prim, 0, (1 << 24) - 1)
+    pk = torch.where(hit.kind == traverse.KIND_SPHERE, (1 << 24) - 64 + pk,
+                     pk)
+    pix = pix.to(I32)
+    if rt.bin_mode == "leaf":
+        key = torch.where(continuing, (_octant(direction) << 24) | pk,
+                          (1 << 29) | pix)
+        key = torch.where(alive, key, 1 << 30)
+        return torch.argsort(key, stable=True)
+    key = _bin_key(scene, origin, direction, alive, rt.bin_bits,
+                   rt.bin_dir_bits)
+    order = torch.argsort(torch.where(continuing, pk, pix), stable=True)
+    return order[torch.argsort(key[order], stable=True)]
 
 
 def _lane_groups(n_lanes: int, n_spp: int, cfg: RenderConfig) -> int:
@@ -643,11 +795,22 @@ def _trace_wave_lanes(scene, rot, pos, fov, aspect, near, pixel_id,
                       frame: int, sample_base, n_spp: int, cfg: RenderConfig,
                       with_stats: bool = False):
     """All ``n_spp`` samples of each lane's pixel, with path regeneration,
-    coherence binning and multi-phase drain -> color sums (N,3)."""
+    coherence binning and multi-phase drain -> color sums (N,3).
+
+    ``bin_rays=False`` runs the rounds at full width in lane order (no
+    key, no permute, no drain).  ``nee_anyhit=False`` resolves NEE by a
+    closest-hit query after the round's traversal, every hit a global
+    triangle with its instance (``raw=False``, ``shade_tri`` rows); with
+    occlusion NEE, ``routing.nee_prebin`` moves the shadow query and the
+    MIS resolve before the state permute.
+    """
     n = pixel_id.shape[0]
     dev = pixel_id.device
     rt = cfg.resolved_routing()
-    space = traverse.prim_space(scene, rt)
+    do_bin = cfg.bin_rays is not False
+    use_raw = cfg.nee_anyhit
+    space = traverse.prim_space(scene, rt) if use_raw else "tri"
+    prebin = use_raw and rt.nee_prebin != "off"
 
     def primary_rays(pix, s):
         jitter = None
@@ -677,7 +840,7 @@ def _trace_wave_lanes(scene, rot, pos, fov, aspect, near, pixel_id,
     hit0 = traverse.traverse(
         scene, rays0.origin, rays0.direction,
         torch.ones(n, dtype=torch.bool, device=dev), routing=rt,
-        rope_err=rope_err,
+        rope_err=rope_err, raw=use_raw,
     )
     f3 = lambda v: torch.full((n, 3), v, dtype=F32, device=dev)
     w = Wave(
@@ -698,7 +861,7 @@ def _trace_wave_lanes(scene, rot, pos, fov, aspect, near, pixel_id,
 
         (hp, normal, uv, albedo, emission, reflectance, ior, tex_id,
          sampler, metal_tex, alpha_tex, front) = _shade_fetch(
-            scene, CameraRays(w.origin, w.direction), hit, space
+            scene, CameraRays(w.origin, w.direction), hit, space, cfg
         )
         albedo, emission, reflectance, cutout = _apply_material_maps(
             scene, cfg, uv, sampler, albedo, emission, reflectance,
@@ -787,10 +950,10 @@ def _trace_wave_lanes(scene, rot, pos, fov, aspect, near, pixel_id,
         # them in the semantic ray count.
         nee_sem = continuing & is_diff
         nee_active = nee_sem & (dot(normal, l_dir) > 0.0)
-        if scene.n_lights > 0:
-            n_nee = torch.stack([nee_sem.sum(), nee_active.sum()])
-        else:
+        if use_raw and scene.n_lights == 0:
             n_nee = torch.zeros(2, dtype=torch.int64, device=dev)
+        else:
+            n_nee = torch.stack([nee_sem.sum(), nee_active.sum()])
 
         # ---- sample completion + regeneration
         path_ends = w.alive & ~continuing
@@ -824,63 +987,103 @@ def _trace_wave_lanes(scene, rot, pos, fov, aspect, near, pixel_id,
         fresh_direct = shaded & ~path_ends
         direct_base = torch.where(path_ends[:, None], 0.0, w.direct)
 
-        # ---- coherence binning: one stable argsort of the (octant,
-        # morton) key and one packed row-gather per dtype move the whole
-        # lane state; per-lane results are permutation-invariant.
-        key = _bin_key(scene, new_origin, new_dir, alive, rt.bin_bits,
-                       rt.bin_dir_bits)
-        order = torch.argsort(key, stable=True)
-        fi = lambda x: x.to(F32)[:, None]
-        packed = torch.cat(
-            [
-                new_origin, new_dir, atten, total, acc, direct_base,
-                nee_origin, l_dir, nee_k,  # 27 vector columns
-                fi(alive), fi(bad), fi(fresh_direct), fi(is_diff),
-                cos_pdf_at_l[:, None], l_dist[:, None], fi(nee_active),
-            ],
-            dim=1,
-        )[order]
-        packed_i = torch.stack(
-            [j_new, s_new, w.pix, w.slot, li.to(I32), w.sb], dim=1
-        )[order]
-        v3 = lambda k: packed[:, 3 * k : 3 * k + 3]
-        (new_origin, new_dir, atten, total, acc, direct_base, nee_origin,
-         l_dir, nee_k) = (v3(k) for k in range(9))
-        col = lambda k: packed[:, 27 + k]
-        alive = col(0) > 0.5
-        bad = col(1) > 0.5
-        fresh_direct = col(2) > 0.5
-        is_diff = col(3) > 0.5
-        cos_pdf_at_l = col(4)
-        l_dist = col(5)
-        nee_active = col(6) > 0.5
-        j_cur, s_cur, pix, slot, li, sb_cur = packed_i.unbind(dim=1)
+        j_cur, s_cur, pix, slot, sb_cur = j_new, s_new, w.pix, w.slot, w.sb
+
+        if prebin:
+            # ---- pre-permute NEE: the shadow query and the MIS resolve
+            # run here, so the permute carries the resolved ``direct``
+            if scene.n_lights == 0:
+                l_emit = torch.zeros_like(nee_k)
+                real_l_pdf = torch.zeros_like(l_dist)
+            else:
+                occluded = _occlusion(
+                    scene, rt, nee_origin, l_dir, nee_active,
+                    l_dist * (1.0 - 1e-3), rope_err,
+                    sort=do_bin and rt.nee_prebin == "sort")
+                l_emit, real_l_pdf = _analytic_nee(
+                    scene, li, l_dir, l_dist, nee_active & ~occluded)
+            direct = _resolve_direct(
+                real_l_pdf, n_lights_w, cos_pdf_at_l, l_emit, nee_k,
+                is_diff, fresh_direct, direct_base,
+            )
+
+        if do_bin:
+            # ---- coherence binning: one permutation of the lanes by
+            # their bin key and one packed row-gather per dtype move the
+            # whole lane state; per-lane results are permutation-invariant.
+            order = _bin_order(scene, rt, new_origin, new_dir, alive,
+                               continuing, hit, w.pix)
+            fi = lambda x: x.to(F32)[:, None]
+            if prebin:
+                # the slim pack: NEE is resolved into ``direct`` already
+                packed = torch.cat(
+                    [new_origin, new_dir, atten, total, acc, direct,
+                     fi(alive), fi(bad)], dim=1)[order]
+                packed_i = torch.stack(
+                    [j_cur, s_cur, pix, slot, sb_cur], dim=1)[order]
+                v3 = lambda k: packed[:, 3 * k : 3 * k + 3]
+                (new_origin, new_dir, atten, total, acc, direct) = (
+                    v3(k) for k in range(6))
+                alive = packed[:, 18] > 0.5
+                bad = packed[:, 19] > 0.5
+                j_cur, s_cur, pix, slot, sb_cur = packed_i.unbind(dim=1)
+            else:
+                packed = torch.cat(
+                    [
+                        new_origin, new_dir, atten, total, acc, direct_base,
+                        nee_origin, l_dir, nee_k,  # 27 vector columns
+                        fi(alive), fi(bad), fi(fresh_direct), fi(is_diff),
+                        cos_pdf_at_l[:, None], l_dist[:, None],
+                        fi(nee_active),
+                    ],
+                    dim=1,
+                )[order]
+                packed_i = torch.stack(
+                    [j_cur, s_cur, pix, slot, li.to(I32), sb_cur], dim=1
+                )[order]
+                v3 = lambda k: packed[:, 3 * k : 3 * k + 3]
+                (new_origin, new_dir, atten, total, acc, direct_base,
+                 nee_origin, l_dir, nee_k) = (v3(k) for k in range(9))
+                col = lambda k: packed[:, 27 + k]
+                alive = col(0) > 0.5
+                bad = col(1) > 0.5
+                fresh_direct = col(2) > 0.5
+                is_diff = col(3) > 0.5
+                cos_pdf_at_l = col(4)
+                l_dist = col(5)
+                nee_active = col(6) > 0.5
+                j_cur, s_cur, pix, slot, li, sb_cur = packed_i.unbind(dim=1)
 
         # ---- traverse the merged wavefront (bounce ++ regenerated primary)
         hit_next = traverse.traverse(scene, new_origin, new_dir, alive,
-                                     routing=rt, rope_err=rope_err)
+                                     routing=rt, rope_err=rope_err,
+                                     raw=use_raw)
 
         # ---- NEE shadow query for continuing diffuse lanes
-        if scene.n_lights == 0:
-            l_emit = torch.zeros_like(nee_k)
-            real_l_pdf = torch.zeros_like(l_dist)
+        if prebin:
+            pass  # resolved into ``direct`` before the permute
+        elif use_raw:
+            if scene.n_lights == 0:
+                l_emit = torch.zeros_like(nee_k)
+                real_l_pdf = torch.zeros_like(l_dist)
+            else:
+                occluded = _occlusion(scene, rt, nee_origin, l_dir,
+                                      nee_active, l_dist * (1.0 - 1e-3),
+                                      rope_err)
+                l_emit, real_l_pdf = _analytic_nee(
+                    scene, li, l_dir, l_dist, nee_active & ~occluded)
         else:
-            occluded = traverse.traverse_anyhit(
+            nee_hit = traverse.traverse(
                 scene, nee_origin, l_dir, nee_active,
-                tmax=l_dist * (1.0 - 1e-3), routing=rt, rope_err=rope_err,
+                tmax=l_dist * 1.002 + 1e-3, routing=rt, rope_err=rope_err,
+                raw=False)
+            l_emit, real_l_pdf = _closest_nee(scene, li.long(), l_dir,
+                                              nee_hit)
+        if not prebin:
+            direct = _resolve_direct(
+                real_l_pdf, n_lights_w, cos_pdf_at_l, l_emit, nee_k,
+                is_diff, fresh_direct, direct_base,
             )
-            reached = nee_active & ~occluded
-            l_emit = lights.rect_light_emission(scene, li.long())
-            real_l_pdf = torch.where(
-                reached,
-                lights.rect_light_pdf_analytic(scene, li.long(), l_dir,
-                                               l_dist),
-                0.0,
-            )
-        direct = _resolve_direct(
-            real_l_pdf, n_lights_w, cos_pdf_at_l, l_emit, nee_k, is_diff,
-            fresh_direct, direct_base,
-        )
 
         n_alive = alive.sum()
         return Wave(
@@ -889,6 +1092,13 @@ def _trace_wave_lanes(scene, rot, pos, fov, aspect, near, pixel_id,
             s=s_cur, sb=sb_cur, acc=acc, pix=pix, slot=slot,
             n_rays=w.n_rays + n_alive + n_nee,
         )
+
+    if not do_bin:
+        # one loop at full width: the lanes never move, so lane i is
+        # pixel_id[i] throughout
+        while n_live(w) > 0:
+            w = round_(w)
+        return (w.acc, w.n_rays) if with_stats else w.acc
 
     # ---- multi-phase drain: the bin key sorts dead lanes last, so once
     # the alive count fits the next width the live lanes form a prefix;

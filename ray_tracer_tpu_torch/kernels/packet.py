@@ -229,29 +229,38 @@ def _load_narrow() -> ctypes.CDLL:
     return _narrow_lib
 
 
-def narrow_root_word(bvh_packed, bvh_axis, root: int) -> int:
-    """The narrow kernel's word of node ``root`` of the binary BVH
+def narrow_root_words(bvh_packed, bvh_axis, roots) -> list:
+    """The narrow kernel's words of nodes ``roots`` of the binary BVH
     (``bvh_packed`` (B,8) f32 min3|max3|first|count, ``bvh_axis`` (B,)
     i32; numpy arrays or CPU tensors): ``first << 5 | tag``, tag the
     leaf's triangle count or ``NARROW_INTERIOR`` + the split axis.  Every
     node's word is built from its table row the same way, so first the
     whole table is checked against the word's limits (first at most
     ``NARROW_MAX_FIRST``, leaf counts below ``NARROW_INTERIOR``, interior
-    axes 0..2): -1 where a node lies beyond them, and the narrow walk then
-    refuses the scene."""
+    axes 0..2): every word is -1 where a node lies beyond them, and the
+    narrow walk then refuses the scene."""
     ints = np.ascontiguousarray(np.asarray(bvh_packed, np.float32))
     ints = ints.view(np.int32).astype(np.int64)
     first, count = ints[:, 6], ints[:, 7]
     axis = np.asarray(bvh_axis).astype(np.int64)
     leaf = count > 0
-    if not 0 <= root < ints.shape[0]:
-        raise ValueError(f"root {root} is not a node of the BVH")
+    roots = [int(r) for r in roots]
+    for root in roots:
+        if not 0 <= root < ints.shape[0]:
+            raise ValueError(f"root {root} is not a node of the BVH")
     if (first.min() < 0 or first.max() > NARROW_MAX_FIRST
             or count.min() < 0 or count.max() >= NARROW_INTERIOR
             or not np.isin(axis[~leaf], (0, 1, 2)).all()):
-        return -1
-    tag = count[root] if leaf[root] else NARROW_INTERIOR + axis[root]
-    return int(first[root] << NARROW_TAG_BITS | tag)
+        return [-1] * len(roots)
+    return [int(first[r] << NARROW_TAG_BITS
+                | (count[r] if leaf[r] else NARROW_INTERIOR + axis[r]))
+            for r in roots]
+
+
+def narrow_root_word(bvh_packed, bvh_axis, root: int) -> int:
+    """The narrow kernel's word of node ``root``
+    (:func:`narrow_root_words`)."""
+    return narrow_root_words(bvh_packed, bvh_axis, [root])[0]
 
 
 def packet_traverse(bvh_packed, bvh_axis, tri_packed, origin, direction,

@@ -1,9 +1,12 @@
 """Scene traversal: sphere brute force, then a triangle route.
 
-Port of ``ray_tracer_tpu/ops/traverse.py``'s flattened-scene routes
-(``traverse`` / ``traverse_anyhit`` with ``raw=True, need_uv=False``),
-chosen per call from the scene and the ``Routing``, in the JAX package's
-order:
+Port of ``ray_tracer_tpu/ops/traverse.py``'s routes (``traverse`` /
+``traverse_anyhit`` with ``raw=True, need_uv=False``).  A forest
+(non-flattened) scene takes :func:`_forest` under every ``Routing``, as
+the JAX package's does (its packet mode is off there): each instance's
+tree is walked in turn in object space by the narrow walk.  A flattened
+scene's route is chosen per call from the scene and the ``Routing``, in
+the JAX package's order:
 
 * the rope walk (``kernels/lanewalk.py``) under ``lanewalk="force"``, for
   closest hit and occlusion, on a scene compiled with
@@ -32,11 +35,12 @@ either).
 
 Triangle hits come back in :func:`prim_space`: padded leaf-slot ids
 (``shade_slot`` rows) on the group, two-phase and packet routes, global
-triangle ids
-(``shade_tri`` rows) on the rope-walk, cluster and narrow routes.
-Barycentrics and facing are re-derived by the integrator's shade fetch, so
-the routes return only ``(dst, prim)``.  Forest (non-flattened) mesh
-scenes are not ported.
+triangle ids (``shade_tri`` rows) on the rope-walk, cluster and narrow
+routes and on forest scenes.  On a flattened scene barycentrics and
+facing are re-derived by the integrator's shade fetch, so the routes
+return only ``(dst, prim)``; on a forest scene, whose rows are in object
+space, the walk's own ``u``, ``v``, ``front`` and the instance ``obj``
+come back in the :class:`Hit`.
 """
 
 from __future__ import annotations
@@ -67,12 +71,19 @@ _SENT = 2**30  # sort key of a dead pair: after every node id
 
 
 class Hit(NamedTuple):
-    """Closest-hit record (SoA over the ray batch)."""
+    """Closest-hit record (SoA over the ray batch), the JAX package's
+    fields.  ``obj``, ``u`` and ``v`` are set for triangle hits on forest
+    scenes (and by the counting walk); the flattened scenes' routes leave
+    them 0, since the shade rows carry the instance and the shade fetch
+    re-derives the barycentrics."""
 
     dst: torch.Tensor  # (N,) f32, the initial bound when no hit
     kind: torch.Tensor  # (N,) i32: 0 none / 1 sphere / 2 triangle
-    prim: torch.Tensor  # (N,) i32: sphere index, or padded leaf slot
-    front: torch.Tensor  # (N,) bool: sphere facing (triangles: re-derived)
+    prim: torch.Tensor  # (N,) i32: sphere index, or triangle in prim_space
+    obj: torch.Tensor  # (N,) i32: the triangle's instance (forest scenes)
+    u: torch.Tensor  # (N,) f32 barycentrics (forest scenes)
+    v: torch.Tensor
+    front: torch.Tensor  # (N,) bool: facing (flattened triangles: 0)
 
     @property
     def did_hit(self):
@@ -80,13 +91,10 @@ class Hit(NamedTuple):
 
 
 def _has_tris(scene: CompiledScene) -> bool:
+    """Does the scene hold triangles?  Raises where its tallest tree is
+    deeper than the walks' stacks hold."""
     if scene.n_objects == 0 or scene.meta.get("n_tris", 0) == 0:
         return False
-    if not scene.meta.get("flattened", False):
-        raise NotImplementedError(
-            "forest (non-flattened) scenes are not ported yet "
-            "(ROADMAP Queue A item 5)"
-        )
     if scene.meta.get("bvh_max_depth", 0) > MAX_TREE_DEPTH:
         raise ValueError(
             f"BVH depth {scene.meta['bvh_max_depth']} exceeds the traversal "
@@ -95,10 +103,15 @@ def _has_tris(scene: CompiledScene) -> bool:
     return True
 
 
+def _flattened(scene: CompiledScene) -> bool:
+    return scene.meta.get("flattened", False)
+
+
 def _lanewalk_on(scene: CompiledScene, routing: Routing) -> bool:
     """Both queries through the rope walk?  ``lanewalk="force"`` asks for
-    it; a scene compiled without rope streams then raises."""
-    if routing.lanewalk != "force":
+    it on a flattened scene; one compiled without rope streams then
+    raises."""
+    if routing.lanewalk != "force" or not _flattened(scene):
         return False
     if not scene.meta.get("rope_rows", 0):
         raise ValueError(
@@ -155,10 +168,11 @@ def _two_phase_ok(scene: CompiledScene, routing: Routing) -> bool:
 def prim_space(scene: CompiledScene, routing: Routing = None) -> str:
     """Which id space triangle hits come back in: ``'tri'`` (global
     triangle ids, ``scene.shade_tri``) on the rope-walk, cluster and narrow
-    routes, ``'slot'`` (padded leaf-slot ids, ``scene.shade_slot``) on the
-    wide ones."""
+    routes and on forest scenes, ``'slot'`` (padded leaf-slot ids,
+    ``scene.shade_slot``) on the wide ones."""
     rt = routing if routing is not None else Routing()
-    if _lanewalk_on(scene, rt) or _cluster_on(scene, rt) or not rt.wide:
+    if (not _flattened(scene) or _lanewalk_on(scene, rt)
+            or _cluster_on(scene, rt) or not rt.wide):
         return "tri"
     return "slot"
 
@@ -283,6 +297,63 @@ def _narrow(scene, o, d, tmax0):
     return dst, prim
 
 
+def _homogeneous(p, d):
+    """Points ``p`` and directions ``d`` (N,3) stacked as (2N,4) rows
+    ``p|1`` over ``d|0``, so that one product with an affine matrix
+    transforms both (:func:`_forest`)."""
+    n = p.shape[0]
+    h = torch.zeros((2 * n, 4), dtype=p.dtype, device=p.device)
+    h[:n, :3] = p
+    h[:n, 3] = 1.0
+    h[n:, :3] = d
+    return h
+
+
+def _forest(scene, origin, direction, tmax0, best=None):
+    """The forest walk (the JAX package's per-instance scan, its
+    ``traverse.py:610-627``): each instance's tree in turn, the rays
+    taken to object space by ``obj_inv_transform[k]`` and walked from
+    ``obj_bvh_root[k]`` by the narrow walk (``packet.packet_traverse``),
+    bounded by the best distance so far (``tmax0`` at first, -BIG on an
+    inactive lane).  Where a lane improves on ``best`` (the sphere
+    result, :func:`_sphere_hits`) it keeps the walk's ``dst``, ``prim``,
+    ``u``, ``v``, ``front`` and ``obj = k``.  With ``best`` None this is
+    the occlusion query: a lane stops at its first hit (the walk's closest
+    hit clipped at its bound, as on the narrow route) and the result is
+    the (N,) mask of lanes hit.  The roots and their words come from
+    ``meta``: no value is read back from the device."""
+    n = origin.shape[0]
+    h = _homogeneous(origin, direction)
+    t = tmax0.contiguous()
+    tri = torch.zeros((n,), dtype=torch.bool, device=origin.device)
+    if best is not None:
+        dst, kind, prim, obj, u, v, front = best
+    for k, (root, word) in enumerate(zip(scene.meta["obj_roots"],
+                                         scene.meta["obj_root_words"])):
+        od = h @ scene.obj_inv_transform[k, :3].T
+        t_k, p_k, u_k, v_k, f_k = packet.packet_traverse(
+            scene.bvh_packed, scene.bvh_axis, scene.tri_packed, od[:n],
+            od[n:], t, root, word)
+        hit = p_k >= 0
+        tri = tri | hit
+        if best is None:
+            t = torch.where(hit, -BIG, t_k)
+            continue
+        t = t_k
+        prim = torch.where(hit, p_k, prim)
+        obj = torch.where(hit, k, obj).to(torch.int32)
+        u = torch.where(hit, u_k, u)
+        v = torch.where(hit, v_k, v)
+        front = torch.where(hit, f_k, front)
+    if best is None:
+        return tri
+    return Hit(
+        dst=torch.where(tri, t, dst),
+        kind=torch.where(tri, KIND_TRI, kind).to(torch.int32),
+        prim=prim, obj=obj, u=u, v=v, front=front,
+    )
+
+
 def _sphere_dst(scene, origin, direction):
     s_dst, s_front, s_hit = intersect.intersect_spheres(
         origin, direction, scene.sphere_pos, scene.sphere_radius
@@ -292,8 +363,7 @@ def _sphere_dst(scene, origin, direction):
 
 def _sphere_hits(scene, origin, direction, active, tmax):
     """The closest sphere hit of each active ray inside ``tmax`` (default
-    BIG) as ``(dst, kind, prim, front)``; ``dst`` is the bound where none
-    is hit."""
+    BIG) as a :class:`Hit`; ``dst`` is the bound where none is hit."""
     n = origin.shape[0]
     dev = origin.device
     dst = torch.full((n,), BIG, device=dev) if tmax is None else tmax
@@ -310,7 +380,9 @@ def _sphere_hits(scene, origin, direction, active, tmax):
         kind = torch.where(better, KIND_SPHERE, kind).to(torch.int32)
         prim = torch.where(better, si[:, 0].to(torch.int32), prim)
         front = torch.where(better, sf, front)
-    return dst, kind, prim, front
+    zero = torch.zeros((n,), dtype=torch.float32, device=dev)
+    return Hit(dst, kind, prim, torch.zeros_like(prim), zero, zero.clone(),
+               front)
 
 
 def traverse(
@@ -321,23 +393,27 @@ def traverse(
     tmax: torch.Tensor = None,
     routing: Routing = None,
     rope_err: torch.Tensor = None,
+    raw: bool = True,
 ) -> Hit:
     """Closest hit for a batch of world-space rays.
 
     ``active`` masks lanes (inactive lanes report no hit); ``tmax`` is an
     optional per-lane search radius (default BIG).  Triangle ``prim`` is in
-    :func:`prim_space` of ``routing`` (default ``Routing()``).
-    ``rope_err``: the rope walk's error flag (:func:`rope_error_flag`),
-    which the caller reads; without it a malformed stream raises here.
+    :func:`prim_space` of ``routing`` (default ``Routing()``); with
+    ``raw=False`` it is always a global triangle id (a leaf slot is mapped
+    through ``leaf_map``) and ``obj`` its instance, as the JAX package's
+    ``raw=False`` returns them.  ``rope_err``: the rope walk's error flag
+    (:func:`rope_error_flag`), which the caller reads; without it a
+    malformed stream raises here.
     """
     rt = routing if routing is not None else Routing()
-    dst, kind, prim, front = _sphere_hits(scene, origin, direction, active,
-                                          tmax)
-
+    best = _sphere_hits(scene, origin, direction, active, tmax)
     if not _has_tris(scene):
-        return Hit(dst, kind, prim, front)
-
+        return best
+    dst, kind, prim, obj, u, v, front = best
     tmax0 = torch.where(active, dst, -BIG).contiguous()
+    if not _flattened(scene):
+        return _forest(scene, origin, direction, tmax0, best)
     o, d = origin.contiguous(), direction.contiguous()
     if _lanewalk_on(scene, rt):
         t_dst, t_prim = lanewalk.lanewalk_traverse(
@@ -358,10 +434,18 @@ def traverse(
             scene.wide_packed, scene.leaf_rows, o, d, tmax0,
             scene.meta.get("wide_leaf_recs", 8))
     tri_hit = t_prim >= 0
+    if not raw:
+        if prim_space(scene, rt) == "slot":
+            t_prim = torch.where(
+                tri_hit, scene.leaf_map[torch.clamp(t_prim, min=0).long()],
+                t_prim)
+        obj = torch.where(tri_hit,
+                          tri_owner(scene, torch.clamp(t_prim, min=0)), obj)
     return Hit(
         dst=torch.where(tri_hit, t_dst, dst),
         kind=torch.where(tri_hit, KIND_TRI, kind).to(torch.int32),
         prim=torch.where(tri_hit, t_prim, prim),
+        obj=obj, u=u, v=v,
         front=front & ~tri_hit,
     )
 
@@ -391,6 +475,8 @@ def traverse_anyhit(
     if not _has_tris(scene):
         return occ & active
     tmax0 = torch.where(active, tmax, -BIG).contiguous()
+    if not _flattened(scene):
+        return (occ | _forest(scene, origin, direction, tmax0)) & active
     o, d = origin.contiguous(), direction.contiguous()
     if _lanewalk_on(scene, rt):
         dst, _ = lanewalk.lanewalk_traverse(
@@ -431,28 +517,40 @@ def traverse_with_stats(scene: CompiledScene, origin, direction, active,
     ``traverse_with_stats``): spheres merge as in :func:`traverse` but are
     not counted (the reference's sphere loop counts nothing); triangles
     come from :func:`_walk_stats`, a plain torch walk of the binary BVH
-    that counts every box and triangle test.  Triangle ``prim`` is a
-    global triangle id (``prim_space`` ``'tri'``).
+    that counts every box and triangle test, on a forest scene once per
+    instance in object space (the JAX package's scan).  Triangle ``prim``
+    is a global triangle id (``prim_space`` ``'tri'``).
     """
-    dst, kind, prim, front = _sphere_hits(scene, origin, direction, active,
-                                          tmax)
+    best = _sphere_hits(scene, origin, direction, active, tmax)
     # the walk updates these in place
-    dst, kind, prim, front = (x.clone() for x in (dst, kind, prim, front))
+    out = Hit(*(x.clone() for x in best))
     box = torch.zeros(origin.shape[:1], dtype=torch.float32,
                       device=origin.device)
     tri = torch.zeros_like(box)
-    if _has_tris(scene):
-        _walk_stats(scene, origin, direction, active, dst, kind, prim,
-                    front, box, tri)
-    return Hit(dst, kind, prim, front), (box, tri)
+    if not _has_tris(scene):
+        return out, (box, tri)
+    if _flattened(scene):
+        _walk_stats(scene, origin, direction, active, out, box, tri,
+                    scene.meta["obj_roots"][0])
+        return out, (box, tri)
+    n = origin.shape[0]
+    h = _homogeneous(origin, direction)
+    for k, root in enumerate(scene.meta["obj_roots"]):
+        od = h @ scene.obj_inv_transform[k, :3].T
+        _walk_stats(scene, od[:n], od[n:], active, out, box, tri, root,
+                    obj_id=k)
+    return out, (box, tri)
 
 
-def _walk_stats(scene, o, d, active, dst, kind, prim, front, box, tri):
-    """The stackless octant-threaded walk of the flattened binary BVH
-    (``bvh_packed`` rows, ``links_packed`` hit|miss links per octant),
-    counting per ray one box test per node visited and one triangle test
-    per leaf record tested, as the JAX package's ``_walk`` does.  Updates
-    the closest-hit tensors and the counters in place.
+def _walk_stats(scene, o, d, active, out: Hit, box, tri, root: int,
+                obj_id: int = None):
+    """The stackless octant-threaded walk of one tree of the binary BVH
+    (``bvh_packed`` rows, ``links_packed`` hit|miss links per octant) from
+    node ``root``, counting per ray one box test per node visited and one
+    triangle test per leaf record tested, as the JAX package's ``_walk``
+    does.  Updates the closest-hit tensors of ``out`` and the counters in
+    place.  A hit's ``obj`` is ``obj_id`` (a forest's instance), or with
+    None the triangle's own (``tri_packed`` column 13).
 
     Each step works on the live lanes only: the walk gathers them into
     dense arrays and compacts those whenever half of them have finished,
@@ -466,16 +564,13 @@ def _walk_stats(scene, o, d, active, dst, kind, prim, front, box, tri):
     octant = ((inv_dir[:, 0] < 0).to(torch.int64)
               + 2 * (inv_dir[:, 1] < 0).to(torch.int64)
               + 4 * (inv_dir[:, 2] < 0).to(torch.int64))
-    root = int(scene.obj_bvh_root[0])
     lane = torch.nonzero(active).flatten()
+    outs = dict(out._asdict(), box=box, tri=tri)
     st = dict(
         lane=lane, node=torch.full_like(lane, root), o=o[lane],
         d=d[lane], inv=inv_dir[lane], base=octant[lane] * n_nodes,
-        dst=dst[lane], kind=kind[lane], prim=prim[lane],
-        front=front[lane], box=box[lane], tri=tri[lane],
+        **{k: x[lane] for k, x in outs.items()},
     )
-    outs = dict(dst=dst, kind=kind, prim=prim, front=front, box=box,
-                tri=tri)
 
     def write_back(keep):
         done = ~keep
@@ -503,15 +598,20 @@ def _walk_stats(scene, o, d, active, dst, kind, prim, front, box, tri):
             valid = leaf_hit & (k < cnt)
             ti = torch.where(valid, idx + k, 0)
             trow = scene.tri_packed[ti]
-            t, _, _, _, fr, hit = intersect.intersect_tris(
+            t, tu, tv, _, fr, hit = intersect.intersect_tris(
                 st["o"], st["d"], trow[:, 0:3], trow[:, 3:6], trow[:, 6:9],
                 trow[:, 9:12], trow[:, 12] > 0.5)
             closer = valid & hit & (t < st["dst"])
+            owner = (trow[:, 13].contiguous().view(torch.int32)
+                     if obj_id is None else obj_id)
             st["tri"] = st["tri"] + valid.to(torch.float32)
             st["dst"] = torch.where(closer, t, st["dst"])
             st["kind"] = torch.where(closer, KIND_TRI, st["kind"]).to(
                 torch.int32)
             st["prim"] = torch.where(closer, ti.to(torch.int32), st["prim"])
+            st["obj"] = torch.where(closer, owner, st["obj"]).to(torch.int32)
+            st["u"] = torch.where(closer, tu, st["u"])
+            st["v"] = torch.where(closer, tv, st["v"])
             st["front"] = torch.where(closer, fr, st["front"])
         links = scene.links_packed[st["base"] + ni]
         nxt = torch.where(box_hit & ~is_leaf, links[:, 0], links[:, 1])

@@ -158,17 +158,20 @@ def page_counts(arrays: dict, meta: dict) -> dict:
 
 
 def narrow_root_meta(arrays: dict) -> dict:
-    """The narrow walk's root, read once on the host: ``bvh_root``, the
+    """The narrow walk's roots, read once on the host: ``bvh_root``, the
     binary BVH's root node (the first object's, as the narrow route walks
     the flattened tree), and ``bvh_root_word``, its word for the kernel
     (``kernels/packet.py::narrow_root_word``, -1 where the table lies
-    beyond the word's limits)."""
-    from ..kernels.packet import narrow_root_word
+    beyond the word's limits); ``obj_roots`` and ``obj_root_words``, every
+    instance's root and its word, which the forest walk starts from."""
+    from ..kernels.packet import narrow_root_words
 
-    roots = np.asarray(arrays["obj_bvh_root"])
-    root = int(roots[0]) if roots.size else 0
-    return dict(bvh_root=root, bvh_root_word=narrow_root_word(
-        arrays["bvh_packed"], arrays["bvh_axis"], root))
+    roots = [int(r) for r in np.asarray(arrays["obj_bvh_root"]).reshape(-1)]
+    words = narrow_root_words(arrays["bvh_packed"], arrays["bvh_axis"],
+                              roots or [0])
+    return dict(bvh_root=roots[0] if roots else 0, bvh_root_word=words[0],
+                obj_roots=tuple(roots),
+                obj_root_words=tuple(words[:len(roots)]))
 
 
 ROPE_FIELDS = 16  # floats per row of the JAX package's rope streams
@@ -434,7 +437,7 @@ class CompiledScene:
 
             arrays["wide_top"] = top_table_or_empty(arrays["wide_packed"],
                                                     arrays["wide_troot"])
-        if "bvh_root_word" not in meta:
+        if "obj_root_words" not in meta:
             meta = {**meta, **narrow_root_meta(arrays)}
         rope = np.asarray(arrays["rope_streams"])
         if not meta.get("rope_rows", 0):

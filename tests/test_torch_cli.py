@@ -29,6 +29,7 @@ from ray_tracer_tpu.scene import presets as j_presets
 from ray_tracer_tpu.scene import schema as j_schema
 from ray_tracer_tpu_torch import viewer
 from ray_tracer_tpu_torch.integrator import film
+from ray_tracer_tpu_torch.parallel.mesh import free_port
 from ray_tracer_tpu_torch.scene import presets as t_presets
 from ray_tracer_tpu_torch.scene import schema as t_schema
 
@@ -176,6 +177,9 @@ def _cli(*args, timeout=300):
 
 SMALL = ["--preset", "sphere_diffuse", "--cpu", "--width", "24",
          "--height", "20", "--spp", "2", "--bounces", "2"]
+# a frame two ranks do not split evenly
+ODD = ["--preset", "sphere_diffuse", "--cpu", "--width", "23", "--height",
+       "19", "--spp", "2", "--bounces", "2"]
 
 
 def _png_size(path):
@@ -271,20 +275,48 @@ def test_cli_without_card_or_cpu_raises():
     assert out.returncode != 0 and "no CUDA device" in out.stderr
 
 
-def test_cli_sharded_raises():
-    out = _cli("render", *SMALL, "--sharded")
-    assert out.returncode != 0
-    assert "NotImplementedError" in out.stderr and "item 6" in out.stderr
+def test_cli_sharded_world_of_one_equals_render(tmp_path):
+    """``render --sharded`` without torchrun: a gloo world of one on the
+    CPU, whose (1, 1) mesh writes the plain render's PNG byte for byte."""
+    a, b = str(tmp_path / "a.png"), str(tmp_path / "b.png")
+    out = _cli("render", *SMALL, "--sharded", "-o", a)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1])["output"] == a
+    assert _cli("render", *SMALL, "-o", b).returncode == 0
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        assert fa.read() == fb.read()
+
+
+def test_cli_sharded_under_torchrun(tmp_path):
+    """``torchrun --nproc-per-node 2 ... render --sharded --cpu``: two
+    gloo ranks split the pixels of a frame whose size they do not divide;
+    rank 0 alone writes the image and the report line, and the PNG is the
+    plain render's byte for byte."""
+    a, b = str(tmp_path / "a.png"), str(tmp_path / "b.png")
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+         "2", "--master-port", str(free_port()), "-m",
+         "ray_tracer_tpu_torch.cli", "render", *ODD, "--sharded", "-o", a],
+        capture_output=True, text=True, timeout=300, cwd=REPO)
+    assert out.returncode == 0, out.stderr
+    lines = [ln for ln in out.stdout.splitlines() if ln.startswith("{")]
+    assert len(lines) == 1 and json.loads(lines[0])["output"] == a
+    plain = _cli("render", *ODD, "-o", b)
+    assert plain.returncode == 0, plain.stderr
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        assert fa.read() == fb.read()
 
 
 def test_port_modules_import_no_jax():
-    """The CLI, the viewer and the schema import neither JAX nor the JAX
-    package."""
+    """The CLI, the viewer, the schema and the multi-device modules import
+    neither JAX nor the JAX package."""
     code = (
         "import sys\n"
         "import ray_tracer_tpu_torch, ray_tracer_tpu_torch.cli, "
         "ray_tracer_tpu_torch.viewer, ray_tracer_tpu_torch.scene.schema, "
-        "ray_tracer_tpu_torch.scene.presets\n"
+        "ray_tracer_tpu_torch.scene.presets, "
+        "ray_tracer_tpu_torch.parallel.mesh, "
+        "ray_tracer_tpu_torch.parallel.entry\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'ray_tracer_tpu' or m.startswith('ray_tracer_tpu.')]\n"
         "assert not bad, bad\n"

@@ -993,3 +993,111 @@ def test_debug_heatmap_on_card_matches_cpu(dev, scene):
     assert float((gt != ct).float().mean()) <= 0.01
     img = trt.render_debug(scene, cfg, mode=2)
     assert img.device.type == "cuda" and img.shape == (36, 64, 3)
+
+
+GPU_VALUES = {  # the wavefront's configuration values
+    "bin_leaf": dict(routing=trt.Routing(bin_mode="leaf")),
+    "bin_hier": dict(routing=trt.Routing(bin_mode="hier")),
+    "prebin_sort": dict(routing=trt.Routing(nee_prebin="sort")),
+    "prebin_nosort": dict(routing=trt.Routing(nee_prebin="nosort")),
+    "unbinned": dict(bin_rays=False),
+    "closest_nee": dict(nee_anyhit=False),
+    "closest_nee_static": dict(nee_anyhit=False, path_regen=False),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("value", list(GPU_VALUES))
+def test_config_value_on_card_matches_cpu(dev, scene, value):
+    """Each configuration value at 64x36 on the card against the CPU; the
+    re-ordering values equal the card's default image bit for bit."""
+    cfg = trt.RenderConfig(width=64, height=36, samples_per_pixel=2,
+                           bounce_limit=8)
+    kw = GPU_VALUES[value]
+    group.reset_launches()
+    gpu = trt.render(scene, cfg.replace(**kw))
+    torch.cuda.synchronize()
+    assert group.launches["group_traverse"] > 0
+    _card_vs_cpu(gpu, trt.render(scene.to("cpu"), cfg.replace(**kw)))
+    if "nee_anyhit" not in kw:
+        assert torch.equal(gpu, trt.render(scene, cfg))
+
+
+@pytest.fixture(scope="module")
+def forest_scene(dev):
+    return presets.sponza_proxy(n_tris_target=8000).compile(
+        flatten_instances=False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("anyhit", [False, True])
+def test_forest_walk_on_card_matches_cpu(dev, forest_scene, anyhit):
+    """The forest walk (the narrow kernel once per instance, in object
+    space) against the same walk on the CPU: the transforms are one
+    matrix product per instance, which cuBLAS and the CPU may round
+    apart, so ``dst`` within rtol 1e-5, hits and instances equal but at
+    most 0.1% of the rays."""
+    from ray_tracer_tpu_torch.ops import traverse
+
+    sc = forest_scene
+    o, d, tmax = _rays(sc, 20000, anyhit, seed=9)
+    act = tmax > -BIG
+    tmax = torch.where(act, tmax, BIG)
+    cpu = sc.to("cpu")
+    args = [x.cpu() for x in (o, d, act, tmax)]
+    packet.reset_launches()
+    if anyhit:
+        got = traverse.traverse_anyhit(sc, o, d, act, tmax)
+        want = traverse.traverse_anyhit(cpu, *args)
+        assert float((got.cpu() != want).float().mean()) <= 1e-3
+    else:
+        got = traverse.traverse(sc, o, d, act, tmax=tmax)
+        want = traverse.traverse(cpu, *args[:3], tmax=args[3])
+        hit = want.did_hit
+        assert float((got.did_hit.cpu() != hit).float().mean()) <= 1e-3
+        both = hit & got.did_hit.cpu()
+        torch.testing.assert_close(got.dst.cpu()[both], want.dst[both],
+                                   rtol=1e-5, atol=1e-6)
+        same_obj = (got.obj.cpu() == want.obj)[both]
+        assert float(same_obj.float().mean()) >= 0.999
+    assert packet.launches["packet_narrow"] == sc.meta["n_objects"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("value", ["wavefront", "closest_nee", "static",
+                                   "unbinned"])
+def test_forest_render_on_card_matches_cpu(dev, forest_scene, value):
+    kw = {"wavefront": {}, "closest_nee": dict(nee_anyhit=False),
+          "static": dict(path_regen=False), "unbinned": dict(bin_rays=False),
+          }[value]
+    cfg = trt.RenderConfig(width=32, height=18, samples_per_pixel=2,
+                           bounce_limit=8, **kw)
+    packet.reset_launches()
+    gpu = trt.render(forest_scene, cfg)
+    torch.cuda.synchronize()
+    assert packet.launches["packet_narrow"] > 0
+    _card_vs_cpu(gpu, trt.render(forest_scene.to("cpu"), cfg))
+
+
+@pytest.mark.gpu
+def test_normal_maps_on_card_match_cpu(dev, tmp_path):
+    """A bump-mapped quad (a generated height map) on the card against
+    the CPU, both integrators."""
+    from torch_parity import bump_scene, uphill
+
+    b = bump_scene(trt, str(tmp_path), uphill)
+    sc, cpu = b.compile(), b.compile(device="cpu")
+    for regen in (True, False):
+        cfg = trt.RenderConfig(width=25, height=23, samples_per_pixel=4,
+                               bounce_limit=2, enable_normal_maps=True,
+                               bump_scale=4.0, path_regen=regen)
+        _card_vs_cpu(trt.render(sc, cfg), trt.render(cpu, cfg))
+
+
+@pytest.mark.gpu
+def test_dryrun_on_card(dev):
+    """The port's dry run with one NCCL rank on the card."""
+    from ray_tracer_tpu_torch.parallel import entry
+
+    summary = entry.dryrun_multichip(1, timeout=300)
+    assert summary["meshes"] == [[1, 1]]

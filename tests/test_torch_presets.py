@@ -10,6 +10,7 @@ renders with the committed goldens waits for the real files.
 
 import numpy as np
 import pytest
+import torch
 
 import ray_tracer_tpu as jrt
 import ray_tracer_tpu_torch as trt
@@ -96,12 +97,34 @@ def test_bobadog_reads_its_mtl(assets):
     assert_images_match(got.numpy(), np.asarray(want))
 
 
-def test_obj_normals_demo_compiles_but_bump_maps_raise(assets):
-    sc = t_presets.obj_normals_demo(assets=assets).compile(device="cpu")
-    cfg = trt.RenderConfig(width=4, height=4, bounce_limit=1)
-    assert trt.render(sc, cfg).shape == (4, 4, 3)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        trt.render(sc, cfg.replace(enable_normal_maps=True))
+@pytest.mark.parametrize("bump", [False, True])
+def test_obj_normals_demo_renders_with_normal_maps(assets, bump):
+    """``obj_normals_demo`` under ``enable_normal_maps`` against the JAX
+    package at 19x15, spp 2, bounce 1 (the preset's bounce limit).  The
+    preset itself carries no bump map, so the flag leaves its image bit
+    for bit; with ``bump`` its weapon's albedo texture doubles as the
+    height map in both packages, and the map moves the image."""
+    builders = [p.obj_normals_demo(assets=assets)
+                for p in (j_presets, t_presets)]
+    if bump:
+        for b in builders:
+            (rb,) = [m for m in b.materials if m.name == "rb"]
+            rb.bump_tex = rb.albedo_tex
+    jsc = builders[0].compile().device_put()
+    sc = builders[1].compile(device="cpu")
+    assert sc.meta["n_bump_maps"] == int(bump)
+    kw = dict(width=19, height=15, samples_per_pixel=2, bounce_limit=1,
+              enable_normal_maps=True, bump_scale=4.0)
+    want = jrt.render(jsc, jrt.RenderConfig(routing=JRouting(packet="off"),
+                                            **kw))
+    got = trt.render(sc, trt.RenderConfig(**kw))
+    assert_images_match(got.numpy(), np.asarray(want))
+    off = trt.render(sc, trt.RenderConfig(**{**kw, "enable_normal_maps":
+                                              False}))
+    if bump:
+        assert float((got - off).abs().max()) > 1e-3
+    else:
+        assert torch.equal(got, off)
 
 
 def test_default_assets_from_the_environment(monkeypatch, tmp_path):

@@ -12,6 +12,7 @@ import os
 import jax
 import numpy as np
 import pytest
+import torch
 
 import ray_tracer_tpu as jrt
 import ray_tracer_tpu_torch as trt
@@ -199,21 +200,52 @@ def test_room_drain_phases_match_jax(room):
     assert_images_match(got.numpy(), np.asarray(want))
 
 
-@pytest.mark.parametrize("change", [
-    {"nee_anyhit": False},
-    {"enable_normal_maps": True},
-    {"bin_rays": False},
-    {"routing": trt.Routing(bin_mode="leaf")},
-    {"routing": trt.Routing(nee_prebin="nosort")},
-])
-def test_unported_config_values_raise(room, change):
-    cfg = trt.RenderConfig(width=4, height=4, **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trt.render(room[1], cfg)
+CHANGES = {  # the port's value, the JAX package's on its binned walk
+    "closest_nee": ({"nee_anyhit": False}, {"nee_anyhit": False}),
+    "normal_maps": ({"enable_normal_maps": True},
+                    {"enable_normal_maps": True}),
+    "unbinned": ({"bin_rays": False}, {"bin_rays": False}),
+    "bin_leaf": ({"routing": trt.Routing(bin_mode="leaf")},
+                 {"routing": JRouting(packet="off", bin_mode="leaf")}),
+    "prebin_nosort": ({"routing": trt.Routing(nee_prebin="nosort")},
+                      {"routing": JRouting(packet="off",
+                                           nee_prebin="nosort")}),
+}
 
 
-def test_forest_scene_raises(tmp_path):
+@pytest.mark.parametrize("change", list(CHANGES))
+def test_config_values_match_jax(room, change):
+    """The values that once raised render the room at 24x20, spp 2, bounce
+    3 as the JAX package does with the same value; the room has no bump
+    map and no emitter between a surface and its light, so each image is
+    also the port's default image (bit for bit, but for the closest-hit
+    resolve's own rounding)."""
+    jsc, tsc = room
+    kw = dict(width=24, height=20, samples_per_pixel=2, bounce_limit=3)
+    tkw, jkw = CHANGES[change]
+    jkw = {"routing": JRouting(packet="off"), "bin_rays": True, **jkw}
+    got = trt.render(tsc, trt.RenderConfig(**kw, **tkw))
+    want = np.asarray(jrt.render(jsc, jrt.RenderConfig(**kw, **jkw)))
+    assert_images_match(got.numpy(), want)
+    default = trt.render(tsc, trt.RenderConfig(**kw))
+    if change == "closest_nee":
+        np.testing.assert_allclose(got.numpy(), default.numpy(), atol=1e-6)
+    else:
+        assert torch.equal(got, default)
+
+
+def test_forest_scene_matches_jax_kernel_route(room, tmp_path):
+    """The room compiled as a forest (``flatten_instances=False``) against
+    the JAX package's flattened kernel route and the port's flattened
+    image, 40x40, spp 4, bounce 6."""
+    jsc, tsc = room
     sc = room_scene(trt, str(tmp_path)).compile(flatten_instances=False,
                                                 device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trt.render(sc, trt.RenderConfig(width=4, height=4))
+    kw = dict(width=40, height=40, samples_per_pixel=4, bounce_limit=6)
+    want = jrt.render(jsc, jrt.RenderConfig(
+        routing=JRouting(packet="interpret", groups=4, groups_packet=512),
+        **kw,
+    ))
+    got = trt.render(sc, trt.RenderConfig(**kw)).numpy()
+    assert_images_match(got, np.asarray(want))
+    assert_images_match(got, trt.render(tsc, trt.RenderConfig(**kw)).numpy())

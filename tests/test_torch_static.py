@@ -189,13 +189,17 @@ def test_render_debug_matches_jax(room, mode):
 
 
 def test_static_scan_unported_values_raise(room):
-    """The wavefront's binning switches do not apply to the static scan;
-    the bump maps raise on both integrators."""
+    """The wavefront's binning switches do not apply to the static scan,
+    which renders them as its default; the bump-map switch renders too
+    (the room has no bump map: the same image); an unknown estimator
+    raises."""
     _, tsc = room
     cfg = trt.RenderConfig(width=4, height=4, path_regen=False,
                            bin_rays=False)
-    assert trt.render(tsc, cfg).shape == (4, 4, 3)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        trt.render(tsc, cfg.replace(enable_normal_maps=True))
+    img = trt.render(tsc, cfg)
+    assert img.shape == (4, 4, 3)
+    assert torch.equal(trt.render(tsc, cfg.replace(bin_rays=None)), img)
+    assert torch.equal(
+        trt.render(tsc, cfg.replace(enable_normal_maps=True)), img)
     with pytest.raises(ValueError, match="estimator"):
         trt.render(tsc, cfg.replace(estimator="bogus"))

@@ -173,18 +173,25 @@ def route_tmax(rand, case, n):
     return tmax
 
 
-def assert_tri_ties(sc, o, d, prim, jprim, hit):
+def assert_tri_ties(sc, o, d, prim, jprim, hit, obj=None):
     """Where two routes' global triangle ids differ on a hit, both
     triangles accept the ray (by the port's arithmetic) at the same t
     within the traversal tolerance (rtol 1e-5, atol 1e-6): a tie, decided
-    by visit order or by an ulp of rounding.  At most 1% of the rays."""
+    by visit order or by an ulp of rounding.  At most 1% of the rays.
+    On a forest scene ``obj`` names each hit's instance: its rays are
+    taken to that instance's object space first."""
     from ray_tracer_tpu_torch.kernels.bvh8 import mt_test
 
     differ = hit & (prim != jprim)
     if differ.any():
-        dd = np.where(d == 0.0, np.float32(1e-20), d)[differ]
-        dd = torch.from_numpy(dd)
-        oo = torch.from_numpy(o[differ])
+        oo, dd = o[differ], d[differ]
+        if obj is not None:
+            m = sc.obj_inv_transform.numpy()[obj[differ]]
+            oo = np.einsum("nij,nj->ni", m[:, :3, :3], oo) + m[:, :3, 3]
+            dd = np.einsum("nij,nj->ni", m[:, :3, :3], dd)
+            oo, dd = oo.astype(np.float32), dd.astype(np.float32)
+        dd = torch.from_numpy(np.where(dd == 0.0, np.float32(1e-20), dd))
+        oo = torch.from_numpy(oo)
         t_a, _, _, _, ok_a = mt_test(sc.tri_packed[prim[differ]], oo, dd)
         t_b, _, _, _, ok_b = mt_test(sc.tri_packed[jprim[differ]], oo, dd)
         assert ok_a.all() and ok_b.all()
@@ -556,3 +563,91 @@ def assert_tables_match(jax_scene, tsc):
     jmeta = {**jmeta, **narrow_root_meta(jarr)}
     for k, v in tsc.meta.items():
         assert jmeta[k] == v, k
+
+
+SHARD_MESHES = [(4, 1), (2, 2), (1, 4)]
+
+
+def sharded_room_rank(rank, n, store, out, frame):
+    """One rank of a gloo world of ``n`` (``parallel.entry.init_rank``: a
+    file store, one torch thread): renders the room scene with ``frame``
+    (RenderConfig keywords) on every mesh of :data:`SHARD_MESHES` and, on
+    rank 0, saves each image to ``out/mesh_<d>x<s>.npy``.  Rank 0 also
+    checks that a mesh that does not use the world raises."""
+    import torch.distributed as dist
+
+    import ray_tracer_tpu_torch as trt
+    from ray_tracer_tpu_torch.parallel import entry, mesh
+
+    entry.init_rank(rank, n, store, cpu=True)
+    try:
+        tmp = os.path.join(out, f"rank{rank}")
+        os.makedirs(tmp, exist_ok=True)
+        sc = room_scene(trt, tmp).compile(device="cpu")
+        cfg = trt.RenderConfig(**frame)
+        for n_data, n_sample in SHARD_MESHES:
+            m = mesh.make_mesh(n_data=n_data, n_sample=n_sample)
+            assert (m.n_data, m.n_sample) == (n_data, n_sample)
+            assert (m.my_data, m.my_sample) == divmod(rank, n_sample)
+            img = mesh.render_frame_sharded(sc, cfg, m)
+            if rank == 0:
+                np.save(os.path.join(out, f"mesh_{n_data}x{n_sample}.npy"),
+                        img.numpy())
+        if rank == 0:
+            try:
+                mesh.make_mesh(n_data=3, n_sample=1)
+            except ValueError:
+                np.save(os.path.join(out, "bad_mesh_raised.npy"), 1)
+    finally:
+        dist.destroy_process_group()
+
+
+def bump_scene(pkg, tmp, ramp):
+    """``tests/test_normal_maps.py``'s scene: a -z-facing textured quad
+    with a bump map whose height is ``ramp(column)`` (16x16 gray PNG, made
+    here), a dark wall behind the camera, and a rect light in front of the
+    quad offset to +x."""
+    quad = os.path.join(tmp, "quad.obj")
+    wall = os.path.join(tmp, "wall.obj")
+    for path, z, half, flip in ((quad, 0.0, 1.5, False),
+                                (wall, -3.2, 9.0, True)):
+        faces = ("vn 0 0 1\n" * 4 + "f 1/1/1 2/2/2 3/3/3\nf 1/1/1 3/3/3 "
+                 "4/4/4\n") if flip else ("vn 0 0 -1\n" * 4 + "f 1/1/1 "
+                                          "3/3/3 2/2/2\nf 1/1/1 4/4/4 3/3/3\n")
+        with open(path, "w") as f:
+            f.write(f"v -{half} -{half} {z}\nv {half} -{half} {z}\n"
+                    f"v {half} {half} {z}\nv -{half} {half} {z}\n"
+                    "vt 0 0\nvt 1 0\nvt 1 1\nvt 0 1\n" + faces)
+    from ray_tracer_tpu_torch.integrator import film
+
+    bmap = os.path.join(tmp, f"bump_{ramp.__name__}.png")
+    gray = np.zeros((16, 16, 3), np.uint8)
+    for j in range(16):
+        gray[:, j] = ramp(j)
+    with open(bmap, "wb") as f:
+        f.write(film.encode_png_uint8(gray))
+    b = pkg.SceneBuilder()
+    tex = b.add_texture(bmap)
+    mat = b.add_material(pkg.Material(albedo=(0.8, 0.8, 0.8), bump_tex=tex))
+    dark = b.add_material(pkg.Material(albedo=(0.25, 0.25, 0.25)))
+    b.add_obj(quad, material=mat)
+    b.add_obj(wall, material=dark)
+    glow = b.add_material(pkg.Material(emission_color=(1, 1, 1),
+                                       emission_strength=6.0))
+    b.add_rect_light((1.8, -0.6, -1.6), (0.6, 0.0, 0.0), (0.0, 1.2, 0.0),
+                     (0.0, 0.0, -1.0), glow)
+    b.set_environment(pkg.Environment(enabled=False))
+    b.set_camera(pkg.Camera(position=(0, 0, -2.8), angles_deg=(0, 0, 0)))
+    return b
+
+
+def uphill(j):
+    return j * 16
+
+
+def downhill(j):
+    return 240 - j * 16
+
+
+def level(j):
+    return 128
