@@ -42,7 +42,9 @@ against the CPU, the debug heatmap at the viewer's preview size with
 its counts at 64x36 against the CPU's, the CLI as subprocesses (a
 progressive render with a checkpoint, run twice so that the second
 resumes, and the bench line) and the viewer (its render loop and HTTP
-server in threads, every endpoint requested).  The configuration values
+server in threads, every endpoint requested), and the bench
+(``python -m ray_tracer_tpu_torch.bench``, by default and with
+``RT_TWO_PHASE=1``, each held to the main frame).  The configuration values
 (``config_values``: the leaf and hier bin keys, pre-permute NEE sorted
 and not, the unbinned wavefront, each equal to the main frame bit for
 bit; closest-hit NEE within 1% of it and at 64x36 against the CPU), bump
@@ -79,7 +81,7 @@ sys.path.insert(0, REPO)
 sys.path.append(os.path.join(REPO, "tools"))
 
 import ray_tracer_tpu_torch as trt  # noqa: E402
-from ray_tracer_tpu_torch import api  # noqa: E402
+from ray_tracer_tpu_torch import api, bench  # noqa: E402
 from ray_tracer_tpu_torch.api import _camera_arrays, scene_camera  # noqa: E402
 from ray_tracer_tpu_torch.integrator import film, wavefront  # noqa: E402
 from ray_tracer_tpu_torch.kernels import (  # noqa: E402
@@ -116,7 +118,6 @@ ROUTES = {  # frame phase -> routing, timed frames
     "frame_lanewalk": (trt.Routing(lanewalk="force"), 1),
     "frame_two_phase": (trt.Routing(two_phase=True), 1),
 }
-KERNEL_MODULES = (group, packet, cluster, lanewalk)  # the launch counters
 # one nvcc build each
 LIBRARIES = (bvh8.build, cluster.build, packet.build_narrow, lanewalk.build,
              cluster_test_variants.build, deep_walk_variants.build,
@@ -197,15 +198,6 @@ def cuda_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
-
-
-def reset_launches() -> None:
-    for m in KERNEL_MODULES:
-        m.reset_launches()
-
-
-def all_launches() -> dict:
-    return {k: v for m in KERNEL_MODULES for k, v in m.launches.items()}
 
 
 def bound(bytes_moved: float, ops: float) -> dict:
@@ -926,64 +918,50 @@ def card_vs_cpu(sc, sc_cpu, title, routing=None, **kw):
 
 
 def images_agree(title, gpu, cpu, spp=2, **fields):
-    """The card's image against the CPU's: >= 99% of pixels within 2e-3
-    and a mean |diff| below 1e-3, else raise."""
-    gpu = gpu.cpu()
-    diff = (gpu - cpu).abs()
-    within = float((diff.amax(dim=-1) <= 2e-3).float().mean())
+    """The card's image against the CPU's by the bench's gate
+    (``bench.images_agree``: a finite card image, >= 99% of pixels within
+    2e-3 and a mean |diff| below 1e-3), else raise."""
+    stats = bench.images_agree(gpu, cpu)
     phase(title, size=f"{SMALL[0]}x{SMALL[1]}", spp=spp, bounce=8,
-          pixels_within_2e3=within, mean_abs_diff=float(diff.mean()),
-          max_abs_diff=float(diff.max()), **fields)
-    if not bool(torch.isfinite(gpu).all()):
-        raise AssertionError(f"{title}: card image not finite")
-    if within < 0.99 or float(diff.mean()) >= 1e-3:
+          **stats, **fields)
+    if not stats["agree"]:
         raise AssertionError(f"{title}: card and CPU renders disagree")
 
 
 def frame(sc, dev, title, routing, timed, main=None, **kw):
     """The benchmark frame through ``render`` (the launch counts are this
     call's; its image is kept as ``image``, not printed), then ``timed``
-    frames of bench.py's measure (frame index 1, ray counts from the
-    wavefront): their median time, and the checksum and ray counts, which
-    must agree with ``main``'s within 1%.  ``kw``: more RenderConfig
-    values."""
+    frames of the bench's measure (``bench.measure``: frame index 1, ray
+    counts from the wavefront; ``render`` was its warm-up): their median
+    time, and the checksum and ray counts, which must agree with
+    ``main``'s within 1%.  ``kw``: more RenderConfig values."""
     cfg = trt.RenderConfig(width=FRAME[0], height=FRAME[1],
                            samples_per_pixel=2, bounce_limit=8,
                            max_rays_per_batch=1 << 21, routing=routing, **kw)
-    reset_launches()
+    bench.reset_launches()
     torch.cuda.synchronize()
     t_render = time.perf_counter()
     img = trt.render(sc, cfg)
     torch.cuda.synchronize()
     render_s = time.perf_counter() - t_render
-    launches = all_launches()
+    launches = bench.all_launches()
     finite = bool(torch.isfinite(img).all())
     if img.shape != (FRAME[1], FRAME[0], 3) or not finite:
         raise AssertionError(f"{title}: bad frame {tuple(img.shape)} "
                              f"finite={finite}")
-    cam = _camera_arrays(scene_camera(sc), cfg, dev)
-    ids = torch.arange(cfg.n_pixels, dtype=torch.int32, device=dev)
-    torch.cuda.reset_peak_memory_stats()
-    times = []
-    for _ in range(timed):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        acc, n_rays = wavefront.trace_wave(sc, *cam, ids, 1, 0, 2, cfg,
-                                           with_stats=True)
-        checksum = float(acc.sum())
-        times.append(time.perf_counter() - t0)
-    dt = statistics.median(times)
-    rays_sem, rays_traced = (int(x) for x in n_rays.tolist())
-    rec = dict(frame_s=dt, frame_s_all=times, render_s=render_s,
+    m = bench.measure(sc, cfg, 2, timed, warmup=False)
+    dt, rays_sem, rays_traced = m["frame_s"], m["rays_sem"], m["rays_traced"]
+    rec = dict(frame_s=dt, frame_s_all=m["frame_s_all"], render_s=render_s,
                rays_sem=rays_sem, rays_traced=rays_traced,
-               checksum=checksum, launches=launches)
+               checksum=m["checksum"], repeats_bitwise=m["repeats_bitwise"],
+               launches=launches)
     if main is not None:
         rec["vs_main"] = {
             k: rec[k] / main[k] - 1.0 for k in ("checksum", "rays_sem")}
     phase(title, size=f"{FRAME[0]}x{FRAME[1]}", spp=2, bounce=8,
           mrays_sem=rays_sem / dt / 1e6, mrays_traced=rays_traced / dt / 1e6,
           image_mean=float(img.mean()),
-          peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+          peak_mem_gib=m["max_memory_allocated"] / 2**30,
           finite=finite, **rec)
     if main is not None and max(abs(v) for v in rec["vs_main"].values()) \
             >= 0.01:
@@ -1031,7 +1009,7 @@ def progressive(sc, sc_cpu, tmp):
     del first, again
     pr = trt.ProgressiveRenderer(sc, cfg)
     state = os.path.join(tmp, "progressive.npz")
-    reset_launches()
+    bench.reset_launches()
     step_s = []
     for i in range(3):
         torch.cuda.synchronize()
@@ -1041,7 +1019,7 @@ def progressive(sc, sc_cpu, tmp):
         step_s.append(time.perf_counter() - t0)
         if i == 1:
             pr.save_state(state)
-    launches = all_launches()
+    launches = bench.all_launches()
     resumed = trt.ProgressiveRenderer(sc, cfg)
     resumed.load_state(state)
     if resumed.frame != 2 or resumed.accum.device != sc.device:
@@ -1083,13 +1061,13 @@ def static_scan(sc, sc_cpu):
     frame, then each estimator at 64x36 on the card against the CPU."""
     cfg = frame_cfg(path_regen=False)
     trt.render(sc, cfg)  # warm-up
-    reset_launches()
+    bench.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     img = trt.render(sc, cfg)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = all_launches()
+    launches = bench.all_launches()
     finite = bool(torch.isfinite(img).all())
     # the occupancy profile: one sample of every pixel
     rot, pos, fov, aspect, near = _camera_arrays(scene_camera(sc), cfg,
@@ -1193,6 +1171,51 @@ def cli(tmp):
     phase("cli", render=runs, bench=bench, bench_process_s=wall)
     if bench["device"] != torch.cuda.get_device_name(0):
         raise AssertionError(f"cli bench: device {bench['device']!r}")
+
+
+BENCH_LINES = {  # bench line -> its environment, the modes it must launch,
+    # and how far its checksum and rays_sem may lie from the main frame's
+    "default": ({}, ("group_traverse", "group_anyhit"), bench.REPEAT_RTOL),
+    "two_phase": ({"RT_TWO_PHASE": "1"},
+                  ("packet8_top", "packet8_top_anyhit", "packet8_deep",
+                   "packet8_deep_anyhit"), 0.01),
+}
+
+
+def bench_phase(main):
+    """The bench as a user runs it, ``python -m ray_tracer_tpu_torch.bench``
+    in a subprocess, by default and with ``RT_TWO_PHASE=1``: each line's
+    gate must pass, its device be this card, its launches name the
+    route's kernels, and its checksum and rays_sem agree with the main
+    frame's."""
+    lines = {}
+    for name, (extra, modes, rtol) in BENCH_LINES.items():
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "ray_tracer_tpu_torch.bench"],
+            capture_output=True, text=True, cwd=REPO, timeout=600,
+            env={**os.environ, **extra})
+        wall = time.perf_counter() - t0
+        if out.returncode != 0:
+            raise AssertionError(f"bench {name}: rc {out.returncode}: "
+                                 f"{out.stderr[-2000:]}")
+        line = json.loads(out.stdout.strip().splitlines()[-1])
+        vs_main = {k: line[k] / main[k] - 1.0 for k in ("checksum",
+                                                         "rays_sem")}
+        phase("bench", line=name, process_s=wall, vs_main=vs_main, **line)
+        if line["gate"] != "pass" or \
+                line["device"] != torch.cuda.get_device_name(0):
+            raise AssertionError(f"bench {name}: gate {line['gate']!r} on "
+                                 f"{line['device']!r}")
+        if min(line["launches"][m] for m in modes) <= 0:
+            raise AssertionError(f"bench {name}: a mode of the route never "
+                                 f"launched: {line['launches']}")
+        if max(abs(v) for v in vs_main.values()) > rtol:
+            raise AssertionError(f"bench {name}: checksum or rays_sem off "
+                                 f"the main frame's by more than {rtol}: "
+                                 f"{vs_main}")
+        lines[name] = line
+    return lines
 
 
 def viewer_phase():
@@ -1315,7 +1338,7 @@ def config_values(sc, sc_cpu, dev, main):
     checksum and ray counts within 1%, and at 64x36 with the CPU."""
     out = {}
     for key, kw in CONFIG_VALUES.items():
-        reset_launches()
+        bench.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         img = trt.render(sc, frame_cfg(**kw))
@@ -1323,7 +1346,7 @@ def config_values(sc, sc_cpu, dev, main):
         dt = time.perf_counter() - t0
         equal = bool(torch.equal(img, main["image"]))
         out[key] = dict(frame_s=dt, equal_to_main=equal,
-                        launches=all_launches())
+                        launches=bench.all_launches())
         del img
         if not equal:
             raise AssertionError(f"config_values: {key}'s frame differs "
@@ -1683,6 +1706,7 @@ def main() -> None:
         debug_heatmap(sc, sc_cpu)
         del sc_cpu
         cli(tmp)
+    bench_phase(frames["frame"])
     viewer_phase()
     # sharded rendering over torch.distributed
     sharded(sc)

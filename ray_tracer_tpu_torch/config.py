@@ -11,13 +11,41 @@ pre-permute NEE switch ``nee_prebin``, and the traversal-route switches
 packet-shape knobs (``packet``, ``packet_size``, ``vmem_budget``,
 ``mask_mode``, ``multi_pop``, ``groups_packet``, ``anyhit_groups``,
 ``cluster_enum_packet``) have no counterpart here: every route runs its
-hand-written CUDA kernels one thread per ray.  The switches are fields
-only: unlike the JAX package's ``Routing.from_env`` nothing here reads an
-environment variable.
+hand-written CUDA kernels one thread per ray.
+
+``routing=None`` resolves through :meth:`Routing.from_env` when a frame is
+traced, as in the JAX package: each of the 13 fields reads its ``RT_*``
+variable with the JAX package's parse, and an unset variable leaves the
+field's default.  An explicit ``Routing`` reads no environment.
+
+The JAX package's other ``RT_*`` variables, and what this package does
+with each:
+
+* ``RT_SBVH``: read by ``SceneBuilder.compile(spatial_splits=None)``, as
+  the JAX builder reads it (``"0"`` builds without spatial splits).
+* ``RT_ASSETS``: the asset directory of the presets
+  (``scene/presets.py::DEFAULT_ASSETS``; default ``assets/`` at the
+  repository root).
+* ``RT_BENCH_WIDTH``, ``_HEIGHT``, ``_SPP``, ``_SCENE``, ``_TILE_LOG2``,
+  ``_CPU``: the bench's knobs (``bench.py``).
+* Not read, because they exist only for the TPU: ``RT_PACKET``,
+  ``RT_PACKET_SIZE``, ``RT_PACKET_VMEM_BUDGET``, ``RT_MULTI_POP``,
+  ``RT_MASK_MODE``, ``RT_GROUPS_PACKET``, ``RT_ANYHIT_GROUPS``,
+  ``RT_CLUSTER_ENUM_PACKET`` (the ``Routing`` fields above without a
+  counterpart), and ``RT_GROUP_REGTOP``, ``RT_ABLATE``,
+  ``RT_ANYHIT_NEARFIRST``, ``RT_ANYHIT_ORDERFREE_PACKET``,
+  ``RT_SCOPED_VMEM_KIB`` (switches inside the Pallas kernels and their
+  compiler options).
+* Not read, because the port has one way of doing it: ``RT_CACHE``,
+  ``RT_NATIVE_BVH`` and ``RT_NATIVE_OBJ`` (the C++ builders are always
+  used, built into the checkout's ``build/``, and a failed build raises),
+  and ``RT_ROPE_BUILD`` (the rope streams are built only on
+  ``compile(rope_streams=True)``).
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, replace
 from typing import Optional
 
@@ -107,6 +135,28 @@ class Routing:
                              f"cluster_k={self.cluster_k} and "
                              f"top_k={self.top_k} >= 1")
 
+    @staticmethod
+    def from_env() -> "Routing":
+        """The default routing with the ``RT_*`` overrides of the
+        environment, parsed as the JAX package's ``Routing.from_env``
+        parses them; values are checked by ``__post_init__``."""
+        env = os.environ.get
+        return Routing(
+            bin_bits=int(env("RT_BIN_BITS", 6)),
+            bin_dir_bits=int(env("RT_BIN_DIR_BITS", 0)),
+            bin_mode=env("RT_BIN_MODE", "morton"),
+            nee_prebin=env("RT_NEE_PREBIN", "off"),
+            wide=env("RT_WIDE", "1") != "0",
+            groups=int(env("RT_GROUPS", 16)),
+            anyhit_group=env("RT_ANYHIT_GROUP", "1") == "1",
+            cluster=env("RT_CLUSTER", "auto"),
+            cluster_k=int(env("RT_CLUSTER_K", 16)),
+            cluster_enum=env("RT_CLUSTER_ENUM", "packet"),
+            lanewalk=env("RT_LANEWALK", "off"),
+            two_phase=env("RT_TWO_PHASE", "0") != "0",
+            top_k=int(env("RT_TOP_K", 5)),
+        )
+
     def replace(self, **kw) -> "Routing":
         return replace(self, **kw)
 
@@ -169,10 +219,14 @@ class RenderConfig:
     # Estimator ablation: "mis" (NEE + MIS), or "cosine" / "uniform"
     # hemisphere sampling with no NEE, which run on the static scan.
     estimator: str = "mis"
+    # Traversal routing; None resolves from the RT_* variables when a frame
+    # is traced (Routing.from_env), an explicit Routing is hermetic.
     routing: Optional[Routing] = None
 
     def resolved_routing(self) -> Routing:
-        return self.routing if self.routing is not None else Routing()
+        if self.routing is not None:
+            return self.routing
+        return Routing.from_env()
 
     def replace(self, **kw) -> "RenderConfig":
         return replace(self, **kw)

@@ -170,7 +170,7 @@ def prim_space(scene: CompiledScene, routing: Routing = None) -> str:
     triangle ids, ``scene.shade_tri``) on the rope-walk, cluster and narrow
     routes and on forest scenes, ``'slot'`` (padded leaf-slot ids,
     ``scene.shade_slot``) on the wide ones."""
-    rt = routing if routing is not None else Routing()
+    rt = routing if routing is not None else Routing.from_env()
     if (not _flattened(scene) or _lanewalk_on(scene, rt)
             or _cluster_on(scene, rt) or not rt.wide):
         return "tri"
@@ -399,14 +399,14 @@ def traverse(
 
     ``active`` masks lanes (inactive lanes report no hit); ``tmax`` is an
     optional per-lane search radius (default BIG).  Triangle ``prim`` is in
-    :func:`prim_space` of ``routing`` (default ``Routing()``); with
+    :func:`prim_space` of ``routing`` (default ``Routing.from_env()``); with
     ``raw=False`` it is always a global triangle id (a leaf slot is mapped
     through ``leaf_map``) and ``obj`` its instance, as the JAX package's
     ``raw=False`` returns them.  ``rope_err``: the rope walk's error flag
     (:func:`rope_error_flag`), which the caller reads; without it a
     malformed stream raises here.
     """
-    rt = routing if routing is not None else Routing()
+    rt = routing if routing is not None else Routing.from_env()
     best = _sphere_hits(scene, origin, direction, active, tmax)
     if not _has_tris(scene):
         return best
@@ -466,7 +466,7 @@ def traverse_anyhit(
     hit inside ``tmax`` exists iff any hit does).  ``rope_err`` as in
     :func:`traverse`.
     """
-    rt = routing if routing is not None else Routing()
+    rt = routing if routing is not None else Routing.from_env()
     occ = torch.zeros((origin.shape[0],), dtype=torch.bool,
                       device=origin.device)
     if scene.n_spheres > 0:

@@ -279,7 +279,7 @@ class SceneBuilder:
         max_leaf_tris: int = None,
         flatten_instances: bool = True,
         merge_wide_leaves: bool = None,
-        spatial_splits: bool = True,
+        spatial_splits: bool = None,
         cluster_t_c: int = None,
         clusters: bool = None,
         rope_streams: bool = False,
@@ -298,6 +298,10 @@ class SceneBuilder:
         reference's forest layout (tris stored once per mesh, transforms at
         traversal time) when instancing-heavy scenes make duplication too
         costly.
+
+        ``spatial_splits``: SBVH spatial splits in the flattened scene's
+        tree; None (default) builds them unless ``RT_SBVH=0``, as the JAX
+        builder does.
 
         ``merge_wide_leaves``: None (auto) packs sibling leaves of 8-record
         scenes into shared single rows; True packs them into 16-record
@@ -372,6 +376,8 @@ class SceneBuilder:
             tri_obj = np.concatenate(obj_l)
             # SBVH by default on the flattened production path: spatial
             # splits shrink node overlap and so the traversal's visits.
+            if spatial_splits is None:
+                spatial_splits = os.environ.get("RT_SBVH", "1") != "0"
             forest, perm = build_forest(
                 positions, [(0, positions.shape[0])], max_leaf_tris,
                 spatial=spatial_splits,
