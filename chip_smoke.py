@@ -27,7 +27,11 @@ as ptxas reports it and holds it against its plain twin over the scene's
 TOP table and the walk it replaced (walk_kernel's TOP mode,
 tools/top_walk_variants.cu) on the route's TOP inputs at 2^18 and 2^22
 lanes, timed in turns (top_vs_old), checks each kernel mode against its plain torch
-version on the card at the main path's shapes, checks small card renders
+version on the card at the main path's shapes, holds the wavefront
+round's three kernels (csrc/shade_round.cu: shade, state permute, NEE
+resolve) against their plain versions on the main frame's own rounds
+(round_kernels) and requires the main frame to launch each once a round,
+checks small card renders
 against the same renders on the CPU, and renders the benchmark frame
 (sponza_proxy, 1920x1080, spp 2, bounce limit 8, one whole-frame tile)
 through each traversal route of the port: the group kernel (the default),
@@ -83,9 +87,11 @@ sys.path.append(os.path.join(REPO, "tools"))
 import ray_tracer_tpu_torch as trt  # noqa: E402
 from ray_tracer_tpu_torch import api, bench  # noqa: E402
 from ray_tracer_tpu_torch.api import _camera_arrays, scene_camera  # noqa: E402
-from ray_tracer_tpu_torch.integrator import film, wavefront  # noqa: E402
+from ray_tracer_tpu_torch.integrator import (  # noqa: E402
+    film, shading, wavefront,
+)
 from ray_tracer_tpu_torch.kernels import (  # noqa: E402
-    bvh8, cluster, group, lanewalk, packet,
+    bvh8, cluster, group, lanewalk, packet, shade,
 )
 from ray_tracer_tpu_torch.ops import (  # noqa: E402
     cluster_trace, intersect, traverse,
@@ -120,12 +126,17 @@ ROUTES = {  # frame phase -> routing, timed frames
 }
 # one nvcc build each
 LIBRARIES = (bvh8.build, cluster.build, packet.build_narrow, lanewalk.build,
-             cluster_test_variants.build, deep_walk_variants.build,
-             packet_walk_variants.build, narrow_walk_variants.build,
-             emit_walk_variants.build, rope_walk_variants.build,
-             top_walk_variants.build)
+             shade.build, cluster_test_variants.build,
+             deep_walk_variants.build, packet_walk_variants.build,
+             narrow_walk_variants.build, emit_walk_variants.build,
+             rope_walk_variants.build, top_walk_variants.build)
 BVH8 = "ray_tracer_tpu_torch/csrc/bvh8_walk.cu"
 PACKET8 = "ray_tracer_tpu/kernels/packet.py:301"
+SHADE = "ray_tracer_tpu_torch/csrc/shade_round.cu"
+JAX_ROUND = "ray_tracer_tpu/integrator/wavefront.py:1003-1400"
+# the main frame's rounds checked: the widest (every lane's first hit) and
+# one past russian roulette's start (bounce 5)
+CHECK_ROUNDS = (0, 6)
 KERNELS = {  # mode -> (source, its CUDA kernel, the TPU kernel it replaces)
     "group_traverse": (BVH8, "group_walk_kernel",
                        "ray_tracer_tpu/kernels/group.py:89"),
@@ -152,6 +163,10 @@ KERNELS = {  # mode -> (source, its CUDA kernel, the TPU kernel it replaces)
     "packet8_top_anyhit": (BVH8, "top_walk_kernel", PACKET8),
     "packet8_deep": (BVH8, "deep_walk_kernel", PACKET8),
     "packet8_deep_anyhit": (BVH8, "deep_walk_kernel", PACKET8),
+    # the wavefront round, which the JAX package leaves to XLA's fusions
+    "shade_round": (SHADE, "shade_kernel", JAX_ROUND),
+    "permute_rows": (SHADE, "permute_kernel", JAX_ROUND),
+    "nee_resolve": (SHADE, "nee_resolve_kernel", JAX_ROUND),
 }
 
 # The least time the card could take for a kernel's work: the larger of
@@ -181,6 +196,16 @@ TRI_BYTES = 20 * 4
 BOX_BYTES = 6 * 4
 NODE2_BYTES = 8 * 4
 ROPE_BOX_BYTES = 7 * 4
+# The round kernels' FP32 operations per lane, counted from
+# csrc/shade_round.cu (a divide, square root or transcendental as one):
+# the shade kernel on a flattened scene without spheres (the fetch 70, the
+# sky 44, the light sample 36, the three lobes 130, roulette 6, the camera
+# ray 32, ...), and the NEE resolve with rect lights.  The permute does
+# none.  Bytes: the shade kernel reads 29 floats of each distinct shade row
+# its lanes hit.
+OPS_SHADE = 369
+OPS_NEE = 23
+SHADE_ROW_BYTES = 29 * 4
 
 
 def phase(title: str, /, **fields) -> None:
@@ -276,10 +301,12 @@ def check_rays(sc, dev, n=N_CHECK):
     }
 
 
-def measure(name, run, plain, compare, cost, **fields):
+def measure(name, run, plain, compare, cost, err=None, **fields):
     """Run a kernel and its plain version on the same inputs, hold them
     together with ``compare`` (raises), time both, and print the check.
-    The plain version runs once: its time is that of the call compared."""
+    The plain version runs once: its time is that of the call compared.
+    ``err(out, ref)``: the largest difference (default: of the outputs'
+    values)."""
     out = run()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -292,12 +319,121 @@ def measure(name, run, plain, compare, cost, **fields):
     err = max(
         (float((a.float() - b.float()).abs().max()) if a.numel() else 0.0)
         for a, b in zip(out, ref)
-    )
+    ) if err is None else err(out, ref)
     ms = cuda_ms(run, 20)
     plain_ms = start.elapsed_time(stop)
     rec = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, **cost(), **fields)
     phase("kernel_vs_plain", kernel=name, exact=True, **rec)
     return rec
+
+
+def same_values(a, b) -> bool:
+    """Equal shapes and dtypes, and equal values where NaN equals NaN."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    return bool(((a == b) | (a.isnan() & b.isnan())).all())
+
+
+def values_err(out, ref) -> float:
+    """The largest |difference| of the outputs' values, NaN against NaN
+    counted as 0 (``measure``'s ``err`` where outputs may hold NaN)."""
+    worst = 0.0
+    for a, b in zip(out, ref):
+        a, b = a.float(), b.float()
+        same = (a == b) | (a.isnan() & b.isnan())
+        if not bool(same.all()):
+            worst = max(worst, float((a - b).abs()[~same].max()))
+    return worst
+
+
+def equal_values(name):
+    """``measure``'s compare for outputs that may hold NaN: each output
+    equal (``same_values``), else raise."""
+    def compare(out, ref):
+        for k, (a, b) in enumerate(zip(out, ref)):
+            if not same_values(a, b):
+                raise AssertionError(f"{name}: output {k} differs from the "
+                                     "plain version's")
+    return compare
+
+
+def round_checks(sc):
+    """The round kernels (``csrc/shade_round.cu``) on the main frame's
+    own rounds: one frame through ``render`` with the wrappers' arguments
+    captured, then on rounds CHECK_ROUNDS each kernel against its plain
+    version on the captured inputs (every output equal, NaN to NaN) and
+    timed.  Also prints whether the outputs are equal bit for bit and how
+    many NaN each holds."""
+    with captured(shade, "shade_round") as shades, \
+            captured(shade, "permute_rows") as permutes, \
+            captured(shade, "nee_resolve") as nees:
+        trt.render(sc, frame_cfg())
+        torch.cuda.synchronize()
+    rounds = len(shades)
+    if not rounds or not len(permutes) == len(nees) == rounds:
+        raise AssertionError(f"round_checks: {rounds} shade, "
+                             f"{len(permutes)} permute, {len(nees)} NEE "
+                             "calls")
+    out = {}
+    for r in (r for r in CHECK_ROUNDS if r < rounds):
+        (c, w), _ = shades[r]
+        n = w.origin.shape[0]
+        hit = w.hit
+        rows = torch.unique(torch.where(hit.kind == traverse.KIND_TRI,
+                                        hit.prim, 0)).numel()
+        state = nbytes(w.origin, w.direction, hit.dst, hit.kind, hit.prim,
+                       hit.front, w.atten, w.total, w.direct, w.acc, w.bad,
+                       w.alive, w.j, w.s, w.sb, w.pix, w.slot, c.consts)
+        outs = (4 * shading.PACKED_F + 4 * shading.PACKED_I + 4) * n
+        out[f"shade_round_{r}"] = measure(
+            "shade_round", lambda: shade.shade_round(c, w),
+            lambda: shade.shade_round_reference(c, w),
+            equal_values("shade_round"),
+            lambda: bound(state + rows * SHADE_ROW_BYTES + outs,
+                          OPS_SHADE * n),
+            err=values_err, round=r, n=n, shade_rows=rows)
+        pargs, _ = permutes[r]
+        out[f"permute_rows_{r}"] = measure(
+            "permute_rows", lambda: shade.permute_rows(*pargs),
+            lambda: shade.permute_rows_reference(*pargs),
+            equal_values("permute_rows"),
+            lambda: bound(nbytes(*pargs) + nbytes(*shade.permute_rows(
+                *pargs)), 0), err=values_err, round=r, n=n)
+        nargs, _ = nees[r]
+        lanes = nargs[1]
+        # what the resolve needs of each lane: its flag and, where NEE
+        # does not resolve it, ``direct_base``; where it does, the diffuse
+        # flag and, on a diffuse lane, the light sample (li, l_dir,
+        # l_dist, nee_active, cos_pdf_at_l, nee_k), the occlusion of a
+        # traced shadow ray, and the arithmetic
+        fresh = lanes.fresh_direct
+        diff = fresh & lanes.is_diff
+        count = lambda m: int(m.sum())
+        nee_in = (n + 12 * count(~fresh) + count(fresh) + 37 * count(diff)
+                  + count(diff & lanes.nee_active))
+        out[f"nee_resolve_{r}"] = measure(
+            "nee_resolve", lambda: (shade.nee_resolve(*nargs),),
+            lambda: (shade.nee_resolve_reference(*nargs),),
+            equal_values("nee_resolve"),
+            lambda: bound(nee_in + 12 * n, OPS_NEE * count(diff)),
+            err=values_err, round=r, n=n, resolved=count(diff))
+        got = (*shade.shade_round(c, w), *shade.permute_rows(*pargs),
+               shade.nee_resolve(*nargs))
+        want = (*shade.shade_round_reference(c, w),
+                *shade.permute_rows_reference(*pargs),
+                shade.nee_resolve_reference(*nargs))
+        bitwise = all(
+            torch.equal(a.contiguous().view(torch.int32),
+                        b.contiguous().view(torch.int32))
+            if a.is_floating_point() else torch.equal(a, b)
+            for a, b in zip(got, want))
+        nan = sum(int(a.isnan().sum()) for a in got if a.is_floating_point())
+        phase("round_kernels", round=r, rounds=rounds, n=n, bitwise=bitwise,
+              nan_values=nan)
+    del shades, permutes, nees
+    return out
 
 
 def equal_all(name):
@@ -1654,7 +1790,8 @@ def main() -> None:
     cluster_vs_old(chunks)
     checks = {**group_checks(sc, rays), **packet_checks(sc, sc16, rays),
               **cluster_checks(sc, chunks), **narrow_checks(sc, rays),
-              **lanewalk_checks(sc, rays), **treelet_checks(sc, rays)}
+              **lanewalk_checks(sc, rays), **treelet_checks(sc, rays),
+              **round_checks(sc)}
     del sc16, chunks
 
     sc_cpu = sc.to("cpu")
@@ -1688,6 +1825,13 @@ def main() -> None:
         if min(got[m] for m in modes) <= 0:
             raise AssertionError(f"{title}: a kernel mode never launched: "
                                  f"{got}")
+    # the main frame's rounds: one closest-hit walk each, after the camera
+    # rays' own; each round kernel once a round
+    got = frames["frame"]["launches"]
+    rounds = got["group_traverse"] - 1
+    if any(got[m] != rounds for m in shade.launches):
+        raise AssertionError(f"frame: the round kernels did not run once "
+                             f"in each of its {rounds} rounds: {got}")
 
     # the configuration values, bump maps and forest scenes
     with tempfile.TemporaryDirectory(prefix="rt_smoke_") as tmp:
@@ -1726,6 +1870,9 @@ def main() -> None:
         "packet8_top_anyhit": ("top_shadow", "frame_two_phase"),
         "packet8_deep": ("deep2_bounce", "frame_two_phase"),
         "packet8_deep_anyhit": ("deep2_shadow", "frame_two_phase"),
+        "shade_round": ("shade_round_0", "frame"),
+        "permute_rows": ("permute_rows_0", "frame"),
+        "nee_resolve": ("nee_resolve_0", "frame"),
     }
     kernels = []
     for name, (check, title) in source.items():

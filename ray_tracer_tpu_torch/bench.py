@@ -56,10 +56,10 @@ import torch
 from .api import _camera_arrays, render, scene_camera
 from .config import RenderConfig, Routing
 from .integrator import wavefront
-from .kernels import cluster, group, lanewalk, packet
+from .kernels import cluster, group, lanewalk, packet, shade
 from .scene import presets
 
-KERNEL_MODULES = (group, packet, cluster, lanewalk)  # the launch counters
+KERNEL_MODULES = (group, packet, cluster, lanewalk, shade)  # launch counters
 GATE_SIZE = (64, 36)  # the card-vs-CPU render: spp 2, bounce limit 8
 TIMED = 3  # timed runs of frame 1
 # The timed runs' checksums and ray counts agree within this relative

@@ -1,0 +1,633 @@
+// The wavefront round of ray_tracer_tpu_torch/integrator/wavefront.py
+// (_fused_round) as three kernels:
+//   shade_kernel        one thread per lane: from the lane's pending hit to
+//                       its next state, written as the packed rows of the
+//                       state permute, with its bin key and the round's ray
+//                       counts (plain version: kernels/shade.py::
+//                       shade_round_reference, i.e. integrator/shading.py::
+//                       shade_lanes, pack_lanes and bin_key);
+//   permute_kernel      each lane's packed row gathered by the sorted order
+//                       into the next wave's columns (permute_rows_reference);
+//   nee_resolve_kernel  the occlusion NEE's light side and the MIS resolve
+//                       into the next ``direct`` (nee_resolve_reference).
+// They replace no Pallas kernel: in the JAX package the round
+// (ray_tracer_tpu/integrator/wavefront.py:1003-1400, round_ inside
+// lax.while_loop under jit) is fused by XLA.  Every kernel moves a few
+// hundred bytes a lane and does a few hundred flops: memory bound.  The
+// design moves each byte once: a lane reads its state and the 29 floats it
+// needs of its 48-float shade row, and writes its 160-byte packed row and
+// key once; the permute reads a row and writes the columns once; the
+// counts are block sums (__syncthreads_count) added with integer atomics,
+// which are exact in any order.
+//
+// Bit equality with the plain versions on the card.  Built with
+// --fmad=false and without fast math, each expression below is the torch
+// expression it mirrors, in its order of operations, with torch's CUDA
+// semantics where they differ from plain arithmetic:
+//   * a tensor divided by a Python number is a product with the number's
+//     reciprocal, rounded to f32 first (ATen's div_true_kernel_cuda):
+//     smoothstep's divisions, raygen's x / width, the light-pick pdf;
+//   * clamp keeps a NaN (clamp_*); .max(dim) keeps a NaN (max3);
+//   * sign(x) is (0 < x) - (x < 0), so sign(NaN) is 0;
+//   * x ** 2 is x * x; other powers, cos and sin are powf, cosf, sinf;
+//   * sqrt of an f32 through f64 (ops/intersect.py::sqrt) is sqrtf: both
+//     are correctly rounded;
+//   * masked arithmetic is kept as written ((j == 0) * emission,
+//     atten * (shaded ? radiance : 1)), so 0 * inf stays NaN.
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+// The kernels' arguments, passed by value; the wrappers in kernels/shade.py
+// fill the same fields in the same order (_ShadeArgs, _NeeArgs).
+struct ShadeArgs {
+  // the wave (N lanes): the pending ray, its hit and the lane state
+  const float* origin;     // (N,3)
+  const float* direction;  // (N,3)
+  const float* dst;
+  const int* kind;  // 0 none, 1 sphere, 2 triangle
+  const int* prim;
+  const int* obj;
+  const float* hit_u;
+  const float* hit_v;
+  const unsigned char* front;
+  const float* atten;   // (N,3)
+  const float* total;   // (N,3)
+  const float* direct;  // (N,3)
+  const float* acc;     // (N,3)
+  const unsigned char* bad;
+  const unsigned char* alive;
+  const int* j;
+  const int* s;
+  const int* sb;
+  const int* pix;
+  const int* slot;
+  // the scene
+  const float* table;  // (R,48) shade rows by prim id
+  const float* obj_transform;  // (O,4,4)
+  const int* obj_mat;
+  const float* sphere_pos;  // (S,3)
+  const int* sphere_mat;
+  const float* mat_albedo;    // (M,3)
+  const float* mat_emission;  // (M,3)
+  const float* mat_emission_strength;
+  const float* mat_reflectance;
+  const float* mat_ior;
+  const float* light_corner;  // (L,3)
+  const float* light_edge_u;
+  const float* light_edge_v;
+  const float* env_horizon;    // (4,)
+  const float* env_zenith;     // (4,)
+  const float* env_ground;     // (3,)
+  const float* env_light_dir;  // (4,)
+  const float* consts;         // (kConsts,) kernels/shade.py::frame_constants
+  const long long* prev_rays;  // (2,) the wave's ray counts
+  // outputs
+  float* packed;  // (N,34)
+  int* packed_i;  // (N,6)
+  int* key;       // (N,)
+  unsigned long long* tally;  // (3,) zeroed: semantic, traced, live
+  int n, n_spheres, n_lights, n_spp, bounce_limit, rr_start, width, height,
+      aa_jitter, tint, mb, db, morton, flat;
+  unsigned seed, frame;
+  float rr_clamp;
+};
+
+struct NeeArgs {
+  const int* li;
+  const float* l_dir;  // (N,3)
+  const float* l_dist;
+  const unsigned char* nee_active;
+  const unsigned char* occluded;  // null without rect lights
+  const float* cos_pdf_at_l;
+  const float* nee_k;  // (N,3)
+  const unsigned char* is_diff;
+  const unsigned char* fresh_direct;
+  const float* direct_base;   // (N,3)
+  const float* light_normal;  // (L,3)
+  const float* light_area;
+  const int* light_mat;
+  const float* mat_emission;  // (M,3)
+  const float* mat_emission_strength;
+  float* direct;  // (N,3) out
+  int n, n_lights;
+};
+
+namespace {
+
+constexpr int kBlock = 256;
+constexpr int kPackedF = 34;  // integrator/shading.py::PACKED_F
+constexpr int kPackedI = 6;   // PACKED_I
+constexpr float kInvPi = 0.3183098862f;  // sampling/bsdf.py::INV_PI
+
+struct V3 {
+  float x, y, z;
+};
+
+__device__ __forceinline__ V3 ld3(const float* p, long long i) {
+  return {p[3 * i], p[3 * i + 1], p[3 * i + 2]};
+}
+__device__ __forceinline__ V3 operator+(V3 a, V3 b) {
+  return {a.x + b.x, a.y + b.y, a.z + b.z};
+}
+__device__ __forceinline__ V3 operator-(V3 a, V3 b) {
+  return {a.x - b.x, a.y - b.y, a.z - b.z};
+}
+__device__ __forceinline__ V3 operator-(V3 a) { return {-a.x, -a.y, -a.z}; }
+__device__ __forceinline__ V3 operator*(V3 a, V3 b) {
+  return {a.x * b.x, a.y * b.y, a.z * b.z};
+}
+__device__ __forceinline__ V3 operator*(V3 a, float s) {
+  return {a.x * s, a.y * s, a.z * s};
+}
+__device__ __forceinline__ V3 operator*(float s, V3 a) {
+  return {s * a.x, s * a.y, s * a.z};
+}
+__device__ __forceinline__ V3 operator/(V3 a, float s) {
+  return {a.x / s, a.y / s, a.z / s};
+}
+__device__ __forceinline__ V3 sel(bool c, V3 a, V3 b) { return c ? a : b; }
+__device__ __forceinline__ V3 splat(float v) { return {v, v, v}; }
+
+// ops/intersect.py: dot and cross written out left to right
+__device__ __forceinline__ float dot(V3 a, V3 b) {
+  return a.x * b.x + a.y * b.y + a.z * b.z;
+}
+__device__ __forceinline__ V3 cross(V3 a, V3 b) {
+  return {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z,
+          a.x * b.y - a.y * b.x};
+}
+__device__ __forceinline__ float norm(V3 a) { return sqrtf(dot(a, a)); }
+
+// torch.clamp: a NaN passes through (ATen clamp_*_kernel_cuda)
+__device__ __forceinline__ float clamp_min(float v, float lo) {
+  return isnan(v) ? v : fmaxf(v, lo);
+}
+__device__ __forceinline__ float clamp_max(float v, float hi) {
+  return isnan(v) ? v : fminf(v, hi);
+}
+__device__ __forceinline__ float clamp(float v, float lo, float hi) {
+  return isnan(v) ? v : fminf(fmaxf(v, lo), hi);
+}
+// Tensor.max(dim=-1) over three values: a NaN wins
+__device__ __forceinline__ float max3(V3 a) {
+  float m = a.x;
+  m = (isnan(m) || m > a.y) ? m : a.y;
+  m = (isnan(m) || m > a.z) ? m : a.z;
+  return m;
+}
+
+// sampling/rng.py: pcg4d over uint32 words
+__device__ __forceinline__ void pcg4d(unsigned v[4]) {
+  for (int k = 0; k < 4; ++k) v[k] = v[k] * 1664525u + 1013904223u;
+  v[0] += v[1] * v[3];
+  v[1] += v[2] * v[0];
+  v[2] += v[0] * v[1];
+  v[3] += v[1] * v[2];
+  for (int k = 0; k < 4; ++k) v[k] ^= v[k] >> 16;
+  v[0] += v[1] * v[3];
+  v[1] += v[2] * v[0];
+  v[2] += v[0] * v[1];
+  v[3] += v[1] * v[2];
+}
+
+// rng.uniforms(seed, pixel, frame, sample, bounce, n): n <= 8 draws
+__device__ __forceinline__ void uniforms(unsigned seed, unsigned pixel,
+                                         unsigned frame, unsigned sample,
+                                         unsigned bounce, int n, float* out) {
+  const unsigned b = seed ^ (frame * 0x9E3779B9u);
+  const unsigned c = sample * 0x85EBCA6Bu + bounce;
+  for (int blk = 0; 4 * blk < n; ++blk) {
+    unsigned v[4] = {pixel, b, c, static_cast<unsigned>(blk)};
+    pcg4d(v);
+    for (int k = 0; k < 4 && 4 * blk + k < n; ++k) {
+      out[4 * blk + k] = static_cast<float>(v[k]) * 2.3283064365386963e-10f;
+    }
+  }
+}
+
+// ops/env.py::smoothstep with the division as torch's CUDA kernel does it
+__device__ __forceinline__ float smoothstep(float e0, float inv_width,
+                                            float x) {
+  const float t = clamp((x - e0) * inv_width, 0.0f, 1.0f);
+  return t * t * (3.0f - 2.0f * t);
+}
+
+// ops/env.py::environment_light
+__device__ __forceinline__ V3 environment_light(const float* hz,
+                                                 const float* zn,
+                                                 const float* gr,
+                                                 const float* ld, V3 d) {
+  const float neg_y = -d.y;
+  const float sky_t = powf(smoothstep(0.0f, 1.0f / 0.4f, neg_y), 0.35f);
+  const V3 hor = {hz[0], hz[1], hz[2]};
+  const V3 zen = {zn[0], zn[1], zn[2]};
+  const V3 ground = {gr[0], gr[1], gr[2]};
+  const V3 sky = hor + (zen - hor) * sky_t;
+  const float cos_sun =
+      clamp_min(-(d.x * ld[0] + d.y * ld[1] + d.z * ld[2]), 0.0f);
+  const float sun = powf(cos_sun, hz[3]) * zn[3];
+  const float ground_to_sky = smoothstep(-0.01f, 1.0f / 0.01f, neg_y);
+  const float sun_mask = ground_to_sky >= 1.0f ? 1.0f : 0.0f;
+  const V3 col =
+      (ground + (sky - ground) * ground_to_sky) + splat(sun * sun_mask);
+  return ld[3] == 1.0f ? col : splat(0.0f);
+}
+
+// integrator/shading.py::primary_rays of pixel pix at sample ``sample``
+// (k: kernels/shade.py::frame_constants)
+__device__ __forceinline__ void raygen(const float* k, int width, int height,
+                                       bool jitter, unsigned seed,
+                                       unsigned frame, int pix, int sample,
+                                       V3* o, V3* d) {
+  float x = static_cast<float>(pix % width);
+  float y = static_cast<float>(pix / width);
+  if (jitter) {
+    float jit[2];
+    uniforms(seed ^ 0xA11A5u, static_cast<unsigned>(pix), frame,
+             static_cast<unsigned>(sample), 999u, 2, jit);
+    x = x + (jit[0] - 0.5f);
+    y = y + (jit[1] - 0.5f);
+  }
+  const float u = x * (1.0f / static_cast<float>(width));
+  const float v = y * (1.0f / static_cast<float>(height));
+  const float px = k[14] + k[12] * u;  // -plane_w / 2 + plane_w * u
+  const float py = k[15] + k[13] * v;
+  const V3 point = {px, py, 0.1f};
+  const V3 p = point / norm(point);
+  *d = {p.x * k[0] + p.y * k[1] + p.z * k[2],
+        p.x * k[3] + p.y * k[4] + p.z * k[5],
+        p.x * k[6] + p.y * k[7] + p.z * k[8]};
+  *o = {k[9], k[10], k[11]};
+}
+
+// integrator/shading.py::bin_key of the lane's next ray (k as in raygen)
+__device__ __forceinline__ int bin_key(const float* k, int mb, int db,
+                                       bool morton_bits, V3 o, V3 d,
+                                       bool alive) {
+  const int oct = (d.x < 0.0f ? 1 : 0) + 2 * (d.y < 0.0f ? 1 : 0) +
+                  4 * (d.z < 0.0f ? 1 : 0);
+  int key = oct << (3 * mb + 3 * db);
+  if (db) {
+    const float scale = static_cast<float>(1 << db);
+    const float top = static_cast<float>((1 << db) - 1);
+    const int q0 = static_cast<int>(clamp(fabsf(d.x) * scale, 0.0f, top));
+    const int q1 = static_cast<int>(clamp(fabsf(d.y) * scale, 0.0f, top));
+    const int q2 = static_cast<int>(clamp(fabsf(d.z) * scale, 0.0f, top));
+    key = key | (((q0 << (2 * db)) | (q1 << db) | q2) << (3 * mb));
+  }
+  if (morton_bits) {
+    const float* box = k + 16;  // minimum 3, extent 3
+    const float scale = static_cast<float>(1 << mb);
+    const float top = static_cast<float>((1 << mb) - 1);
+    const float oc[3] = {o.x, o.y, o.z};
+    int cell[3];
+    for (int ax = 0; ax < 3; ++ax) {
+      cell[ax] = static_cast<int>(
+          clamp(((oc[ax] - box[ax]) / box[3 + ax]) * scale, 0.0f, top));
+    }
+    int morton = 0;
+    for (int b = 0; b < mb; ++b) {
+      for (int ax = 0; ax < 3; ++ax) {
+        morton = morton | (((cell[ax] >> b) & 1) << (3 * b + ax));
+      }
+    }
+    key = key | morton;
+  }
+  return alive ? key : (1 << 30);
+}
+
+__global__ void __launch_bounds__(kBlock) shade_kernel(const ShadeArgs a) {
+  const long long i = static_cast<long long>(blockIdx.x) * kBlock + threadIdx.x;
+  int c_alive = 0, c_sem = 0, c_act = 0;
+  if (i < a.n) {
+    const V3 O = ld3(a.origin, i), D = ld3(a.direction, i);
+    const float dst = a.dst[i];
+    const int kind = a.kind[i], prim = a.prim[i];
+    const V3 AT = ld3(a.atten, i), TO = ld3(a.total, i);
+    const V3 DI = ld3(a.direct, i), AC = ld3(a.acc, i);
+    bool bad = a.bad[i] != 0;
+    const bool alive = a.alive[i] != 0;
+    const int j = a.j[i], s = a.s[i], sb = a.sb[i], pix = a.pix[i];
+    const bool did_hit = kind != 0;
+    const bool did = alive && did_hit;
+
+    // ---- shading.shade_fetch, the flattened and sphere branches
+    const V3 hp = O + D * dst;
+    const bool is_tri = kind == 2;
+    const float4* row =
+        reinterpret_cast<const float4*>(a.table) + 12ll * (is_tri ? prim : 0);
+    const float4 r0 = row[0], r1 = row[1], r2 = row[2];
+    const float4 r4 = row[4], r5 = row[5];
+    const V3 vn0 = {r0.x, r0.y, r0.z}, vn1 = {r0.w, r1.x, r1.y};
+    const V3 vn2 = {r1.z, r1.w, r2.x};
+    V3 albedo = {r4.x, r4.y, r4.z}, emission = {r4.w, r5.x, r5.y};
+    float refl = r5.z, ior = r5.w;
+    float hu, hv;
+    bool front;
+    if (a.flat) {
+      const float4 r8 = row[8], r9 = row[9], r10 = row[10];
+      const V3 tv0 = {r8.x, r8.y, r8.z}, te1 = {r8.w, r9.x, r9.y};
+      const V3 te2 = {r9.z, r9.w, r10.x}, tn = {r10.y, r10.z, r10.w};
+      const V3 d_eps = {D.x == 0.0f ? 1e-20f : D.x, D.y == 0.0f ? 1e-20f : D.y,
+                        D.z == 0.0f ? 1e-20f : D.z};
+      const V3 q3 = cross(O - tv0, d_eps);
+      const float d0 = -dot(d_eps, tn);
+      const float dinv = 1.0f / (d0 == 0.0f ? 1e-20f : d0);
+      hu = is_tri ? dot(te2, q3) * dinv : 0.0f;
+      hv = is_tri ? -dot(te1, q3) * dinv : 0.0f;
+      front = is_tri ? d0 >= 1e-8f : a.front[i] != 0;
+    } else {
+      hu = a.hit_u[i];
+      hv = a.hit_v[i];
+      front = a.front[i] != 0;
+    }
+    const float w = 1.0f - hu - hv;
+    const float fs = front ? 1.0f : -1.0f;
+    V3 n_world = (vn0 * w + vn1 * hu + vn2 * hv) * fs;
+    if (!a.flat) {
+      // instance frame and material (a scene with no meshes: instance 0)
+      const int oi = is_tri ? a.obj[i] : 0;
+      const float* m = a.obj_transform + 16ll * oi;
+      const V3 n_obj = n_world;
+      n_world = {m[0] * n_obj.x + m[1] * n_obj.y + m[2] * n_obj.z,
+                 m[4] * n_obj.x + m[5] * n_obj.y + m[6] * n_obj.z,
+                 m[8] * n_obj.x + m[9] * n_obj.y + m[10] * n_obj.z};
+      const int mat = a.obj_mat[oi];
+      albedo = ld3(a.mat_albedo, mat);
+      emission = ld3(a.mat_emission, mat) * a.mat_emission_strength[mat];
+      refl = a.mat_reflectance[mat];
+      ior = a.mat_ior[mat];
+    }
+    V3 normal = n_world / clamp_min(norm(n_world), 1e-20f);
+    if (a.n_spheres > 0) {
+      const bool is_sph = kind == 1;
+      const int si = is_sph ? prim : 0;
+      V3 s_n = hp - ld3(a.sphere_pos, si);
+      s_n = s_n / clamp_min(norm(s_n), 1e-20f);
+      s_n = s_n * fs;
+      if (is_sph) {
+        const int sm = a.sphere_mat[si];
+        normal = s_n;
+        albedo = ld3(a.mat_albedo, sm);
+        emission = ld3(a.mat_emission, sm) * a.mat_emission_strength[sm];
+        refl = a.mat_reflectance[sm];
+        ior = a.mat_ior[sm];
+      }
+    }
+
+    // ---- pending light resolve
+    const bool was_delta = DI.x == -1.0f;
+    const V3 final_light = sel(was_delta, emission, DI);
+    const V3 contrib = final_light + (j == 0 ? 1.0f : 0.0f) * emission;
+    V3 total = sel(did, TO + contrib * AT, TO);
+    const bool nan_or_neg = isnan(total.x) || isnan(total.y) ||
+                            isnan(total.z) || total.x < 0.0f ||
+                            total.y < 0.0f || total.z < 0.0f;
+    bad = bad || (did && nan_or_neg);
+
+    // ---- escape: environment light
+    const bool esc = alive && !did_hit;
+    const V3 env_l = environment_light(a.env_horizon, a.env_zenith,
+                                       a.env_ground, a.env_light_dir, D);
+    total = sel(esc, total + AT * env_l, total);
+    const bool shaded = did && !bad;
+
+    // ---- BSDF lobes and the light sample
+    float u6[7];
+    uniforms(a.seed, static_cast<unsigned>(pix), a.frame,
+             static_cast<unsigned>(sb + s), static_cast<unsigned>(j), 7, u6);
+    const bool is_spec = refl != 0.0f;
+    const bool is_diel = !is_spec && ior != -1.0f;
+    bool is_diff = !is_spec && !is_diel;
+
+    const V3 nee_origin = hp + normal * 0.01f;
+    int li = 0;
+    if (a.n_lights > 1) {
+      li = static_cast<int>(u6[0] * static_cast<float>(a.n_lights));
+      li = li < a.n_lights - 1 ? li : a.n_lights - 1;
+    }
+    const V3 point = ld3(a.light_corner, li) + ld3(a.light_edge_u, li) * u6[1] +
+                     ld3(a.light_edge_v, li) * u6[2];
+    const V3 vec = point - nee_origin;
+    const float l_dist = norm(vec);
+    const V3 l_dir = vec / clamp_min(l_dist, 1e-20f);
+    const float cos_pdf_at_l = clamp_min(dot(l_dir, normal) * kInvPi, 0.0f);
+
+    const float phi = u6[3] * static_cast<float>(2.0 * 3.141592653589793);
+    const float sqrt_r2 = sqrtf(u6[4]);
+    const float cx = cosf(phi) * sqrt_r2, cy = sinf(phi) * sqrt_r2;
+    const float cz = sqrtf(1.0f - u6[4]);
+    const V3 non_parallel = fabsf(normal.x) < 1.0f ? V3{1.0f, 0.0f, 0.0f}
+                                                   : V3{0.0f, 0.0f, 1.0f};
+    V3 t = cross(normal, non_parallel);
+    t = t / clamp_min(norm(t), 1e-20f);
+    const V3 b = cross(normal, t);
+    const V3 cos_dir = t * cx + b * cy + normal * cz;
+    const float real_cos_pdf = clamp_min(dot(cos_dir, normal) * kInvPi, 0.0f);
+    const V3 rad_diff =
+        albedo * kInvPi *
+        (dot(normal, cos_dir) / clamp_min(real_cos_pdf, 1e-20f));
+    const V3 nee_k = albedo * (kInvPi * clamp_min(dot(normal, l_dir), 0.0f));
+
+    const V3 dir_spec = D - (2.0f * dot(D, normal)) * normal;
+    const float ior_eff = front ? 1.0f / ior : ior;
+    const float cosine = dot(-D, normal);
+    const float sine = sqrtf(clamp_min(1.0f - cosine * cosine, 0.0f));
+    float r0s = (1.0f - ior_eff) / (1.0f + ior_eff);
+    r0s = r0s * r0s;
+    const float xs = 1.0f - cosine;
+    const float x2 = xs * xs;
+    const float schlick = r0s + (1.0f - r0s) * (xs * (x2 * x2));
+    const bool solution = (ior_eff * sine > 1.0f) || (schlick > u6[5]);
+    const float cos_i = dot(normal, D);
+    const float k = 1.0f - ior_eff * ior_eff * (1.0f - cos_i * cos_i);
+    const V3 refr = ior_eff * D -
+                    (ior_eff * cos_i + sqrtf(clamp_min(k, 0.0f))) * normal;
+    const V3 dir_diel =
+        sel(solution, dir_spec, sel(k < 0.0f, splat(0.0f), refr));
+    const float dn = dot(normal, D);
+    const float sign_dn =
+        static_cast<float>((0.0f < dn ? 1 : 0) - (dn < 0.0f ? 1 : 0));
+    const float sign_diel = solution ? 1.0f : sign_dn;
+    const V3 bounce_dir =
+        sel(is_spec, dir_spec, sel(is_diel, dir_diel, cos_dir));
+    const V3 radiance = sel(is_diff, rad_diff, a.tint ? albedo : splat(1.0f));
+    const float origin_sign = is_diel ? sign_diel : 1.0f;
+    V3 atten = AT * sel(shaded, radiance, splat(1.0f));
+
+    // ---- russian roulette
+    float rr = clamp_max(max3(atten), a.rr_clamp);
+    rr = j <= a.rr_start ? 1.0f : rr;
+    const bool killed = u6[6] > rr;
+    atten = atten / clamp_min(rr, 1e-20f);
+
+    const bool continuing = shaded && !killed && j < a.bounce_limit;
+    const bool nee_sem = continuing && is_diff;
+    const bool nee_active = nee_sem && dot(normal, l_dir) > 0.0f;
+
+    // ---- sample completion and regeneration
+    const bool path_ends = alive && !continuing;
+    const V3 acc =
+        AC + sel(path_ends, sel(bad, splat(0.0f), total), splat(0.0f));
+    const int s_new = s + (path_ends ? 1 : 0);
+    const bool regen = path_ends && s_new < a.n_spp;
+    V3 po, pd;
+    raygen(a.consts, a.width, a.height, a.aa_jitter != 0, a.seed, a.frame,
+           pix, sb + s_new, &po, &pd);
+    const V3 bounce_origin = hp + normal * (origin_sign * 1e-5f);
+    const V3 new_origin = sel(continuing, bounce_origin, sel(regen, po, O));
+    const V3 new_dir = sel(continuing, bounce_dir, sel(regen, pd, D));
+    const bool alive_next = continuing || regen;
+    const int j_new = continuing ? j + 1 : 0;
+    total = sel(path_ends, splat(0.0f), total);
+    atten = sel(path_ends, splat(1.0f), atten);
+    bad = bad && !path_ends;
+    const bool fresh_direct = shaded && !path_ends;
+    const V3 direct_base = sel(path_ends, splat(0.0f), DI);
+
+    // ---- the packed rows (shading.pack_lanes) and the bin key
+    float f[kPackedF] = {
+        new_origin.x, new_origin.y, new_origin.z, new_dir.x, new_dir.y,
+        new_dir.z, atten.x, atten.y, atten.z, total.x, total.y, total.z,
+        acc.x, acc.y, acc.z, direct_base.x, direct_base.y, direct_base.z,
+        nee_origin.x, nee_origin.y, nee_origin.z, l_dir.x, l_dir.y, l_dir.z,
+        nee_k.x, nee_k.y, nee_k.z, alive_next ? 1.0f : 0.0f,
+        bad ? 1.0f : 0.0f, fresh_direct ? 1.0f : 0.0f, is_diff ? 1.0f : 0.0f,
+        cos_pdf_at_l, l_dist, nee_active ? 1.0f : 0.0f};
+    float2* out = reinterpret_cast<float2*>(a.packed + kPackedF * i);
+#pragma unroll
+    for (int c = 0; c < kPackedF / 2; ++c) out[c] = {f[2 * c], f[2 * c + 1]};
+    int2* out_i = reinterpret_cast<int2*>(a.packed_i + kPackedI * i);
+    out_i[0] = {j_new, s_new};
+    out_i[1] = {pix, a.slot[i]};
+    out_i[2] = {li, sb};
+    a.key[i] = bin_key(a.consts, a.mb, a.db, a.morton != 0, new_origin,
+                       new_dir, alive_next);
+
+    c_alive = alive_next;
+    c_sem = a.n_lights > 0 && nee_sem;
+    c_act = a.n_lights > 0 && nee_active;
+  }
+  // ---- the round's counts (kernels/shade.py::shade_round_reference)
+  const int b_alive = __syncthreads_count(c_alive);
+  const int b_sem = __syncthreads_count(c_sem);
+  const int b_act = __syncthreads_count(c_act);
+  if (threadIdx.x == 0) {
+    unsigned long long sem = b_alive + b_sem, traced = b_alive + b_act;
+    if (blockIdx.x == 0) {
+      sem += static_cast<unsigned long long>(a.prev_rays[0]);
+      traced += static_cast<unsigned long long>(a.prev_rays[1]);
+    }
+    atomicAdd(a.tally, sem);
+    atomicAdd(a.tally + 1, traced);
+    atomicAdd(a.tally + 2, static_cast<unsigned long long>(b_alive));
+  }
+}
+
+// integrator/shading.py::unpack_lanes of the rows in ``order``: nine (N,3)
+// vectors, the columns cos_pdf_at_l and l_dist, the flags alive, bad,
+// fresh_direct, is_diff and nee_active (row value > 0.5), six i32 columns.
+__global__ void __launch_bounds__(kBlock)
+    permute_kernel(const float* __restrict__ packed,
+                   const int* __restrict__ packed_i,
+                   const long long* __restrict__ order, float* __restrict__ vec,
+                   float* __restrict__ cols, unsigned char* __restrict__ flags,
+                   int* __restrict__ ints, int n) {
+  const long long i = static_cast<long long>(blockIdx.x) * kBlock + threadIdx.x;
+  if (i >= n) return;
+  const long long src = order[i];
+  const float2* row = reinterpret_cast<const float2*>(packed + kPackedF * src);
+  float f[kPackedF];
+#pragma unroll
+  for (int c = 0; c < kPackedF / 2; ++c) {
+    const float2 v = row[c];
+    f[2 * c] = v.x;
+    f[2 * c + 1] = v.y;
+  }
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    float* dst = vec + (static_cast<long long>(k) * n + i) * 3;
+    dst[0] = f[3 * k];
+    dst[1] = f[3 * k + 1];
+    dst[2] = f[3 * k + 2];
+  }
+  cols[i] = f[31];
+  cols[n + i] = f[32];
+  flags[i] = f[27] > 0.5f;
+  flags[n + i] = f[28] > 0.5f;
+  flags[2ll * n + i] = f[29] > 0.5f;
+  flags[3ll * n + i] = f[30] > 0.5f;
+  flags[4ll * n + i] = f[33] > 0.5f;
+  const int2* irow = reinterpret_cast<const int2*>(packed_i + kPackedI * src);
+#pragma unroll
+  for (int c = 0; c < kPackedI / 2; ++c) {
+    const int2 v = irow[c];
+    ints[(2ll * c) * n + i] = v.x;
+    ints[(2ll * c + 1) * n + i] = v.y;
+  }
+}
+
+// shading.analytic_nee and shading.resolve_direct
+__global__ void __launch_bounds__(kBlock) nee_resolve_kernel(const NeeArgs a) {
+  const long long i = static_cast<long long>(blockIdx.x) * kBlock + threadIdx.x;
+  if (i >= a.n) return;
+  const V3 l_dir = ld3(a.l_dir, i);
+  V3 l_emit = splat(0.0f);
+  float real_l_pdf = 0.0f;
+  if (a.n_lights > 0) {
+    const int row = a.n_lights <= 1 ? 0 : a.li[i];
+    const int mat = a.light_mat[row];
+    l_emit = ld3(a.mat_emission, mat) * a.mat_emission_strength[mat];
+    const float l_dist = a.l_dist[i];
+    const float cos_theta = dot(ld3(a.light_normal, row), l_dir);
+    const float pdf = l_dist * l_dist / (cos_theta * a.light_area[row]);
+    const bool reached = a.nee_active[i] != 0 && a.occluded[i] == 0;
+    real_l_pdf = reached ? pdf : 0.0f;
+  }
+  // real_l_pdf / n_lights, as torch's CUDA division by a Python number
+  real_l_pdf = real_l_pdf * (1.0f / static_cast<float>(a.n_lights));
+  const float c = a.cos_pdf_at_l[i];
+  float w1 = real_l_pdf * real_l_pdf / (real_l_pdf * real_l_pdf + c * c);
+  w1 = isnan(w1) ? 0.0f : w1;
+  const float q = real_l_pdf == 0.0f ? 0.0f : w1 / real_l_pdf;
+  const V3 direct_diff = l_emit * ld3(a.nee_k, i) * q;
+  const V3 new_direct = a.is_diff[i] != 0 ? direct_diff : splat(-1.0f);
+  const V3 out = a.fresh_direct[i] != 0 ? new_direct : ld3(a.direct_base, i);
+  a.direct[3 * i] = out.x;
+  a.direct[3 * i + 1] = out.y;
+  a.direct[3 * i + 2] = out.z;
+}
+
+}  // namespace
+
+// One launch of shade_kernel; returns the launch's CUDA error.
+extern "C" int rt_shade_round(const ShadeArgs* a, void* stream) {
+  if (a->n < 1 || a->mb < 0 || a->db < 0 || 3 * (a->mb + a->db) + 3 > 30) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid((a->n + kBlock - 1) / kBlock), block(kBlock);
+  shade_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(*a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One launch of permute_kernel over n lanes.
+extern "C" int rt_permute_rows(const void* packed, const void* packed_i,
+                               const void* order, void* vec, void* cols,
+                               void* flags, void* ints, int n, void* stream) {
+  const dim3 grid((n + kBlock - 1) / kBlock), block(kBlock);
+  permute_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(packed), static_cast<const int*>(packed_i),
+      static_cast<const long long*>(order), static_cast<float*>(vec),
+      static_cast<float*>(cols), static_cast<unsigned char*>(flags),
+      static_cast<int*>(ints), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One launch of nee_resolve_kernel.
+extern "C" int rt_nee_resolve(const NeeArgs* a, void* stream) {
+  const dim3 grid((a->n + kBlock - 1) / kBlock), block(kBlock);
+  nee_resolve_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(*a);
+  return static_cast<int>(cudaGetLastError());
+}

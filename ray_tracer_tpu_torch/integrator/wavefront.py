@@ -9,7 +9,13 @@ regenerates finished paths with their pixel's next sample, bins the lanes
 by (direction octant, origin morton cell) with one stable argsort and one
 packed state permute, and traces the merged wavefront: closest hit for
 bounce and camera rays, any-hit occlusion for the NEE shadow rays.  Both
-traversals run the BVH8 kernels.  The loop is a Python ``while`` whose
+traversals run the BVH8 kernels.  Where :func:`_fused_round_ok` holds
+(the main path's configuration among others), the shading, the permute
+and the NEE resolve of a round are the three CUDA kernels of
+``kernels/shade.py`` (:func:`_fused_round`); elsewhere the same round
+runs as torch ops (:func:`_torch_round`), the two equal bit for bit.
+The per-lane shading itself is ``integrator/shading.py``.  The loop is a
+Python ``while`` whose
 exit test is one device-to-host read per round (the live count, and on
 the rope-walk route its error flag beside it); multi-phase drain shrinks
 the state arrays as lanes retire.  The traversal route
@@ -33,278 +39,30 @@ from typing import NamedTuple
 
 import torch
 
-from ..config import RenderConfig
-from ..kernels import lanewalk
+from ..config import RenderConfig, Routing
+from ..kernels import lanewalk, shade
 from ..ops import env as env_ops
 from ..ops import intersect, traverse
-from ..ops.intersect import cross, dot, norm, sqrt
+from ..ops.intersect import dot, sqrt
 from ..sampling import bsdf, lights, rng
 from ..scene.types import CompiledScene
+from . import shading
+from .shading import (
+    CameraRays,
+    analytic_nee as _analytic_nee,
+    apply_material_maps as _apply_material_maps,
+    bin_key as _bin_key,
+    octant as _octant,
+    primary_rays,
+    raygen,
+    resolve_direct as _resolve_direct,
+    shade_fetch as _shade_fetch,
+)
 
 INV_PI = bsdf.INV_PI
 F32 = torch.float32
 I32 = torch.int32
 
-
-class CameraRays(NamedTuple):
-    origin: torch.Tensor  # (N,3)
-    direction: torch.Tensor  # (N,3)
-
-
-def raygen(cam_rotation, cam_pos, fov, aspect, near, pixel_id, width,
-           height, jitter=None):
-    """Primary rays, replicating raytrace.comp:539-560.
-
-    ``uv = pixel / dim`` with no half-pixel offset (reference quirk); the
-    view-plane sits at z=0.1 while its *size* uses ``near``.  Camera
-    parameters are f32 tensors; the rotation is applied as written-out
-    products and sums (no matmul, so no TF32 setting can touch it and CPU
-    and GPU round it alike).
-    """
-    x = (pixel_id % width).to(F32)
-    y = torch.div(pixel_id, width, rounding_mode="floor").to(F32)
-    if jitter is not None:
-        x = x + jitter[:, 0]
-        y = y + jitter[:, 1]
-    u = x / width
-    v = y / height
-    plane_h = near * torch.tan(torch.deg2rad(fov * 0.5)) * 2.0
-    plane_w = plane_h * aspect
-    px = -plane_w / 2.0 + plane_w * u
-    py = -plane_h / 2.0 + plane_h * v
-    point = torch.stack([px, py, torch.full_like(px, 0.1)], dim=-1)
-    d = point / norm(point, keepdim=True)
-    r = cam_rotation
-    d = torch.stack(
-        [d[:, 0] * r[i, 0] + d[:, 1] * r[i, 1] + d[:, 2] * r[i, 2]
-         for i in range(3)],
-        dim=-1,
-    )
-    origin = cam_pos.expand(d.shape)
-    return CameraRays(origin, d)
-
-
-def _shade_fetch(scene: CompiledScene, rays: CameraRays,
-                 hit: traverse.Hit, space: str = "slot",
-                 cfg: RenderConfig = None):
-    """All deferred shading attributes from ONE fat-row gather, from
-    ``shade_slot`` or, where triangle hits are global ids (``space`` is
-    ``traverse.prim_space``'s ``'tri'``), ``shade_tri``.
-
-    Returns ``(hp, normal, uv, albedo, emission, reflectance, ior, tex_id,
-    sampler, metal_tex, alpha_tex, front)``.  On a flattened scene triangle
-    barycentrics and facing are RE-DERIVED from the row's geometry fields
-    (32:44) with the kernel's Moller-Trumbore formulas, since the
-    traversal returns only (dst, prim); a forest scene's rows are in
-    object space, so there they are the walk's (``hit.u``, ``hit.v``,
-    ``hit.front``), the normal goes through ``obj_transform[hit.obj]``
-    (the reference's M, not its inverse transpose) and the material and
-    sampler are the instance's (``obj_mat``, ``obj_sampler``).  Sphere
-    lanes keep the sphere intersector's facing bit.  With
-    ``cfg.enable_normal_maps`` (and textures) a flattened scene's bump
-    maps perturb the normal (:func:`_bump`).  No-hit lanes (and every lane
-    of a mesh-free scene, whose ``shade_slot`` is a placeholder) read row
-    0: junk that every consumer masks by ``did_hit`` or replaces with the
-    sphere's material.
-    """
-    flat = scene.meta.get("flattened", False)
-    hp = rays.origin + rays.direction * hit.dst[:, None]
-    is_tri = hit.kind == traverse.KIND_TRI
-    tri_i = torch.where(is_tri, hit.prim, 0).long()
-    table = scene.shade_tri if space == "tri" else scene.shade_slot
-    srow = table[tri_i]  # (N,48): the ONE hot gather
-
-    if flat:
-        d_eps = torch.where(rays.direction == 0.0, 1e-20, rays.direction)
-        r3 = rays.origin - srow[:, 32:35]
-        q3 = cross(r3, d_eps)
-        d0 = -dot(d_eps, srow[:, 41:44])
-        dinv = 1.0 / torch.where(d0 == 0.0, 1e-20, d0)
-        hu = torch.where(is_tri, dot(srow[:, 38:41], q3) * dinv, 0.0)
-        hv = torch.where(is_tri, -dot(srow[:, 35:38], q3) * dinv, 0.0)
-        front = torch.where(is_tri, d0 >= 1e-8, hit.front)
-    else:
-        hu, hv, front = hit.u, hit.v, hit.front
-
-    w = 1.0 - hu - hv
-    vn0, vn1, vn2 = srow[:, 0:3], srow[:, 3:6], srow[:, 6:9]
-    n_obj = vn0 * w[:, None] + vn1 * hu[:, None] + vn2 * hv[:, None]
-    n_obj = n_obj * torch.where(front, 1.0, -1.0)[:, None]
-    obj_i = torch.where(is_tri, hit.obj, 0).long()
-    if flat:
-        # geometry and vertex normals were baked to world space
-        n_world = n_obj
-    else:
-        m = scene.obj_transform[obj_i]
-        n_world = torch.stack(
-            [m[:, i, 0] * n_obj[:, 0] + m[:, i, 1] * n_obj[:, 1]
-             + m[:, i, 2] * n_obj[:, 2] for i in range(3)], dim=-1)
-    normal = n_world / torch.clamp(norm(n_world, keepdim=True), min=1e-20)
-
-    uv0, uv1, uv2 = srow[:, 9:11], srow[:, 11:13], srow[:, 13:15]
-    uv = uv0 * w[:, None] + uv1 * hu[:, None] + uv2 * hv[:, None]
-    uv = torch.where(srow[:, 15:16] > 0.5, 0.5, uv)  # raytrace.comp:254-256
-
-    if (cfg is not None and cfg.enable_normal_maps and cfg.enable_textures
-            and flat and scene.meta.get("n_bump_maps", 0) > 0
-            and scene.meta.get("n_textures", 0) > 0):
-        normal = _bump(scene, cfg, srow, uv, normal, is_tri)
-
-    if flat:
-        albedo = srow[:, 16:19]
-        emission = srow[:, 19:22]
-        reflectance = srow[:, 22]
-        ior = srow[:, 23]
-        tex_id = srow[:, 24].to(I32)
-        sampler = srow[:, 25].to(I32)
-        metal_tex = srow[:, 29].to(I32)
-        alpha_tex = srow[:, 30].to(I32)
-    else:
-        # instances share their mesh's rows: the material and sampler are
-        # the instance's (quirk Q11's forest layout)
-        mat = scene.obj_mat[obj_i].long()
-        albedo = scene.mat_albedo[mat]
-        emission = (scene.mat_emission[mat]
-                    * scene.mat_emission_strength[mat][:, None])
-        reflectance = scene.mat_reflectance[mat]
-        ior = scene.mat_ior[mat]
-        tex_id = scene.mat_albedo_tex[mat]
-        sampler = scene.obj_sampler[obj_i]
-        metal_tex = scene.mat_metalness_tex[mat]
-        alpha_tex = scene.mat_alpha_tex[mat]
-
-    if scene.n_spheres > 0:
-        is_sphere = hit.kind == traverse.KIND_SPHERE
-        sphere_i = torch.where(is_sphere, hit.prim, 0).long()
-        s_n = hp - scene.sphere_pos[sphere_i]
-        s_n = s_n / torch.clamp(norm(s_n, keepdim=True), min=1e-20)
-        s_n = s_n * torch.where(front, 1.0, -1.0)[:, None]
-        normal = torch.where(is_sphere[:, None], s_n, normal)
-        smat = scene.sphere_mat[sphere_i].long()
-        sp = is_sphere[:, None]
-        albedo = torch.where(sp, scene.mat_albedo[smat], albedo)
-        emission = torch.where(
-            sp,
-            scene.mat_emission[smat]
-            * scene.mat_emission_strength[smat][:, None],
-            emission,
-        )
-        reflectance = torch.where(
-            is_sphere, scene.mat_reflectance[smat], reflectance
-        )
-        ior = torch.where(is_sphere, scene.mat_ior[smat], ior)
-        tex_id = torch.where(is_sphere, scene.mat_albedo_tex[smat], tex_id)
-        metal_tex = torch.where(
-            is_sphere, scene.mat_metalness_tex[smat], metal_tex
-        )
-        alpha_tex = torch.where(
-            is_sphere, scene.mat_alpha_tex[smat], alpha_tex
-        )
-
-    return (hp, normal, uv, albedo, emission, reflectance, ior, tex_id,
-            sampler, metal_tex, alpha_tex, front)
-
-
-def _bump(scene, cfg, srow, uv, normal, is_tri):
-    """Height-map bump mapping (the JAX package's ``_shade_fetch``
-    branch): the tangent frame solved from the row's edges and UV deltas,
-    ``[E1; E2] = [T B] . [[du1, dv1], [du2, dv2]]^T``, made orthonormal
-    against the shading normal (Gram-Schmidt), and the normal tilted by
-    ``cfg.bump_scale`` times the height gradient: three taps of the bump
-    texture's red channel (column 31), one texel apart in u and in v."""
-    bump_tex = srow[:, 31].to(I32)
-    e1, e2 = srow[:, 35:38], srow[:, 38:41]
-    uv0, uv1, uv2 = srow[:, 9:11], srow[:, 11:13], srow[:, 13:15]
-    duv1 = uv1 - uv0
-    duv2 = uv2 - uv0
-    det = duv1[:, 0] * duv2[:, 1] - duv2[:, 0] * duv1[:, 1]
-    ok_det = torch.abs(det) > 1e-12
-    inv = 1.0 / torch.where(ok_det, det, 1.0)
-    t_vec = (e1 * duv2[:, 1:2] - e2 * duv1[:, 1:2]) * inv[:, None]
-    b_vec = (e2 * duv1[:, 0:1] - e1 * duv2[:, 0:1]) * inv[:, None]
-    t_vec = t_vec - normal * dot(t_vec, normal)[:, None]
-    t_hat = t_vec / torch.clamp(norm(t_vec, keepdim=True), min=1e-20)
-    b_vec = (b_vec - normal * dot(b_vec, normal)[:, None]
-             - t_hat * dot(b_vec, t_hat)[:, None])
-    b_hat = b_vec / torch.clamp(norm(b_vec, keepdim=True), min=1e-20)
-    hw = scene.tex_size[torch.clamp(bump_tex, min=0).long()].to(F32)
-    step_u = 1.0 / torch.clamp(hw[:, 1], min=2.0)
-    step_v = 1.0 / torch.clamp(hw[:, 0], min=2.0)
-    zeros = torch.zeros_like(step_u)
-    smp = srow[:, 25].to(I32)  # the instance's sampler
-    h0 = _sample_texture(scene, bump_tex, uv, smp)[:, 0]
-    h_u = _sample_texture(scene, bump_tex,
-                          uv + torch.stack([step_u, zeros], 1), smp)[:, 0]
-    h_v = _sample_texture(scene, bump_tex,
-                          uv + torch.stack([zeros, step_v], 1), smp)[:, 0]
-    pert = normal - cfg.bump_scale * (
-        (h_u - h0)[:, None] * t_hat + (h_v - h0)[:, None] * b_hat)
-    pert = pert / torch.clamp(norm(pert, keepdim=True), min=1e-20)
-    use = is_tri & (bump_tex >= 0) & ok_det
-    return torch.where(use[:, None], pert, normal)
-
-
-def _apply_material_maps(scene, cfg, uv, sampler, albedo, emission,
-                         reflectance, tex_id, metal_tex, alpha_tex):
-    """Sample albedo/metalness/alpha maps into the per-hit material params.
-
-    Albedo map multiplies the albedo; the metalness map's red channel
-    REPLACES ``reflectance``; an alpha-map red channel < 0.5 marks the hit
-    as a cutout (a pass-through delta bounce, emission zeroed).
-    Returns (albedo, emission, reflectance, cutout).
-    """
-    cutout = torch.zeros(uv.shape[:1], dtype=torch.bool, device=uv.device)
-    if not (cfg.enable_textures and scene.meta.get("n_textures", 0) > 0):
-        return albedo, emission, reflectance, cutout
-    tex_rgb = _sample_texture(scene, tex_id, uv, sampler)
-    albedo = torch.where((tex_id >= 0)[:, None], albedo * tex_rgb, albedo)
-    if scene.meta.get("n_metalness_maps", 0) > 0:
-        m_rgb = _sample_texture(scene, metal_tex, uv, sampler)
-        reflectance = torch.where(metal_tex >= 0, m_rgb[:, 0], reflectance)
-    if scene.meta.get("n_alpha_maps", 0) > 0:
-        a_rgb = _sample_texture(scene, alpha_tex, uv, sampler)
-        cutout = (alpha_tex >= 0) & (a_rgb[:, 0] < 0.5)
-        emission = torch.where(cutout[:, None], 0.0, emission)
-    return albedo, emission, reflectance, cutout
-
-
-def _sample_texture(scene: CompiledScene, tex_id, uv, sampler):
-    """Bilinear/nearest fetch from the padded sRGB texture stack (v flipped:
-    OBJ uv origin bottom-left vs row-major images)."""
-    tid = torch.clamp(tex_id, min=0).long()
-    hw = scene.tex_size[tid].to(F32)  # (N,2) = (h,w)
-    h, w_ = hw[:, 0], hw[:, 1]
-    u = uv[:, 0] - torch.floor(uv[:, 0])
-    v = uv[:, 1] - torch.floor(uv[:, 1])
-    fx = u * w_ - 0.5
-    fy = (1.0 - v) * h - 0.5
-    x_max = (w_ - 1).to(I32)
-    y_max = (h - 1).to(I32)
-
-    def fetch(ix, iy):
-        ix = torch.minimum(torch.clamp(ix, min=0), x_max).long()
-        iy = torch.minimum(torch.clamp(iy, min=0), y_max).long()
-        srgb = scene.tex_data[tid, iy, ix].to(F32) / 255.0
-        return torch.where(
-            srgb <= 0.04045, srgb / 12.92, ((srgb + 0.055) / 1.055) ** 2.4
-        )
-
-    x0 = torch.floor(fx).to(I32)
-    y0 = torch.floor(fy).to(I32)
-    ax = (fx - x0)[:, None]
-    ay = (fy - y0)[:, None]
-    c00 = fetch(x0, y0)
-    c10 = fetch(x0 + 1, y0)
-    c01 = fetch(x0, y0 + 1)
-    c11 = fetch(x0 + 1, y0 + 1)
-    bilinear = (
-        c00 * (1 - ax) * (1 - ay)
-        + c10 * ax * (1 - ay)
-        + c01 * (1 - ax) * ay
-        + c11 * ax * ay
-    )
-    nearest = fetch(torch.round(fx).to(I32), torch.round(fy).to(I32))
-    return torch.where((sampler == 1)[:, None], bilinear, nearest)
 
 
 def _occlusion(scene, rt, o, d, active, tmax, rope_err=None,
@@ -324,32 +82,6 @@ def _occlusion(scene, rt, o, d, active, tmax, rope_err=None,
     occ[order] = occ_sorted
     return occ
 
-
-def _analytic_nee(scene, li, l_dir, l_dist, reached):
-    """Occlusion NEE's light side: the sampled light's emission and its
-    pdf at the sampled distance where the shadow ray ``reached`` it, else
-    0 -> ``(l_emit, real_l_pdf)``."""
-    li = li.long()
-    l_emit = lights.rect_light_emission(scene, li)
-    real_l_pdf = torch.where(
-        reached, lights.rect_light_pdf_analytic(scene, li, l_dir, l_dist),
-        0.0)
-    return l_emit, real_l_pdf
-
-
-def _resolve_direct(real_l_pdf, n_lights_w, cos_pdf_at_l, l_emit, nee_k,
-                    is_diff, fresh_direct, direct_base):
-    """MIS light-sample resolve -> next round's pending ``direct``: the
-    power-heuristic light-side weight and the 0/1-NEE delta sentinel
-    (raytrace.comp:449-456,500-505)."""
-    real_l_pdf = real_l_pdf / n_lights_w
-    w1 = real_l_pdf**2 / (real_l_pdf**2 + cos_pdf_at_l**2)
-    w1 = torch.where(torch.isnan(w1), 0.0, w1)
-    direct_diff = l_emit * nee_k * torch.where(
-        real_l_pdf == 0.0, 0.0, w1 / real_l_pdf
-    )[:, None]
-    new_direct = torch.where(is_diff[:, None], direct_diff, -1.0)
-    return torch.where(fresh_direct[:, None], new_direct, direct_base)
 
 
 def _closest_nee(scene: CompiledScene, li, l_dir, nee_hit: traverse.Hit):
@@ -646,43 +378,6 @@ def render_sample(scene: CompiledScene, rot, pos, fov, aspect, near,
     return trace(scene, rays, pixel_id, frame, sample, cfg)
 
 
-def _octant(direction):
-    """Direction octant, (N,) i32: bit k set where component k < 0."""
-    return (
-        (direction[:, 0] < 0).to(I32)
-        + 2 * (direction[:, 1] < 0).to(I32)
-        + 4 * (direction[:, 2] < 0).to(I32)
-    )
-
-
-def _bin_key(scene: CompiledScene, origin, direction, alive, mb=5, db=0):
-    """Traversal-coherence sort key (int32): (direction octant [+ optional
-    finer direction bits], origin morton cell); dead lanes key to the end.
-    Bounds come from the flattened BVH's root box; mesh-free and forest
-    scenes key by octant only."""
-    oct_ = _octant(direction)
-    key = oct_ << (3 * mb + 3 * db)
-    if db:
-        dq = torch.clamp(
-            torch.abs(direction) * (1 << db), 0, (1 << db) - 1
-        ).to(I32)
-        dmix = (dq[:, 0] << (2 * db)) | (dq[:, 1] << db) | dq[:, 2]
-        key = key | (dmix << (3 * mb))
-    if scene.meta.get("flattened", False) and scene.meta.get("n_tris", 0):
-        root = scene.bvh_packed[scene.obj_bvh_root[0].long()]
-        mn, mx = root[0:3], root[3:6]
-        cell = torch.clamp(
-            ((origin - mn) / torch.clamp(mx - mn, min=1e-6)) * (1 << mb),
-            0.0,
-            float((1 << mb) - 1),
-        ).to(I32)
-        morton = torch.zeros_like(oct_)
-        for b in range(mb):
-            for ax in range(3):
-                morton = morton | (((cell[:, ax] >> b) & 1) << (3 * b + ax))
-        key = key | morton
-    return torch.where(alive, key, 1 << 30).to(I32)
-
 
 def _bin_order(scene, rt, origin, direction, alive, continuing,
                hit: traverse.Hit, pix):
@@ -779,16 +474,227 @@ class Wave(NamedTuple):
     pix: torch.Tensor  # (N,) i32 pixel id
     slot: torch.Tensor  # (N,) i32 original lane (output position)
     n_rays: torch.Tensor  # (2,) i64: semantic, traced
+    n_alive: torch.Tensor  # () i64: the count of ``alive``
+
+
+_PER_WAVE = ("n_rays", "n_alive")
 
 
 def _slice_wave(w: Wave, m: int) -> Wave:
     """The first ``m`` lanes of every per-lane field."""
     return Wave(*(
-        x if name == "n_rays"
+        x if name in _PER_WAVE
         else traverse.Hit(*(h[:m] for h in x)) if name == "hit"
         else x[:m]
         for name, x in zip(Wave._fields, w)
     ))
+
+
+def _fused_round_ok(scene: CompiledScene, cfg: RenderConfig,
+                    rt: Routing) -> bool:
+    """Does a wavefront round run the round kernels of
+    ``kernels/shade.py`` (:func:`_fused_round`)?  Decided by the scene and
+    the configuration alone, before any launch: a flattened scene or one
+    without meshes (triangles and/or spheres, any number of rect lights,
+    the analytic sky) with no texture, material or normal maps in use
+    (``enable_textures`` off or no textures, ``enable_normal_maps`` off),
+    binned by the morton key (``bin_rays`` on, ``bin_mode="morton"``),
+    with occlusion NEE traced after the permute (``nee_anyhit=True``,
+    ``nee_prebin="off"``), on any traversal route.
+
+    Every other configuration runs the torch round (:func:`_torch_round`):
+    texture, metalness and alpha maps and bump maps, forest scenes,
+    ``nee_prebin``, ``leaf``/``hier`` bins, ``nee_anyhit=False`` and
+    ``bin_rays=False``; the static scan (:func:`trace`) is another
+    integrator.  This is a route, not a fallback: a kernel that fails to
+    build or launch raises."""
+    forest = not scene.meta.get("flattened", False) and bool(
+        scene.n_objects and scene.meta.get("n_tris", 0))
+    textures = cfg.enable_textures and scene.meta.get("n_textures", 0) > 0
+    return (not forest and not textures
+            and not cfg.enable_normal_maps and cfg.bin_rays is not False
+            and rt.bin_mode == "morton" and rt.nee_prebin == "off"
+            and cfg.nee_anyhit)
+
+
+def _first_wave(c: shade.Round, pixel_id, sample_base, rope_err=None):
+    """The wave before the first round: every lane's camera ray at its
+    first sample, traversed."""
+    n = pixel_id.shape[0]
+    dev = pixel_id.device
+    pix0 = pixel_id.to(I32)
+    s0 = torch.zeros(n, dtype=I32, device=dev)
+    sb0 = sample_base.to(I32)
+    rays0 = primary_rays(c.cam, c.cfg, c.frame, pix0, sb0 + s0)
+    hit0 = traverse.traverse(
+        c.scene, rays0.origin, rays0.direction,
+        torch.ones(n, dtype=torch.bool, device=dev), routing=c.rt,
+        rope_err=rope_err, raw=c.cfg.nee_anyhit,
+    )
+    f3 = lambda v: torch.full((n, 3), v, dtype=F32, device=dev)
+    return Wave(
+        origin=rays0.origin.contiguous(), direction=rays0.direction,
+        hit=hit0, atten=f3(1.0), total=f3(0.0), direct=f3(0.0),
+        bad=torch.zeros(n, dtype=torch.bool, device=dev),
+        alive=torch.ones(n, dtype=torch.bool, device=dev),
+        j=torch.zeros(n, dtype=I32, device=dev), s=s0, sb=sb0, acc=f3(0.0),
+        pix=pix0, slot=torch.arange(n, dtype=I32, device=dev),
+        n_rays=torch.full((2,), n, dtype=torch.int64, device=dev),
+        n_alive=torch.full((), n, dtype=torch.int64, device=dev),
+    )
+
+
+def _torch_round(c: shade.Round, w: Wave, rope_err=None) -> Wave:
+    """One wavefront round in torch ops: shade (``shading.shade_lanes``),
+    bin and permute the lane state, traverse the merged wavefront (bounce
+    ++ regenerated primary rays) and resolve NEE.
+
+    ``bin_rays=False`` keeps the lanes in place.  ``nee_anyhit=False``
+    resolves NEE by a closest-hit query after the round's traversal, every
+    hit a global triangle with its instance (``raw=False``, ``shade_tri``
+    rows); with occlusion NEE, ``routing.nee_prebin`` moves the shadow
+    query and the MIS resolve before the state permute.
+    """
+    scene, cfg, rt = c.scene, c.cfg, c.rt
+    dev = w.alive.device
+    do_bin = cfg.bin_rays is not False
+    use_raw = cfg.nee_anyhit
+    prebin = use_raw and rt.nee_prebin != "off"
+
+    lanes, continuing, nee_sem, n_lights_w = shading.shade_lanes(
+        scene, cfg, c.space, w, c.frame, c.n_spp, c.cam)
+    if use_raw and scene.n_lights == 0:
+        n_nee = torch.zeros(2, dtype=torch.int64, device=dev)
+    else:
+        n_nee = torch.stack([nee_sem.sum(), lanes.nee_active.sum()])
+    (new_origin, new_dir, atten, total, acc, direct_base, nee_origin, l_dir,
+     nee_k, alive, bad, fresh_direct, is_diff, cos_pdf_at_l, l_dist,
+     nee_active, j_cur, s_cur, pix, slot, li, sb_cur) = lanes
+
+    if prebin:
+        # ---- pre-permute NEE: the shadow query and the MIS resolve
+        # run here, so the permute carries the resolved ``direct``
+        if scene.n_lights == 0:
+            l_emit = torch.zeros_like(nee_k)
+            real_l_pdf = torch.zeros_like(l_dist)
+        else:
+            occluded = _occlusion(
+                scene, rt, nee_origin, l_dir, nee_active,
+                l_dist * (1.0 - 1e-3), rope_err,
+                sort=do_bin and rt.nee_prebin == "sort")
+            l_emit, real_l_pdf = _analytic_nee(
+                scene, li, l_dir, l_dist, nee_active & ~occluded)
+        direct = _resolve_direct(
+            real_l_pdf, n_lights_w, cos_pdf_at_l, l_emit, nee_k,
+            is_diff, fresh_direct, direct_base,
+        )
+
+    if do_bin:
+        # ---- coherence binning: one permutation of the lanes by
+        # their bin key and one packed row-gather per dtype move the
+        # whole lane state; per-lane results are permutation-invariant.
+        order = _bin_order(scene, rt, new_origin, new_dir, alive,
+                           continuing, w.hit, w.pix)
+        if prebin:
+            # the slim pack: NEE is resolved into ``direct`` already
+            fi = lambda x: x.to(F32)[:, None]
+            packed = torch.cat(
+                [new_origin, new_dir, atten, total, acc, direct,
+                 fi(alive), fi(bad)], dim=1)[order]
+            packed_i = torch.stack(
+                [j_cur, s_cur, pix, slot, sb_cur], dim=1)[order]
+            v3 = lambda k: packed[:, 3 * k : 3 * k + 3]
+            (new_origin, new_dir, atten, total, acc, direct) = (
+                v3(k) for k in range(6))
+            alive = packed[:, 18] > 0.5
+            bad = packed[:, 19] > 0.5
+            j_cur, s_cur, pix, slot, sb_cur = packed_i.unbind(dim=1)
+        else:
+            packed, packed_i = shading.pack_lanes(lanes)
+            (new_origin, new_dir, atten, total, acc, direct_base,
+             nee_origin, l_dir, nee_k, alive, bad, fresh_direct, is_diff,
+             cos_pdf_at_l, l_dist, nee_active, j_cur, s_cur, pix, slot, li,
+             sb_cur) = shading.unpack_lanes(packed[order], packed_i[order])
+
+    # ---- traverse the merged wavefront (bounce ++ regenerated primary)
+    hit_next = traverse.traverse(scene, new_origin, new_dir, alive,
+                                 routing=rt, rope_err=rope_err,
+                                 raw=use_raw)
+
+    # ---- NEE shadow query for continuing diffuse lanes
+    if prebin:
+        pass  # resolved into ``direct`` before the permute
+    elif use_raw:
+        if scene.n_lights == 0:
+            l_emit = torch.zeros_like(nee_k)
+            real_l_pdf = torch.zeros_like(l_dist)
+        else:
+            occluded = _occlusion(scene, rt, nee_origin, l_dir,
+                                  nee_active, l_dist * (1.0 - 1e-3),
+                                  rope_err)
+            l_emit, real_l_pdf = _analytic_nee(
+                scene, li, l_dir, l_dist, nee_active & ~occluded)
+    else:
+        nee_hit = traverse.traverse(
+            scene, nee_origin, l_dir, nee_active,
+            tmax=l_dist * 1.002 + 1e-3, routing=rt, rope_err=rope_err,
+            raw=False)
+        l_emit, real_l_pdf = _closest_nee(scene, li.long(), l_dir,
+                                          nee_hit)
+    if not prebin:
+        direct = _resolve_direct(
+            real_l_pdf, n_lights_w, cos_pdf_at_l, l_emit, nee_k,
+            is_diff, fresh_direct, direct_base,
+        )
+
+    n_alive = alive.sum()
+    return Wave(
+        origin=new_origin, direction=new_dir, hit=hit_next, atten=atten,
+        total=total, direct=direct, bad=bad, alive=alive, j=j_cur,
+        s=s_cur, sb=sb_cur, acc=acc, pix=pix, slot=slot,
+        n_rays=w.n_rays + n_alive + n_nee, n_alive=n_alive,
+    )
+
+
+def _fused_round(c: shade.Round, w: Wave, rope_err=None) -> Wave:
+    """One wavefront round through the round kernels (where
+    :func:`_fused_round_ok`): the shade kernel writes every lane's next
+    state as packed rows, its bin key and the round's ray counts; a stable
+    argsort orders the keys; the permute kernel gathers the rows into the
+    next wave's columns; the traversals run as in the torch round; the NEE
+    kernel resolves ``direct``.  The same values as :func:`_torch_round`,
+    bit for bit, on every device."""
+    scene = c.scene
+    packed, packed_i, key, tally = shade.shade_round(c, w)
+    order = torch.argsort(key, stable=True)
+    lanes = shade.permute_rows(packed, packed_i, order)
+    hit = traverse.traverse(scene, lanes.origin, lanes.direction,
+                            lanes.alive, routing=c.rt, rope_err=rope_err)
+    occluded = None
+    if scene.n_lights:
+        occluded = _occlusion(scene, c.rt, lanes.nee_origin, lanes.l_dir,
+                              lanes.nee_active,
+                              lanes.l_dist * (1.0 - 1e-3), rope_err)
+    direct = shade.nee_resolve(scene, lanes, occluded)
+    return Wave(
+        origin=lanes.origin, direction=lanes.direction, hit=hit,
+        atten=lanes.atten, total=lanes.total, direct=direct, bad=lanes.bad,
+        alive=lanes.alive, j=lanes.j, s=lanes.s, sb=lanes.sb, acc=lanes.acc,
+        pix=lanes.pix, slot=lanes.slot, n_rays=tally[:2], n_alive=tally[2],
+    )
+
+
+def _round_context(scene, rot, pos, fov, aspect, near, frame: int,
+                   n_spp: int, cfg: RenderConfig):
+    """``(c, round_)``: the context every round of one wavefront call
+    reads, and the round function its configuration takes."""
+    rt = cfg.resolved_routing()
+    fused = _fused_round_ok(scene, cfg, rt)
+    space = traverse.prim_space(scene, rt) if cfg.nee_anyhit else "tri"
+    cam = (rot, pos, fov, aspect, near)
+    c = shade.Round(scene, cfg, rt, space, cam, frame, n_spp,
+                    shade.frame_constants(scene, cam) if fused else None)
+    return c, _fused_round if fused else _torch_round
 
 
 def _trace_wave_lanes(scene, rot, pos, fov, aspect, near, pixel_id,
@@ -797,307 +703,35 @@ def _trace_wave_lanes(scene, rot, pos, fov, aspect, near, pixel_id,
     """All ``n_spp`` samples of each lane's pixel, with path regeneration,
     coherence binning and multi-phase drain -> color sums (N,3).
 
-    ``bin_rays=False`` runs the rounds at full width in lane order (no
-    key, no permute, no drain).  ``nee_anyhit=False`` resolves NEE by a
-    closest-hit query after the round's traversal, every hit a global
-    triangle with its instance (``raw=False``, ``shade_tri`` rows); with
-    occlusion NEE, ``routing.nee_prebin`` moves the shadow query and the
-    MIS resolve before the state permute.
+    Each round is :func:`_fused_round` where :func:`_fused_round_ok`, else
+    :func:`_torch_round`.  ``bin_rays=False`` runs the rounds at full
+    width in lane order (no key, no permute, no drain).
     """
     n = pixel_id.shape[0]
     dev = pixel_id.device
-    rt = cfg.resolved_routing()
-    do_bin = cfg.bin_rays is not False
-    use_raw = cfg.nee_anyhit
-    space = traverse.prim_space(scene, rt) if use_raw else "tri"
-    prebin = use_raw and rt.nee_prebin != "off"
-
-    def primary_rays(pix, s):
-        jitter = None
-        if cfg.aa_jitter:
-            jitter = rng.uniforms(cfg.seed ^ 0xA11A5, pix, frame, s, 999, 2)
-            jitter = jitter - 0.5
-        return raygen(rot, pos, fov, aspect, near, pix, cfg.width,
-                      cfg.height, jitter)
+    c, round_ = _round_context(scene, rot, pos, fov, aspect, near, frame,
+                               n_spp, cfg)
 
     # the rope walk's error flag, read with each round's live count
-    rope_err = traverse.rope_error_flag(scene, rt, dev)
+    rope_err = traverse.rope_error_flag(scene, c.rt, dev)
 
     def n_live(w: Wave) -> int:
         """Live lanes: one device-to-host copy per round, of the count and,
         on the rope-walk route, its error flag beside it."""
         if rope_err is None:
-            return int(w.alive.sum())
-        count, err = torch.cat([w.alive.sum().view(1),
+            return int(w.n_alive)
+        count, err = torch.cat([w.n_alive.view(1),
                                 rope_err.long()]).tolist()
         lanewalk.raise_on_flag(err, scene.meta["rope_rows"])
         return count
 
-    pix0 = pixel_id.to(I32)
-    s0 = torch.zeros(n, dtype=I32, device=dev)
-    sb0 = sample_base.to(I32)
-    rays0 = primary_rays(pix0, sb0 + s0)
-    hit0 = traverse.traverse(
-        scene, rays0.origin, rays0.direction,
-        torch.ones(n, dtype=torch.bool, device=dev), routing=rt,
-        rope_err=rope_err, raw=use_raw,
-    )
-    f3 = lambda v: torch.full((n, 3), v, dtype=F32, device=dev)
-    w = Wave(
-        origin=rays0.origin.contiguous(), direction=rays0.direction,
-        hit=hit0, atten=f3(1.0), total=f3(0.0), direct=f3(0.0),
-        bad=torch.zeros(n, dtype=torch.bool, device=dev),
-        alive=torch.ones(n, dtype=torch.bool, device=dev),
-        j=torch.zeros(n, dtype=I32, device=dev), s=s0, sb=sb0, acc=f3(0.0),
-        pix=pix0, slot=torch.arange(n, dtype=I32, device=dev),
-        n_rays=torch.full((2,), n, dtype=torch.int64, device=dev),
-    )
+    w = _first_wave(c, pixel_id, sample_base, rope_err)
 
-    def round_(w: Wave) -> Wave:
-        hit = w.hit
-        j = w.j
-        sample = w.sb + w.s
-        did = w.alive & hit.did_hit
-
-        (hp, normal, uv, albedo, emission, reflectance, ior, tex_id,
-         sampler, metal_tex, alpha_tex, front) = _shade_fetch(
-            scene, CameraRays(w.origin, w.direction), hit, space, cfg
-        )
-        albedo, emission, reflectance, cutout = _apply_material_maps(
-            scene, cfg, uv, sampler, albedo, emission, reflectance,
-            tex_id, metal_tex, alpha_tex,
-        )
-
-        # ---- pending light resolve (raytrace.comp:500-505)
-        was_delta = w.direct[:, 0] == -1.0
-        final_light = torch.where(was_delta[:, None], emission, w.direct)
-        contrib = final_light + torch.where(j == 0, 1.0, 0.0)[:, None] * emission
-        total = torch.where(did[:, None], w.total + contrib * w.atten, w.total)
-        bad = w.bad | (
-            did
-            & (torch.isnan(total).any(dim=-1) | (total < 0).any(dim=-1))
-        )
-
-        # ---- escape: environment light (raytrace.comp:531-534)
-        esc = w.alive & ~hit.did_hit
-        env_l = env_ops.environment_light(scene, w.direction)
-        total = torch.where(esc[:, None], total + w.atten * env_l, total)
-
-        shaded = did & ~bad
-
-        # ---- BSDF lobes (branchless; raytrace.comp:507-515)
-        u6 = rng.uniforms(cfg.seed, w.pix, frame, sample, j, 7)
-        is_spec = reflectance != 0.0
-        is_diel = ~is_spec & (ior != -1.0)
-        is_diff = ~is_spec & ~is_diel
-
-        nee_origin = hp + normal * 0.01  # raytrace.comp:432
-        l_dir, li, n_lights_w, l_dist = lights.sample_rect_light(
-            scene, nee_origin, u6[:, 0], u6[:, 1], u6[:, 2]
-        )
-        cos_pdf_at_l = bsdf.cosine_hemisphere_pdf(normal, l_dir)
-        cos_dir = bsdf.cosine_hemisphere_dir(normal, u6[:, 3], u6[:, 4])
-        real_cos_pdf = bsdf.cosine_hemisphere_pdf(normal, cos_dir)
-        rad_diff = (
-            albedo
-            * INV_PI
-            * (dot(normal, cos_dir) / torch.clamp(real_cos_pdf, min=1e-20))[
-                :, None
-            ]
-        )
-        nee_k = albedo * (
-            INV_PI * torch.clamp(dot(normal, l_dir), min=0.0)
-        )[:, None]
-
-        dir_spec = intersect.reflect(w.direction, normal)
-        ior_eff = torch.where(front, 1.0 / ior, ior)
-        cosine = dot(-w.direction, normal)
-        sine = sqrt(torch.clamp(1.0 - cosine * cosine, min=0.0))
-        solution = (ior_eff * sine > 1.0) | (
-            bsdf.schlick(cosine, ior_eff) > u6[:, 5]
-        )
-        dir_diel = torch.where(
-            solution[:, None],
-            dir_spec,
-            intersect.refract(w.direction, normal, ior_eff),
-        )
-        sign_diel = torch.where(
-            solution, 1.0, torch.sign(dot(normal, w.direction))
-        )
-        new_dir = torch.where(
-            is_spec[:, None],
-            dir_spec,
-            torch.where(is_diel[:, None], dir_diel, cos_dir),
-        )
-        sec_rad = albedo if cfg.tint_spec_diel else 1.0
-        radiance = torch.where(is_diff[:, None], rad_diff, sec_rad)
-        origin_sign = torch.where(is_diel, sign_diel, 1.0)
-        # alpha cutout: pass-through delta bounce (see _apply_material_maps)
-        new_dir = torch.where(cutout[:, None], w.direction, new_dir)
-        radiance = torch.where(cutout[:, None], 1.0, radiance)
-        is_diff = is_diff & ~cutout
-        atten = w.atten * torch.where(shaded[:, None], radiance, 1.0)
-
-        # ---- russian roulette (raytrace.comp:519-524)
-        rr = torch.clamp(atten.max(dim=-1).values, max=cfg.rr_clamp)
-        rr = torch.where(j <= cfg.rr_start_bounce, 1.0, rr)
-        killed = u6[:, 6] > rr
-        atten = atten / torch.clamp(rr, min=1e-20)[:, None]
-
-        continuing = shaded & ~killed & (j < cfg.bounce_limit)
-        # Facing-away shadow rays contribute exactly zero, so they are
-        # resolved analytically instead of traversed; ``nee_sem`` keeps
-        # them in the semantic ray count.
-        nee_sem = continuing & is_diff
-        nee_active = nee_sem & (dot(normal, l_dir) > 0.0)
-        if use_raw and scene.n_lights == 0:
-            n_nee = torch.zeros(2, dtype=torch.int64, device=dev)
-        else:
-            n_nee = torch.stack([nee_sem.sum(), nee_active.sum()])
-
-        # ---- sample completion + regeneration
-        path_ends = w.alive & ~continuing
-        sample_color = torch.where(bad[:, None], 0.0, total)
-        acc = w.acc + torch.where(path_ends[:, None], sample_color, 0.0)
-        s_new = w.s + path_ends.to(I32)
-        regen = path_ends & (s_new < n_spp)
-
-        prim = primary_rays(w.pix, w.sb + s_new)
-        bounce_origin = hp + normal * (origin_sign * 1e-5)[:, None]
-        bounce_origin = torch.where(
-            cutout[:, None], hp + w.direction * 1e-4, bounce_origin
-        )
-        new_origin = torch.where(
-            continuing[:, None],
-            bounce_origin,
-            torch.where(regen[:, None], prim.origin, w.origin),
-        )
-        new_dir = torch.where(
-            continuing[:, None],
-            new_dir,
-            torch.where(regen[:, None], prim.direction, w.direction),
-        )
-        alive = continuing | regen
-        j_new = torch.where(continuing, j + 1, 0).to(I32)
-        total = torch.where(path_ends[:, None], 0.0, total)
-        atten = torch.where(path_ends[:, None], 1.0, atten)
-        bad = bad & ~path_ends
-
-        # ---- post-NEE ``direct`` ingredients (resolved after traversal)
-        fresh_direct = shaded & ~path_ends
-        direct_base = torch.where(path_ends[:, None], 0.0, w.direct)
-
-        j_cur, s_cur, pix, slot, sb_cur = j_new, s_new, w.pix, w.slot, w.sb
-
-        if prebin:
-            # ---- pre-permute NEE: the shadow query and the MIS resolve
-            # run here, so the permute carries the resolved ``direct``
-            if scene.n_lights == 0:
-                l_emit = torch.zeros_like(nee_k)
-                real_l_pdf = torch.zeros_like(l_dist)
-            else:
-                occluded = _occlusion(
-                    scene, rt, nee_origin, l_dir, nee_active,
-                    l_dist * (1.0 - 1e-3), rope_err,
-                    sort=do_bin and rt.nee_prebin == "sort")
-                l_emit, real_l_pdf = _analytic_nee(
-                    scene, li, l_dir, l_dist, nee_active & ~occluded)
-            direct = _resolve_direct(
-                real_l_pdf, n_lights_w, cos_pdf_at_l, l_emit, nee_k,
-                is_diff, fresh_direct, direct_base,
-            )
-
-        if do_bin:
-            # ---- coherence binning: one permutation of the lanes by
-            # their bin key and one packed row-gather per dtype move the
-            # whole lane state; per-lane results are permutation-invariant.
-            order = _bin_order(scene, rt, new_origin, new_dir, alive,
-                               continuing, hit, w.pix)
-            fi = lambda x: x.to(F32)[:, None]
-            if prebin:
-                # the slim pack: NEE is resolved into ``direct`` already
-                packed = torch.cat(
-                    [new_origin, new_dir, atten, total, acc, direct,
-                     fi(alive), fi(bad)], dim=1)[order]
-                packed_i = torch.stack(
-                    [j_cur, s_cur, pix, slot, sb_cur], dim=1)[order]
-                v3 = lambda k: packed[:, 3 * k : 3 * k + 3]
-                (new_origin, new_dir, atten, total, acc, direct) = (
-                    v3(k) for k in range(6))
-                alive = packed[:, 18] > 0.5
-                bad = packed[:, 19] > 0.5
-                j_cur, s_cur, pix, slot, sb_cur = packed_i.unbind(dim=1)
-            else:
-                packed = torch.cat(
-                    [
-                        new_origin, new_dir, atten, total, acc, direct_base,
-                        nee_origin, l_dir, nee_k,  # 27 vector columns
-                        fi(alive), fi(bad), fi(fresh_direct), fi(is_diff),
-                        cos_pdf_at_l[:, None], l_dist[:, None],
-                        fi(nee_active),
-                    ],
-                    dim=1,
-                )[order]
-                packed_i = torch.stack(
-                    [j_cur, s_cur, pix, slot, li.to(I32), sb_cur], dim=1
-                )[order]
-                v3 = lambda k: packed[:, 3 * k : 3 * k + 3]
-                (new_origin, new_dir, atten, total, acc, direct_base,
-                 nee_origin, l_dir, nee_k) = (v3(k) for k in range(9))
-                col = lambda k: packed[:, 27 + k]
-                alive = col(0) > 0.5
-                bad = col(1) > 0.5
-                fresh_direct = col(2) > 0.5
-                is_diff = col(3) > 0.5
-                cos_pdf_at_l = col(4)
-                l_dist = col(5)
-                nee_active = col(6) > 0.5
-                j_cur, s_cur, pix, slot, li, sb_cur = packed_i.unbind(dim=1)
-
-        # ---- traverse the merged wavefront (bounce ++ regenerated primary)
-        hit_next = traverse.traverse(scene, new_origin, new_dir, alive,
-                                     routing=rt, rope_err=rope_err,
-                                     raw=use_raw)
-
-        # ---- NEE shadow query for continuing diffuse lanes
-        if prebin:
-            pass  # resolved into ``direct`` before the permute
-        elif use_raw:
-            if scene.n_lights == 0:
-                l_emit = torch.zeros_like(nee_k)
-                real_l_pdf = torch.zeros_like(l_dist)
-            else:
-                occluded = _occlusion(scene, rt, nee_origin, l_dir,
-                                      nee_active, l_dist * (1.0 - 1e-3),
-                                      rope_err)
-                l_emit, real_l_pdf = _analytic_nee(
-                    scene, li, l_dir, l_dist, nee_active & ~occluded)
-        else:
-            nee_hit = traverse.traverse(
-                scene, nee_origin, l_dir, nee_active,
-                tmax=l_dist * 1.002 + 1e-3, routing=rt, rope_err=rope_err,
-                raw=False)
-            l_emit, real_l_pdf = _closest_nee(scene, li.long(), l_dir,
-                                              nee_hit)
-        if not prebin:
-            direct = _resolve_direct(
-                real_l_pdf, n_lights_w, cos_pdf_at_l, l_emit, nee_k,
-                is_diff, fresh_direct, direct_base,
-            )
-
-        n_alive = alive.sum()
-        return Wave(
-            origin=new_origin, direction=new_dir, hit=hit_next, atten=atten,
-            total=total, direct=direct, bad=bad, alive=alive, j=j_cur,
-            s=s_cur, sb=sb_cur, acc=acc, pix=pix, slot=slot,
-            n_rays=w.n_rays + n_alive + n_nee,
-        )
-
-    if not do_bin:
+    if cfg.bin_rays is False:
         # one loop at full width: the lanes never move, so lane i is
         # pixel_id[i] throughout
         while n_live(w) > 0:
-            w = round_(w)
+            w = round_(c, w, rope_err)
         return (w.acc, w.n_rays) if with_stats else w.acc
 
     # ---- multi-phase drain: the bin key sorts dead lanes last, so once
@@ -1112,7 +746,7 @@ def _trace_wave_lanes(scene, rot, pos, fov, aspect, near, pixel_id,
     for i in range(len(widths)):
         nxt = widths[i + 1] if i + 1 < len(widths) else 0
         while n_live(w) > nxt:
-            w = round_(w)
+            w = round_(c, w, rope_err)
         if nxt:
             banked_acc.append(w.acc[nxt:])
             banked_slot.append(w.slot[nxt:])

@@ -1101,3 +1101,81 @@ def test_dryrun_on_card(dev):
 
     summary = entry.dryrun_multichip(1, timeout=300)
     assert summary["meshes"] == [[1, 1]]
+
+
+@pytest.fixture(scope="module")
+def round_scenes(dev, tmp_path_factory):
+    """The scenes of tests/test_torch_shade.py on the card."""
+    from torch_parity import room_scene
+
+    tmp = str(tmp_path_factory.mktemp("rounds"))
+    return {
+        "sponza": presets.sponza_proxy(n_tris_target=20000).compile(),
+        "spheres": presets.sphere_diffuse().compile(),
+        "room": room_scene(trt, tmp).compile(),
+    }
+
+
+ROUND_CASES = [
+    pytest.param(name, space, n_lights, space == "tri", n_lights != 1,
+                 id=f"{name}-{space}-{n_lights}")
+    for name in ("sponza", "spheres", "room")
+    for space in ("slot", "tri") for n_lights in (0, 1, 2)
+]
+
+
+def _same_all(got, want, what):
+    from torch_parity import same_values
+
+    for k, (a, b) in enumerate(zip(got, want)):
+        assert same_values(a, b), f"{what}: output {k} differs"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,space,n_lights,jitter,tint", ROUND_CASES)
+def test_round_kernels_match_plain_versions(dev, round_scenes, name, space,
+                                            n_lights, jitter, tint):
+    """Every round of a 64x36 frame: shade_kernel, permute_kernel and
+    nee_resolve_kernel each against its plain version on the same inputs
+    (equal values, NaN equal to NaN), then the frame on the card through
+    the kernels against the torch round's, bit for bit."""
+    from ray_tracer_tpu_torch.integrator import wavefront
+    from ray_tracer_tpu_torch.kernels import shade
+    from ray_tracer_tpu_torch.ops import traverse
+    from torch_parity import first_wave, with_lights
+
+    sc = with_lights(round_scenes[name], n_lights)
+    routing = trt.Routing(wide=space == "slot")
+    cfg = trt.RenderConfig(width=64, height=36, samples_per_pixel=2,
+                           bounce_limit=8, routing=routing,
+                           aa_jitter=jitter, tint_spec_diel=tint)
+    c, round_, w = first_wave(sc, cfg)
+    assert round_ is wavefront._fused_round
+    shade.reset_launches()
+    rounds = 0
+    while int(w.n_alive) > 0:
+        out = shade.shade_round(c, w)
+        _same_all(out, shade.shade_round_reference(c, w), "shade")
+        order = torch.argsort(out[2], stable=True)
+        lanes = shade.permute_rows(out[0], out[1], order)
+        _same_all(lanes, shade.permute_rows_reference(out[0], out[1], order),
+                  "permute")
+        occluded = None
+        if sc.n_lights:
+            occluded = traverse.traverse_anyhit(
+                sc, lanes.nee_origin, lanes.l_dir, lanes.nee_active,
+                lanes.l_dist * (1.0 - 1e-3), routing=routing)
+        _same_all([shade.nee_resolve(sc, lanes, occluded)],
+                  [shade.nee_resolve_reference(sc, lanes, occluded)], "nee")
+        w = wavefront._fused_round(c, w)
+        rounds += 1
+    torch.cuda.synchronize()
+    assert shade.launches == {k: 2 * rounds for k in shade.launches}
+    img = trt.render(sc, cfg)
+    wavefront_ok = wavefront._fused_round_ok
+    try:
+        wavefront._fused_round_ok = lambda *a: False
+        want = trt.render(sc, cfg)
+    finally:
+        wavefront._fused_round_ok = wavefront_ok
+    assert torch.equal(img, want)

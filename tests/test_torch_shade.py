@@ -1,0 +1,248 @@
+"""The wavefront round's kernels (``kernels/shade.py``) on the CPU.
+
+On CPU tensors the wrappers run their plain versions, so here the fused
+round (``integrator/wavefront.py::_fused_round``: shade, argsort, permute,
+traversal, NEE resolve) runs on the CPU and is held against the torch
+round bit for bit, round after round, on reduced scenes; the route
+predicate picks it for the main configuration and for no excluded value;
+a main-path frame goes through the three wrappers once a round; the plain
+versions' pieces equal the JAX package's; and one frame of the new path
+agrees with the JAX package's render of its group-kernel route.  The
+kernels themselves are held against these plain versions on the card in
+``tests/test_torch_gpu.py`` and by ``chip_smoke.py``.
+"""
+
+import dataclasses
+import itertools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import ray_tracer_tpu as jrt
+import ray_tracer_tpu_torch as trt
+from ray_tracer_tpu.config import Routing as JRouting
+from ray_tracer_tpu.integrator import wavefront as j_wavefront
+from ray_tracer_tpu_torch.integrator import shading, wavefront
+from ray_tracer_tpu_torch.kernels import shade
+from ray_tracer_tpu_torch.scene import presets
+
+from torch_parity import (
+    assert_images_match,
+    first_wave,
+    room_scene,
+    same_bits,
+    with_lights,
+)
+
+SIZE = dict(width=13, height=9, samples_per_pixel=2, bounce_limit=5)
+SPACE = {"slot": trt.Routing(), "tri": trt.Routing(wide=False)}
+
+
+@pytest.fixture(scope="module")
+def scenes(tmp_path_factory):
+    tmp = str(tmp_path_factory.mktemp("shade"))
+    return {
+        "sponza": presets.sponza_proxy(n_tris_target=8000).compile(
+            device="cpu"),
+        "spheres": presets.sphere_diffuse().compile(device="cpu"),
+        "room": room_scene(trt, tmp).compile(device="cpu"),
+    }
+
+
+def assert_waves_equal(got, want):
+    for name, a, b in zip(wavefront.Wave._fields, got, want):
+        pairs = zip(a, b) if name == "hit" else [(a, b)]
+        for x, y in pairs:
+            assert same_bits(x, y), name
+
+
+# each scene with 0, 1 and 2 lights in both triangle id spaces; jitter and
+# the tint of the delta lobes each on in half of the cases
+CASES = [
+    pytest.param(name, space, n_lights, space == "tri", n_lights != 1,
+                 id=f"{name}-{space}-{n_lights}")
+    for name, space, n_lights in itertools.product(
+        ("sponza", "spheres", "room"), ("slot", "tri"), (0, 1, 2))
+]
+
+
+@pytest.mark.parametrize("name,space,n_lights,jitter,tint", CASES)
+def test_plain_versions_equal_the_torch_round(scenes, name, space, n_lights,
+                                              jitter, tint):
+    """The three plain versions chained (the fused round on the CPU)
+    equal the torch round on every field of the next wave, bit for bit,
+    in every round of a frame."""
+    sc = with_lights(scenes[name], n_lights)
+    cfg = trt.RenderConfig(**SIZE, routing=SPACE[space], aa_jitter=jitter,
+                           tint_spec_diel=tint)
+    c, round_, w = first_wave(sc, cfg)
+    assert round_ is wavefront._fused_round
+    if sc.meta["flattened"]:
+        assert c.space == space
+    rounds = 0
+    while int(w.n_alive) > 0:
+        want = wavefront._torch_round(c, w)
+        got = wavefront._fused_round(c, w)
+        assert_waves_equal(got, want)
+        w = got
+        rounds += 1
+    assert rounds >= 3
+    assert w.n_rays[0] >= w.n_rays[1] >= cfg.n_pixels
+
+
+@pytest.fixture(scope="module")
+def forest(tmp_path_factory):
+    tmp = str(tmp_path_factory.mktemp("forest"))
+    return room_scene(trt, tmp).compile(flatten_instances=False,
+                                        device="cpu")
+
+
+def textured(sc):
+    return dataclasses.replace(sc, meta={**sc.meta, "n_textures": 1})
+
+
+EXCLUDED = {  # each value that keeps the torch round
+    "forest": ({}, None),
+    "textures": ({}, textured),
+    "normal_maps": (dict(enable_normal_maps=True), None),
+    "bin_leaf": (dict(routing=trt.Routing(bin_mode="leaf")), None),
+    "bin_hier": (dict(routing=trt.Routing(bin_mode="hier")), None),
+    "prebin_sort": (dict(routing=trt.Routing(nee_prebin="sort")), None),
+    "prebin_nosort": (dict(routing=trt.Routing(nee_prebin="nosort")), None),
+    "closest_nee": (dict(nee_anyhit=False), None),
+    "unbinned": (dict(bin_rays=False), None),
+}
+
+
+@pytest.mark.parametrize("value", sorted(EXCLUDED))
+def test_fused_round_ok_excludes(scenes, forest, value):
+    kw, change = EXCLUDED[value]
+    sc = forest if value == "forest" else scenes["sponza"]
+    if change is not None:
+        sc = change(sc)
+    cfg = trt.RenderConfig(**kw)
+    assert not wavefront._fused_round_ok(sc, cfg, cfg.resolved_routing())
+
+
+@pytest.mark.parametrize("kw", [
+    {}, dict(enable_textures=False), dict(routing=trt.Routing(wide=False)),
+    dict(routing=trt.Routing(bin_dir_bits=2)), dict(aa_jitter=True),
+], ids=["main", "textures_off", "narrow", "dir_bits", "jitter"])
+def test_fused_round_ok_main(scenes, kw):
+    """The main configuration, and values the kernels take: a textured
+    scene with ``enable_textures=False``, any route, direction bits."""
+    sc = textured(scenes["sponza"]) if kw == dict(
+        enable_textures=False) else scenes["sponza"]
+    cfg = trt.RenderConfig(**kw)
+    assert wavefront._fused_round_ok(sc, cfg, cfg.resolved_routing())
+    assert wavefront._fused_round_ok(scenes["spheres"], cfg,
+                                     cfg.resolved_routing())
+
+
+def test_main_path_runs_the_wrappers(scenes, monkeypatch):
+    """A main-path frame calls each wrapper once a round (the CPU adds
+    no launch), and its image equals the torch round's."""
+    calls = {k: 0 for k in ("round", "shade_round", "permute_rows",
+                            "nee_resolve")}
+
+    def counting(module, name, key):
+        fn = getattr(module, name)
+
+        def call(*args, **kw):
+            calls[key] += 1
+            return fn(*args, **kw)
+
+        monkeypatch.setattr(module, name, call)
+
+    counting(wavefront, "_fused_round", "round")
+    for name in ("shade_round", "permute_rows", "nee_resolve"):
+        counting(shade, name, name)
+    shade.reset_launches()
+    cfg = trt.RenderConfig(width=24, height=14, samples_per_pixel=2,
+                           bounce_limit=8)
+    img = trt.render(scenes["sponza"], cfg)
+    assert calls["round"] >= 9
+    assert len(set(calls.values())) == 1, calls
+    assert sum(shade.launches.values()) == 0
+    monkeypatch.setattr(wavefront, "_fused_round_ok", lambda *a: False)
+    assert torch.equal(img, trt.render(scenes["sponza"], cfg))
+    assert calls["round"] == calls["shade_round"]
+
+
+def test_bin_key_matches_jax(scenes):
+    """The shade kernel's key (its plain version, ``shading.bin_key``)
+    against the JAX package's on seeded lanes, with direction bits."""
+    sc = scenes["sponza"]
+    rand = np.random.default_rng(3)
+    box = sc.bvh_packed[0].numpy()
+    o = rand.uniform(box[0:3] - 1.0, box[3:6] + 1.0, (4096, 3))
+    d = rand.normal(size=(4096, 3))
+    d[::7, 0] = 0.0
+    o, d = o.astype(np.float32), d.astype(np.float32)
+    alive = rand.uniform(size=4096) < 0.8
+    for mb, db in ((6, 0), (5, 2)):
+        got = shading.bin_key(sc, torch.from_numpy(o), torch.from_numpy(d),
+                              torch.from_numpy(alive), mb, db)
+        want = j_wavefront._bin_key(_JaxKeyScene(sc), jnp.asarray(o),
+                                    jnp.asarray(d), jnp.asarray(alive),
+                                    mb, db)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+class _JaxKeyScene:
+    """The two tables and the meta the JAX key reads, as JAX arrays."""
+
+    def __init__(self, sc):
+        self.bvh_packed = jnp.asarray(sc.bvh_packed.numpy())
+        self.obj_bvh_root = jnp.asarray(sc.obj_bvh_root.numpy())
+        self.meta = dict(sc.meta)
+
+
+def test_resolve_matches_jax():
+    """The NEE kernel's MIS resolve (its plain version,
+    ``shading.resolve_direct``) against the JAX package's on seeded
+    lanes: zero, negative and NaN pdfs included."""
+    rand = np.random.default_rng(11)
+    n = 4096
+    pdf = rand.normal(size=n).astype(np.float32)
+    pdf[::5] = 0.0
+    pdf[::97] = np.nan
+    cos_pdf = np.abs(rand.normal(size=n)).astype(np.float32)
+    cos_pdf[::11] = 0.0
+    l_emit = rand.uniform(0, 4, (n, 3)).astype(np.float32)
+    nee_k = rand.uniform(0, 1, (n, 3)).astype(np.float32)
+    is_diff = rand.uniform(size=n) < 0.7
+    fresh = rand.uniform(size=n) < 0.6
+    base = rand.normal(size=(n, 3)).astype(np.float32)
+    for n_lights in (1.0, 2.0, 3.0):
+        args = (pdf, n_lights, cos_pdf, l_emit, nee_k, is_diff, fresh, base)
+        got = shading.resolve_direct(*(
+            torch.from_numpy(a) if isinstance(a, np.ndarray) else a
+            for a in args))
+        want = j_wavefront._resolve_direct(*(
+            jnp.asarray(a) if isinstance(a, np.ndarray) else a
+            for a in args))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.fixture(scope="module")
+def jax_room(tmp_path_factory):
+    tmp = str(tmp_path_factory.mktemp("jroom"))
+    return room_scene(jrt, tmp).compile().device_put()
+
+
+def test_fused_frame_matches_jax(scenes, jax_room):
+    """One frame of the room through the fused round against the JAX
+    package's render of its group-kernel route (the Pallas kernel in
+    interpret mode), at test_torch_render.py's tolerance."""
+    kw = dict(width=24, height=18, samples_per_pixel=4, bounce_limit=6)
+    cfg = trt.RenderConfig(**kw)
+    assert wavefront._fused_round_ok(scenes["room"], cfg,
+                                     cfg.resolved_routing())
+    got = trt.render(scenes["room"], cfg)
+    want = jrt.render(jax_room, jrt.RenderConfig(
+        routing=JRouting(packet="interpret", groups=4, groups_packet=512),
+        **kw))
+    assert_images_match(got.numpy(), np.asarray(want))

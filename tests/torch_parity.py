@@ -651,3 +651,71 @@ def downhill(j):
 
 def level(j):
     return 128
+
+
+def with_lights(sc, n):
+    """The compiled torch scene ``sc`` with ``n`` (0, 1 or 2) rect
+    lights: none (its light rows kept as the placeholder), its first
+    light (or, in a scene without one, a unit quad above the origin
+    facing down, of material 0), or that light and a copy a quarter of
+    its diagonal away, of the scene's last material."""
+    import dataclasses
+
+    def rows(name):
+        return getattr(sc, name)[:1].clone()
+
+    if sc.n_lights:
+        light = {k: rows(k) for k in ("light_corner", "light_edge_u",
+                                      "light_edge_v", "light_normal",
+                                      "light_area", "light_mat")}
+    else:
+        f = lambda v: torch.tensor([v], dtype=torch.float32,
+                                   device=sc.device)
+        light = dict(light_corner=f((-0.5, -2.0, -0.5)),
+                      light_edge_u=f((1.0, 0.0, 0.0)),
+                      light_edge_v=f((0.0, 0.0, 1.0)),
+                      light_normal=f((0.0, 1.0, 0.0)),
+                      light_area=torch.ones(1, device=sc.device),
+                      light_mat=torch.zeros(1, dtype=torch.int32,
+                                            device=sc.device))
+    if n == 2:
+        shift = 0.25 * (light["light_edge_u"] + light["light_edge_v"])
+        second = dict(light, light_corner=light["light_corner"] + shift,
+                      light_mat=torch.full_like(
+                          light["light_mat"], sc.mat_albedo.shape[0] - 1))
+        light = {k: torch.cat([light[k], second[k]]) for k in light}
+    if n == 0:
+        light = {}
+    return dataclasses.replace(sc, meta={**sc.meta, "n_lights": n}, **light)
+
+
+def first_wave(sc, cfg, frame=1, n_spp=2):
+    """``(c, round_, w)``: the wavefront's round context and round
+    function for ``cfg`` on every pixel of its frame (one lane a pixel,
+    ``n_spp`` samples each), and its first wave."""
+    from ray_tracer_tpu_torch import api
+    from ray_tracer_tpu_torch.integrator import wavefront
+
+    cam = api._camera_arrays(api.scene_camera(sc), cfg, sc.device)
+    ids = torch.arange(cfg.n_pixels, dtype=torch.int32, device=sc.device)
+    c, round_ = wavefront._round_context(sc, *cam, frame, n_spp, cfg)
+    return c, round_, wavefront._first_wave(c, ids, torch.zeros_like(ids))
+
+
+def same_values(a, b):
+    """Equal shapes and dtypes, and equal values where NaN equals NaN."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    return bool(((a == b) | (a.isnan() & b.isnan())).all())
+
+
+def same_bits(a, b):
+    """Equal shapes, dtypes and bits (-0.0 is not 0.0; NaN payloads
+    count)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        a, b = (x.contiguous().view(torch.int32) for x in (a, b))
+    return torch.equal(a, b)
