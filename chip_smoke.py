@@ -30,7 +30,11 @@ lanes, timed in turns (top_vs_old), checks each kernel mode against its plain to
 version on the card at the main path's shapes, holds the wavefront
 round's three kernels (csrc/shade_round.cu: shade, state permute, NEE
 resolve) against their plain versions on the main frame's own rounds
-(round_kernels) and requires the main frame to launch each once a round,
+(round_kernels, with each kernel's bound on every round and summed over
+the frame: round_bounds), holds the shade kernel against the one it
+replaced (tools/shade_round_variants.cu), bit for bit and timed in turns
+with both kernels' ptxas lines (shade_vs_old), and requires the main
+frame to launch each round kernel once a round,
 checks small card renders
 against the same renders on the CPU, and renders the benchmark frame
 (sponza_proxy, 1920x1080, spp 2, bounce limit 8, one whole-frame tile)
@@ -105,6 +109,7 @@ import emit_walk_variants  # noqa: E402
 import narrow_walk_variants  # noqa: E402
 import packet_walk_variants  # noqa: E402
 import rope_walk_variants  # noqa: E402
+import shade_round_variants  # noqa: E402
 import top_walk_variants  # noqa: E402
 
 BIG = group.BIG
@@ -129,7 +134,8 @@ LIBRARIES = (bvh8.build, cluster.build, packet.build_narrow, lanewalk.build,
              shade.build, cluster_test_variants.build,
              deep_walk_variants.build, packet_walk_variants.build,
              narrow_walk_variants.build, emit_walk_variants.build,
-             rope_walk_variants.build, top_walk_variants.build)
+             rope_walk_variants.build, top_walk_variants.build,
+             shade_round_variants.build)
 BVH8 = "ray_tracer_tpu_torch/csrc/bvh8_walk.cu"
 PACKET8 = "ray_tracer_tpu/kernels/packet.py:301"
 SHADE = "ray_tracer_tpu_torch/csrc/shade_round.cu"
@@ -359,13 +365,56 @@ def equal_values(name):
     return compare
 
 
+def shade_cost(c, w) -> dict:
+    """The shade kernel's bound on the wave ``w``: its lane state in, the
+    29 floats it needs of each distinct shade row its lanes hit, its
+    packed rows and key out; OPS_SHADE a lane."""
+    n = w.origin.shape[0]
+    hit = w.hit
+    rows = torch.unique(torch.where(hit.kind == traverse.KIND_TRI,
+                                    hit.prim, 0)).numel()
+    state = nbytes(w.origin, w.direction, hit.dst, hit.kind, hit.prim,
+                   hit.front, w.atten, w.total, w.direct, w.acc, w.bad,
+                   w.alive, w.j, w.s, w.sb, w.pix, w.slot, c.consts)
+    outs = (4 * shading.PACKED_F + 4 * shading.PACKED_I + 4) * n
+    return dict(bound(state + rows * SHADE_ROW_BYTES + outs, OPS_SHADE * n),
+                shade_rows=rows)
+
+
+def permute_cost(packed, packed_i, order) -> dict:
+    """The permute's bound: the packed rows and the order in, the next
+    wave's columns out (nine (N,3) f32, two f32, five flags, six i32)."""
+    n = order.shape[0]
+    out = (4 * 3 * shading.N_VEC + 4 * 2 + 5 + 4 * shading.PACKED_I) * n
+    return bound(nbytes(packed, packed_i, order) + out, 0)
+
+
+def nee_cost(scene, lanes, occluded) -> dict:
+    """The NEE resolve's bound: what it needs of each lane (its flag and,
+    where NEE does not resolve it, ``direct_base``; where it does, the
+    diffuse flag and, on a diffuse lane, the light sample (li, l_dir,
+    l_dist, nee_active, cos_pdf_at_l, nee_k), the occlusion of a traced
+    shadow ray, and the arithmetic) and the next ``direct`` out."""
+    n = lanes.l_dir.shape[0]
+    fresh = lanes.fresh_direct
+    diff = fresh & lanes.is_diff
+    count = lambda m: int(m.sum())
+    need = (n + 12 * count(~fresh) + count(fresh) + 37 * count(diff)
+            + count(diff & lanes.nee_active))
+    return dict(bound(need + 12 * n, OPS_NEE * count(diff)),
+                resolved=count(diff))
+
+
 def round_checks(sc):
     """The round kernels (``csrc/shade_round.cu``) on the main frame's
     own rounds: one frame through ``render`` with the wrappers' arguments
-    captured, then on rounds CHECK_ROUNDS each kernel against its plain
-    version on the captured inputs (every output equal, NaN to NaN) and
-    timed.  Also prints whether the outputs are equal bit for bit and how
-    many NaN each holds."""
+    captured; each kernel's bound on every round and summed over the
+    frame (``round_bounds``); then on rounds CHECK_ROUNDS each kernel
+    against its plain version on the captured inputs (every output
+    equal, NaN to NaN) and timed.  Also prints whether the outputs are
+    equal bit for bit and how many NaN each holds, and holds the shade
+    kernel against the one it replaced (``shade_vs_old``).  Returns the
+    checks by kernel and round."""
     with captured(shade, "shade_round") as shades, \
             captured(shade, "permute_rows") as permutes, \
             captured(shade, "nee_resolve") as nees:
@@ -376,49 +425,35 @@ def round_checks(sc):
         raise AssertionError(f"round_checks: {rounds} shade, "
                              f"{len(permutes)} permute, {len(nees)} NEE "
                              "calls")
+    costs = {"shade_round": [shade_cost(*args) for args, _ in shades],
+             "permute_rows": [permute_cost(*args) for args, _ in permutes],
+             "nee_resolve": [nee_cost(*args) for args, _ in nees]}
+    phase("round_bounds", rounds=rounds,
+          lanes=[int(args[1].origin.shape[0]) for args, _ in shades],
+          **{name: dict(frame_bound_ms=sum(c["bound_ms"] for c in cs),
+                        bound_ms=[c["bound_ms"] for c in cs])
+             for name, cs in costs.items()})
     out = {}
     for r in (r for r in CHECK_ROUNDS if r < rounds):
         (c, w), _ = shades[r]
         n = w.origin.shape[0]
-        hit = w.hit
-        rows = torch.unique(torch.where(hit.kind == traverse.KIND_TRI,
-                                        hit.prim, 0)).numel()
-        state = nbytes(w.origin, w.direction, hit.dst, hit.kind, hit.prim,
-                       hit.front, w.atten, w.total, w.direct, w.acc, w.bad,
-                       w.alive, w.j, w.s, w.sb, w.pix, w.slot, c.consts)
-        outs = (4 * shading.PACKED_F + 4 * shading.PACKED_I + 4) * n
         out[f"shade_round_{r}"] = measure(
             "shade_round", lambda: shade.shade_round(c, w),
             lambda: shade.shade_round_reference(c, w),
             equal_values("shade_round"),
-            lambda: bound(state + rows * SHADE_ROW_BYTES + outs,
-                          OPS_SHADE * n),
-            err=values_err, round=r, n=n, shade_rows=rows)
+            lambda: costs["shade_round"][r], err=values_err, round=r, n=n)
         pargs, _ = permutes[r]
         out[f"permute_rows_{r}"] = measure(
             "permute_rows", lambda: shade.permute_rows(*pargs),
             lambda: shade.permute_rows_reference(*pargs),
-            equal_values("permute_rows"),
-            lambda: bound(nbytes(*pargs) + nbytes(*shade.permute_rows(
-                *pargs)), 0), err=values_err, round=r, n=n)
+            equal_values("permute_rows"), lambda: costs["permute_rows"][r],
+            err=values_err, round=r, n=n)
         nargs, _ = nees[r]
-        lanes = nargs[1]
-        # what the resolve needs of each lane: its flag and, where NEE
-        # does not resolve it, ``direct_base``; where it does, the diffuse
-        # flag and, on a diffuse lane, the light sample (li, l_dir,
-        # l_dist, nee_active, cos_pdf_at_l, nee_k), the occlusion of a
-        # traced shadow ray, and the arithmetic
-        fresh = lanes.fresh_direct
-        diff = fresh & lanes.is_diff
-        count = lambda m: int(m.sum())
-        nee_in = (n + 12 * count(~fresh) + count(fresh) + 37 * count(diff)
-                  + count(diff & lanes.nee_active))
         out[f"nee_resolve_{r}"] = measure(
             "nee_resolve", lambda: (shade.nee_resolve(*nargs),),
             lambda: (shade.nee_resolve_reference(*nargs),),
-            equal_values("nee_resolve"),
-            lambda: bound(nee_in + 12 * n, OPS_NEE * count(diff)),
-            err=values_err, round=r, n=n, resolved=count(diff))
+            equal_values("nee_resolve"), lambda: costs["nee_resolve"][r],
+            err=values_err, round=r, n=n)
         got = (*shade.shade_round(c, w), *shade.permute_rows(*pargs),
                shade.nee_resolve(*nargs))
         want = (*shade.shade_round_reference(c, w),
@@ -432,8 +467,48 @@ def round_checks(sc):
         nan = sum(int(a.isnan().sum()) for a in got if a.is_floating_point())
         phase("round_kernels", round=r, rounds=rounds, n=n, bitwise=bitwise,
               nan_values=nan)
+        if not bitwise:
+            raise AssertionError(f"round {r}: a round kernel's output "
+                                 "differs in its bits from the plain "
+                                 "version's")
+        shade_vs_old(c, w, r, costs["shade_round"][r])
     del shades, permutes, nees
     return out
+
+
+def shade_vs_old(c, w, r, cost):
+    """shade_kernel against the kernel it replaced (old_shade_kernel of
+    tools/shade_round_variants.cu) on round ``r``'s wave: all four
+    outputs equal bit for bit, then each timed in turns (new, old, old,
+    new; 20 launches each on arguments packed once, so no wrapper time),
+    with both kernels' registers and spills as ptxas reports them and
+    their blocks per SM as the runtime does."""
+    shade_round_variants.compare(
+        f"shade kernel, round {r}", shade_round_variants.run("shipped", c, w),
+        shade_round_variants.run("old", c, w))
+    runs = {name: shade_round_variants.launcher(name, c, w)[0]
+            for name in ("shipped", "old")}
+    times = {"shipped": [], "old": []}
+    for name in ("shipped", "old", "old", "shipped"):
+        times[name].append(cuda_ms(runs[name], 20))
+    new_ms = statistics.mean(times["shipped"])
+    old_ms = statistics.mean(times["old"])
+    ptx = {"new": ptxas_of(shade.build(), "shade_kernel"),
+           "old": ptxas_of(shade_round_variants.build(), "old_shade_kernel")}
+    regs = {k: [ln for x in v for ln in x["lines"] if "registers" in ln]
+            for k, v in ptx.items()}
+    phase("shade_vs_old", round=r, n=int(w.origin.shape[0]), equal=True,
+          new_ms=new_ms, old_ms=old_ms, new_ms_runs=times["shipped"],
+          old_ms_runs=times["old"], speedup=old_ms / new_ms,
+          bound_ms=cost["bound_ms"], new_share=cost["bound_ms"] / new_ms,
+          old_share=cost["bound_ms"] / old_ms, new_ptxas=regs["new"],
+          old_ptxas=regs["old"],
+          new_spill_store_bytes=[x["spill_store_bytes"] for x in ptx["new"]],
+          old_spill_store_bytes=[x["spill_store_bytes"] for x in ptx["old"]],
+          new_occupancy=shade_round_variants.info("shipped"),
+          old_occupancy=shade_round_variants.info("old"))
+    if len(ptx["new"]) != 1 or ptx["new"][0]["spill_store_bytes"] != 0:
+        raise AssertionError(f"shade_kernel spills: {ptx['new']}")
 
 
 def equal_all(name):

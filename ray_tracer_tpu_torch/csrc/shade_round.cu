@@ -17,8 +17,25 @@
 // design moves each byte once: a lane reads its state and the 29 floats it
 // needs of its 48-float shade row, and writes its 160-byte packed row and
 // key once; the permute reads a row and writes the columns once; the
-// counts are block sums (__syncthreads_count) added with integer atomics,
-// which are exact in any order.
+// counts are integer sums added with integer atomics, exact in any order.
+//
+// shade_kernel's design.  A lane's 136-byte f32 row and 24-byte i32 row
+// are most of its traffic.  Written by each thread in place (the first
+// form of this kernel, tools/shade_round_variants.cu::old_shade_kernel),
+// every warp store touches 32 sectors 136 B apart and fills 8 B of each.
+// Here a block of 256 lanes writes its rows into shared-memory tiles (the
+// 34-word rows as float2 pairs: each half-warp's pairs fall on 32 distinct
+// banks), each value as soon as the lane knows it, so no row is held in
+// registers; after one barrier thread 0 stores each tile with one TMA bulk
+// copy (cp.async.bulk), contiguous in global memory, while the block adds
+// its counts.  The last, ragged tile stores exactly its rows: 34 and 6
+// words a row leave 0 or 2 words past the last 16 bytes, which one thread
+// stores.  The sky, the second block of draws with the BSDF lobes, and the
+// camera ray run only on the lanes that use them (the escaped, the shaded,
+// the regenerated), with the plain version's selects kept, so the values
+// are the same; with them and the early writes __launch_bounds__(256, 4)
+// holds a thread to 64 registers without spilling: four blocks (50%) to an
+// SM.  The counts are warp sums and one atomic per counter per block.
 //
 // Bit equality with the plain versions on the card.  Built with
 // --fmad=false and without fast math, each expression below is the torch
@@ -298,232 +315,382 @@ __device__ __forceinline__ int bin_key(const float* k, int mb, int db,
   return alive ? key : (1 << 30);
 }
 
-__global__ void __launch_bounds__(kBlock) shade_kernel(const ShadeArgs a) {
-  const long long i = static_cast<long long>(blockIdx.x) * kBlock + threadIdx.x;
-  int c_alive = 0, c_sem = 0, c_act = 0;
-  if (i < a.n) {
-    const V3 O = ld3(a.origin, i), D = ld3(a.direction, i);
-    const float dst = a.dst[i];
-    const int kind = a.kind[i], prim = a.prim[i];
-    const V3 AT = ld3(a.atten, i), TO = ld3(a.total, i);
-    const V3 DI = ld3(a.direct, i), AC = ld3(a.acc, i);
-    bool bad = a.bad[i] != 0;
-    const bool alive = a.alive[i] != 0;
-    const int j = a.j[i], s = a.s[i], sb = a.sb[i], pix = a.pix[i];
-    const bool did_hit = kind != 0;
-    const bool did = alive && did_hit;
+// One block of four draws of rng.uniforms(seed, pixel, frame, sample,
+// bounce, n): draws 4 blk .. 4 blk + 3
+__device__ __forceinline__ void draws4(unsigned seed, unsigned pixel,
+                                       unsigned frame, unsigned sample,
+                                       unsigned bounce, unsigned blk,
+                                       float out[4]) {
+  unsigned v[4] = {pixel, seed ^ (frame * 0x9E3779B9u),
+                   sample * 0x85EBCA6Bu + bounce, blk};
+  pcg4d(v);
+  for (int k = 0; k < 4; ++k) {
+    out[k] = static_cast<float>(v[k]) * 2.3283064365386963e-10f;
+  }
+}
 
-    // ---- shading.shade_fetch, the flattened and sphere branches
-    const V3 hp = O + D * dst;
-    const bool is_tri = kind == 2;
-    const float4* row =
-        reinterpret_cast<const float4*>(a.table) + 12ll * (is_tri ? prim : 0);
-    const float4 r0 = row[0], r1 = row[1], r2 = row[2];
-    const float4 r4 = row[4], r5 = row[5];
-    const V3 vn0 = {r0.x, r0.y, r0.z}, vn1 = {r0.w, r1.x, r1.y};
-    const V3 vn2 = {r1.z, r1.w, r2.x};
-    V3 albedo = {r4.x, r4.y, r4.z}, emission = {r4.w, r5.x, r5.y};
-    float refl = r5.z, ior = r5.w;
-    float hu, hv;
-    bool front;
-    if (a.flat) {
-      const float4 r8 = row[8], r9 = row[9], r10 = row[10];
-      const V3 tv0 = {r8.x, r8.y, r8.z}, te1 = {r8.w, r9.x, r9.y};
-      const V3 te2 = {r9.z, r9.w, r10.x}, tn = {r10.y, r10.z, r10.w};
-      const V3 d_eps = {D.x == 0.0f ? 1e-20f : D.x, D.y == 0.0f ? 1e-20f : D.y,
-                        D.z == 0.0f ? 1e-20f : D.z};
-      const V3 q3 = cross(O - tv0, d_eps);
-      const float d0 = -dot(d_eps, tn);
-      const float dinv = 1.0f / (d0 == 0.0f ? 1e-20f : d0);
-      hu = is_tri ? dot(te2, q3) * dinv : 0.0f;
-      hv = is_tri ? -dot(te1, q3) * dinv : 0.0f;
-      front = is_tri ? d0 >= 1e-8f : a.front[i] != 0;
-    } else {
-      hu = a.hit_u[i];
-      hv = a.hit_v[i];
-      front = a.front[i] != 0;
-    }
-    const float w = 1.0f - hu - hv;
-    const float fs = front ? 1.0f : -1.0f;
-    V3 n_world = (vn0 * w + vn1 * hu + vn2 * hv) * fs;
-    if (!a.flat) {
-      // instance frame and material (a scene with no meshes: instance 0)
-      const int oi = is_tri ? a.obj[i] : 0;
-      const float* m = a.obj_transform + 16ll * oi;
-      const V3 n_obj = n_world;
-      n_world = {m[0] * n_obj.x + m[1] * n_obj.y + m[2] * n_obj.z,
-                 m[4] * n_obj.x + m[5] * n_obj.y + m[6] * n_obj.z,
-                 m[8] * n_obj.x + m[9] * n_obj.y + m[10] * n_obj.z};
-      const int mat = a.obj_mat[oi];
-      albedo = ld3(a.mat_albedo, mat);
-      emission = ld3(a.mat_emission, mat) * a.mat_emission_strength[mat];
-      refl = a.mat_reflectance[mat];
-      ior = a.mat_ior[mat];
-    }
-    V3 normal = n_world / clamp_min(norm(n_world), 1e-20f);
-    if (a.n_spheres > 0) {
-      const bool is_sph = kind == 1;
-      const int si = is_sph ? prim : 0;
-      V3 s_n = hp - ld3(a.sphere_pos, si);
-      s_n = s_n / clamp_min(norm(s_n), 1e-20f);
-      s_n = s_n * fs;
-      if (is_sph) {
-        const int sm = a.sphere_mat[si];
-        normal = s_n;
-        albedo = ld3(a.mat_albedo, sm);
-        emission = ld3(a.mat_emission, sm) * a.mat_emission_strength[sm];
-        refl = a.mat_reflectance[sm];
-        ior = a.mat_ior[sm];
-      }
-    }
+__device__ __forceinline__ void put2(float* row, int c, float x, float y) {
+  *reinterpret_cast<float2*>(row + c) = make_float2(x, y);
+}
+__device__ __forceinline__ void put2(int* row, int c, int x, int y) {
+  *reinterpret_cast<int2*>(row + c) = make_int2(x, y);
+}
 
-    // ---- pending light resolve
-    const bool was_delta = DI.x == -1.0f;
-    const V3 final_light = sel(was_delta, emission, DI);
-    const V3 contrib = final_light + (j == 0 ? 1.0f : 0.0f) * emission;
-    V3 total = sel(did, TO + contrib * AT, TO);
-    const bool nan_or_neg = isnan(total.x) || isnan(total.y) ||
-                            isnan(total.z) || total.x < 0.0f ||
-                            total.y < 0.0f || total.z < 0.0f;
-    bad = bad || (did && nan_or_neg);
+// The round's counts of one thread's lanes
+struct Counts {
+  int alive = 0, sem = 0, act = 0;
+};
 
-    // ---- escape: environment light
-    const bool esc = alive && !did_hit;
+// Lane i from its pending hit to its next state: its packed rows into
+// ``f`` (34 floats) and ``fi`` (6 ints), each 8-byte aligned, its bin key
+// into a.key[i], its counts into ``cnt``.  Each value is the first form's
+// (and so the plain version's), each expression on the same operands.  A
+// value goes into the row as soon as it is known, so that it holds no
+// register: the ray, ``direct_base`` and the light sample are written
+// early, and the ray and ``direct_base`` written again where the lane
+// continues, regenerates or ends its path.  kLazy runs the sky, the second
+// block of draws with the BSDF lobes, and the camera ray only where a
+// lane's select takes them (false: on every lane, as the first form).
+template <bool kLazy>
+__device__ __forceinline__ void shade_lane(const ShadeArgs& a,
+                                           const long long i, float* f,
+                                           int* fi, Counts& cnt) {
+  const V3 O = ld3(a.origin, i), D = ld3(a.direction, i);
+  // the ray of a lane that is not alive next
+  put2(f, 0, O.x, O.y);
+  put2(f, 2, O.z, D.x);
+  put2(f, 4, D.y, D.z);
+  const float dst = a.dst[i];
+  const int kind = a.kind[i], prim = a.prim[i];
+  const V3 AT = ld3(a.atten, i);
+  bool bad = a.bad[i] != 0;
+  const bool alive = a.alive[i] != 0;
+  const int j = a.j[i], s = a.s[i], sb = a.sb[i], pix = a.pix[i];
+  put2(fi, 2, pix, a.slot[i]);
+  const bool did_hit = kind != 0;
+  const bool did = alive && did_hit;
+
+  // ---- shading.shade_fetch, the flattened and sphere branches
+  const V3 hp = O + D * dst;
+  const bool is_tri = kind == 2;
+  const float4* row =
+      reinterpret_cast<const float4*>(a.table) + 12ll * (is_tri ? prim : 0);
+  const float4 r0 = row[0], r1 = row[1], r2 = row[2];
+  const float4 r4 = row[4], r5 = row[5];
+  const V3 vn0 = {r0.x, r0.y, r0.z}, vn1 = {r0.w, r1.x, r1.y};
+  const V3 vn2 = {r1.z, r1.w, r2.x};
+  V3 albedo = {r4.x, r4.y, r4.z}, emission = {r4.w, r5.x, r5.y};
+  float refl = r5.z, ior = r5.w;
+  float hu, hv;
+  bool front;
+  if (a.flat) {
+    const float4 r8 = row[8], r9 = row[9], r10 = row[10];
+    const V3 tv0 = {r8.x, r8.y, r8.z}, te1 = {r8.w, r9.x, r9.y};
+    const V3 te2 = {r9.z, r9.w, r10.x}, tn = {r10.y, r10.z, r10.w};
+    const V3 d_eps = {D.x == 0.0f ? 1e-20f : D.x, D.y == 0.0f ? 1e-20f : D.y,
+                      D.z == 0.0f ? 1e-20f : D.z};
+    const V3 q3 = cross(O - tv0, d_eps);
+    const float d0 = -dot(d_eps, tn);
+    const float dinv = 1.0f / (d0 == 0.0f ? 1e-20f : d0);
+    hu = is_tri ? dot(te2, q3) * dinv : 0.0f;
+    hv = is_tri ? -dot(te1, q3) * dinv : 0.0f;
+    front = is_tri ? d0 >= 1e-8f : a.front[i] != 0;
+  } else {
+    hu = a.hit_u[i];
+    hv = a.hit_v[i];
+    front = a.front[i] != 0;
+  }
+  const float w = 1.0f - hu - hv;
+  const float fs = front ? 1.0f : -1.0f;
+  V3 n_world = (vn0 * w + vn1 * hu + vn2 * hv) * fs;
+  if (!a.flat) {
+    // instance frame and material (a scene with no meshes: instance 0)
+    const int oi = is_tri ? a.obj[i] : 0;
+    const float* m = a.obj_transform + 16ll * oi;
+    const V3 n_obj = n_world;
+    n_world = {m[0] * n_obj.x + m[1] * n_obj.y + m[2] * n_obj.z,
+               m[4] * n_obj.x + m[5] * n_obj.y + m[6] * n_obj.z,
+               m[8] * n_obj.x + m[9] * n_obj.y + m[10] * n_obj.z};
+    const int mat = a.obj_mat[oi];
+    albedo = ld3(a.mat_albedo, mat);
+    emission = ld3(a.mat_emission, mat) * a.mat_emission_strength[mat];
+    refl = a.mat_reflectance[mat];
+    ior = a.mat_ior[mat];
+  }
+  V3 normal = n_world / clamp_min(norm(n_world), 1e-20f);
+  if (a.n_spheres > 0 && kind == 1) {
+    const int si = prim;
+    V3 s_n = hp - ld3(a.sphere_pos, si);
+    s_n = s_n / clamp_min(norm(s_n), 1e-20f);
+    s_n = s_n * fs;
+    const int sm = a.sphere_mat[si];
+    normal = s_n;
+    albedo = ld3(a.mat_albedo, sm);
+    emission = ld3(a.mat_emission, sm) * a.mat_emission_strength[sm];
+    refl = a.mat_reflectance[sm];
+    ior = a.mat_ior[sm];
+  }
+
+  // ---- pending light resolve
+  const V3 DI = ld3(a.direct, i);
+  // direct_base of a path that goes on
+  f[15] = DI.x;
+  put2(f, 16, DI.y, DI.z);
+  const bool was_delta = DI.x == -1.0f;
+  const V3 final_light = sel(was_delta, emission, DI);
+  const V3 contrib = final_light + (j == 0 ? 1.0f : 0.0f) * emission;
+  const V3 TO = ld3(a.total, i);
+  V3 total = sel(did, TO + contrib * AT, TO);
+  const bool nan_or_neg = isnan(total.x) || isnan(total.y) ||
+                          isnan(total.z) || total.x < 0.0f ||
+                          total.y < 0.0f || total.z < 0.0f;
+  bad = bad || (did && nan_or_neg);
+
+  // ---- escape: environment light
+  const bool esc = alive && !did_hit;
+  if (!kLazy || esc) {
     const V3 env_l = environment_light(a.env_horizon, a.env_zenith,
                                        a.env_ground, a.env_light_dir, D);
     total = sel(esc, total + AT * env_l, total);
-    const bool shaded = did && !bad;
+  }
+  const bool shaded = did && !bad;
 
-    // ---- BSDF lobes and the light sample
-    float u6[7];
-    uniforms(a.seed, static_cast<unsigned>(pix), a.frame,
-             static_cast<unsigned>(sb + s), static_cast<unsigned>(j), 7, u6);
-    const bool is_spec = refl != 0.0f;
-    const bool is_diel = !is_spec && ior != -1.0f;
-    bool is_diff = !is_spec && !is_diel;
+  // ---- the light sample (draws 0-3 of rng.uniforms(..., 7))
+  const unsigned sample = static_cast<unsigned>(sb + s);
+  float u6[4];
+  draws4(a.seed, static_cast<unsigned>(pix), a.frame, sample,
+         static_cast<unsigned>(j), 0u, u6);
+  const bool is_spec = refl != 0.0f;
+  const bool is_diel = !is_spec && ior != -1.0f;
+  const bool is_diff = !is_spec && !is_diel;
 
-    const V3 nee_origin = hp + normal * 0.01f;
-    int li = 0;
-    if (a.n_lights > 1) {
-      li = static_cast<int>(u6[0] * static_cast<float>(a.n_lights));
-      li = li < a.n_lights - 1 ? li : a.n_lights - 1;
+  const V3 nee_origin = hp + normal * 0.01f;
+  int li = 0;
+  if (a.n_lights > 1) {
+    li = static_cast<int>(u6[0] * static_cast<float>(a.n_lights));
+    li = li < a.n_lights - 1 ? li : a.n_lights - 1;
+  }
+  const V3 point = ld3(a.light_corner, li) + ld3(a.light_edge_u, li) * u6[1] +
+                   ld3(a.light_edge_v, li) * u6[2];
+  const V3 vec = point - nee_origin;
+  const float l_dist = norm(vec);
+  const V3 l_dir = vec / clamp_min(l_dist, 1e-20f);
+  const float cos_pdf_at_l = clamp_min(dot(l_dir, normal) * kInvPi, 0.0f);
+  const V3 nee_k = albedo * (kInvPi * clamp_min(dot(normal, l_dir), 0.0f));
+  const bool facing = dot(normal, l_dir) > 0.0f;
+  put2(f, 18, nee_origin.x, nee_origin.y);
+  put2(f, 20, nee_origin.z, l_dir.x);
+  put2(f, 22, l_dir.y, l_dir.z);
+  put2(f, 24, nee_k.x, nee_k.y);
+  f[26] = nee_k.z;
+  put2(f, 30, is_diff ? 1.0f : 0.0f, cos_pdf_at_l);
+  f[32] = l_dist;
+  put2(fi, 4, li, sb);
+
+  // ---- BSDF lobes (draws 3-6) and the bounce ray: only a shaded lane's
+  // are selected
+  V3 radiance = splat(1.0f), bounce_origin = splat(0.0f);
+  V3 bounce_dir = splat(0.0f);
+  float u_rr = 0.0f;
+  if (!kLazy || shaded) {
+    float u4[4];  // draws 4-7
+    draws4(a.seed, static_cast<unsigned>(pix), a.frame, sample,
+           static_cast<unsigned>(j), 1u, u4);
+    u_rr = u4[2];
+    V3 cos_dir = splat(0.0f), rad_diff = splat(0.0f);
+    if (!kLazy || is_diff) {
+      const float phi = u6[3] * static_cast<float>(2.0 * 3.141592653589793);
+      const float sqrt_r2 = sqrtf(u4[0]);
+      const float cx = cosf(phi) * sqrt_r2, cy = sinf(phi) * sqrt_r2;
+      const float cz = sqrtf(1.0f - u4[0]);
+      const V3 non_parallel = fabsf(normal.x) < 1.0f ? V3{1.0f, 0.0f, 0.0f}
+                                                     : V3{0.0f, 0.0f, 1.0f};
+      V3 t = cross(normal, non_parallel);
+      t = t / clamp_min(norm(t), 1e-20f);
+      const V3 b = cross(normal, t);
+      cos_dir = t * cx + b * cy + normal * cz;
+      const float real_cos_pdf =
+          clamp_min(dot(cos_dir, normal) * kInvPi, 0.0f);
+      rad_diff = albedo * kInvPi *
+                 (dot(normal, cos_dir) / clamp_min(real_cos_pdf, 1e-20f));
     }
-    const V3 point = ld3(a.light_corner, li) + ld3(a.light_edge_u, li) * u6[1] +
-                     ld3(a.light_edge_v, li) * u6[2];
-    const V3 vec = point - nee_origin;
-    const float l_dist = norm(vec);
-    const V3 l_dir = vec / clamp_min(l_dist, 1e-20f);
-    const float cos_pdf_at_l = clamp_min(dot(l_dir, normal) * kInvPi, 0.0f);
-
-    const float phi = u6[3] * static_cast<float>(2.0 * 3.141592653589793);
-    const float sqrt_r2 = sqrtf(u6[4]);
-    const float cx = cosf(phi) * sqrt_r2, cy = sinf(phi) * sqrt_r2;
-    const float cz = sqrtf(1.0f - u6[4]);
-    const V3 non_parallel = fabsf(normal.x) < 1.0f ? V3{1.0f, 0.0f, 0.0f}
-                                                   : V3{0.0f, 0.0f, 1.0f};
-    V3 t = cross(normal, non_parallel);
-    t = t / clamp_min(norm(t), 1e-20f);
-    const V3 b = cross(normal, t);
-    const V3 cos_dir = t * cx + b * cy + normal * cz;
-    const float real_cos_pdf = clamp_min(dot(cos_dir, normal) * kInvPi, 0.0f);
-    const V3 rad_diff =
-        albedo * kInvPi *
-        (dot(normal, cos_dir) / clamp_min(real_cos_pdf, 1e-20f));
-    const V3 nee_k = albedo * (kInvPi * clamp_min(dot(normal, l_dir), 0.0f));
-
-    const V3 dir_spec = D - (2.0f * dot(D, normal)) * normal;
-    const float ior_eff = front ? 1.0f / ior : ior;
-    const float cosine = dot(-D, normal);
-    const float sine = sqrtf(clamp_min(1.0f - cosine * cosine, 0.0f));
-    float r0s = (1.0f - ior_eff) / (1.0f + ior_eff);
-    r0s = r0s * r0s;
-    const float xs = 1.0f - cosine;
-    const float x2 = xs * xs;
-    const float schlick = r0s + (1.0f - r0s) * (xs * (x2 * x2));
-    const bool solution = (ior_eff * sine > 1.0f) || (schlick > u6[5]);
-    const float cos_i = dot(normal, D);
-    const float k = 1.0f - ior_eff * ior_eff * (1.0f - cos_i * cos_i);
-    const V3 refr = ior_eff * D -
-                    (ior_eff * cos_i + sqrtf(clamp_min(k, 0.0f))) * normal;
-    const V3 dir_diel =
-        sel(solution, dir_spec, sel(k < 0.0f, splat(0.0f), refr));
-    const float dn = dot(normal, D);
-    const float sign_dn =
-        static_cast<float>((0.0f < dn ? 1 : 0) - (dn < 0.0f ? 1 : 0));
-    const float sign_diel = solution ? 1.0f : sign_dn;
-    const V3 bounce_dir =
-        sel(is_spec, dir_spec, sel(is_diel, dir_diel, cos_dir));
-    const V3 radiance = sel(is_diff, rad_diff, a.tint ? albedo : splat(1.0f));
+    V3 dir_spec = splat(0.0f), dir_diel = splat(0.0f);
+    float sign_diel = 1.0f;
+    if (!kLazy || !is_diff) {
+      dir_spec = D - (2.0f * dot(D, normal)) * normal;
+      if (!kLazy || is_diel) {
+        const float ior_eff = front ? 1.0f / ior : ior;
+        const float cosine = dot(-D, normal);
+        const float sine = sqrtf(clamp_min(1.0f - cosine * cosine, 0.0f));
+        float r0s = (1.0f - ior_eff) / (1.0f + ior_eff);
+        r0s = r0s * r0s;
+        const float xs = 1.0f - cosine;
+        const float x2 = xs * xs;
+        const float schlick = r0s + (1.0f - r0s) * (xs * (x2 * x2));
+        const bool solution = (ior_eff * sine > 1.0f) || (schlick > u4[1]);
+        const float cos_i = dot(normal, D);
+        const float k = 1.0f - ior_eff * ior_eff * (1.0f - cos_i * cos_i);
+        const V3 refr = ior_eff * D -
+                        (ior_eff * cos_i + sqrtf(clamp_min(k, 0.0f))) * normal;
+        dir_diel = sel(solution, dir_spec, sel(k < 0.0f, splat(0.0f), refr));
+        const float dn = dot(normal, D);
+        const float sign_dn =
+            static_cast<float>((0.0f < dn ? 1 : 0) - (dn < 0.0f ? 1 : 0));
+        sign_diel = solution ? 1.0f : sign_dn;
+      }
+    }
+    bounce_dir = sel(is_spec, dir_spec, sel(is_diel, dir_diel, cos_dir));
+    radiance = sel(is_diff, rad_diff, a.tint ? albedo : splat(1.0f));
     const float origin_sign = is_diel ? sign_diel : 1.0f;
-    V3 atten = AT * sel(shaded, radiance, splat(1.0f));
+    bounce_origin = hp + normal * (origin_sign * 1e-5f);
+  }
+  V3 atten = AT * sel(shaded, radiance, splat(1.0f));
 
-    // ---- russian roulette
-    float rr = clamp_max(max3(atten), a.rr_clamp);
-    rr = j <= a.rr_start ? 1.0f : rr;
-    const bool killed = u6[6] > rr;
-    atten = atten / clamp_min(rr, 1e-20f);
+  // ---- russian roulette
+  float rr = clamp_max(max3(atten), a.rr_clamp);
+  rr = j <= a.rr_start ? 1.0f : rr;
+  const bool killed = u_rr > rr;
+  atten = atten / clamp_min(rr, 1e-20f);
 
-    const bool continuing = shaded && !killed && j < a.bounce_limit;
-    const bool nee_sem = continuing && is_diff;
-    const bool nee_active = nee_sem && dot(normal, l_dir) > 0.0f;
+  const bool continuing = shaded && !killed && j < a.bounce_limit;
+  const bool nee_sem = continuing && is_diff;
+  const bool nee_active = nee_sem && facing;
 
-    // ---- sample completion and regeneration
-    const bool path_ends = alive && !continuing;
-    const V3 acc =
-        AC + sel(path_ends, sel(bad, splat(0.0f), total), splat(0.0f));
-    const int s_new = s + (path_ends ? 1 : 0);
-    const bool regen = path_ends && s_new < a.n_spp;
-    V3 po, pd;
+  // ---- sample completion and regeneration
+  const bool path_ends = alive && !continuing;
+  const V3 acc =
+      ld3(a.acc, i) + sel(path_ends, sel(bad, splat(0.0f), total), splat(0.0f));
+  const int s_new = s + (path_ends ? 1 : 0);
+  const bool regen = path_ends && s_new < a.n_spp;
+  V3 po = splat(0.0f), pd = splat(0.0f);
+  if (!kLazy || regen) {
     raygen(a.consts, a.width, a.height, a.aa_jitter != 0, a.seed, a.frame,
            pix, sb + s_new, &po, &pd);
-    const V3 bounce_origin = hp + normal * (origin_sign * 1e-5f);
-    const V3 new_origin = sel(continuing, bounce_origin, sel(regen, po, O));
-    const V3 new_dir = sel(continuing, bounce_dir, sel(regen, pd, D));
-    const bool alive_next = continuing || regen;
-    const int j_new = continuing ? j + 1 : 0;
-    total = sel(path_ends, splat(0.0f), total);
-    atten = sel(path_ends, splat(1.0f), atten);
-    bad = bad && !path_ends;
-    const bool fresh_direct = shaded && !path_ends;
-    const V3 direct_base = sel(path_ends, splat(0.0f), DI);
-
-    // ---- the packed rows (shading.pack_lanes) and the bin key
-    float f[kPackedF] = {
-        new_origin.x, new_origin.y, new_origin.z, new_dir.x, new_dir.y,
-        new_dir.z, atten.x, atten.y, atten.z, total.x, total.y, total.z,
-        acc.x, acc.y, acc.z, direct_base.x, direct_base.y, direct_base.z,
-        nee_origin.x, nee_origin.y, nee_origin.z, l_dir.x, l_dir.y, l_dir.z,
-        nee_k.x, nee_k.y, nee_k.z, alive_next ? 1.0f : 0.0f,
-        bad ? 1.0f : 0.0f, fresh_direct ? 1.0f : 0.0f, is_diff ? 1.0f : 0.0f,
-        cos_pdf_at_l, l_dist, nee_active ? 1.0f : 0.0f};
-    float2* out = reinterpret_cast<float2*>(a.packed + kPackedF * i);
-#pragma unroll
-    for (int c = 0; c < kPackedF / 2; ++c) out[c] = {f[2 * c], f[2 * c + 1]};
-    int2* out_i = reinterpret_cast<int2*>(a.packed_i + kPackedI * i);
-    out_i[0] = {j_new, s_new};
-    out_i[1] = {pix, a.slot[i]};
-    out_i[2] = {li, sb};
-    a.key[i] = bin_key(a.consts, a.mb, a.db, a.morton != 0, new_origin,
-                       new_dir, alive_next);
-
-    c_alive = alive_next;
-    c_sem = a.n_lights > 0 && nee_sem;
-    c_act = a.n_lights > 0 && nee_active;
   }
-  // ---- the round's counts (kernels/shade.py::shade_round_reference)
-  const int b_alive = __syncthreads_count(c_alive);
-  const int b_sem = __syncthreads_count(c_sem);
-  const int b_act = __syncthreads_count(c_act);
+  const bool alive_next = continuing || regen;
+  int key = 1 << 30;  // bin_key of a lane that is not alive next
+  if (alive_next) {
+    const V3 new_origin = sel(continuing, bounce_origin, po);
+    const V3 new_dir = sel(continuing, bounce_dir, pd);
+    put2(f, 0, new_origin.x, new_origin.y);
+    put2(f, 2, new_origin.z, new_dir.x);
+    put2(f, 4, new_dir.y, new_dir.z);
+    key = bin_key(a.consts, a.mb, a.db, a.morton != 0, new_origin, new_dir,
+                  true);
+  }
+  const int j_new = continuing ? j + 1 : 0;
+  total = sel(path_ends, splat(0.0f), total);
+  atten = sel(path_ends, splat(1.0f), atten);
+  bad = bad && !path_ends;
+  const bool fresh_direct = shaded && !path_ends;
+  if (path_ends) {  // direct_base 0
+    f[15] = 0.0f;
+    put2(f, 16, 0.0f, 0.0f);
+  }
+
+  // ---- the rest of the packed rows (shading.pack_lanes) and the bin key
+  put2(f, 6, atten.x, atten.y);
+  put2(f, 8, atten.z, total.x);
+  put2(f, 10, total.y, total.z);
+  put2(f, 12, acc.x, acc.y);
+  f[14] = acc.z;
+  f[27] = alive_next ? 1.0f : 0.0f;
+  put2(f, 28, bad ? 1.0f : 0.0f, fresh_direct ? 1.0f : 0.0f);
+  f[33] = nee_active ? 1.0f : 0.0f;
+  put2(fi, 0, j_new, s_new);
+  a.key[i] = key;
+
+  cnt.alive += alive_next;
+  cnt.sem += a.n_lights > 0 && nee_sem;
+  cnt.act += a.n_lights > 0 && nee_active;
+}
+
+// The first ``words`` (even) 32-bit words of a shared-memory tile to
+// ``dst`` (16-byte aligned): the bytes up to the last 16-byte boundary as
+// one TMA bulk store, issued by thread 0 into the thread's bulk group, the
+// 8 bytes past it, if any, by a plain store of the block's last thread.
+// The tile's writers have made their writes visible to the async proxy
+// (fence.proxy.async) and passed a barrier.
+__device__ __forceinline__ void store_tile(const void* tile, void* dst,
+                                           int words) {
+  const int n4 = words / 4;
+  if (threadIdx.x == 0 && n4 > 0) {
+    asm volatile(
+        "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+            __cvta_generic_to_global(dst)),
+        "r"(static_cast<unsigned>(__cvta_generic_to_shared(tile))),
+        "r"(16 * n4)
+        : "memory");
+  }
+  if (words % 4 != 0 && threadIdx.x == kBlock - 1) {
+    static_cast<uint2*>(dst)[2 * n4] = static_cast<const uint2*>(tile)[2 * n4];
+  }
+}
+
+// Thread 0's bulk stores: committed as one group / their reads of shared
+// memory waited for
+__device__ __forceinline__ void commit_stores() {
   if (threadIdx.x == 0) {
-    unsigned long long sem = b_alive + b_sem, traced = b_alive + b_act;
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  }
+}
+__device__ __forceinline__ void wait_store_reads() {
+  if (threadIdx.x == 0) {
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  }
+}
+
+// The block's counts into the round's tally: warp sums, then one atomic
+// per counter (the wave's earlier rays added once, by block 0).  Every
+// thread of the block calls it.
+__device__ __forceinline__ void add_counts(const ShadeArgs& a, Counts cnt) {
+  __shared__ int warp_sums[kBlock / 32][3];
+  const int alive = __reduce_add_sync(0xffffffffu, cnt.alive);
+  const int sem = __reduce_add_sync(0xffffffffu, cnt.sem);
+  const int act = __reduce_add_sync(0xffffffffu, cnt.act);
+  if ((threadIdx.x & 31) == 0) {
+    warp_sums[threadIdx.x / 32][0] = alive;
+    warp_sums[threadIdx.x / 32][1] = sem;
+    warp_sums[threadIdx.x / 32][2] = act;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned long long b_alive = 0, b_sem = 0, b_act = 0;
+    for (int w = 0; w < kBlock / 32; ++w) {
+      b_alive += warp_sums[w][0];
+      b_sem += warp_sums[w][1];
+      b_act += warp_sums[w][2];
+    }
+    unsigned long long sem_rays = b_alive + b_sem, traced = b_alive + b_act;
     if (blockIdx.x == 0) {
-      sem += static_cast<unsigned long long>(a.prev_rays[0]);
+      sem_rays += static_cast<unsigned long long>(a.prev_rays[0]);
       traced += static_cast<unsigned long long>(a.prev_rays[1]);
     }
-    atomicAdd(a.tally, sem);
+    atomicAdd(a.tally, sem_rays);
     atomicAdd(a.tally + 1, traced);
-    atomicAdd(a.tally + 2, static_cast<unsigned long long>(b_alive));
+    atomicAdd(a.tally + 2, b_alive);
   }
+}
+
+// One block a tile of 256 lanes: the lanes' rows into the tiles, then the
+// tiles out by TMA while the block adds its counts.
+__global__ void __launch_bounds__(kBlock, 4) shade_kernel(const ShadeArgs a) {
+  __shared__ __align__(16) float tile_f[kBlock * kPackedF];
+  __shared__ __align__(16) int tile_i[kBlock * kPackedI];
+  const long long base = static_cast<long long>(blockIdx.x) * kBlock;
+  const int rows = min(kBlock, a.n - static_cast<int>(base));
+  Counts cnt;
+  if (static_cast<int>(threadIdx.x) < rows) {
+    shade_lane<true>(a, base + threadIdx.x, tile_f + kPackedF * threadIdx.x,
+                     tile_i + kPackedI * threadIdx.x, cnt);
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  store_tile(tile_f, a.packed + kPackedF * base, kPackedF * rows);
+  store_tile(tile_i, a.packed_i + kPackedI * base, kPackedI * rows);
+  commit_stores();
+  add_counts(a, cnt);
+  wait_store_reads();  // the tiles live until the block exits
 }
 
 // integrator/shading.py::unpack_lanes of the rows in ``order``: nine (N,3)

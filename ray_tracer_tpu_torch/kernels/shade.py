@@ -250,13 +250,13 @@ def _scene_tables(scene, dev):
         check_tensors(dev, I32, sphere_mat=(s.sphere_mat, (s.n_spheres,)))
 
 
-def shade_round(c: Round, w):
-    """One round's shading of the wave ``w`` -> ``(packed, packed_i, key,
-    tally)`` as :func:`shade_round_reference` returns them; on CUDA
-    tensors one launch of ``shade_kernel``."""
+def shade_args(c: Round, w):
+    """The shade kernel's arguments for the wave ``w`` on the card,
+    checked, and its outputs ``(packed, packed_i, key, tally)``, allocated
+    (``tally`` zeroed): ``(args, outputs)``.  ``args`` holds the tensors'
+    addresses only: the caller keeps ``c``, ``w`` and the outputs alive
+    while a launch may read them."""
     dev = _device(w.origin)
-    if dev.type == "cpu":
-        return shade_round_reference(c, w)
     scene, cfg, rt = c.scene, c.cfg, c.rt
     n = w.origin.shape[0]
     table = scene.shade_tri if c.space == "tri" else scene.shade_slot
@@ -281,9 +281,6 @@ def shade_round(c: Round, w):
     packed_i = torch.empty((n, shading.PACKED_I), dtype=I32, device=dev)
     key = torch.empty(n, dtype=I32, device=dev)
     tally = torch.zeros(3, dtype=I64, device=dev)
-    if n == 0:
-        tally[:2] = w.n_rays
-        return packed, packed_i, key, tally
     ptr = lambda t: t.data_ptr()
     args = _ShadeArgs(
         *(ptr(t) for t in (
@@ -302,11 +299,25 @@ def shade_round(c: Round, w):
         int(cfg.tint_spec_diel), rt.bin_bits, rt.bin_dir_bits,
         int(_morton(scene)), int(_flat(scene)),
         cfg.seed & 0xFFFFFFFF, c.frame & 0xFFFFFFFF, cfg.rr_clamp)
+    return args, (packed, packed_i, key, tally)
+
+
+def shade_round(c: Round, w):
+    """One round's shading of the wave ``w`` -> ``(packed, packed_i, key,
+    tally)`` as :func:`shade_round_reference` returns them; on CUDA
+    tensors one launch of ``shade_kernel``."""
+    dev = _device(w.origin)
+    if dev.type == "cpu":
+        return shade_round_reference(c, w)
+    args, out = shade_args(c, w)
+    if w.origin.shape[0] == 0:
+        out[3][:2] = w.n_rays
+        return out
     _raise_on(_load().rt_shade_round(
         ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream),
         "shade_kernel")
     launches["shade_round"] += 1
-    return packed, packed_i, key, tally
+    return out
 
 
 def permute_rows(packed, packed_i, order) -> shading.Lanes:

@@ -1179,3 +1179,137 @@ def test_round_kernels_match_plain_versions(dev, round_scenes, name, space,
     finally:
         wavefront._fused_round_ok = wavefront_ok
     assert torch.equal(img, want)
+
+
+def _checked_frame(sc, cfg, monkeypatch, old=None):
+    """One frame through ``render`` on the card with every call of the
+    round kernels' wrappers held, bit for bit, against its plain version
+    on the same inputs (and, given ``old``, tools/shade_round_variants.py,
+    the shade kernel against the one it replaced), then against the frame
+    of the torch round.  Returns the widths of the shade calls."""
+    from ray_tracer_tpu_torch.integrator import wavefront
+    from ray_tracer_tpu_torch.kernels import shade
+    from torch_parity import same_bits
+
+    def same(got, want, what):
+        for k, (a, b) in enumerate(zip(got, want)):
+            assert same_bits(a, b), f"{what}: output {k} differs"
+
+    kernels = {k: getattr(shade, k) for k in shade.launches}
+    widths = []
+
+    def shade_round(c, w):
+        out = kernels["shade_round"](c, w)
+        same(out, shade.shade_round_reference(c, w), "shade")
+        if old is not None:
+            same(out, old.run("old", c, w), "shade against the old kernel")
+        widths.append(int(w.origin.shape[0]))
+        return out
+
+    def permute_rows(*args):
+        out = kernels["permute_rows"](*args)
+        same(out, shade.permute_rows_reference(*args), "permute")
+        return out
+
+    def nee_resolve(*args):
+        out = kernels["nee_resolve"](*args)
+        same([out], [shade.nee_resolve_reference(*args)], "nee")
+        return out
+
+    with monkeypatch.context() as patch:
+        for fn in (shade_round, permute_rows, nee_resolve):
+            patch.setattr(shade, fn.__name__, fn)
+        shade.reset_launches()
+        img = trt.render(sc, cfg)
+        torch.cuda.synchronize()
+        assert shade.launches == {k: len(widths) for k in shade.launches}
+        patch.setattr(wavefront, "_fused_round_ok", lambda *a: False)
+        want = trt.render(sc, cfg)
+    assert torch.equal(img, want)
+    return widths
+
+
+# frame sizes whose lanes leave a partial last block of 256 (63x35 at spp
+# 2: 4,410 lanes), fill less than one (17x15: 255; 1x1: 1), or drain from
+# 32,768 lanes to 8,192 (128x128 at spp 2 on sponza; on the sphere scene
+# the last 8,192 or more paths all end in one round, so it never drains),
+# with the widths each frame's shade calls take
+RAGGED = [
+    pytest.param(name, n_lights, w, h, spp, lanes,
+                 id=f"{name}-{n_lights}-{w}x{h}-spp{spp}")
+    for name, n_lights, drained in (("sponza", 2, (32768, 8192)),
+                                    ("spheres", 0, (32768,)))
+    for w, h, spp, lanes in ((63, 35, 2, (4410,)), (17, 15, 1, (255,)),
+                             (1, 1, 1, (1,)), (128, 128, 2, drained))
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,n_lights,width,height,spp,lanes", RAGGED)
+def test_round_kernels_on_ragged_widths(dev, round_scenes, monkeypatch, name,
+                                        n_lights, width, height, spp, lanes):
+    """Every round of frames whose widths are no multiple of the shade
+    kernel's 256-lane tiles: each round kernel against its plain version,
+    bit for bit, and the frame against the torch round's."""
+    from torch_parity import with_lights
+
+    sc = with_lights(round_scenes[name], n_lights)
+    cfg = trt.RenderConfig(width=width, height=height, samples_per_pixel=spp,
+                           bounce_limit=8)
+    widths = _checked_frame(sc, cfg, monkeypatch)
+    assert sorted(set(widths), reverse=True) == list(lanes)
+
+
+@pytest.fixture(scope="module")
+def shade_variants(dev):
+    """tools/shade_round_variants.py: the shade kernel before its redesign
+    and the new one with each design element switched."""
+    return _tools_module("shade_round_variants")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,space,n_lights,jitter,tint", ROUND_CASES)
+def test_shade_kernel_equals_the_old_kernel(dev, round_scenes, monkeypatch,
+                                            shade_variants, name, space,
+                                            n_lights, jitter, tint):
+    """The round test's frames with the shade kernel held, every round,
+    against the kernel it replaced (tools/shade_round_variants.cu::
+    old_shade_kernel) and its plain version, bit for bit, the tally
+    included."""
+    from torch_parity import with_lights
+
+    sc = with_lights(round_scenes[name], n_lights)
+    cfg = trt.RenderConfig(width=63, height=35, samples_per_pixel=2,
+                           bounce_limit=8,
+                           routing=trt.Routing(wide=space == "slot"),
+                           aa_jitter=jitter, tint_spec_diel=tint)
+    assert _checked_frame(sc, cfg, monkeypatch, old=shade_variants)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["shipped_copy", "vector", "in_place",
+                                     "eager", "persistent", "blocks3",
+                                     "blocks5", "regs_free",
+                                     "in_place_blocks3"])
+def test_shade_kernel_variants_match(dev, round_scenes, shade_variants,
+                                     variant):
+    """The variants that tools/measure_shade_round.py times compute
+    exactly what the shipped kernel computes, on every round of a frame
+    and on ragged slices of its first wave."""
+    from ray_tracer_tpu_torch.integrator import wavefront
+    from ray_tracer_tpu_torch.kernels import shade
+    from torch_parity import first_wave, with_lights
+
+    sc = with_lights(round_scenes["sponza"], 2)
+    cfg = trt.RenderConfig(width=64, height=36, samples_per_pixel=2,
+                           bounce_limit=8)
+    c, _, w = first_wave(sc, cfg)
+    for m in (1, 255, 257, 1000):
+        part = wavefront._slice_wave(w, m)
+        shade_variants.compare(f"{variant}, {m} lanes",
+                               shade_variants.run(variant, c, part),
+                               shade.shade_round(c, part))
+    while int(w.n_alive) > 0:
+        shade_variants.compare(variant, shade_variants.run(variant, c, w),
+                               shade.shade_round(c, w))
+        w = wavefront._fused_round(c, w)

@@ -12,6 +12,7 @@ kernels themselves are held against these plain versions on the card in
 ``tests/test_torch_gpu.py`` and by ``chip_smoke.py``.
 """
 
+import ctypes
 import dataclasses
 import itertools
 
@@ -246,3 +247,37 @@ def test_fused_frame_matches_jax(scenes, jax_room):
         routing=JRouting(packet="interpret", groups=4, groups_packet=512),
         **kw))
     assert_images_match(got.numpy(), np.asarray(want))
+
+
+C_SCALARS = {"int": ctypes.c_int, "unsigned": ctypes.c_uint,
+             "float": ctypes.c_float}
+
+
+def c_struct_fields(src, name):
+    """``[(field, ctypes type)]`` of ``struct name { ... };`` in the C
+    source ``src``: a pointer of any type as ``c_void_p``, else its scalar
+    type, one entry for each name of a declaration list."""
+    import re
+
+    body = re.search(r"struct %s \{(.*?)\};" % name, src, re.S).group(1)
+    body = re.sub(r"//[^\n]*", "", body)
+    fields = []
+    for decl in filter(None, (" ".join(d.split()) for d in body.split(";"))):
+        m = re.fullmatch(r"(.*?)(\*?) ?([A-Za-z_]\w*(?:, [A-Za-z_]\w*)*)",
+                         decl)
+        assert m, decl
+        ctype = ctypes.c_void_p if m.group(2) else C_SCALARS[m.group(1).strip()]
+        fields += [(field, ctype) for field in m.group(3).split(", ")]
+    return fields
+
+
+@pytest.mark.parametrize("name,mirror", [("ShadeArgs", shade._ShadeArgs),
+                                         ("NeeArgs", shade._NeeArgs)])
+def test_argument_structs_match_the_source(name, mirror):
+    """The ctypes mirrors of the kernels' argument structs name the
+    source's fields in its order with its C types, so the wrappers fill
+    every field where the kernel reads it."""
+    with open(shade._SRC) as f:
+        want = c_struct_fields(f.read(), name)
+    assert len(want) > 10
+    assert [(field, t) for field, t in mirror._fields_] == want
