@@ -56,7 +56,14 @@ server in threads, every endpoint requested), and the bench
 (``config_values``: the leaf and hier bin keys, pre-permute NEE sorted
 and not, the unbinned wavefront, each equal to the main frame bit for
 bit; closest-hit NEE within 1% of it and at 64x36 against the CPU), bump
-maps on a scene built here (``normal_maps``), ``sponza_proxy`` compiled
+maps on a scene built here (``normal_maps``, through the shade kernel's
+maps instance once a round), texture, metalness, alpha and bump maps on a
+scene built here with generated 1024x1024 maps (``maps``: the round
+kernels against their plain versions on the frame's rounds 0, 2 and 6,
+bit for bit, with bounds, the maps instance also timed alone; cutout,
+bumped, bilinear and nearest lanes counted;
+the frame equal to the torch round's, both timed, with the launches a
+round and both shade kernel instances' ptxas lines), ``sponza_proxy`` compiled
 as a forest (``forest``: 64x36 against the CPU, the benchmark frame
 through the narrow walk per instance), the static scan's occupancy
 profile, and an NCCL world of one (``sharded``: ``render_frame_sharded``
@@ -170,7 +177,8 @@ KERNELS = {  # mode -> (source, its CUDA kernel, the TPU kernel it replaces)
     "packet8_deep": (BVH8, "deep_walk_kernel", PACKET8),
     "packet8_deep_anyhit": (BVH8, "deep_walk_kernel", PACKET8),
     # the wavefront round, which the JAX package leaves to XLA's fusions
-    "shade_round": (SHADE, "shade_kernel", JAX_ROUND),
+    "shade_round": (SHADE, "shade_kernel<false>", JAX_ROUND),
+    "shade_round_maps": (SHADE, "shade_kernel<true>", JAX_ROUND),
     "permute_rows": (SHADE, "permute_kernel", JAX_ROUND),
     "nee_resolve": (SHADE, "nee_resolve_kernel", JAX_ROUND),
 }
@@ -212,6 +220,18 @@ ROPE_BOX_BYTES = 7 * 4
 OPS_SHADE = 369
 OPS_NEE = 23
 SHADE_ROW_BYTES = 29 * 4
+# The maps instance (shade_kernel<true>) besides: 12 more floats of each
+# shade row (the uv and its flag, the map ids and the sampler), 3 bytes of
+# each distinct texel its taps read and the 1 KiB sRGB table; FP32
+# operations: the uv 10 a lane, each texture fetch's set-up 13 (wrap,
+# scale, floor or round), each bilinear channel 15 (the weights 4, four
+# products of three factors, three sums), each bumped lane's frame and
+# tilt 113.
+SHADE_MAPS_ROW_BYTES = 41 * 4
+OPS_UV = 10
+OPS_TAP = 13
+OPS_BILINEAR_CH = 15
+OPS_BUMP = 113
 
 
 def phase(title: str, /, **fields) -> None:
@@ -368,7 +388,9 @@ def equal_values(name):
 def shade_cost(c, w) -> dict:
     """The shade kernel's bound on the wave ``w``: its lane state in, the
     29 floats it needs of each distinct shade row its lanes hit, its
-    packed rows and key out; OPS_SHADE a lane."""
+    packed rows and key out; OPS_SHADE a lane.  Where the maps instance
+    runs, also what ``maps_usage`` counts: the rows' 12 more floats, the
+    distinct texel bytes and the table, and the maps' operations."""
     n = w.origin.shape[0]
     hit = w.hit
     rows = torch.unique(torch.where(hit.kind == traverse.KIND_TRI,
@@ -377,8 +399,82 @@ def shade_cost(c, w) -> dict:
                    hit.front, w.atten, w.total, w.direct, w.acc, w.bad,
                    w.alive, w.j, w.s, w.sb, w.pix, w.slot, c.consts)
     outs = (4 * shading.PACKED_F + 4 * shading.PACKED_I + 4) * n
-    return dict(bound(state + rows * SHADE_ROW_BYTES + outs, OPS_SHADE * n),
-                shade_rows=rows)
+    if not shade.maps_on(c.scene, c.cfg):
+        return dict(bound(state + rows * SHADE_ROW_BYTES + outs,
+                          OPS_SHADE * n), shade_rows=rows)
+    maps = maps_usage(c, w)
+    moved = (state + rows * SHADE_MAPS_ROW_BYTES + maps["texel_bytes"]
+             + nbytes(c.srgb) + outs)
+    return dict(bound(moved, OPS_SHADE * n + maps.pop("ops")),
+                shade_rows=rows, **maps)
+
+
+def maps_usage(c, w) -> dict:
+    """What the maps instance reads and does on the wave ``w``, by the
+    plain versions' own values (``shading.shade_fetch``,
+    ``apply_material_maps``, ``bump``'s mask): the distinct texels of its
+    taps and the distinct bytes they read, its FP32 operations beyond OPS_SHADE, and the live lanes with a
+    hit that are cut out, bumped, or sample their albedo map bilinear or
+    nearest.  A tap reads the channels its map needs: 3 B of an albedo
+    texel, the red byte of a metalness, alpha or bump texel."""
+    scene, cfg, hit = c.scene, c.cfg, w.hit
+    meta = scene.meta
+    (_, _, uv, albedo, emission, refl, _, tex_id, sampler, metal_tex,
+     alpha_tex, _) = shading.shade_fetch(
+        scene, shading.CameraRays(w.origin, w.direction), hit, c.space, cfg)
+    cutout = shading.apply_material_maps(
+        scene, cfg, uv, sampler, albedo, emission, refl, tex_id, metal_tex,
+        alpha_tex)[3]
+    fetches = [(tex_id, uv, 3, sampler)]  # (texture, uv, channels, sampler)
+    if meta.get("n_metalness_maps", 0):
+        fetches.append((metal_tex, uv, 1, sampler))
+    if meta.get("n_alpha_maps", 0):
+        fetches.append((alpha_tex, uv, 1, sampler))
+    bump = torch.zeros_like(cutout)
+    if cfg.enable_normal_maps and meta.get("flattened", False) and meta.get(
+            "n_bump_maps", 0):
+        is_tri = hit.kind == traverse.KIND_TRI
+        table = scene.shade_tri if c.space == "tri" else scene.shade_slot
+        srow = table[torch.where(is_tri, hit.prim, 0).long()]
+        duv1 = srow[:, 11:13] - srow[:, 9:11]
+        duv2 = srow[:, 13:15] - srow[:, 9:11]
+        det = duv1[:, 0] * duv2[:, 1] - duv2[:, 0] * duv1[:, 1]
+        bump_tex = srow[:, 31].to(torch.int32)
+        bump = is_tri & (bump_tex >= 0) & (torch.abs(det) > 1e-12)
+        hw = scene.tex_size[torch.clamp(bump_tex, min=0).long()].to(
+            torch.float32)
+        step_u = 1.0 / torch.clamp(hw[:, 1], min=2.0)
+        step_v = 1.0 / torch.clamp(hw[:, 0], min=2.0)
+        zero = torch.zeros_like(step_u)
+        smp = srow[:, 25].to(torch.int32)
+        for du, dv in ((zero, zero), (step_u, zero), (zero, step_v)):
+            fetches.append((torch.where(bump, bump_tex, -1),
+                            uv + torch.stack([du, dv], 1), 1, smp))
+    rows, cols = scene.tex_data.shape[1:3]
+    texels, channels = [], []  # each tap's texel and the bytes it reads
+    ops = OPS_UV * w.origin.shape[0] + OPS_BUMP * int(bump.sum())
+    for tex, at_uv, ch, smp in fetches:
+        use = tex >= 0
+        bil = smp[use] == 1
+        # the texels shading.sample_texture reads, by its own index code
+        tid, near, quad, _, _ = shading.texel_taps(scene, tex[use],
+                                                   at_uv[use])
+        at = lambda tap: (tid * rows + tap[0]) * cols + tap[1]
+        t = torch.cat([at(near)[~bil]] + [at(q)[bil] for q in quad])
+        texels.append(t)
+        channels.append((3 * t[:, None] + torch.arange(
+            ch, device=t.device)).reshape(-1))
+        ops += OPS_TAP * int(use.sum()) + ch * OPS_BILINEAR_CH * int(
+            bil.sum())
+    live = w.alive & hit.did_hit
+    textured = live & (tex_id >= 0)
+    return dict(texels=int(torch.unique(torch.cat(texels)).numel()),
+                texel_bytes=int(torch.unique(torch.cat(channels)).numel()),
+                ops=ops,
+                cutout_lanes=int((live & cutout).sum()),
+                bump_lanes=int((live & bump).sum()),
+                bilinear_lanes=int((textured & (sampler == 1)).sum()),
+                nearest_lanes=int((textured & (sampler != 1)).sum()))
 
 
 def permute_cost(packed, packed_i, order) -> dict:
@@ -405,20 +501,27 @@ def nee_cost(scene, lanes, occluded) -> dict:
                 resolved=count(diff))
 
 
-def round_checks(sc):
-    """The round kernels (``csrc/shade_round.cu``) on the main frame's
-    own rounds: one frame through ``render`` with the wrappers' arguments
-    captured; each kernel's bound on every round and summed over the
-    frame (``round_bounds``); then on rounds CHECK_ROUNDS each kernel
-    against its plain version on the captured inputs (every output
-    equal, NaN to NaN) and timed.  Also prints whether the outputs are
-    equal bit for bit and how many NaN each holds, and holds the shade
-    kernel against the one it replaced (``shade_vs_old``).  Returns the
-    checks by kernel and round."""
+def round_checks(sc, key="", old=True, check_rounds=CHECK_ROUNDS, **kw):
+    """The round kernels (``csrc/shade_round.cu``) on a benchmark frame's
+    own rounds (``kw``: more RenderConfig values; ``key`` names the frame,
+    empty for the main frame): one frame through ``render`` with the
+    wrappers' arguments captured; each kernel's bound on every round and
+    summed over the frame (``round_bounds``); then on rounds
+    ``check_rounds`` each kernel (the shade kernel's maps instance where
+    textures are in use) against its plain version on the captured inputs
+    (every output equal, NaN to NaN) and timed.  Also prints whether the
+    outputs are equal bit for bit and how many NaN each holds, and, with
+    ``old``, holds the shade kernel against the one it replaced
+    (``shade_vs_old``), else times the shade kernel alone
+    (``shade_alone``).  Returns the checks by kernel and round (keys
+    prefixed by ``key``) and the bounds of every round by kernel."""
+    cfg = frame_cfg(**kw)
+    shade_name = ("shade_round_maps" if shade.maps_on(sc, cfg)
+                  else "shade_round")
     with captured(shade, "shade_round") as shades, \
             captured(shade, "permute_rows") as permutes, \
             captured(shade, "nee_resolve") as nees:
-        trt.render(sc, frame_cfg())
+        trt.render(sc, cfg)
         torch.cuda.synchronize()
     rounds = len(shades)
     if not rounds or not len(permutes) == len(nees) == rounds:
@@ -428,32 +531,34 @@ def round_checks(sc):
     costs = {"shade_round": [shade_cost(*args) for args, _ in shades],
              "permute_rows": [permute_cost(*args) for args, _ in permutes],
              "nee_resolve": [nee_cost(*args) for args, _ in nees]}
-    phase("round_bounds", rounds=rounds,
+    phase("round_bounds", frame=key.rstrip("_") or "main", shade_kernel=shade_name,
+          rounds=rounds,
           lanes=[int(args[1].origin.shape[0]) for args, _ in shades],
           **{name: dict(frame_bound_ms=sum(c["bound_ms"] for c in cs),
                         bound_ms=[c["bound_ms"] for c in cs])
              for name, cs in costs.items()})
     out = {}
-    for r in (r for r in CHECK_ROUNDS if r < rounds):
+    for r in (r for r in check_rounds if r < rounds):
         (c, w), _ = shades[r]
         n = w.origin.shape[0]
-        out[f"shade_round_{r}"] = measure(
-            "shade_round", lambda: shade.shade_round(c, w),
+        out[f"{key}{shade_name}_{r}"] = measure(
+            shade_name, lambda: shade.shade_round(c, w),
             lambda: shade.shade_round_reference(c, w),
-            equal_values("shade_round"),
-            lambda: costs["shade_round"][r], err=values_err, round=r, n=n)
+            equal_values(shade_name),
+            lambda: costs["shade_round"][r], err=values_err, round=r, n=n,
+            frame=key.rstrip("_") or "main")
         pargs, _ = permutes[r]
-        out[f"permute_rows_{r}"] = measure(
+        out[f"{key}permute_rows_{r}"] = measure(
             "permute_rows", lambda: shade.permute_rows(*pargs),
             lambda: shade.permute_rows_reference(*pargs),
             equal_values("permute_rows"), lambda: costs["permute_rows"][r],
-            err=values_err, round=r, n=n)
+            err=values_err, round=r, n=n, frame=key.rstrip("_") or "main")
         nargs, _ = nees[r]
-        out[f"nee_resolve_{r}"] = measure(
+        out[f"{key}nee_resolve_{r}"] = measure(
             "nee_resolve", lambda: (shade.nee_resolve(*nargs),),
             lambda: (shade.nee_resolve_reference(*nargs),),
             equal_values("nee_resolve"), lambda: costs["nee_resolve"][r],
-            err=values_err, round=r, n=n)
+            err=values_err, round=r, n=n, frame=key.rstrip("_") or "main")
         got = (*shade.shade_round(c, w), *shade.permute_rows(*pargs),
                shade.nee_resolve(*nargs))
         want = (*shade.shade_round_reference(c, w),
@@ -465,15 +570,29 @@ def round_checks(sc):
             if a.is_floating_point() else torch.equal(a, b)
             for a, b in zip(got, want))
         nan = sum(int(a.isnan().sum()) for a in got if a.is_floating_point())
-        phase("round_kernels", round=r, rounds=rounds, n=n, bitwise=bitwise,
-              nan_values=nan)
+        phase("round_kernels", frame=key.rstrip("_") or "main", round=r, rounds=rounds,
+              n=n, bitwise=bitwise, nan_values=nan)
         if not bitwise:
             raise AssertionError(f"round {r}: a round kernel's output "
                                  "differs in its bits from the plain "
                                  "version's")
-        shade_vs_old(c, w, r, costs["shade_round"][r])
+        if old:
+            shade_vs_old(c, w, r, costs["shade_round"][r])
+        else:
+            shade_alone(c, w, r, costs["shade_round"][r], key)
     del shades, permutes, nees
-    return out
+    return out, costs
+
+
+def shade_alone(c, w, r, cost, key):
+    """The shade kernel alone on round ``r``'s wave: 20 launches on
+    arguments packed once (no wrapper time), twice, against its bound."""
+    run = shade_round_variants.launcher("shipped", c, w)[0]
+    runs = [cuda_ms(run, 20) for _ in range(2)]
+    ms = statistics.mean(runs)
+    phase("shade_alone", frame=key.rstrip("_"), round=r,
+          n=int(w.origin.shape[0]), ms=ms, ms_runs=runs,
+          bound_ms=cost["bound_ms"], share=cost["bound_ms"] / ms)
 
 
 def shade_vs_old(c, w, r, cost):
@@ -493,7 +612,7 @@ def shade_vs_old(c, w, r, cost):
         times[name].append(cuda_ms(runs[name], 20))
     new_ms = statistics.mean(times["shipped"])
     old_ms = statistics.mean(times["old"])
-    ptx = {"new": ptxas_of(shade.build(), "shade_kernel"),
+    ptx = {"new": shade_ptxas(maps=False),
            "old": ptxas_of(shade_round_variants.build(), "old_shade_kernel")}
     regs = {k: [ln for x in v for ln in x["lines"] if "registers" in ln]
             for k, v in ptx.items()}
@@ -509,6 +628,12 @@ def shade_vs_old(c, w, r, cost):
           old_occupancy=shade_round_variants.info("old"))
     if len(ptx["new"]) != 1 or ptx["new"][0]["spill_store_bytes"] != 0:
         raise AssertionError(f"shade_kernel spills: {ptx['new']}")
+
+
+def shade_ptxas(maps: bool) -> list:
+    """ptxas's report for shade_kernel<maps> (``ptxas_of``'s entries)."""
+    return [x for x in ptxas_of(shade.build(), "shade_kernel")
+            if f"shade_kernelILb{int(maps)}E" in x["entry"]]
 
 
 def equal_all(name):
@@ -1571,12 +1696,9 @@ def config_values(sc, sc_cpu, dev, main):
     return closest
 
 
-def bump_scene(tmp):
-    """A scene built here with a generated height map: a 48x48-quad wall
-    facing the camera, its uv tiled 4 times over a 128x128 height map of
-    round bumps (a PNG written by ``film``), a dark wall behind the
-    camera and a rect light in front of the textured wall, offset to
-    +x."""
+def wall_obj(tmp):
+    """A 48x48-quad wall, 3 units square at z = 0, facing -z, its uv tiled
+    4 times (an OBJ file in ``tmp``)."""
     n, tiles = 48, 4.0
     verts, uvs, faces = [], [], []
     for j in range(n + 1):
@@ -1595,20 +1717,48 @@ def bump_scene(tmp):
     wall = os.path.join(tmp, "bump_wall.obj")
     with open(wall, "w") as f:
         f.write("".join(lines))
-    back = os.path.join(tmp, "bump_back.obj")
+    return wall
+
+
+def back_obj(tmp, z):
+    """An 18-unit square at depth ``z`` facing +z (an OBJ file in
+    ``tmp``)."""
+    back = os.path.join(tmp, f"back_{z}.obj")
     with open(back, "w") as f:
-        f.write("v -9 -9 -3.2\nv 9 -9 -3.2\nv 9 9 -3.2\nv -9 9 -3.2\n"
+        f.write(f"v -9 -9 {z}\nv 9 -9 {z}\nv 9 9 {z}\nv -9 9 {z}\n"
                 "vt 0 0\nvt 1 0\nvt 1 1\nvt 0 1\nvn 0 0 1\n"
                 "f 1/1/1 2/2/1 3/3/1\nf 1/1/1 3/3/1 4/4/1\n")
-    y, x = torch.meshgrid(torch.arange(128.0), torch.arange(128.0),
-                          indexing="ij")
-    height = 0.5 + 0.5 * torch.cos(x * (torch.pi / 16)) * torch.cos(
-        y * (torch.pi / 16))
-    gray = (height * 255).round().to(torch.uint8)
-    png = os.path.join(tmp, "bump_height.png")
-    with open(png, "wb") as f:
-        f.write(film.encode_png_uint8(gray[..., None].expand(-1, -1, 3)
-                                      .numpy()))
+    return back
+
+
+def png_file(tmp, name, rgb):
+    """``rgb`` ((H, W, 3) u8 tensor) as a PNG written by ``film``."""
+    path = os.path.join(tmp, name)
+    with open(path, "wb") as f:
+        f.write(film.encode_png_uint8(rgb.contiguous().numpy()))
+    return path
+
+
+def bumps(size, period):
+    """A gray (size, size, 3) u8 height map of round bumps, ``period``
+    texels apart."""
+    y, x = torch.meshgrid(torch.arange(float(size)),
+                          torch.arange(float(size)), indexing="ij")
+    height = 0.5 + 0.5 * torch.cos(x * (2 * torch.pi / period)) * torch.cos(
+        y * (2 * torch.pi / period))
+    return (height * 255).round().to(torch.uint8)[..., None].expand(
+        -1, -1, 3)
+
+
+def bump_scene(tmp):
+    """A scene built here with a generated height map: a 48x48-quad wall
+    facing the camera (``wall_obj``), its uv tiled 4 times over a 128x128
+    height map of round bumps (a PNG written by ``film``), a dark wall
+    behind the camera and a rect light in front of the textured wall,
+    offset to +x."""
+    wall = wall_obj(tmp)
+    back = back_obj(tmp, -3.2)
+    png = png_file(tmp, "bump_height.png", bumps(128, 32))
     b = trt.SceneBuilder()
     tex = b.add_texture(png)
     mat = b.add_material(trt.Material(albedo=(0.8, 0.8, 0.8), bump_tex=tex))
@@ -1635,22 +1785,175 @@ def normal_maps(tmp):
                              f"{sc.tex_size.tolist()}")
     on = dict(enable_normal_maps=True, bump_scale=4.0)
     card_vs_cpu(sc, b.compile(device="cpu"), "card_vs_cpu_normal_maps", **on)
-    times, imgs = {}, {}
+    times, imgs, launches = {}, {}, {}
     for key, kw in (("on", on), ("off", {})):
         trt.render(sc, frame_cfg(**kw))  # warm-up
         torch.cuda.synchronize()
+        bench.reset_launches()
         t0 = time.perf_counter()
         imgs[key] = trt.render(sc, frame_cfg(**kw))
         torch.cuda.synchronize()
         times[key] = time.perf_counter() - t0
+        launches[key] = bench.all_launches()
     moved = float((imgs["on"] - imgs["off"]).abs().mean())
     phase("normal_maps", size=f"{FRAME[0]}x{FRAME[1]}", spp=2, bounce=8,
           n_tris=sc.meta["n_tris"], frame_s_on=times["on"],
           frame_s_off=times["off"], image_mean_on=float(imgs["on"].mean()),
-          image_mean_off=float(imgs["off"].mean()), mean_abs_moved=moved)
+          image_mean_off=float(imgs["off"].mean()), mean_abs_moved=moved,
+          launches_on=launches["on"], launches_off=launches["off"])
     if not bool(torch.isfinite(imgs["on"]).all()) or moved < 1e-3:
         raise AssertionError(f"normal_maps: the map moved the frame by "
                              f"{moved}")
+    for key, got in launches.items():  # the maps instance, once a round
+        once_a_round(f"normal_maps ({key})", got, "shade_round_maps")
+
+
+def once_a_round(title, got, shade_key):
+    """Raise unless a frame's launches (``bench.all_launches``) ran each
+    round kernel once in each of its rounds, the shade kernel's instance
+    ``shade_key`` and not the other: one closest-hit walk a round, after
+    the camera rays' own.  Returns the rounds."""
+    rounds = got["group_traverse"] - 1
+    other = ({"shade_round", "shade_round_maps"} - {shade_key}).pop()
+    want = {shade_key: rounds, other: 0, "permute_rows": rounds,
+            "nee_resolve": rounds}
+    if rounds <= 0 or any(got[k] != v for k, v in want.items()):
+        raise AssertionError(f"{title}: the round kernels did not run once "
+                             f"in each of its {rounds} rounds: {got}")
+    return rounds
+
+
+def maps_scene(tmp):
+    """A scene built here with generated 1024x1024 maps on one material:
+    an albedo gradient with a checker, a metalness map of stripes (one in
+    four metal), an alpha map with cutout stripes (one band in four cut)
+    and a height map of round bumps.  Two instances of ``wall_obj``'s
+    wall side by side, bilinear on the left and nearest on the right,
+    under the sky, a dark wall behind the camera and a rect light in front
+    of the walls."""
+    size = 1024
+    y, x = torch.meshgrid(torch.arange(size), torch.arange(size),
+                          indexing="ij")
+    albedo = torch.stack([x * 255 // (size - 1), y * 255 // (size - 1),
+                          ((x // 64 + y // 64) % 2) * 200 + 30], -1)
+    metal = (((x // 128) % 4 == 0).to(torch.int64) * 255)
+    alpha = (((y // 96) % 4 != 3).to(torch.int64) * 255)
+    gray = lambda v: v[..., None].expand(-1, -1, 3).to(torch.uint8)
+    b = trt.SceneBuilder()
+    mat = b.add_material(trt.Material(
+        albedo=(0.9, 0.85, 0.8),
+        albedo_tex=b.add_texture(png_file(tmp, "maps_albedo.png",
+                                          albedo.to(torch.uint8))),
+        metalness_tex=b.add_texture(png_file(tmp, "maps_metal.png",
+                                             gray(metal))),
+        alpha_tex=b.add_texture(png_file(tmp, "maps_alpha.png", gray(alpha))),
+        bump_tex=b.add_texture(png_file(tmp, "maps_height.png",
+                                        bumps(size, 64)))))
+    dark = b.add_material(trt.Material(albedo=(0.25, 0.25, 0.25)))
+    glow = b.add_material(trt.Material(emission_color=(1, 1, 1),
+                                       emission_strength=6.0))
+    wall = wall_obj(tmp)
+    b.add_obj(wall, material=mat, position=(-1.55, 0.0, 0.0), sampler=1)
+    b.add_obj(wall, material=mat, position=(1.55, 0.0, 0.0), sampler=0)
+    b.add_obj(back_obj(tmp, -7.0), material=dark)
+    b.add_rect_light((-0.3, 1.0, -2.5), (0.6, 0.0, 0.0), (0.0, 0.0, 0.6),
+                     (0.0, -1.0, 0.0), glow)
+    b.set_environment(trt.Environment(enabled=True))
+    b.set_camera(trt.Camera(position=(0, 0, -5.2), angles_deg=(0, 0, 0)))
+    return b
+
+
+def frame_launches(sc, cfg):
+    """One frame through ``render`` under ``torch.profiler``: the card's
+    kernel launches in it (every kernel, torch's own included)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        trt.render(sc, cfg)
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def maps_phase(tmp):
+    """Texture, metalness, alpha and bump maps through the round kernels
+    at the benchmark frame (``maps_scene``, enable_normal_maps): every
+    round kernel against its plain version on the frame's rounds 0, 2 and
+    6, bit for bit (``round_checks``; its round 6 is the drain's 16,200
+    lanes, so round 2 shows a wide wave past the first bounce too), the
+    shade kernel alone on those rounds, the cutout, bumped, bilinear and
+    nearest lanes over all rounds (each must be above 0), the frame equal
+    to the torch round's bit for bit, both frames' times, the round
+    kernels once a round, every kernel launch a round of both (the
+    profiler's count), and both shade_kernel instances as ptxas reports
+    them.  Returns the checks and the fused frame's launches."""
+    b = maps_scene(tmp)
+    t0 = time.perf_counter()
+    sc = b.compile()
+    compile_s = time.perf_counter() - t0
+    meta = sc.meta
+    if (sc.tex_size.tolist() != [[1024, 1024]] * 4
+            or not meta["n_metalness_maps"] == meta["n_alpha_maps"]
+            == meta["n_bump_maps"] == 1):
+        raise AssertionError(f"maps: the maps did not load: "
+                             f"{sc.tex_size.tolist()}, {meta}")
+    on = dict(enable_normal_maps=True, bump_scale=4.0)
+    cfg = frame_cfg(**on)
+    if not wavefront._fused_round_ok(sc, cfg, cfg.resolved_routing()):
+        raise AssertionError("maps: the frame does not take the round "
+                             "kernels")
+    checks, costs = round_checks(sc, "maps_", old=False,
+                                 check_rounds=(0, 2, 6), **on)
+    lanes = {k: sum(c[k] for c in costs["shade_round"])
+             for k in ("cutout_lanes", "bump_lanes", "bilinear_lanes",
+                       "nearest_lanes")}
+    frames, times, launches, kernels = {}, {}, {}, {}
+    fused_ok = wavefront._fused_round_ok
+    try:
+        for key in ("fused", "torch"):
+            if key == "torch":
+                wavefront._fused_round_ok = lambda *a: False
+            trt.render(sc, cfg)  # warm-up
+            torch.cuda.synchronize()
+            bench.reset_launches()
+            t0 = time.perf_counter()
+            frames[key] = trt.render(sc, cfg)
+            torch.cuda.synchronize()
+            times[key] = time.perf_counter() - t0
+            launches[key] = bench.all_launches()
+            kernels[key] = frame_launches(sc, cfg)
+    finally:
+        wavefront._fused_round_ok = fused_ok
+    rounds = once_a_round("maps", launches["fused"], "shade_round_maps")
+    if any(launches["torch"][k] for k in shade.launches):
+        raise AssertionError(f"maps: the torch round launched a round "
+                             f"kernel: {launches['torch']}")
+    equal = bool(torch.equal(frames["fused"], frames["torch"]))
+    ptx = {"maps": shade_ptxas(maps=True), "plain": shade_ptxas(maps=False)}
+    phase("maps", size=f"{FRAME[0]}x{FRAME[1]}", spp=2, bounce=8,
+          n_tris=meta["n_tris"], n_textures=meta["n_textures"],
+          compile_s=compile_s, rounds=rounds, **lanes,
+          frame_s_fused=times["fused"], frame_s_torch=times["torch"],
+          speedup=times["torch"] / times["fused"], equal_to_torch=equal,
+          image_mean=float(frames["fused"].mean()),
+          finite=bool(torch.isfinite(frames["fused"]).all()),
+          launches_fused=launches["fused"], launches_torch=launches["torch"],
+          kernels_per_round_fused=kernels["fused"] / rounds,
+          kernels_per_round_torch=kernels["torch"] / rounds,
+          kernels_fused=kernels["fused"], kernels_torch=kernels["torch"],
+          shade_maps_ptxas=[x["lines"] for x in ptx["maps"]],
+          shade_plain_ptxas=[x["lines"] for x in ptx["plain"]],
+          shade_maps_spill_store_bytes=[x["spill_store_bytes"]
+                                        for x in ptx["maps"]],
+          frame_bound_ms=sum(c["bound_ms"] for c in costs["shade_round"]))
+    if min(lanes.values()) <= 0:
+        raise AssertionError(f"maps: a map never ran: {lanes}")
+    if not equal or not bool(torch.isfinite(frames["fused"]).all()):
+        raise AssertionError("maps: the round kernels' frame differs from "
+                             "the torch round's, or is not finite")
+    if len(ptx["maps"]) != 1 or len(ptx["plain"]) != 1:
+        raise AssertionError(f"maps: shade_kernel instances: {ptx}")
+    return checks, launches["fused"]
 
 
 def forest(dev, main):
@@ -1866,7 +2169,7 @@ def main() -> None:
     checks = {**group_checks(sc, rays), **packet_checks(sc, sc16, rays),
               **cluster_checks(sc, chunks), **narrow_checks(sc, rays),
               **lanewalk_checks(sc, rays), **treelet_checks(sc, rays),
-              **round_checks(sc)}
+              **round_checks(sc)[0]}
     del sc16, chunks
 
     sc_cpu = sc.to("cpu")
@@ -1900,19 +2203,18 @@ def main() -> None:
         if min(got[m] for m in modes) <= 0:
             raise AssertionError(f"{title}: a kernel mode never launched: "
                                  f"{got}")
-    # the main frame's rounds: one closest-hit walk each, after the camera
-    # rays' own; each round kernel once a round
-    got = frames["frame"]["launches"]
-    rounds = got["group_traverse"] - 1
-    if any(got[m] != rounds for m in shade.launches):
-        raise AssertionError(f"frame: the round kernels did not run once "
-                             f"in each of its {rounds} rounds: {got}")
+    # the main frame's rounds: each round kernel (the untextured shade
+    # kernel) once a round
+    once_a_round("frame", frames["frame"]["launches"], "shade_round")
 
-    # the configuration values, bump maps and forest scenes
+    # the configuration values, bump maps, texture maps and forest scenes
     with tempfile.TemporaryDirectory(prefix="rt_smoke_") as tmp:
         frames["frame_closest_nee"] = config_values(sc, sc_cpu, dev,
                                                     frames["frame"])
         normal_maps(tmp)
+        maps_checks, maps_launches = maps_phase(tmp)
+    checks.update(maps_checks)
+    frames["maps"] = {"launches": maps_launches}
     frames["frame_forest"] = forest(dev, frames["frame"])
     if frames["frame_closest_nee"]["launches"]["group_traverse"] <= 0:
         raise AssertionError("frame_closest_nee: the group walk never ran")
@@ -1946,6 +2248,7 @@ def main() -> None:
         "packet8_deep": ("deep2_bounce", "frame_two_phase"),
         "packet8_deep_anyhit": ("deep2_shadow", "frame_two_phase"),
         "shade_round": ("shade_round_0", "frame"),
+        "shade_round_maps": ("maps_shade_round_maps_0", "maps"),
         "permute_rows": ("permute_rows_0", "frame"),
         "nee_resolve": ("nee_resolve_0", "frame"),
     }

@@ -51,6 +51,27 @@
 //     are correctly rounded;
 //   * masked arithmetic is kept as written ((j == 0) * emission,
 //     atten * (shaded ? radiance : 1)), so 0 * inf stays NaN.
+//
+// The maps instance, shade_kernel<true>, runs where the arguments' maps
+// flag is set (kernels/shade.py::maps_on: enable_textures and a scene
+// with textures): it adds the albedo,
+// metalness and alpha maps (shading.apply_material_maps) and, on a
+// flattened scene with enable_normal_maps, the bump maps (shading.bump);
+// shade_kernel<false> keeps the untextured code as it was.  Its texel
+// loads are plain u8 loads, never hardware filtering, whose 8-bit
+// fixed-point weights cannot equal the plain version's, and
+//   * the sRGB decode is one lookup in a 256-entry table that the wrapper
+//     builds on the card with the plain version's own ops
+//     (shading.srgb_to_linear), so no powf has to equal ATen's;
+//   * torch.round rounds half to even: rintf, not roundf;
+//   * floor(f).to(int32) is (int)floorf(f); fx - x0 converts x0 to f32;
+//   * the bilinear sum is four products of three factors, summed left to
+//     right, as ATen evaluates the expression op by op;
+//   * a tap one texel over adds 0.0f to the other coordinate, as the
+//     plain version adds a zero column (-0.0 + 0.0 is 0.0).
+// A sphere lane reads shade row 0, so it samples its material's maps at
+// row 0's uv (0.5 where the row's flag is set), as the plain version and
+// the JAX package do.
 
 #include <cuda_runtime.h>
 
@@ -109,6 +130,17 @@ struct ShadeArgs {
       aa_jitter, tint, mb, db, morton, flat;
   unsigned seed, frame;
   float rr_clamp;
+  // the maps, read by the maps instance only (all zero where maps is 0)
+  const unsigned char* tex_data;  // (K,tex_h,tex_w,3) sRGB texels
+  const int* tex_size;            // (K,2): each texture's height, width
+  const float* srgb;              // (256,) shading.srgb_to_linear of a byte
+  const int* obj_sampler;
+  const int* mat_albedo_tex;
+  const int* mat_metalness_tex;
+  const int* mat_alpha_tex;
+  int maps;  // launch the maps instance
+  int enable_normal_maps, tex_h, tex_w;
+  float bump_scale;
 };
 
 struct NeeArgs {
@@ -336,6 +368,57 @@ __device__ __forceinline__ void put2(int* row, int c, int x, int y) {
   *reinterpret_cast<int2*>(row + c) = make_int2(x, y);
 }
 
+// integrator/shading.py::sample_texture, channels 0 .. kCh - 1 of texture
+// ``tex_id`` (clamped to 0) at (u, v) into ``out``: bilinear where
+// ``sampler`` is 1, else nearest; uv wrapped, v flipped, each tap clamped
+// to the texture's own size in the padded stack.
+template <int kCh>
+__device__ __forceinline__ void sample_texture(const ShadeArgs& a, int tex_id,
+                                               float u_in, float v_in,
+                                               int sampler, float* out) {
+  const int tid = max(tex_id, 0);
+  const float h = static_cast<float>(a.tex_size[2 * tid]);
+  const float w = static_cast<float>(a.tex_size[2 * tid + 1]);
+  const float u = u_in - floorf(u_in);
+  const float v = v_in - floorf(v_in);
+  const float fx = u * w - 0.5f;
+  const float fy = (1.0f - v) * h - 0.5f;
+  const int x_max = static_cast<int>(w - 1.0f);
+  const int y_max = static_cast<int>(h - 1.0f);
+  const unsigned char* img =
+      a.tex_data + static_cast<long long>(tid) * a.tex_h * a.tex_w * 3;
+  // the texel's offset in ``img`` (its first channel)
+  const auto at = [&](int ix, int iy) {
+    ix = min(max(ix, 0), x_max);
+    iy = min(max(iy, 0), y_max);
+    return (static_cast<long long>(iy) * a.tex_w + ix) * 3;
+  };
+  const auto lin = [&](long long t, int c) {
+    return __ldg(a.srgb + __ldg(img + t + c));
+  };
+  if (sampler == 1) {
+    const int x0 = static_cast<int>(floorf(fx));
+    const int y0 = static_cast<int>(floorf(fy));
+    const int x1 = static_cast<int>(static_cast<unsigned>(x0) + 1u);
+    const int y1 = static_cast<int>(static_cast<unsigned>(y0) + 1u);
+    const float ax = fx - static_cast<float>(x0);
+    const float ay = fy - static_cast<float>(y0);
+    const long long t00 = at(x0, y0), t10 = at(x1, y0);
+    const long long t01 = at(x0, y1), t11 = at(x1, y1);
+#pragma unroll
+    for (int c = 0; c < kCh; ++c) {
+      out[c] = lin(t00, c) * (1.0f - ax) * (1.0f - ay) +
+               lin(t10, c) * ax * (1.0f - ay) +
+               lin(t01, c) * (1.0f - ax) * ay + lin(t11, c) * ax * ay;
+    }
+  } else {
+    const long long t = at(static_cast<int>(rintf(fx)),
+                           static_cast<int>(rintf(fy)));
+#pragma unroll
+    for (int c = 0; c < kCh; ++c) out[c] = lin(t, c);
+  }
+}
+
 // The round's counts of one thread's lanes
 struct Counts {
   int alive = 0, sem = 0, act = 0;
@@ -351,7 +434,8 @@ struct Counts {
 // continues, regenerates or ends its path.  kLazy runs the sky, the second
 // block of draws with the BSDF lobes, and the camera ray only where a
 // lane's select takes them (false: on every lane, as the first form).
-template <bool kLazy>
+// kMaps adds the material maps and the bump maps (the maps instance).
+template <bool kLazy, bool kMaps = false>
 __device__ __forceinline__ void shade_lane(const ShadeArgs& a,
                                            const long long i, float* f,
                                            int* fi, Counts& cnt) {
@@ -403,6 +487,27 @@ __device__ __forceinline__ void shade_lane(const ShadeArgs& a,
   const float w = 1.0f - hu - hv;
   const float fs = front ? 1.0f : -1.0f;
   V3 n_world = (vn0 * w + vn1 * hu + vn2 * hv) * fs;
+  // the maps instance: the uv, and the maps and sampler of the row
+  float uvx = 0.0f, uvy = 0.0f;
+  int tex_id = -1, sampler = 0, metal_tex = -1, alpha_tex = -1;
+  int bump_tex = -1;
+  if (kMaps) {
+    const float4 r3 = row[3];
+    uvx = r2.y * w + r2.w * hu + r3.y * hv;
+    uvy = r2.z * w + r3.x * hu + r3.z * hv;
+    if (r3.w > 0.5f) {  // the row's degenerate-uv flag
+      uvx = 0.5f;
+      uvy = 0.5f;
+    }
+    if (a.flat) {
+      const float4 r6 = row[6], r7 = row[7];
+      tex_id = static_cast<int>(r6.x);
+      sampler = static_cast<int>(r6.y);
+      metal_tex = static_cast<int>(r7.y);
+      alpha_tex = static_cast<int>(r7.z);
+      bump_tex = static_cast<int>(r7.w);
+    }
+  }
   if (!a.flat) {
     // instance frame and material (a scene with no meshes: instance 0)
     const int oi = is_tri ? a.obj[i] : 0;
@@ -416,8 +521,46 @@ __device__ __forceinline__ void shade_lane(const ShadeArgs& a,
     emission = ld3(a.mat_emission, mat) * a.mat_emission_strength[mat];
     refl = a.mat_reflectance[mat];
     ior = a.mat_ior[mat];
+    if (kMaps) {
+      tex_id = a.mat_albedo_tex[mat];
+      sampler = a.obj_sampler[oi];
+      metal_tex = a.mat_metalness_tex[mat];
+      alpha_tex = a.mat_alpha_tex[mat];
+    }
   }
   V3 normal = n_world / clamp_min(norm(n_world), 1e-20f);
+  // ---- shading.bump: a flattened scene's triangle with a bump map and a
+  // solvable uv frame tilts its normal along the height gradient
+  if (kMaps && a.flat && a.enable_normal_maps && is_tri && bump_tex >= 0) {
+    const float4 r8 = row[8], r9 = row[9], r10 = row[10];
+    const V3 e1 = {r8.w, r9.x, r9.y}, e2 = {r9.z, r9.w, r10.x};
+    const float4 r3 = row[3];
+    const float du1 = r2.w - r2.y, dv1 = r3.x - r2.z;
+    const float du2 = r3.y - r2.y, dv2 = r3.z - r2.z;
+    const float det = du1 * dv2 - du2 * dv1;
+    if (fabsf(det) > 1e-12f) {
+      const float inv = 1.0f / det;
+      V3 t_vec = (e1 * dv2 - e2 * dv1) * inv;
+      const V3 b_vec = (e2 * du1 - e1 * du2) * inv;
+      t_vec = t_vec - normal * dot(t_vec, normal);
+      const V3 t_hat = t_vec / clamp_min(norm(t_vec), 1e-20f);
+      const V3 b_ortho = b_vec - normal * dot(b_vec, normal) -
+                         t_hat * dot(b_vec, t_hat);
+      const V3 b_hat = b_ortho / clamp_min(norm(b_ortho), 1e-20f);
+      const float step_u =
+          1.0f / clamp_min(static_cast<float>(a.tex_size[2 * bump_tex + 1]),
+                           2.0f);
+      const float step_v =
+          1.0f / clamp_min(static_cast<float>(a.tex_size[2 * bump_tex]), 2.0f);
+      float h0, h_u, h_v;
+      sample_texture<1>(a, bump_tex, uvx, uvy, sampler, &h0);
+      sample_texture<1>(a, bump_tex, uvx + step_u, uvy + 0.0f, sampler, &h_u);
+      sample_texture<1>(a, bump_tex, uvx + 0.0f, uvy + step_v, sampler, &h_v);
+      const V3 pert = normal - a.bump_scale * ((h_u - h0) * t_hat +
+                                               (h_v - h0) * b_hat);
+      normal = pert / clamp_min(norm(pert), 1e-20f);
+    }
+  }
   if (a.n_spheres > 0 && kind == 1) {
     const int si = prim;
     V3 s_n = hp - ld3(a.sphere_pos, si);
@@ -429,6 +572,34 @@ __device__ __forceinline__ void shade_lane(const ShadeArgs& a,
     emission = ld3(a.mat_emission, sm) * a.mat_emission_strength[sm];
     refl = a.mat_reflectance[sm];
     ior = a.mat_ior[sm];
+    if (kMaps) {  // the sampler stays the row's (or instance 0's)
+      tex_id = a.mat_albedo_tex[sm];
+      metal_tex = a.mat_metalness_tex[sm];
+      alpha_tex = a.mat_alpha_tex[sm];
+    }
+  }
+
+  // ---- shading.apply_material_maps: the albedo map multiplies the
+  // albedo, the metalness map's red channel replaces the reflectance, an
+  // alpha map's red channel below 0.5 cuts the surface out (a
+  // pass-through delta bounce, emission zeroed); a map index is -1 where
+  // the scene has no such map, as the plain version's meta counts say
+  bool cutout = false;
+  if (kMaps) {
+    if (tex_id >= 0) {
+      float rgb[3];
+      sample_texture<3>(a, tex_id, uvx, uvy, sampler, rgb);
+      albedo = albedo * V3{rgb[0], rgb[1], rgb[2]};
+    }
+    if (metal_tex >= 0) {
+      sample_texture<1>(a, metal_tex, uvx, uvy, sampler, &refl);
+    }
+    if (alpha_tex >= 0) {
+      float alpha;
+      sample_texture<1>(a, alpha_tex, uvx, uvy, sampler, &alpha);
+      cutout = alpha < 0.5f;
+    }
+    if (cutout) emission = splat(0.0f);
   }
 
   // ---- pending light resolve
@@ -463,6 +634,7 @@ __device__ __forceinline__ void shade_lane(const ShadeArgs& a,
   const bool is_spec = refl != 0.0f;
   const bool is_diel = !is_spec && ior != -1.0f;
   const bool is_diff = !is_spec && !is_diel;
+  const bool is_diff_cut = is_diff && !cutout;  // the lane's next is_diff
 
   const V3 nee_origin = hp + normal * 0.01f;
   int li = 0;
@@ -483,7 +655,7 @@ __device__ __forceinline__ void shade_lane(const ShadeArgs& a,
   put2(f, 22, l_dir.y, l_dir.z);
   put2(f, 24, nee_k.x, nee_k.y);
   f[26] = nee_k.z;
-  put2(f, 30, is_diff ? 1.0f : 0.0f, cos_pdf_at_l);
+  put2(f, 30, is_diff_cut ? 1.0f : 0.0f, cos_pdf_at_l);
   f[32] = l_dist;
   put2(fi, 4, li, sb);
 
@@ -543,6 +715,11 @@ __device__ __forceinline__ void shade_lane(const ShadeArgs& a,
     radiance = sel(is_diff, rad_diff, a.tint ? albedo : splat(1.0f));
     const float origin_sign = is_diel ? sign_diel : 1.0f;
     bounce_origin = hp + normal * (origin_sign * 1e-5f);
+    if (cutout) {  // straight through the surface
+      bounce_dir = D;
+      radiance = splat(1.0f);
+      bounce_origin = hp + D * 1e-4f;
+    }
   }
   V3 atten = AT * sel(shaded, radiance, splat(1.0f));
 
@@ -553,7 +730,7 @@ __device__ __forceinline__ void shade_lane(const ShadeArgs& a,
   atten = atten / clamp_min(rr, 1e-20f);
 
   const bool continuing = shaded && !killed && j < a.bounce_limit;
-  const bool nee_sem = continuing && is_diff;
+  const bool nee_sem = continuing && is_diff_cut;
   const bool nee_active = nee_sem && facing;
 
   // ---- sample completion and regeneration
@@ -673,16 +850,20 @@ __device__ __forceinline__ void add_counts(const ShadeArgs& a, Counts cnt) {
 }
 
 // One block a tile of 256 lanes: the lanes' rows into the tiles, then the
-// tiles out by TMA while the block adds its counts.
-__global__ void __launch_bounds__(kBlock, 4) shade_kernel(const ShadeArgs a) {
+// tiles out by TMA while the block adds its counts.  kMaps: the maps
+// instance, capped at 80 registers (3 blocks an SM) for its texel taps.
+template <bool kMaps>
+__global__ void __launch_bounds__(kBlock, kMaps ? 3 : 4)
+    shade_kernel(const ShadeArgs a) {
   __shared__ __align__(16) float tile_f[kBlock * kPackedF];
   __shared__ __align__(16) int tile_i[kBlock * kPackedI];
   const long long base = static_cast<long long>(blockIdx.x) * kBlock;
   const int rows = min(kBlock, a.n - static_cast<int>(base));
   Counts cnt;
   if (static_cast<int>(threadIdx.x) < rows) {
-    shade_lane<true>(a, base + threadIdx.x, tile_f + kPackedF * threadIdx.x,
-                     tile_i + kPackedI * threadIdx.x, cnt);
+    shade_lane<true, kMaps>(a, base + threadIdx.x,
+                            tile_f + kPackedF * threadIdx.x,
+                            tile_i + kPackedI * threadIdx.x, cnt);
   }
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   __syncthreads();
@@ -769,13 +950,27 @@ __global__ void __launch_bounds__(kBlock) nee_resolve_kernel(const NeeArgs a) {
 
 }  // namespace
 
-// One launch of shade_kernel; returns the launch's CUDA error.
+// One launch of shade_kernel: the maps instance where ``maps`` is set,
+// else the untextured one; returns the launch's CUDA error.
 extern "C" int rt_shade_round(const ShadeArgs* a, void* stream) {
   if (a->n < 1 || a->mb < 0 || a->db < 0 || 3 * (a->mb + a->db) + 3 > 30) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const bool maps = a->maps != 0;
+  if (maps && (a->tex_data == nullptr || a->tex_size == nullptr ||
+               a->srgb == nullptr || a->obj_sampler == nullptr ||
+               a->mat_albedo_tex == nullptr ||
+               a->mat_metalness_tex == nullptr ||
+               a->mat_alpha_tex == nullptr || a->tex_h < 1 || a->tex_w < 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const dim3 grid((a->n + kBlock - 1) / kBlock), block(kBlock);
-  shade_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(*a);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (maps) {
+    shade_kernel<true><<<grid, block, 0, s>>>(*a);
+  } else {
+    shade_kernel<false><<<grid, block, 0, s>>>(*a);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -250,6 +250,30 @@ def apply_material_maps(scene, cfg, uv, sampler, albedo, emission,
 def sample_texture(scene: CompiledScene, tex_id, uv, sampler):
     """Bilinear/nearest fetch from the padded sRGB texture stack (v flipped:
     OBJ uv origin bottom-left vs row-major images)."""
+    tid, near, quad, ax, ay = texel_taps(scene, tex_id, uv)
+
+    def fetch(tap):
+        iy, ix = tap
+        return srgb_to_linear(scene.tex_data[tid, iy, ix])
+
+    c00, c10, c01, c11 = (fetch(t) for t in quad)
+    bilinear = (
+        c00 * (1 - ax) * (1 - ay)
+        + c10 * ax * (1 - ay)
+        + c01 * (1 - ax) * ay
+        + c11 * ax * ay
+    )
+    nearest = fetch(near)
+    return torch.where((sampler == 1)[:, None], bilinear, nearest)
+
+
+def texel_taps(scene: CompiledScene, tex_id, uv):
+    """The taps :func:`sample_texture` reads of texture ``tex_id`` at
+    ``uv`` (uv wrapped, v flipped): the texture's index in the stack
+    (clamped to 0), the nearest tap, the four bilinear taps (x0, y0),
+    (x0 + 1, y0), (x0, y0 + 1), (x0 + 1, y0 + 1), each an ``(iy, ix)``
+    pair of i64 indices clamped to the texture's own size, and the
+    bilinear weights ``ax``, ``ay`` (N,1)."""
     tid = torch.clamp(tex_id, min=0).long()
     hw = scene.tex_size[tid].to(F32)  # (N,2) = (h,w)
     h, w_ = hw[:, 0], hw[:, 1]
@@ -260,30 +284,25 @@ def sample_texture(scene: CompiledScene, tex_id, uv, sampler):
     x_max = (w_ - 1).to(I32)
     y_max = (h - 1).to(I32)
 
-    def fetch(ix, iy):
-        ix = torch.minimum(torch.clamp(ix, min=0), x_max).long()
-        iy = torch.minimum(torch.clamp(iy, min=0), y_max).long()
-        srgb = scene.tex_data[tid, iy, ix].to(F32) / 255.0
-        return torch.where(
-            srgb <= 0.04045, srgb / 12.92, ((srgb + 0.055) / 1.055) ** 2.4
-        )
+    def at(ix, iy):
+        return (torch.minimum(torch.clamp(iy, min=0), y_max).long(),
+                torch.minimum(torch.clamp(ix, min=0), x_max).long())
 
     x0 = torch.floor(fx).to(I32)
     y0 = torch.floor(fy).to(I32)
-    ax = (fx - x0)[:, None]
-    ay = (fy - y0)[:, None]
-    c00 = fetch(x0, y0)
-    c10 = fetch(x0 + 1, y0)
-    c01 = fetch(x0, y0 + 1)
-    c11 = fetch(x0 + 1, y0 + 1)
-    bilinear = (
-        c00 * (1 - ax) * (1 - ay)
-        + c10 * ax * (1 - ay)
-        + c01 * (1 - ax) * ay
-        + c11 * ax * ay
+    near = at(torch.round(fx).to(I32), torch.round(fy).to(I32))
+    quad = (at(x0, y0), at(x0 + 1, y0), at(x0, y0 + 1), at(x0 + 1, y0 + 1))
+    return tid, near, quad, (fx - x0)[:, None], (fy - y0)[:, None]
+
+
+def srgb_to_linear(texels):
+    """Linear f32 values of sRGB bytes (a u8 tensor of any shape): the
+    texture fetch's decode.  ``kernels/shade.py`` tabulates it over the
+    256 byte values, so the shade kernel's decode is one lookup."""
+    srgb = texels.to(F32) / 255.0
+    return torch.where(
+        srgb <= 0.04045, srgb / 12.92, ((srgb + 0.055) / 1.055) ** 2.4
     )
-    nearest = fetch(torch.round(fx).to(I32), torch.round(fy).to(I32))
-    return torch.where((sampler == 1)[:, None], bilinear, nearest)
 
 
 def analytic_nee(scene, li, l_dir, l_dist, reached):

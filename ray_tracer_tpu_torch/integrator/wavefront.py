@@ -496,23 +496,20 @@ def _fused_round_ok(scene: CompiledScene, cfg: RenderConfig,
     ``kernels/shade.py`` (:func:`_fused_round`)?  Decided by the scene and
     the configuration alone, before any launch: a flattened scene or one
     without meshes (triangles and/or spheres, any number of rect lights,
-    the analytic sky) with no texture, material or normal maps in use
-    (``enable_textures`` off or no textures, ``enable_normal_maps`` off),
-    binned by the morton key (``bin_rays`` on, ``bin_mode="morton"``),
-    with occlusion NEE traced after the permute (``nee_anyhit=True``,
-    ``nee_prebin="off"``), on any traversal route.
+    the analytic sky; albedo, metalness and alpha maps and, with
+    ``enable_normal_maps``, bump maps, through the shade kernel's maps
+    instance), binned by the morton key (``bin_rays`` on,
+    ``bin_mode="morton"``), with occlusion NEE traced after the permute
+    (``nee_anyhit=True``, ``nee_prebin="off"``), on any traversal route.
 
     Every other configuration runs the torch round (:func:`_torch_round`):
-    texture, metalness and alpha maps and bump maps, forest scenes,
-    ``nee_prebin``, ``leaf``/``hier`` bins, ``nee_anyhit=False`` and
-    ``bin_rays=False``; the static scan (:func:`trace`) is another
-    integrator.  This is a route, not a fallback: a kernel that fails to
-    build or launch raises."""
+    forest scenes, ``nee_prebin``, ``leaf``/``hier`` bins,
+    ``nee_anyhit=False`` and ``bin_rays=False``; the static scan
+    (:func:`trace`) is another integrator.  This is a route, not a
+    fallback: a kernel that fails to build or launch raises."""
     forest = not scene.meta.get("flattened", False) and bool(
         scene.n_objects and scene.meta.get("n_tris", 0))
-    textures = cfg.enable_textures and scene.meta.get("n_textures", 0) > 0
-    return (not forest and not textures
-            and not cfg.enable_normal_maps and cfg.bin_rays is not False
+    return (not forest and cfg.bin_rays is not False
             and rt.bin_mode == "morton" and rt.nee_prebin == "off"
             and cfg.nee_anyhit)
 
@@ -693,7 +690,9 @@ def _round_context(scene, rot, pos, fov, aspect, near, frame: int,
     space = traverse.prim_space(scene, rt) if cfg.nee_anyhit else "tri"
     cam = (rot, pos, fov, aspect, near)
     c = shade.Round(scene, cfg, rt, space, cam, frame, n_spp,
-                    shade.frame_constants(scene, cam) if fused else None)
+                    shade.frame_constants(scene, cam) if fused else None,
+                    shade.srgb_table(rot.device)
+                    if fused and shade.maps_on(scene, cfg) else None)
     return c, _fused_round if fused else _torch_round
 
 

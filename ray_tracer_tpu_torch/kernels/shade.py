@@ -10,7 +10,10 @@ tensors (nothing falls back: a CUDA call that cannot launch raises):
   fetch, the pending-light resolve, the sky, the RNG draws, the BSDF
   lobes and the rect-light sample, russian roulette, sample completion
   and regeneration, written as the packed rows the permute moves, with the
-  lane's morton bin key and the round's ray counts;
+  lane's morton bin key and the round's ray counts; where textures are in
+  use (:func:`maps_on`) its maps instance, ``shade_kernel<true>``, adds
+  the albedo, metalness and alpha maps and the bump maps, its sRGB decode
+  a lookup in the round's table (:func:`srgb_table`);
 * ``permute_kernel`` (:func:`permute_rows`; plain:
   :func:`permute_rows_reference`): each lane's packed row gathered by the
   sorted order into the next wave's columns;
@@ -27,8 +30,8 @@ path is today's arithmetic.  The kernels are built with ``--fmad=false``
 and no fast math, and mirror torch's CUDA kernels op for op (see the
 source), so on the card each equals its plain version.
 
-Each wrapper counts its launches in ``launches`` (the CPU path adds
-nothing).
+Each wrapper counts its launches in ``launches``, the shade kernel's
+two instances apart (the CPU path adds nothing).
 """
 
 from __future__ import annotations
@@ -52,7 +55,8 @@ _SRC = os.path.join(CSRC, "shade_round.cu")
 # bin key's box: minimum 3, extent 3
 N_CONSTS = 22
 
-launches = {"shade_round": 0, "permute_rows": 0, "nee_resolve": 0}
+launches = {"shade_round": 0, "shade_round_maps": 0, "permute_rows": 0,
+            "nee_resolve": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -66,9 +70,10 @@ class Round(NamedTuple):
     """What every round of one wavefront call reads: the scene, its
     configuration and resolved routing, the id space of triangle hits
     (``traverse.prim_space``), the camera ``(rotation, position, fov,
-    aspect, near)``, the frame index, the samples per lane, and the shade
+    aspect, near)``, the frame index, the samples per lane, the shade
     kernel's per-frame constants (:func:`frame_constants`; None where the
-    torch round runs)."""
+    torch round runs) and, where its maps instance runs, the sRGB table
+    (:func:`srgb_table`)."""
 
     scene: object
     cfg: object
@@ -78,6 +83,7 @@ class Round(NamedTuple):
     frame: int
     n_spp: int
     consts: Optional[torch.Tensor]
+    srgb: Optional[torch.Tensor] = None
 
 
 def _morton(scene) -> bool:
@@ -88,6 +94,21 @@ def _morton(scene) -> bool:
 
 def _flat(scene) -> bool:
     return bool(scene.meta.get("flattened", False))
+
+
+def maps_on(scene, cfg) -> bool:
+    """Are textures in use (``shading.apply_material_maps`` samples them,
+    and ``shading.bump`` may), so that the shade kernel's maps instance
+    runs?"""
+    return bool(cfg.enable_textures and scene.meta.get("n_textures", 0) > 0)
+
+
+def srgb_table(device) -> torch.Tensor:
+    """(256,) f32 on ``device``: ``shading.srgb_to_linear`` of every byte,
+    by the plain version's own ops there, so that the maps instance's
+    decode (a lookup) equals the plain version's on that device."""
+    return shading.srgb_to_linear(
+        torch.arange(256, dtype=torch.uint8, device=device))
 
 
 def frame_constants(scene, cam) -> torch.Tensor:
@@ -185,7 +206,13 @@ class _ShadeArgs(ctypes.Structure):
             "rr_start", "width", "height", "aa_jitter", "tint", "mb", "db",
             "morton", "flat")] + [
         ("seed", ctypes.c_uint), ("frame", ctypes.c_uint),
-        ("rr_clamp", ctypes.c_float)]
+        ("rr_clamp", ctypes.c_float)] + [
+        (name, _P) for name in (
+            "tex_data", "tex_size", "srgb", "obj_sampler", "mat_albedo_tex",
+            "mat_metalness_tex", "mat_alpha_tex")] + [
+        (name, ctypes.c_int) for name in (
+            "maps", "enable_normal_maps", "tex_h", "tex_w")] + [
+        ("bump_scale", ctypes.c_float)]
 
 
 class _NeeArgs(ctypes.Structure):
@@ -223,8 +250,9 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {err}")
 
 
-def _scene_tables(scene, dev):
-    """The scene arrays the shade kernel reads, checked."""
+def _scene_tables(scene, dev, srgb=None):
+    """The scene arrays the shade kernel reads, checked; given the sRGB
+    table ``srgb``, those of its maps instance too."""
     s = scene
     check_tensors(dev, F32,
                   mat_albedo=(s.mat_albedo, (s.mat_albedo.shape[0], 3)),
@@ -248,6 +276,17 @@ def _scene_tables(scene, dev):
     if s.n_spheres:
         check_tensors(dev, F32, sphere_pos=(s.sphere_pos, (s.n_spheres, 3)))
         check_tensors(dev, I32, sphere_mat=(s.sphere_mat, (s.n_spheres,)))
+    if srgb is not None:
+        n_mat = s.mat_albedo.shape[:1]
+        n_tex = s.tex_size.shape[0]
+        check_tensors(dev, torch.uint8, tex_data=(
+            s.tex_data, (n_tex, *s.tex_data.shape[1:3], 3)))
+        check_tensors(dev, I32, tex_size=(s.tex_size, (n_tex, 2)),
+                      obj_sampler=(s.obj_sampler, s.obj_transform.shape[:1]),
+                      mat_albedo_tex=(s.mat_albedo_tex, n_mat),
+                      mat_metalness_tex=(s.mat_metalness_tex, n_mat),
+                      mat_alpha_tex=(s.mat_alpha_tex, n_mat))
+        check_tensors(dev, F32, srgb=(srgb, (256,)))
 
 
 def shade_args(c: Round, w):
@@ -274,7 +313,11 @@ def shade_args(c: Round, w):
     check_tensors(dev, BOOL, front=(hit.front, (n,)), bad=(w.bad, (n,)),
                   alive=(w.alive, (n,)))
     check_tensors(dev, I64, prev_rays=(w.n_rays, (2,)))
-    _scene_tables(scene, dev)
+    maps = maps_on(scene, cfg)
+    if maps and c.srgb is None:
+        raise ValueError("textures are in use: the round needs its sRGB "
+                         "table (Round.srgb)")
+    _scene_tables(scene, dev, c.srgb if maps else None)
     if table.shape[0] == 0 or n >= 2**31 // shading.PACKED_F:
         raise ValueError("an empty shade table, or too many lanes")
     packed = torch.empty((n, shading.PACKED_F), dtype=F32, device=dev)
@@ -282,6 +325,14 @@ def shade_args(c: Round, w):
     key = torch.empty(n, dtype=I32, device=dev)
     tally = torch.zeros(3, dtype=I64, device=dev)
     ptr = lambda t: t.data_ptr()
+    # the maps' fields, left zero where the untextured instance runs
+    maps_args = () if not maps else (
+        *(ptr(t) for t in (
+            scene.tex_data, scene.tex_size, c.srgb, scene.obj_sampler,
+            scene.mat_albedo_tex, scene.mat_metalness_tex,
+            scene.mat_alpha_tex)),
+        1, int(cfg.enable_normal_maps), *scene.tex_data.shape[1:3],
+        cfg.bump_scale)
     args = _ShadeArgs(
         *(ptr(t) for t in (
             w.origin, w.direction, hit.dst, hit.kind, hit.prim, hit.obj,
@@ -298,14 +349,16 @@ def shade_args(c: Round, w):
         cfg.rr_start_bounce, cfg.width, cfg.height, int(cfg.aa_jitter),
         int(cfg.tint_spec_diel), rt.bin_bits, rt.bin_dir_bits,
         int(_morton(scene)), int(_flat(scene)),
-        cfg.seed & 0xFFFFFFFF, c.frame & 0xFFFFFFFF, cfg.rr_clamp)
+        cfg.seed & 0xFFFFFFFF, c.frame & 0xFFFFFFFF, cfg.rr_clamp,
+        *maps_args)
     return args, (packed, packed_i, key, tally)
 
 
 def shade_round(c: Round, w):
     """One round's shading of the wave ``w`` -> ``(packed, packed_i, key,
     tally)`` as :func:`shade_round_reference` returns them; on CUDA
-    tensors one launch of ``shade_kernel``."""
+    tensors one launch of ``shade_kernel``, its maps instance where
+    :func:`maps_on` (the arguments' ``maps``)."""
     dev = _device(w.origin)
     if dev.type == "cpu":
         return shade_round_reference(c, w)
@@ -316,7 +369,7 @@ def shade_round(c: Round, w):
     _raise_on(_load().rt_shade_round(
         ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream),
         "shade_kernel")
-    launches["shade_round"] += 1
+    launches["shade_round_maps" if args.maps else "shade_round"] += 1
     return out
 
 

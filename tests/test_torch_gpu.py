@@ -1105,23 +1105,51 @@ def test_dryrun_on_card(dev):
 
 @pytest.fixture(scope="module")
 def round_scenes(dev, tmp_path_factory):
-    """The scenes of tests/test_torch_shade.py on the card."""
-    from torch_parity import room_scene
+    """The scenes of tests/test_torch_shade.py on the card: the textured
+    ones run the shade kernel's maps instance."""
+    from torch_parity import (bump_scene, maps_scene, room_scene,
+                              sphere_maps_scene, uphill)
 
     tmp = str(tmp_path_factory.mktemp("rounds"))
     return {
         "sponza": presets.sponza_proxy(n_tris_target=20000).compile(),
         "spheres": presets.sphere_diffuse().compile(),
         "room": room_scene(trt, tmp).compile(),
+        "maps": maps_scene(trt, tmp, ("albedo", "metal", "alpha")).compile(),
+        "bump": bump_scene(trt, tmp, uphill).compile(),
+        "bump_bilinear": bump_scene(trt, tmp, uphill, sampler=1).compile(),
+        "sphere_maps": sphere_maps_scene(trt, tmp).compile(),
     }
 
 
-ROUND_CASES = [
-    pytest.param(name, space, n_lights, space == "tri", n_lights != 1,
-                 id=f"{name}-{space}-{n_lights}")
-    for name in ("sponza", "spheres", "room")
-    for space in ("slot", "tri") for n_lights in (0, 1, 2)
-]
+# the configuration values each scene is rendered with
+SCENE_CFG = {name: dict(enable_normal_maps=True, bump_scale=4.0)
+             for name in ("bump", "bump_bilinear")}
+TEXTURED = ("maps", "bump", "bump_bilinear", "sphere_maps")
+
+
+def _round_cases(names):
+    return [
+        pytest.param(name, space, n_lights, space == "tri", n_lights != 1,
+                     id=f"{name}-{space}-{n_lights}")
+        for name in names
+        for space in ("slot", "tri") for n_lights in (0, 1, 2)
+    ]
+
+
+ROUND_CASES = _round_cases(("sponza", "spheres", "room"))
+
+
+def _round_launches(sc, cfg, rounds):
+    """The round kernels' launch counts of ``rounds`` fused rounds: the
+    shade kernel's maps instance where textures are in use, else the
+    untextured one."""
+    from ray_tracer_tpu_torch.kernels import shade
+
+    maps = shade.maps_on(sc, cfg)
+    return {"shade_round": 0 if maps else rounds,
+            "shade_round_maps": rounds if maps else 0,
+            "permute_rows": rounds, "nee_resolve": rounds}
 
 
 def _same_all(got, want, what):
@@ -1132,13 +1160,15 @@ def _same_all(got, want, what):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name,space,n_lights,jitter,tint", ROUND_CASES)
+@pytest.mark.parametrize("name,space,n_lights,jitter,tint",
+                         ROUND_CASES + _round_cases(TEXTURED))
 def test_round_kernels_match_plain_versions(dev, round_scenes, name, space,
                                             n_lights, jitter, tint):
-    """Every round of a 64x36 frame: shade_kernel, permute_kernel and
-    nee_resolve_kernel each against its plain version on the same inputs
-    (equal values, NaN equal to NaN), then the frame on the card through
-    the kernels against the torch round's, bit for bit."""
+    """Every round of a 64x36 frame: shade_kernel (on the textured scenes
+    its maps instance), permute_kernel and nee_resolve_kernel each against
+    its plain version on the same inputs (equal values, NaN equal to NaN),
+    then the frame on the card through the kernels against the torch
+    round's, bit for bit."""
     from ray_tracer_tpu_torch.integrator import wavefront
     from ray_tracer_tpu_torch.kernels import shade
     from ray_tracer_tpu_torch.ops import traverse
@@ -1148,7 +1178,8 @@ def test_round_kernels_match_plain_versions(dev, round_scenes, name, space,
     routing = trt.Routing(wide=space == "slot")
     cfg = trt.RenderConfig(width=64, height=36, samples_per_pixel=2,
                            bounce_limit=8, routing=routing,
-                           aa_jitter=jitter, tint_spec_diel=tint)
+                           aa_jitter=jitter, tint_spec_diel=tint,
+                           **SCENE_CFG.get(name, {}))
     c, round_, w = first_wave(sc, cfg)
     assert round_ is wavefront._fused_round
     shade.reset_launches()
@@ -1170,7 +1201,7 @@ def test_round_kernels_match_plain_versions(dev, round_scenes, name, space,
         w = wavefront._fused_round(c, w)
         rounds += 1
     torch.cuda.synchronize()
-    assert shade.launches == {k: 2 * rounds for k in shade.launches}
+    assert shade.launches == _round_launches(sc, cfg, 2 * rounds)
     img = trt.render(sc, cfg)
     wavefront_ok = wavefront._fused_round_ok
     try:
@@ -1195,7 +1226,8 @@ def _checked_frame(sc, cfg, monkeypatch, old=None):
         for k, (a, b) in enumerate(zip(got, want)):
             assert same_bits(a, b), f"{what}: output {k} differs"
 
-    kernels = {k: getattr(shade, k) for k in shade.launches}
+    kernels = {k: getattr(shade, k)
+               for k in ("shade_round", "permute_rows", "nee_resolve")}
     widths = []
 
     def shade_round(c, w):
@@ -1222,7 +1254,7 @@ def _checked_frame(sc, cfg, monkeypatch, old=None):
         shade.reset_launches()
         img = trt.render(sc, cfg)
         torch.cuda.synchronize()
-        assert shade.launches == {k: len(widths) for k in shade.launches}
+        assert shade.launches == _round_launches(sc, cfg, len(widths))
         patch.setattr(wavefront, "_fused_round_ok", lambda *a: False)
         want = trt.render(sc, cfg)
     assert torch.equal(img, want)
@@ -1238,7 +1270,9 @@ RAGGED = [
     pytest.param(name, n_lights, w, h, spp, lanes,
                  id=f"{name}-{n_lights}-{w}x{h}-spp{spp}")
     for name, n_lights, drained in (("sponza", 2, (32768, 8192)),
-                                    ("spheres", 0, (32768,)))
+                                    ("spheres", 0, (32768,)),
+                                    ("maps", 1, (32768, 8192)),
+                                    ("bump_bilinear", 1, (32768, 8192)))
     for w, h, spp, lanes in ((63, 35, 2, (4410,)), (17, 15, 1, (255,)),
                              (1, 1, 1, (1,)), (128, 128, 2, drained))
 ]
@@ -1249,15 +1283,43 @@ RAGGED = [
 def test_round_kernels_on_ragged_widths(dev, round_scenes, monkeypatch, name,
                                         n_lights, width, height, spp, lanes):
     """Every round of frames whose widths are no multiple of the shade
-    kernel's 256-lane tiles: each round kernel against its plain version,
-    bit for bit, and the frame against the torch round's."""
+    kernel's 256-lane tiles: each round kernel (on the textured scenes the
+    shade kernel's maps instance) against its plain version, bit for bit,
+    and the frame against the torch round's."""
     from torch_parity import with_lights
 
     sc = with_lights(round_scenes[name], n_lights)
     cfg = trt.RenderConfig(width=width, height=height, samples_per_pixel=spp,
-                           bounce_limit=8)
+                           bounce_limit=8, **SCENE_CFG.get(name, {}))
     widths = _checked_frame(sc, cfg, monkeypatch)
     assert sorted(set(widths), reverse=True) == list(lanes)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", TEXTURED)
+def test_textured_frame_equals_the_torch_round(dev, round_scenes,
+                                               monkeypatch, name):
+    """A textured 240x136 frame (spp 2, bounce limit 8) through the round
+    kernels, the maps instance once a round, renders bit-identical to the
+    same frame through the torch round."""
+    from ray_tracer_tpu_torch.integrator import wavefront
+    from ray_tracer_tpu_torch.kernels import shade
+
+    sc = round_scenes[name]
+    cfg = trt.RenderConfig(width=240, height=136, samples_per_pixel=2,
+                           bounce_limit=8, **SCENE_CFG.get(name, {}))
+    assert wavefront._fused_round_ok(sc, cfg, cfg.resolved_routing())
+    shade.reset_launches()
+    img = trt.render(sc, cfg)
+    torch.cuda.synchronize()
+    rounds = shade.launches["shade_round_maps"]
+    assert rounds > 0
+    assert shade.launches == _round_launches(sc, cfg, rounds)
+    monkeypatch.setattr(wavefront, "_fused_round_ok", lambda *a: False)
+    shade.reset_launches()
+    want = trt.render(sc, cfg)
+    assert sum(shade.launches.values()) == 0
+    assert torch.equal(img, want)
 
 
 @pytest.fixture(scope="module")

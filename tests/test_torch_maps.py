@@ -2,9 +2,9 @@
 albedo, metalness and alpha maps, ``tint_spec_diel``, ``aa_jitter``,
 ``lane_pool`` and ``drain_div``, each against the JAX package on CPU.
 
-The scenes are built in a temporary directory (quads with full uv
-coverage, PNG maps written by the port's own encoder), as
-``tests/test_material_maps.py`` builds its own.  Images agree at
+The scenes are built in a temporary directory (``torch_parity.maps_scene``:
+quads with full uv coverage, PNG maps written by the port's own encoder),
+as ``tests/test_material_maps.py`` builds its own.  Images agree at
 ``atol=2e-3`` up to the rare pixels whose path XLA's contracted
 arithmetic sends the other way (``torch_parity.assert_images_match``);
 each case also checks that its option changes the image, so that the
@@ -21,77 +21,9 @@ import ray_tracer_tpu as jrt
 import ray_tracer_tpu_torch as trt
 from ray_tracer_tpu.config import Routing as JRouting
 from ray_tracer_tpu.scene import presets as j_presets
-from ray_tracer_tpu_torch.integrator import film
 from ray_tracer_tpu_torch.scene import presets as t_presets
 
-from torch_parity import assert_images_match
-
-
-def _write_quad(path, z=0.0, half=1.5):
-    """A z-facing quad spanning [-half, half]^2 with full uv coverage."""
-    with open(path, "w") as f:
-        f.write(
-            f"v -{half} -{half} {z}\nv {half} -{half} {z}\n"
-            f"v {half} {half} {z}\nv -{half} {half} {z}\n"
-            "vt 0 0\nvt 1 0\nvt 1 1\nvt 0 1\n"
-            "vn 0 0 -1\nvn 0 0 -1\nvn 0 0 -1\nvn 0 0 -1\n"
-            "f 1/1/1 3/3/3 2/2/2\nf 1/1/1 4/4/4 3/3/3\n"
-        )
-    return path
-
-
-def _write_png(path, rgb):
-    with open(path, "wb") as f:
-        f.write(film.encode_png_uint8(rgb))
-    return path
-
-
-def _gradient(n=12):
-    """An n x n color gradient with a checker, so that bilinear and
-    nearest sampling differ."""
-    y, x = np.mgrid[0:n, 0:n]
-    rgb = np.stack([x * 255 // (n - 1), y * 255 // (n - 1),
-                    ((x + y) % 2) * 200 + 30], axis=-1)
-    return rgb.astype(np.uint8)
-
-
-def _halves(left, right, n=16):
-    rgb = np.zeros((n, n, 3), np.uint8)
-    rgb[:, : n // 2] = left
-    rgb[:, n // 2:] = right
-    return rgb
-
-
-def maps_scene(pkg, tmp, maps):
-    """Two textured quads (bilinear left, nearest right) with the maps
-    named in ``maps`` ("albedo", "metal", "alpha"), an emissive wall
-    behind them with its rect light, under the sky."""
-    quad = _write_quad(os.path.join(tmp, "quad.obj"), half=0.9)
-    wall = _write_quad(os.path.join(tmp, "wall.obj"), z=2.0, half=4.0)
-    alb = _write_png(os.path.join(tmp, "alb.png"), _gradient())
-    metal = _write_png(os.path.join(tmp, "metal.png"), _halves(0, 255))
-    alpha = _write_png(os.path.join(tmp, "alpha.png"), _halves(255, 0))
-    b = pkg.SceneBuilder()
-    tex = {"albedo": b.add_texture(alb), "metal": b.add_texture(metal),
-           "alpha": b.add_texture(alpha)}
-    mat = pkg.Material(
-        albedo=(0.9, 0.8, 0.7),
-        albedo_tex=tex["albedo"] if "albedo" in maps else -1,
-        metalness_tex=tex["metal"] if "metal" in maps else -1,
-        alpha_tex=tex["alpha"] if "alpha" in maps else -1,
-    )
-    m = b.add_material(mat)
-    glow = b.add_material(pkg.Material(albedo=(0, 0, 0),
-                                       emission_color=(1, 0.9, 0.8),
-                                       emission_strength=2.0))
-    b.add_obj(quad, material=m, position=(-0.95, 0, 0), sampler=1)
-    b.add_obj(quad, material=m, position=(0.95, 0, 0), sampler=0)
-    b.add_obj(wall, material=glow)
-    b.add_rect_light(corner=(-4, -4, 2), edge_u=(8, 0, 0), edge_v=(0, 8, 0),
-                     normal=(0, 0, -1), material=glow)
-    b.set_environment(pkg.Environment(enabled=True))
-    b.set_camera(pkg.Camera(position=(0, 0, -4), angles_deg=(0, 0, 0)))
-    return b
+from torch_parity import assert_images_match, maps_scene
 
 
 # odd sizes: no camera ray has an exactly zero x or y direction, on which

@@ -3,8 +3,11 @@
 On CPU tensors the wrappers run their plain versions, so here the fused
 round (``integrator/wavefront.py::_fused_round``: shade, argsort, permute,
 traversal, NEE resolve) runs on the CPU and is held against the torch
-round bit for bit, round after round, on reduced scenes; the route
-predicate picks it for the main configuration and for no excluded value;
+round bit for bit, round after round, on reduced scenes, textured ones
+(albedo, metalness, alpha and bump maps, both samplers) among them; the
+route predicate picks it for the main configuration, textures and normal
+maps, and for no excluded value; the maps instance's sRGB table equals
+the texture fetch's decode;
 a main-path frame goes through the three wrappers once a round; the plain
 versions' pieces equal the JAX package's; and one frame of the new path
 agrees with the JAX package's render of its group-kernel route.  The
@@ -31,9 +34,13 @@ from ray_tracer_tpu_torch.scene import presets
 
 from torch_parity import (
     assert_images_match,
+    bump_scene,
     first_wave,
+    maps_scene,
     room_scene,
     same_bits,
+    sphere_maps_scene,
+    uphill,
     with_lights,
 )
 
@@ -49,7 +56,18 @@ def scenes(tmp_path_factory):
             device="cpu"),
         "spheres": presets.sphere_diffuse().compile(device="cpu"),
         "room": room_scene(trt, tmp).compile(device="cpu"),
+        "maps": maps_scene(trt, tmp, ("albedo", "metal", "alpha")).compile(
+            device="cpu"),
+        "bump": bump_scene(trt, tmp, uphill).compile(device="cpu"),
+        "bump_bilinear": bump_scene(trt, tmp, uphill, sampler=1).compile(
+            device="cpu"),
+        "sphere_maps": sphere_maps_scene(trt, tmp).compile(device="cpu"),
     }
+
+
+# the configuration values each scene is rendered with
+SCENE_CFG = {name: dict(enable_normal_maps=True, bump_scale=4.0)
+             for name in ("bump", "bump_bilinear")}
 
 
 def assert_waves_equal(got, want):
@@ -60,12 +78,16 @@ def assert_waves_equal(got, want):
 
 
 # each scene with 0, 1 and 2 lights in both triangle id spaces; jitter and
-# the tint of the delta lobes each on in half of the cases
+# the tint of the delta lobes each on in half of the cases.  The textured
+# scenes: two quads with albedo, metalness and alpha maps, one bilinear and
+# one nearest ("maps"), a bump-mapped quad, nearest and bilinear, under
+# enable_normal_maps, and spheres with maps (no meshes)
+TEXTURED = ("maps", "bump", "bump_bilinear", "sphere_maps")
 CASES = [
     pytest.param(name, space, n_lights, space == "tri", n_lights != 1,
                  id=f"{name}-{space}-{n_lights}")
     for name, space, n_lights in itertools.product(
-        ("sponza", "spheres", "room"), ("slot", "tri"), (0, 1, 2))
+        ("sponza", "spheres", "room") + TEXTURED, ("slot", "tri"), (0, 1, 2))
 ]
 
 
@@ -77,9 +99,10 @@ def test_plain_versions_equal_the_torch_round(scenes, name, space, n_lights,
     in every round of a frame."""
     sc = with_lights(scenes[name], n_lights)
     cfg = trt.RenderConfig(**SIZE, routing=SPACE[space], aa_jitter=jitter,
-                           tint_spec_diel=tint)
+                           tint_spec_diel=tint, **SCENE_CFG.get(name, {}))
     c, round_, w = first_wave(sc, cfg)
     assert round_ is wavefront._fused_round
+    assert (c.srgb is not None) == (name in TEXTURED)
     if sc.meta["flattened"]:
         assert c.space == space
     rounds = 0
@@ -106,8 +129,7 @@ def textured(sc):
 
 EXCLUDED = {  # each value that keeps the torch round
     "forest": ({}, None),
-    "textures": ({}, textured),
-    "normal_maps": (dict(enable_normal_maps=True), None),
+    "textured_forest": (dict(enable_normal_maps=True), textured),
     "bin_leaf": (dict(routing=trt.Routing(bin_mode="leaf")), None),
     "bin_hier": (dict(routing=trt.Routing(bin_mode="hier")), None),
     "prebin_sort": (dict(routing=trt.Routing(nee_prebin="sort")), None),
@@ -120,22 +142,26 @@ EXCLUDED = {  # each value that keeps the torch round
 @pytest.mark.parametrize("value", sorted(EXCLUDED))
 def test_fused_round_ok_excludes(scenes, forest, value):
     kw, change = EXCLUDED[value]
-    sc = forest if value == "forest" else scenes["sponza"]
+    sc = forest if value.endswith("forest") else scenes["sponza"]
     if change is not None:
         sc = change(sc)
     cfg = trt.RenderConfig(**kw)
     assert not wavefront._fused_round_ok(sc, cfg, cfg.resolved_routing())
 
 
-@pytest.mark.parametrize("kw", [
-    {}, dict(enable_textures=False), dict(routing=trt.Routing(wide=False)),
-    dict(routing=trt.Routing(bin_dir_bits=2)), dict(aa_jitter=True),
-], ids=["main", "textures_off", "narrow", "dir_bits", "jitter"])
-def test_fused_round_ok_main(scenes, kw):
+@pytest.mark.parametrize("kw,with_textures", [
+    ({}, False), (dict(enable_textures=False), True),
+    (dict(routing=trt.Routing(wide=False)), False),
+    (dict(routing=trt.Routing(bin_dir_bits=2)), False),
+    (dict(aa_jitter=True), False), ({}, True),
+    (dict(enable_normal_maps=True), True),
+], ids=["main", "textures_off", "narrow", "dir_bits", "jitter", "textures",
+        "normal_maps"])
+def test_fused_round_ok_main(scenes, kw, with_textures):
     """The main configuration, and values the kernels take: a textured
-    scene with ``enable_textures=False``, any route, direction bits."""
-    sc = textured(scenes["sponza"]) if kw == dict(
-        enable_textures=False) else scenes["sponza"]
+    scene with textures on or off, normal maps, any route, direction
+    bits."""
+    sc = textured(scenes["sponza"]) if with_textures else scenes["sponza"]
     cfg = trt.RenderConfig(**kw)
     assert wavefront._fused_round_ok(sc, cfg, cfg.resolved_routing())
     assert wavefront._fused_round_ok(scenes["spheres"], cfg,
@@ -170,6 +196,20 @@ def test_main_path_runs_the_wrappers(scenes, monkeypatch):
     monkeypatch.setattr(wavefront, "_fused_round_ok", lambda *a: False)
     assert torch.equal(img, trt.render(scenes["sponza"], cfg))
     assert calls["round"] == calls["shade_round"]
+
+
+def test_srgb_table_equals_the_fetch_decode():
+    """``shading.srgb_to_linear``, and so the maps instance's table, equals
+    the texture fetch's decode as written before it was factored out, on
+    every byte, bit for bit."""
+    texels = torch.arange(256, dtype=torch.uint8)
+    srgb = texels.to(torch.float32) / 255.0
+    want = torch.where(srgb <= 0.04045, srgb / 12.92,
+                       ((srgb + 0.055) / 1.055) ** 2.4)
+    assert same_bits(shading.srgb_to_linear(texels), want)
+    assert same_bits(shade.srgb_table("cpu"), want)
+    grid = texels.view(4, 8, 8)  # any shape, value by value
+    assert same_bits(shading.srgb_to_linear(grid), want.view(4, 8, 8))
 
 
 def test_bin_key_matches_jax(scenes):

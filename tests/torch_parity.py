@@ -602,7 +602,101 @@ def sharded_room_rank(rank, n, store, out, frame):
         dist.destroy_process_group()
 
 
-def bump_scene(pkg, tmp, ramp):
+def _write_quad(path, z=0.0, half=1.5):
+    """A z-facing quad spanning [-half, half]^2 with full uv coverage."""
+    with open(path, "w") as f:
+        f.write(
+            f"v -{half} -{half} {z}\nv {half} -{half} {z}\n"
+            f"v {half} {half} {z}\nv -{half} {half} {z}\n"
+            "vt 0 0\nvt 1 0\nvt 1 1\nvt 0 1\n"
+            "vn 0 0 -1\nvn 0 0 -1\nvn 0 0 -1\nvn 0 0 -1\n"
+            "f 1/1/1 3/3/3 2/2/2\nf 1/1/1 4/4/4 3/3/3\n"
+        )
+    return path
+
+
+def _write_png(path, rgb):
+    from ray_tracer_tpu_torch.integrator import film
+
+    with open(path, "wb") as f:
+        f.write(film.encode_png_uint8(rgb))
+    return path
+
+
+def _gradient(n=12):
+    """An n x n color gradient with a checker, so that bilinear and
+    nearest sampling differ."""
+    y, x = np.mgrid[0:n, 0:n]
+    rgb = np.stack([x * 255 // (n - 1), y * 255 // (n - 1),
+                    ((x + y) % 2) * 200 + 30], axis=-1)
+    return rgb.astype(np.uint8)
+
+
+def _halves(left, right, n=16):
+    rgb = np.zeros((n, n, 3), np.uint8)
+    rgb[:, : n // 2] = left
+    rgb[:, n // 2:] = right
+    return rgb
+
+
+def maps_scene(pkg, tmp, maps):
+    """Two textured quads (bilinear left, nearest right) with the maps
+    named in ``maps`` ("albedo", "metal", "alpha"), an emissive wall
+    behind them with its rect light, under the sky."""
+    quad = _write_quad(os.path.join(tmp, "quad.obj"), half=0.9)
+    wall = _write_quad(os.path.join(tmp, "wall.obj"), z=2.0, half=4.0)
+    alb = _write_png(os.path.join(tmp, "alb.png"), _gradient())
+    metal = _write_png(os.path.join(tmp, "metal.png"), _halves(0, 255))
+    alpha = _write_png(os.path.join(tmp, "alpha.png"), _halves(255, 0))
+    b = pkg.SceneBuilder()
+    tex = {"albedo": b.add_texture(alb), "metal": b.add_texture(metal),
+           "alpha": b.add_texture(alpha)}
+    mat = pkg.Material(
+        albedo=(0.9, 0.8, 0.7),
+        albedo_tex=tex["albedo"] if "albedo" in maps else -1,
+        metalness_tex=tex["metal"] if "metal" in maps else -1,
+        alpha_tex=tex["alpha"] if "alpha" in maps else -1,
+    )
+    m = b.add_material(mat)
+    glow = b.add_material(pkg.Material(albedo=(0, 0, 0),
+                                       emission_color=(1, 0.9, 0.8),
+                                       emission_strength=2.0))
+    b.add_obj(quad, material=m, position=(-0.95, 0, 0), sampler=1)
+    b.add_obj(quad, material=m, position=(0.95, 0, 0), sampler=0)
+    b.add_obj(wall, material=glow)
+    b.add_rect_light(corner=(-4, -4, 2), edge_u=(8, 0, 0), edge_v=(0, 8, 0),
+                     normal=(0, 0, -1), material=glow)
+    b.set_environment(pkg.Environment(enabled=True))
+    b.set_camera(pkg.Camera(position=(0, 0, -4), angles_deg=(0, 0, 0)))
+    return b
+
+
+def sphere_maps_scene(pkg, tmp):
+    """``sphere_diffuse``'s two spheres with maps, a scene without meshes:
+    the small sphere's material has an albedo map and an alpha map that
+    cuts everywhere, the ground's an albedo map and a metalness map.  Its
+    sphere lanes sample at shade row 0's uv, as both packages do."""
+    alb = _write_png(os.path.join(tmp, "sph_alb.png"), _gradient())
+    cut = _write_png(os.path.join(tmp, "sph_cut.png"),
+                     np.zeros((4, 4, 3), np.uint8))
+    metal = _write_png(os.path.join(tmp, "sph_metal.png"),
+                       np.full((4, 4, 3), 128, np.uint8))
+    b = pkg.SceneBuilder()
+    tex = [b.add_texture(path) for path in (alb, cut, metal)]
+    small = b.add_material(pkg.Material(albedo=(0.8, 0.6, 0.4),
+                                        albedo_tex=tex[0], alpha_tex=tex[1]))
+    ground = b.add_material(pkg.Material(albedo=(0.7, 0.7, 0.7),
+                                         albedo_tex=tex[0],
+                                         metalness_tex=tex[2]))
+    b.add_sphere((0.0, -0.5, 0.0), 0.5, small)
+    b.add_sphere((0.0, 100.0, 0.0), 100.0, ground)
+    b.set_environment(pkg.Environment(enabled=True))
+    b.set_camera(pkg.Camera(position=(0.0, -0.6, -3.0),
+                            angles_deg=(0.0, 0.0, 0.0)))
+    return b
+
+
+def bump_scene(pkg, tmp, ramp, sampler=0):
     """``tests/test_normal_maps.py``'s scene: a -z-facing textured quad
     with a bump map whose height is ``ramp(column)`` (16x16 gray PNG, made
     here), a dark wall behind the camera, and a rect light in front of the
@@ -630,7 +724,7 @@ def bump_scene(pkg, tmp, ramp):
     tex = b.add_texture(bmap)
     mat = b.add_material(pkg.Material(albedo=(0.8, 0.8, 0.8), bump_tex=tex))
     dark = b.add_material(pkg.Material(albedo=(0.25, 0.25, 0.25)))
-    b.add_obj(quad, material=mat)
+    b.add_obj(quad, material=mat, sampler=sampler)
     b.add_obj(wall, material=dark)
     glow = b.add_material(pkg.Material(emission_color=(1, 1, 1),
                                        emission_strength=6.0))

@@ -360,10 +360,10 @@ constexpr int kPersistent = 5;
 
 }  // namespace
 
-// Blocks of ``variant`` (-1: shade_kernel, as the package's library
-// builds it from the same source and flags) that fit on one SM at once,
-// its registers a thread, and its local-memory and static shared-memory
-// bytes.
+// Blocks of ``variant`` (-1: shade_kernel<false>, the untextured instance,
+// as the package's library builds it from the same source and flags) that
+// fit on one SM at once, its registers a thread, and its local-memory and
+// static shared-memory bytes.
 extern "C" int rt_shade_variant_info(int variant, int* blocks_per_sm,
                                      int* registers, int* local_bytes,
                                      int* shared_bytes) {
@@ -371,7 +371,7 @@ extern "C" int rt_shade_variant_info(int variant, int* blocks_per_sm,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const void* fn = reinterpret_cast<const void*>(
-      variant < 0 ? shade_kernel : kVariants[variant]);
+      variant < 0 ? shade_kernel<false> : kVariants[variant]);
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, fn);
   if (err != cudaSuccess) return static_cast<int>(err);
