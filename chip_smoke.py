@@ -64,8 +64,13 @@ bit for bit, with bounds, the maps instance also timed alone; cutout,
 bumped, bilinear and nearest lanes counted;
 the frame equal to the torch round's, both timed, with the launches a
 round and both shade kernel instances' ptxas lines), ``sponza_proxy`` compiled
-as a forest (``forest``: 64x36 against the CPU, the benchmark frame
-through the narrow walk per instance), the static scan's occupancy
+as a forest (``forest``: 64x36 against the CPU; forest_walk_kernel
+against its plain version on 2^18 rays of the forest frame's bounce and
+shadow sets, bit for bit, with bounds, and against the per-instance
+composition it replaced, ``tools/measure_forest_walk.py``, timed in
+turns, ``forest_vs_old``; the benchmark frame on the round kernels, one
+forest-walk launch a traversal, equal to the torch round's frame bit for
+bit, both timed, with the launches a round), the static scan's occupancy
 profile, and an NCCL world of one (``sharded``: ``render_frame_sharded``
 on a (1, 1) mesh equal to ``render_frame``, then the port's
 ``dryrun_multichip(1)``).  Every phase prints one
@@ -113,6 +118,7 @@ from ray_tracer_tpu_torch.scene import presets  # noqa: E402
 import cluster_test_variants  # noqa: E402
 import deep_walk_variants  # noqa: E402
 import emit_walk_variants  # noqa: E402
+import measure_forest_walk  # noqa: E402
 import narrow_walk_variants  # noqa: E402
 import packet_walk_variants  # noqa: E402
 import rope_walk_variants  # noqa: E402
@@ -147,6 +153,7 @@ BVH8 = "ray_tracer_tpu_torch/csrc/bvh8_walk.cu"
 PACKET8 = "ray_tracer_tpu/kernels/packet.py:301"
 SHADE = "ray_tracer_tpu_torch/csrc/shade_round.cu"
 JAX_ROUND = "ray_tracer_tpu/integrator/wavefront.py:1003-1400"
+JAX_FOREST = "ray_tracer_tpu/ops/traverse.py:603-627"
 # the main frame's rounds checked: the widest (every lane's first hit) and
 # one past russian roulette's start (bounce 5)
 CHECK_ROUNDS = (0, 6)
@@ -181,6 +188,12 @@ KERNELS = {  # mode -> (source, its CUDA kernel, the TPU kernel it replaces)
     "shade_round_maps": (SHADE, "shade_kernel<true>", JAX_ROUND),
     "permute_rows": (SHADE, "permute_kernel", JAX_ROUND),
     "nee_resolve": (SHADE, "nee_resolve_kernel", JAX_ROUND),
+    # the forest walk, which the JAX package leaves to XLA's fusion of its
+    # lax.scan over the instances
+    "forest_walk": ("ray_tracer_tpu_torch/csrc/bvh2_walk.cu",
+                    "forest_walk_kernel<false>", JAX_FOREST),
+    "forest_anyhit": ("ray_tracer_tpu_torch/csrc/bvh2_walk.cu",
+                      "forest_walk_kernel<true>", JAX_FOREST),
 }
 
 # The least time the card could take for a kernel's work: the larger of
@@ -199,6 +212,8 @@ OPS_PAIR_TRI = 39  # one pair x triangle: the non-zero page terms (T 6,
 OPS_BOX_RAY = 6  # one live lane's set-up: 1/d, o/d
 OPS_RAY_BOX = 22  # one ray x box: 6 plane products (one non-zero page row
 # each), 6 sub, 10 min/max
+OPS_SCAN = 36  # one ray taken to an instance's object space: the point 18,
+# the direction 15, three reciprocals (the root's box test is a box)
 # Bytes the function needs per unit: a node's 8 child boxes with codes
 # and axis, a record's v0|e1|e2|n|front_only, a triangle's non-zero page
 # coefficients (T 4, B 3, U 6, V 6, FO 1), a box's 6 planes, a binary
@@ -303,7 +318,7 @@ def check_rays(sc, dev, n=N_CHECK):
     hit = traverse.traverse(sc, o, d, torch.ones(n, dtype=torch.bool,
                                                  device=dev))
     hp, normal = wavefront._shade_fetch(
-        sc, wavefront.CameraRays(o, d), hit)[:2]
+        sc, wavefront.CameraRays(o, d), hit, traverse.prim_space(sc))[:2]
     u = rng.uniforms(0, ids, 0, sample, 0, 7)
     hit_any = hit.did_hit
     b_dir = bsdf.cosine_hemisphere_dir(normal, u[:, 3], u[:, 4])
@@ -1808,12 +1823,12 @@ def normal_maps(tmp):
         once_a_round(f"normal_maps ({key})", got, "shade_round_maps")
 
 
-def once_a_round(title, got, shade_key):
+def once_a_round(title, got, shade_key, walk="group_traverse"):
     """Raise unless a frame's launches (``bench.all_launches``) ran each
     round kernel once in each of its rounds, the shade kernel's instance
-    ``shade_key`` and not the other: one closest-hit walk a round, after
-    the camera rays' own.  Returns the rounds."""
-    rounds = got["group_traverse"] - 1
+    ``shade_key`` and not the other: one closest-hit walk (``walk``) a
+    round, after the camera rays' own.  Returns the rounds."""
+    rounds = got[walk] - 1
     other = ({"shade_round", "shade_round_maps"} - {shade_key}).pop()
     want = {shade_key: rounds, other: 0, "permute_rows": rounds,
             "nee_resolve": rounds}
@@ -1863,16 +1878,23 @@ def maps_scene(tmp):
     return b
 
 
-def frame_launches(sc, cfg):
+def frame_launches(sc, cfg, kernels=()):
     """One frame through ``render`` under ``torch.profiler``: the card's
-    kernel launches in it (every kernel, torch's own included)."""
+    kernel launches in it (every kernel, torch's own included), and the
+    device ms and launches of each kernel whose name holds one of
+    ``kernels``."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         trt.render(sc, cfg)
         torch.cuda.synchronize()
-    return sum(1 for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA)
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    in_frame = {k: dict(
+        ms=sum(e.time_range.elapsed_us() for e in events if k in e.name)
+        / 1e3,
+        launches=sum(1 for e in events if k in e.name)) for k in kernels}
+    return len(events), in_frame
 
 
 def maps_phase(tmp):
@@ -1907,7 +1929,7 @@ def maps_phase(tmp):
     lanes = {k: sum(c[k] for c in costs["shade_round"])
              for k in ("cutout_lanes", "bump_lanes", "bilinear_lanes",
                        "nearest_lanes")}
-    frames, times, launches, kernels = {}, {}, {}, {}
+    frames, times, launches, kernels, in_frame = {}, {}, {}, {}, {}
     fused_ok = wavefront._fused_round_ok
     try:
         for key in ("fused", "torch"):
@@ -1921,7 +1943,8 @@ def maps_phase(tmp):
             torch.cuda.synchronize()
             times[key] = time.perf_counter() - t0
             launches[key] = bench.all_launches()
-            kernels[key] = frame_launches(sc, cfg)
+            kernels[key], in_frame[key] = frame_launches(
+                sc, cfg, ("shade_kernel",))
     finally:
         wavefront._fused_round_ok = fused_ok
     rounds = once_a_round("maps", launches["fused"], "shade_round_maps")
@@ -1941,6 +1964,7 @@ def maps_phase(tmp):
           kernels_per_round_fused=kernels["fused"] / rounds,
           kernels_per_round_torch=kernels["torch"] / rounds,
           kernels_fused=kernels["fused"], kernels_torch=kernels["torch"],
+          shade_maps_in_frame=in_frame["fused"]["shade_kernel"],
           shade_maps_ptxas=[x["lines"] for x in ptx["maps"]],
           shade_plain_ptxas=[x["lines"] for x in ptx["plain"]],
           shade_maps_spill_store_bytes=[x["spill_store_bytes"]
@@ -1956,13 +1980,94 @@ def maps_phase(tmp):
     return checks, launches["fused"]
 
 
+def forest_checks(sc, rays):
+    """The forest walk (forest_walk_kernel) against its plain version
+    (``packet.forest_traverse_reference``, which walks the instances one
+    after the other: about a minute), closest hit on the bounce set and
+    occlusion on the shadow set, every output equal.  Bytes: the rays, the
+    instance table (the 48 B of the inverse transform a kernel reads, the
+    root, its word and the root's row), the distinct node rows whose boxes
+    were tested and the distinct triangle records tested; operations: 22
+    per box tested (the roots' too), 40 per triangle and ``OPS_SCAN`` per
+    ray taken to an instance's object space."""
+    out = {}
+    n_obj = sc.meta["n_objects"]
+    for name, anyhit in (("bounce", False), ("shadow", True)):
+        args = measure_forest_walk.forest_args(sc, rays[name])
+        plain_args = (*args[:4], sc.meta["obj_roots"], *args[6:])
+        stats = {}
+
+        def cost(args=args, stats=stats, anyhit=anyhit):
+            return dict(bound(
+                ray_bytes(args[8], 1 if anyhit else 21)
+                + n_obj * (48 + 8 + NODE2_BYTES)
+                + int(stats["node_seen"].sum()) * NODE2_BYTES
+                + int(stats["tri_seen"].sum()) * RECORD_BYTES,
+                stats["boxes"] * OPS_CHILD + stats["tris"] * OPS_RECORD
+                + stats["scans"] * OPS_SCAN),
+                **{k: stats[k] for k in ("boxes", "tris", "scans")})
+
+        out["forest_" + name] = measure(
+            "forest_anyhit" if anyhit else "forest_walk",
+            lambda args=args, anyhit=anyhit: _tuple(
+                packet.forest_traverse(*args, anyhit=anyhit)),
+            lambda plain_args=plain_args, anyhit=anyhit, stats=stats: _tuple(
+                packet.forest_traverse_reference(*plain_args, anyhit=anyhit,
+                                                 stats=stats)),
+            equal_all(f"forest {name}"), cost, rays=name, n=N_CHECK,
+            instances=n_obj, active=int((args[8] > -BIG).sum()))
+    return out
+
+
+def _tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def forest_vs_old(sc, rays):
+    """The forest walk against the per-instance composition it replaced
+    (``tools/measure_forest_walk.py::old_forest``: per instance a cuBLAS
+    product, a narrow-walk launch and the merges) on the 2^18-lane camera
+    and bounce sets (closest hit) and the shadow set (occlusion): the hits
+    apart in at most 0.1% of the rays, ``dst`` within rtol 1e-5 where both
+    hit in all but 1% of them (``measure_forest_walk.compare_old``), then
+    each timed in turns.
+    Returns the records by ray set."""
+    out = {}
+    for name, anyhit in measure_forest_walk.SETS.items():
+        args = measure_forest_walk.forest_args(sc, rays[name])
+
+        def new(args=args, anyhit=anyhit):
+            return packet.forest_traverse(*args, anyhit=anyhit)
+
+        def old(rays=rays[name], anyhit=anyhit):
+            return measure_forest_walk.old_forest(sc, *rays, anyhit=anyhit)
+
+        rec = {**measure_forest_walk.compare_old(f"forest walk, {name}",
+                                                 new(), old(), anyhit),
+               **in_turns(new, old)}
+        phase("forest_vs_old", rays=name, n=N_CHECK, anyhit=anyhit,
+              active=int((args[8] > -BIG).sum()), **rec)
+        out[name] = rec
+    return out
+
+
 def forest(dev, main):
-    """``sponza_proxy`` compiled as a forest (one BVH per mesh, the
-    instances walked in turn by the narrow walk): 64x36 (spp 1) on the
-    card against the CPU, then the benchmark frame, whose checksum and
-    ray counts must agree with the main frame's within 1%; its image's
-    mean |diff| from the main frame is printed (the forest's trees have
-    no spatial splits, so the frames differ only at exact-t ties)."""
+    """``sponza_proxy`` compiled as a forest (one BVH per mesh, every
+    instance walked in one forest_walk_kernel launch a traversal): 64x36
+    (spp 1) on the card against the CPU; the forest walk against its plain
+    version on 2^18 rays of the frame's bounce and shadow sets
+    (``forest_checks``, with bounds) and against the composition it
+    replaced on those and the camera set (``forest_vs_old``, in turns);
+    then the benchmark
+    frame on the round kernels, whose checksum and ray counts must agree
+    with the main frame's within 1% (``frame``), equal bit for bit to the
+    same frame on the torch round, both timed, with every kernel launch a
+    round of both (the profiler's count) and the forest walk's device ms in
+    the frame; each traversal one forest-walk launch, no narrow-walk
+    launch, each round kernel once a round.  Its image's mean |diff| from
+    the main frame is printed (the forest's trees have no spatial splits,
+    so the frames differ only at exact-t ties).  Returns the frame's
+    record and the kernel checks."""
     t0 = time.perf_counter()
     sc = presets.sponza_proxy(SCENE_TRIS).compile(flatten_instances=False)
     compile_s = time.perf_counter() - t0
@@ -1974,20 +2079,65 @@ def forest(dev, main):
     cpu = trt.render(sc.to("cpu"), cfg)
     images_agree("card_vs_cpu_forest", gpu, cpu, spp=1, card_s=t1 - t0,
                  cpu_s=time.perf_counter() - t1)
+    rays = check_rays(sc, dev)
+    checks = forest_checks(sc, rays)
+    forest_vs_old(sc, rays)
+    del rays
     rec = frame(sc, dev, "frame_forest", None, 1, main=main)
+    cfg = frame_cfg()
+    if not wavefront._fused_round_ok(sc, cfg, cfg.resolved_routing()):
+        raise AssertionError("forest: the frame does not take the round "
+                             "kernels")
+    fused_ok = wavefront._fused_round_ok
+    frames, times, launches, kernels, in_frame = {}, {}, {}, {}, {}
+    try:
+        for key in ("fused", "torch"):
+            if key == "torch":
+                wavefront._fused_round_ok = lambda *a: False
+            trt.render(sc, cfg)  # warm-up
+            torch.cuda.synchronize()
+            bench.reset_launches()
+            t0 = time.perf_counter()
+            frames[key] = trt.render(sc, cfg)
+            torch.cuda.synchronize()
+            times[key] = time.perf_counter() - t0
+            launches[key] = bench.all_launches()
+            kernels[key], in_frame[key] = frame_launches(
+                sc, cfg, ("forest_walk_kernel",))
+    finally:
+        wavefront._fused_round_ok = fused_ok
+    rounds = once_a_round("forest", launches["fused"], "shade_round",
+                          walk="forest_walk")
+    walks = {k: rec["launches"][k] for k in ("forest_walk", "forest_anyhit",
+                                             "packet_narrow")}
+    if any(launches["torch"][k] for k in shade.launches):
+        raise AssertionError(f"forest: the torch round launched a round "
+                             f"kernel: {launches['torch']}")
+    equal = bool(torch.equal(frames["fused"], frames["torch"]))
     diff = (rec.pop("image") - main["image"]).abs()
     phase("forest", size=f"{FRAME[0]}x{FRAME[1]}", spp=2, bounce=8,
           compile_s=compile_s, n_objects=sc.meta["n_objects"],
           n_tris=sc.meta["n_tris"], bvh_nodes=int(sc.bvh_packed.shape[0]),
           bvh_max_depth=sc.meta["bvh_max_depth"], frame_s=rec["frame_s"],
-          render_s=rec["render_s"],
-          narrow_launches=rec["launches"]["packet_narrow"],
+          render_s=rec["render_s"], rounds=rounds, **walks,
+          frame_s_fused=times["fused"], frame_s_torch=times["torch"],
+          speedup=times["torch"] / times["fused"], equal_to_torch=equal,
+          launches_fused=launches["fused"], launches_torch=launches["torch"],
+          kernels_per_round_fused=kernels["fused"] / rounds,
+          kernels_per_round_torch=kernels["torch"] / rounds,
+          kernels_fused=kernels["fused"], kernels_torch=kernels["torch"],
+          forest_walk_in_frame=in_frame["fused"]["forest_walk_kernel"],
           mean_abs_diff_vs_main=float(diff.mean()),
           pixels_within_2e3=float((diff.amax(dim=-1) <= 2e-3).float()
                                   .mean()))
-    if rec["launches"]["packet_narrow"] <= 0:
-        raise AssertionError("forest: the narrow walk never ran")
-    return rec
+    if walks["packet_narrow"] or walks["forest_walk"] != rounds + 1 \
+            or walks["forest_anyhit"] != rounds:
+        raise AssertionError(f"forest: not one forest-walk launch a "
+                             f"traversal in {rounds} rounds: {walks}")
+    if not equal:
+        raise AssertionError("forest: the round kernels' frame differs from "
+                             "the torch round's")
+    return rec, checks
 
 
 def sharded(sc):
@@ -2215,7 +2365,8 @@ def main() -> None:
         maps_checks, maps_launches = maps_phase(tmp)
     checks.update(maps_checks)
     frames["maps"] = {"launches": maps_launches}
-    frames["frame_forest"] = forest(dev, frames["frame"])
+    frames["frame_forest"], forest_kernels = forest(dev, frames["frame"])
+    checks.update(forest_kernels)
     if frames["frame_closest_nee"]["launches"]["group_traverse"] <= 0:
         raise AssertionError("frame_closest_nee: the group walk never ran")
 
@@ -2251,6 +2402,8 @@ def main() -> None:
         "shade_round_maps": ("maps_shade_round_maps_0", "maps"),
         "permute_rows": ("permute_rows_0", "frame"),
         "nee_resolve": ("nee_resolve_0", "frame"),
+        "forest_walk": ("forest_bounce", "frame_forest"),
+        "forest_anyhit": ("forest_shadow", "frame_forest"),
     }
     kernels = []
     for name, (check, title) in source.items():

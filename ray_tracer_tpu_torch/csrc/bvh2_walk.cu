@@ -79,6 +79,38 @@
 // Left out: re-testing a popped node's box against the shrunken best.  The
 // triangles are SBVH references, whose hit can lie outside their leaf's
 // clipped box, so such a cull can change dst.
+//
+// The forest walk (forest_walk_kernel, entry rt_forest_walk): a scene
+// compiled with flatten_instances=False keeps one tree per instance, each
+// in its object space.  The JAX package scans the instances
+// (ray_tracer_tpu/ops/traverse.py:603-627, a lax.scan over its gather walk
+// that XLA fuses); this kernel runs that scan in one launch per traversal,
+// closest hit and occlusion, with the narrow walk above (walk(), shared
+// with bvh2_walk_kernel) for each instance.  Its plain version is
+// kernels/packet.py::forest_traverse_reference.
+//   * One thread per ray loops over the K instances in their order (no
+//     top-level tree: the order decides which instance wins an exact-t
+//     tie, and a later instance replaces an earlier one only at a strictly
+//     smaller t).  Each instance's ray is ((m00*x + m01*y) + m02*z) + m03
+//     per row for the origin and (m00*dx + m01*dy) + m02*dz for the
+//     direction, the JAX package's _transform_point and _transform_dir in
+//     a fixed order (a matrix product's order is cuBLAS's, which no
+//     --fmad=false kernel can match).
+//   * A block stages the instance table in shared memory, 128 instances
+//     (10 KiB) at a time: three rows of the inverse transform, the root's
+//     box and its word, 80 B each.  Any K runs, in ceil(K / 128) chunks;
+//     every thread of the block, those past n included, takes part in each
+//     chunk's two barriers.
+//   * The root's box is tested against the best t so far before the walk,
+//     as the narrow walk's own first test does, so a ray skips an instance
+//     whose box it enters at or beyond its best t.  Under kAnyhit the ray's
+//     bound falls to -BIG at its first instance hit, which ends its scan.
+//   * The per-ray cost of the scan, for each instance: 33 FP32 operations
+//     for the transform (18 for the point, 15 for the direction), three
+//     IEEE reciprocals and 22 for the root's slab test, about 58 in all,
+//     and five 16 B shared-memory loads that a warp shares.  For
+//     sponza_proxy (K = 293) that is about 17,000 operations a ray a
+//     traversal before any tree is walked.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -104,16 +136,14 @@ struct Ray {
   float ox, oy, oz, dx, dy, dz, ix, iy, iz;
 };
 
-__device__ __forceinline__ Ray load_ray(const float* __restrict__ origin,
-                                        const float* __restrict__ direction,
-                                        int i) {
+// The ray from o along d, its zero components replaced by 1e-20
+// (packet.py:75-77), and their reciprocals.
+__device__ __forceinline__ Ray make_ray(float ox, float oy, float oz,
+                                        float dx, float dy, float dz) {
   Ray y;
-  y.ox = origin[3 * i];
-  y.oy = origin[3 * i + 1];
-  y.oz = origin[3 * i + 2];
-  // zero-direction guard (packet.py:75-77)
-  const float dx = direction[3 * i], dy = direction[3 * i + 1],
-              dz = direction[3 * i + 2];
+  y.ox = ox;
+  y.oy = oy;
+  y.oz = oz;
   y.dx = dx == 0.0f ? 1e-20f : dx;
   y.dy = dy == 0.0f ? 1e-20f : dy;
   y.dz = dz == 0.0f ? 1e-20f : dz;
@@ -121,6 +151,14 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ origin,
   y.iy = 1.0f / y.dy;
   y.iz = 1.0f / y.dz;
   return y;
+}
+
+__device__ __forceinline__ Ray load_ray(const float* __restrict__ origin,
+                                        const float* __restrict__ direction,
+                                        int i) {
+  return make_ray(origin[3 * i], origin[3 * i + 1], origin[3 * i + 2],
+                  direction[3 * i], direction[3 * i + 1],
+                  direction[3 * i + 2]);
 }
 
 // Entry distance of the box of a node row (a = min.xyz, max.x; b = max.yz,
@@ -183,29 +221,17 @@ __device__ __forceinline__ void test_leaf(const float4* __restrict__ tris,
   }
 }
 
-__global__ void __launch_bounds__(kBlock, kMinBlocks)
-    bvh2_walk_kernel(const float4* __restrict__ nodes,
-                     const int* __restrict__ axis,
-                     const float4* __restrict__ tris,
-                     const float* __restrict__ origin,
-                     const float* __restrict__ direction,
-                     const float* __restrict__ tmax0, int root,
-                     uint32_t root_word, float* __restrict__ dst_out,
-                     int* __restrict__ prim_out, float* __restrict__ u_out,
-                     float* __restrict__ v_out, bool* __restrict__ front_out,
-                     int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Ray y = load_ray(origin, direction, i);
-  float best = tmax0[i];
-  int prim = -1;
-  float bu = 0.0f, bv = 0.0f;
-  bool bfront = false;
+// The walk of one tree from the node word `cur`, whose box the ray enters
+// within best (`live`; the caller tests the root's box): the closest hit
+// within best, folded into best, prim, u, v and front.
+__device__ __forceinline__ void walk(const float4* __restrict__ nodes,
+                                     const int* __restrict__ axis,
+                                     const float4* __restrict__ tris,
+                                     const Ray& y, uint32_t cur, bool live,
+                                     float& best, int& prim, float& bu,
+                                     float& bv, bool& bfront) {
   uint32_t stack[kStack];  // far children, entered when popped
   int sp = 0;
-  uint32_t cur = root_word;  // the node being visited
-  bool live = entry(__ldg(nodes + 2 * root), __ldg(nodes + 2 * root + 1), y) <
-              best;
   auto pop = [&]() {
     live = sp > 0;
     if (live) cur = stack[--sp];
@@ -246,8 +272,137 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
       pop();
     }
   }
+}
+
+__global__ void __launch_bounds__(kBlock, kMinBlocks)
+    bvh2_walk_kernel(const float4* __restrict__ nodes,
+                     const int* __restrict__ axis,
+                     const float4* __restrict__ tris,
+                     const float* __restrict__ origin,
+                     const float* __restrict__ direction,
+                     const float* __restrict__ tmax0, int root,
+                     uint32_t root_word, float* __restrict__ dst_out,
+                     int* __restrict__ prim_out, float* __restrict__ u_out,
+                     float* __restrict__ v_out, bool* __restrict__ front_out,
+                     int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const Ray y = load_ray(origin, direction, i);
+  float best = tmax0[i];
+  int prim = -1;
+  float bu = 0.0f, bv = 0.0f;
+  bool bfront = false;
+  const bool live =
+      entry(__ldg(nodes + 2 * root), __ldg(nodes + 2 * root + 1), y) < best;
+  walk(nodes, axis, tris, y, root_word, live, best, prim, bu, bv, bfront);
   dst_out[i] = best;
   prim_out[i] = prim;
+  u_out[i] = bu;
+  v_out[i] = bv;
+  front_out[i] = bfront;
+}
+
+// ---- the forest walk ------------------------------------------------------
+
+// One instance of a forest as a block stages it: the first three rows of
+// its inverse transform (m0..m2) and its root's box and word (a = min.xyz,
+// max.x; b = max.yz, the root's word as bits, unused).
+struct Instance {
+  float4 m0, m1, m2, a, b;
+};
+
+constexpr int kForestMinBlocks = 8;  // blocks per SM: at most 64 registers
+constexpr int kForestChunk = 128;    // instances staged at a time (10 KiB)
+
+// Every instance of a forest in turn, one thread per ray: the ray taken to
+// the instance's object space (the plain version's expressions, in its
+// order), the root's box tested against the best t so far, the tree walked
+// from the root's word, bounded by that t.  A later instance replaces an
+// earlier one at a strictly smaller t only.  Closest hit: dst, prim, obj
+// (-1 on a miss), u, v, front.  kAnyhit: the ray's bound falls to -BIG at
+// its first instance hit, which ends its scan; `occluded` says whether it
+// fell.
+template <bool kAnyhit>
+__global__ void __launch_bounds__(kBlock, kForestMinBlocks)
+    forest_walk_kernel(const float4* __restrict__ nodes,
+                       const int* __restrict__ axis,
+                       const float4* __restrict__ tris,
+                       const float4* __restrict__ inv,
+                       const int* __restrict__ roots,
+                       const uint32_t* __restrict__ words, int n_obj,
+                       const float* __restrict__ origin,
+                       const float* __restrict__ direction,
+                       const float* __restrict__ tmax0,
+                       float* __restrict__ dst_out,
+                       int* __restrict__ prim_out, int* __restrict__ obj_out,
+                       float* __restrict__ u_out, float* __restrict__ v_out,
+                       bool* __restrict__ front_out,
+                       bool* __restrict__ occluded_out, int n) {
+  __shared__ Instance table[kForestChunk];
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool in = i < n;
+  float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 0.0f;
+  float best = -kBig;
+  if (in) {
+    ox = origin[3 * i];
+    oy = origin[3 * i + 1];
+    oz = origin[3 * i + 2];
+    dx = direction[3 * i];
+    dy = direction[3 * i + 1];
+    dz = direction[3 * i + 2];
+    best = tmax0[i];
+  }
+  int prim = -1, obj = -1;
+  float bu = 0.0f, bv = 0.0f;
+  bool bfront = false;
+  // every thread of the block stages each chunk, those past n included
+  for (int base = 0; base < n_obj; base += kForestChunk) {
+    const int m = min(kForestChunk, n_obj - base);
+    __syncthreads();
+    for (int e = threadIdx.x; e < m; e += kBlock) {
+      const int k = base + e;
+      const int root = __ldg(roots + k);
+      Instance s;
+      s.m0 = __ldg(inv + 4 * k);
+      s.m1 = __ldg(inv + 4 * k + 1);
+      s.m2 = __ldg(inv + 4 * k + 2);
+      s.a = __ldg(nodes + 2 * root);
+      s.b = __ldg(nodes + 2 * root + 1);
+      s.b.z = __uint_as_float(__ldg(words + k));
+      table[e] = s;
+    }
+    __syncthreads();
+    // a lane whose bound is not above 0 enters no box: the entry is >= 0
+#pragma unroll 1
+    for (int e = 0; e < m && best > 0.0f; ++e) {
+      const Instance& s = table[e];
+      // ray_tracer_tpu/ops/traverse.py::_transform_point, _transform_dir
+      const float px = ((s.m0.x * ox + s.m0.y * oy) + s.m0.z * oz) + s.m0.w;
+      const float py = ((s.m1.x * ox + s.m1.y * oy) + s.m1.z * oz) + s.m1.w;
+      const float pz = ((s.m2.x * ox + s.m2.y * oy) + s.m2.z * oz) + s.m2.w;
+      const float qx = (s.m0.x * dx + s.m0.y * dy) + s.m0.z * dz;
+      const float qy = (s.m1.x * dx + s.m1.y * dy) + s.m1.z * dz;
+      const float qz = (s.m2.x * dx + s.m2.y * dy) + s.m2.z * dz;
+      const Ray y = make_ray(px, py, pz, qx, qy, qz);
+      if (!(entry(s.a, s.b, y) < best)) continue;
+      int p = -1;
+      walk(nodes, axis, tris, y, __float_as_uint(s.b.z), true, best, p, bu,
+           bv, bfront);
+      if (p >= 0) {
+        prim = p;
+        obj = base + e;
+        if (kAnyhit) best = -kBig;
+      }
+    }
+  }
+  if (!in) return;
+  if (kAnyhit) {
+    occluded_out[i] = prim >= 0;
+    return;
+  }
+  dst_out[i] = best;
+  prim_out[i] = prim;
+  obj_out[i] = obj;
   u_out[i] = bu;
   v_out[i] = bv;
   front_out[i] = bfront;
@@ -273,5 +428,32 @@ extern "C" int rt_bvh2_walk(const void* nodes, const void* axis,
       static_cast<float*>(dst), static_cast<int*>(prim),
       static_cast<float*>(u), static_cast<float*>(v),
       static_cast<bool*>(front), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One launch of the forest walk over the n_obj instances whose inverse
+// transforms (n_obj,4,4), roots and root words (kernels/packet.py::
+// narrow_root_words) are given; anyhit writes `occluded` only, else dst,
+// prim, obj, u, v and front.  Returns the launch's CUDA error.
+extern "C" int rt_forest_walk(const void* nodes, const void* axis,
+                              const void* tris, const void* inv,
+                              const void* roots, const void* words,
+                              int n_obj, const void* origin,
+                              const void* direction, const void* tmax0,
+                              int anyhit, void* dst, void* prim, void* obj,
+                              void* u, void* v, void* front, void* occluded,
+                              int n, void* stream) {
+  const dim3 grid((n + kBlock - 1) / kBlock), block(kBlock);
+  auto kernel = anyhit ? forest_walk_kernel<true> : forest_walk_kernel<false>;
+  kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(nodes), static_cast<const int*>(axis),
+      static_cast<const float4*>(tris), static_cast<const float4*>(inv),
+      static_cast<const int*>(roots), static_cast<const uint32_t*>(words),
+      n_obj, static_cast<const float*>(origin),
+      static_cast<const float*>(direction),
+      static_cast<const float*>(tmax0), static_cast<float*>(dst),
+      static_cast<int*>(prim), static_cast<int*>(obj),
+      static_cast<float*>(u), static_cast<float*>(v),
+      static_cast<bool*>(front), static_cast<bool*>(occluded), n);
   return static_cast<int>(cudaGetLastError());
 }

@@ -493,25 +493,23 @@ def _slice_wave(w: Wave, m: int) -> Wave:
 def _fused_round_ok(scene: CompiledScene, cfg: RenderConfig,
                     rt: Routing) -> bool:
     """Does a wavefront round run the round kernels of
-    ``kernels/shade.py`` (:func:`_fused_round`)?  Decided by the scene and
-    the configuration alone, before any launch: a flattened scene or one
-    without meshes (triangles and/or spheres, any number of rect lights,
-    the analytic sky; albedo, metalness and alpha maps and, with
-    ``enable_normal_maps``, bump maps, through the shade kernel's maps
-    instance), binned by the morton key (``bin_rays`` on,
-    ``bin_mode="morton"``), with occlusion NEE traced after the permute
+    ``kernels/shade.py`` (:func:`_fused_round`)?  Decided by the
+    configuration alone, before any launch, on any scene (flattened,
+    forest or without meshes; triangles and/or spheres, any number of rect
+    lights, the analytic sky; albedo, metalness and alpha maps and, with
+    ``enable_normal_maps``, a flattened scene's bump maps, through the
+    shade kernel's maps instance): binned by the morton key (``bin_rays``
+    on, ``bin_mode="morton"``; a forest or mesh-free scene's key is its
+    octant), with occlusion NEE traced after the permute
     (``nee_anyhit=True``, ``nee_prebin="off"``), on any traversal route.
 
     Every other configuration runs the torch round (:func:`_torch_round`):
-    forest scenes, ``nee_prebin``, ``leaf``/``hier`` bins,
-    ``nee_anyhit=False`` and ``bin_rays=False``; the static scan
-    (:func:`trace`) is another integrator.  This is a route, not a
-    fallback: a kernel that fails to build or launch raises."""
-    forest = not scene.meta.get("flattened", False) and bool(
-        scene.n_objects and scene.meta.get("n_tris", 0))
-    return (not forest and cfg.bin_rays is not False
-            and rt.bin_mode == "morton" and rt.nee_prebin == "off"
-            and cfg.nee_anyhit)
+    ``nee_prebin``, ``leaf``/``hier`` bins, ``nee_anyhit=False`` and
+    ``bin_rays=False``; the static scan (:func:`trace`) is another
+    integrator.  This is a route, not a fallback: a kernel that fails to
+    build or launch raises."""
+    return (cfg.bin_rays is not False and rt.bin_mode == "morton"
+            and rt.nee_prebin == "off" and cfg.nee_anyhit)
 
 
 def _first_wave(c: shade.Round, pixel_id, sample_base, rope_err=None):

@@ -61,7 +61,8 @@ from .bvh8 import (
 # Kernel launches per mode since the last reset (the CPU path never adds).
 launches = {"packet8_wide": 0, "packet8_anyhit": 0, "packet8_emit": 0,
             "packet8_top": 0, "packet8_top_anyhit": 0, "packet8_deep": 0,
-            "packet8_deep_anyhit": 0, "packet_narrow": 0}
+            "packet8_deep_anyhit": 0, "packet_narrow": 0, "forest_walk": 0,
+            "forest_anyhit": 0}
 
 N_STACK = MAX_TREE_DEPTH + 32  # the narrow walk's stack (bvh2_walk.cu)
 # The narrow kernel's node word: first << NARROW_TAG_BITS | tag, tag = a
@@ -225,6 +226,12 @@ def _load_narrow() -> ctypes.CDLL:
             [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_uint]
             + [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
         )
+        lib.rt_forest_walk.restype = ctypes.c_int
+        lib.rt_forest_walk.argtypes = (
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_void_p] * 3
+            + [ctypes.c_int] + [ctypes.c_void_p] * 7
+            + [ctypes.c_int, ctypes.c_void_p]
+        )
         _narrow_lib = lib
     return _narrow_lib
 
@@ -328,6 +335,159 @@ def packet_traverse(bvh_packed, bvh_axis, tri_packed, origin, direction,
                                f"error {err}")
         launches["packet_narrow"] += 1
     return dst, prim, u, v, front
+
+
+def object_ray(m, origin, direction):
+    """Rays (N,3) taken to object space by the affine (4,4) ``m``, each
+    component elementwise in a fixed order: ``((m00*x + m01*y) + m02*z) +
+    m03`` for the origin, ``(m00*dx + m01*dy) + m02*dz`` for the
+    direction (the JAX package's ``_transform_point`` and
+    ``_transform_dir``), as ``forest_walk_kernel`` rounds them."""
+    x, y, z = origin.unbind(1)
+    dx, dy, dz = direction.unbind(1)
+    o = torch.stack([((m[r, 0] * x + m[r, 1] * y) + m[r, 2] * z) + m[r, 3]
+                     for r in range(3)], dim=1)
+    d = torch.stack([(m[r, 0] * dx + m[r, 1] * dy) + m[r, 2] * dz
+                     for r in range(3)], dim=1)
+    return o, d
+
+
+def forest_traverse(bvh_packed, bvh_axis, tri_packed, inv_transform, roots,
+                    words, origin, direction, tmax0, anyhit: bool = False):
+    """Every instance of a forest in one walk of N rays: ``(dst, prim,
+    obj, u, v, front)``, each (N,), or under ``anyhit`` the (N,) bool mask
+    of rays that hit an instance within ``tmax0``.
+
+    ``bvh_packed``, ``bvh_axis`` and ``tri_packed`` as for
+    :func:`packet_traverse`; ``inv_transform`` (K,4,4) f32, the instances'
+    world-to-object transforms; ``roots`` (K,) i32, their roots in
+    ``bvh_packed``, and ``words`` (K,) i32, the bits of those roots'
+    :func:`narrow_root_words` (``CompiledScene.forest_roots`` builds both
+    once from ``meta["obj_roots"]`` and ``["obj_root_words"]``; on CPU
+    tensors they are checked against the tables).  The instances are
+    walked in order, each ray taken to object space by :func:`object_ray`
+    and bounded by its best t so far (``tmax0`` at first; -BIG disables a
+    lane): a later instance replaces an earlier one only at a strictly
+    smaller t.  ``dst``: the closest accepted t (``tmax0`` on a miss);
+    ``prim``: its global triangle id and ``obj`` its instance (-1 on a
+    miss); ``u``, ``v``: its barycentrics (0 on a miss); ``front``:
+    whether it faces the ray.  Under ``anyhit`` a ray stops at the first
+    instance it hits.  On CUDA tensors one launch of
+    ``forest_walk_kernel``; on CPU tensors
+    :func:`forest_traverse_reference`."""
+    n = origin.shape[0]
+    k = inv_transform.shape[0]
+    dev = origin.device
+    check_tensors(
+        dev, torch.float32,
+        bvh_packed=(bvh_packed, (bvh_packed.shape[0], 8)),
+        tri_packed=(tri_packed, (tri_packed.shape[0], 16)),
+        inv_transform=(inv_transform, (k, 4, 4)),
+        origin=(origin, (n, 3)), direction=(direction, (n, 3)),
+        tmax0=(tmax0, (n,)),
+    )
+    check_tensors(dev, torch.int32,
+                  bvh_axis=(bvh_axis, (bvh_packed.shape[0],)),
+                  roots=(roots, (k,)), words=(words, (k,)))
+    if n >= 2**31 or tri_packed.shape[0] >= 2**31 // 16:
+        raise ValueError("too many rays or triangles for 32-bit indices")
+    if dev.type == "cpu":
+        want = narrow_root_words(bvh_packed, bvh_axis, roots.tolist())
+        got = [w & 0xFFFFFFFF for w in words.tolist()]
+        if -1 in want or got != want:
+            raise ValueError(f"words {got} are not the roots' narrow-walk "
+                             f"words {want}")
+        return forest_traverse_reference(
+            bvh_packed, bvh_axis, tri_packed, inv_transform, roots.tolist(),
+            origin, direction, tmax0, anyhit=anyhit)
+    if dev.type != "cuda":
+        raise ValueError(f"no traversal kernel for device {dev}")
+    if any(t.data_ptr() % 16 for t in (bvh_packed, tri_packed,
+                                       inv_transform)):
+        raise ValueError("bvh_packed, tri_packed and inv_transform must be "
+                         "16-byte aligned")
+    f32 = lambda: torch.empty(n, dtype=torch.float32, device=dev)
+    i32 = lambda: torch.empty(n, dtype=torch.int32, device=dev)
+    b8 = lambda: torch.empty(n, dtype=torch.bool, device=dev)
+    if anyhit:
+        out = (b8(),)
+        ptrs = [None] * 6 + [out[0].data_ptr()]
+    else:
+        out = (f32(), i32(), i32(), f32(), f32(), b8())
+        ptrs = [t.data_ptr() for t in out] + [None]
+    if n:
+        err = _load_narrow().rt_forest_walk(
+            bvh_packed.data_ptr(), bvh_axis.data_ptr(), tri_packed.data_ptr(),
+            inv_transform.data_ptr(), roots.data_ptr(), words.data_ptr(), k,
+            origin.data_ptr(), direction.data_ptr(), tmax0.data_ptr(),
+            int(anyhit), *ptrs, n,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+        if err != 0:
+            raise RuntimeError(f"forest walk kernel launch failed: CUDA "
+                               f"error {err}")
+        launches["forest_anyhit" if anyhit else "forest_walk"] += 1
+    return out[0] if anyhit else out
+
+
+def forest_traverse_reference(bvh_packed, bvh_axis, tri_packed,
+                              inv_transform, roots, origin, direction, tmax0,
+                              anyhit: bool = False, stats: dict = None):
+    """The forest walk in plain torch: for each instance k in order, the
+    rays taken to object space by :func:`object_ray` of
+    ``inv_transform[k]`` and walked from node ``roots[k]`` by
+    :func:`packet_traverse_reference`, bounded by the best t so far; where
+    a lane hits, it keeps the walk's ``dst``, ``prim``, ``u``, ``v``,
+    ``front`` and ``obj = k`` (closest hit), or its bound falls to -BIG,
+    so that it enters no later instance (``anyhit``, which returns the
+    (N,) mask of lanes hit).  ``roots``: host ints.  ``stats``, if given,
+    receives the narrow walk's counts summed over the instances
+    (``boxes``, ``tris``; ``node_seen``, ``tri_seen`` or-ed) and
+    ``scans``, the (ray, instance) pairs whose ray was taken to object
+    space (the lane's bound above 0, as the kernel skips the others)."""
+    dev = origin.device
+    n = origin.shape[0]
+    t = tmax0.clone()
+    prim = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    obj = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    u = torch.zeros(n, dtype=torch.float32, device=dev)
+    v = torch.zeros(n, dtype=torch.float32, device=dev)
+    front = torch.zeros(n, dtype=torch.bool, device=dev)
+    hit_any = torch.zeros(n, dtype=torch.bool, device=dev)
+    if stats is not None:
+        stats.update(
+            boxes=0, tris=0, scans=0,
+            node_seen=torch.zeros(bvh_packed.shape[0], dtype=torch.bool,
+                                  device=dev),
+            tri_seen=torch.zeros(tri_packed.shape[0], dtype=torch.bool,
+                                 device=dev))
+    for k, root in enumerate(roots):
+        one = None if stats is None else {}
+        if stats is not None:
+            stats["scans"] += int((t > 0).sum())
+        o_k, d_k = object_ray(inv_transform[k], origin, direction)
+        t_k, p_k, u_k, v_k, f_k = packet_traverse_reference(
+            bvh_packed, bvh_axis, tri_packed, o_k, d_k, t, int(root),
+            stats=one)
+        if stats is not None:
+            stats["boxes"] += one["boxes"]
+            stats["tris"] += one["tris"]
+            stats["node_seen"] |= one["node_seen"]
+            stats["tri_seen"] |= one["tri_seen"]
+        hit = p_k >= 0
+        if anyhit:
+            hit_any = hit_any | hit
+            t = torch.where(hit, -BIG, t_k)
+            continue
+        t = t_k
+        prim = torch.where(hit, p_k, prim)
+        obj = torch.where(hit, k, obj).to(torch.int32)
+        u = torch.where(hit, u_k, u)
+        v = torch.where(hit, v_k, v)
+        front = torch.where(hit, f_k, front)
+    if anyhit:
+        return hit_any
+    return t, prim, obj, u, v, front
 
 
 def _entry(box, origin, inv):

@@ -3,10 +3,10 @@
 Port of ``ray_tracer_tpu/ops/traverse.py``'s routes (``traverse`` /
 ``traverse_anyhit`` with ``raw=True, need_uv=False``).  A forest
 (non-flattened) scene takes :func:`_forest` under every ``Routing``, as
-the JAX package's does (its packet mode is off there): each instance's
-tree is walked in turn in object space by the narrow walk.  A flattened
-scene's route is chosen per call from the scene and the ``Routing``, in
-the JAX package's order:
+the JAX package's does (its packet mode is off there): one forest walk
+(``packet.forest_traverse``) visits every instance's tree in turn in
+object space.  A flattened scene's route is chosen per call from the
+scene and the ``Routing``, in the JAX package's order:
 
 * the rope walk (``kernels/lanewalk.py``) under ``lanewalk="force"``, for
   closest hit and occlusion, on a scene compiled with
@@ -300,7 +300,7 @@ def _narrow(scene, o, d, tmax0):
 def _homogeneous(p, d):
     """Points ``p`` and directions ``d`` (N,3) stacked as (2N,4) rows
     ``p|1`` over ``d|0``, so that one product with an affine matrix
-    transforms both (:func:`_forest`)."""
+    transforms both (:func:`traverse_with_stats`' forest loop)."""
     n = p.shape[0]
     h = torch.zeros((2 * n, 4), dtype=p.dtype, device=p.device)
     h[:n, :3] = p
@@ -311,46 +311,34 @@ def _homogeneous(p, d):
 
 def _forest(scene, origin, direction, tmax0, best=None):
     """The forest walk (the JAX package's per-instance scan, its
-    ``traverse.py:610-627``): each instance's tree in turn, the rays
-    taken to object space by ``obj_inv_transform[k]`` and walked from
-    ``obj_bvh_root[k]`` by the narrow walk (``packet.packet_traverse``),
-    bounded by the best distance so far (``tmax0`` at first, -BIG on an
-    inactive lane).  Where a lane improves on ``best`` (the sphere
-    result, :func:`_sphere_hits`) it keeps the walk's ``dst``, ``prim``,
-    ``u``, ``v``, ``front`` and ``obj = k``.  With ``best`` None this is
-    the occlusion query: a lane stops at its first hit (the walk's closest
-    hit clipped at its bound, as on the narrow route) and the result is
-    the (N,) mask of lanes hit.  The roots and their words come from
-    ``meta``: no value is read back from the device."""
-    n = origin.shape[0]
-    h = _homogeneous(origin, direction)
-    t = tmax0.contiguous()
-    tri = torch.zeros((n,), dtype=torch.bool, device=origin.device)
-    if best is not None:
-        dst, kind, prim, obj, u, v, front = best
-    for k, (root, word) in enumerate(zip(scene.meta["obj_roots"],
-                                         scene.meta["obj_root_words"])):
-        od = h @ scene.obj_inv_transform[k, :3].T
-        t_k, p_k, u_k, v_k, f_k = packet.packet_traverse(
-            scene.bvh_packed, scene.bvh_axis, scene.tri_packed, od[:n],
-            od[n:], t, root, word)
-        hit = p_k >= 0
-        tri = tri | hit
-        if best is None:
-            t = torch.where(hit, -BIG, t_k)
-            continue
-        t = t_k
-        prim = torch.where(hit, p_k, prim)
-        obj = torch.where(hit, k, obj).to(torch.int32)
-        u = torch.where(hit, u_k, u)
-        v = torch.where(hit, v_k, v)
-        front = torch.where(hit, f_k, front)
+    ``traverse.py:603-627``): one ``packet.forest_traverse`` over every
+    instance, in order, the rays taken to object space by
+    ``obj_inv_transform[k]`` and walked from the instance's root, bounded
+    by the best distance so far (``tmax0`` at first, -BIG on an inactive
+    lane).  Where a lane improves on ``best`` (the sphere result,
+    :func:`_sphere_hits`) it takes the walk's ``dst``, ``prim``, ``u``,
+    ``v``, ``front`` and instance ``obj``.  With ``best`` None this is the
+    occlusion query: a lane stops at its first instance hit and the result
+    is the (N,) mask of lanes hit.  The roots and their words are the
+    scene's ``forest_roots``, built once from ``meta``: no value is read
+    back from the device."""
+    roots, words = scene.forest_roots
+    args = (scene.bvh_packed, scene.bvh_axis, scene.tri_packed,
+            scene.obj_inv_transform, roots, words, origin.contiguous(),
+            direction.contiguous(), tmax0.contiguous())
     if best is None:
-        return tri
+        return packet.forest_traverse(*args, anyhit=True)
+    t, t_prim, t_obj, t_u, t_v, t_front = packet.forest_traverse(*args)
+    dst, kind, prim, obj, u, v, front = best
+    tri = t_prim >= 0
     return Hit(
         dst=torch.where(tri, t, dst),
         kind=torch.where(tri, KIND_TRI, kind).to(torch.int32),
-        prim=prim, obj=obj, u=u, v=v, front=front,
+        prim=torch.where(tri, t_prim, prim),
+        obj=torch.where(tri, t_obj, obj),
+        u=torch.where(tri, t_u, u),
+        v=torch.where(tri, t_v, v),
+        front=torch.where(tri, t_front, front),
     )
 
 

@@ -13,6 +13,7 @@ which hold only the tree's boxes (:func:`rope_box_rows`).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -468,6 +469,29 @@ class CompiledScene:
     @property
     def device(self) -> torch.device:
         return torch.as_tensor(self.wide_packed).device
+
+    @functools.cached_property
+    def forest_roots(self) -> tuple:
+        """``(roots, words)``: (K,) i32 tensors on the scene's device, every
+        instance's root node and the bits of its narrow-walk word, from
+        ``meta["obj_roots"]`` and ``["obj_root_words"]`` (the forest
+        walk's, ``kernels/packet.py::forest_traverse``).  Built on the host
+        once per scene object, so a traversal reads nothing back; raises
+        where a word is -1 (a tree beyond the word's limits) or a root is
+        no node of ``bvh_packed``."""
+        roots = [int(r) for r in self.meta["obj_roots"]]
+        words = [int(w) for w in self.meta["obj_root_words"]]
+        n_nodes = self.bvh_packed.shape[0]
+        if len(words) != len(roots) or min(words, default=0) < 0:
+            raise ValueError(
+                "the forest's trees lie beyond the narrow walk's node word "
+                "(kernels/packet.py::narrow_root_words)")
+        if any(not 0 <= r < n_nodes for r in roots):
+            raise ValueError(f"an instance root is no node of the "
+                             f"{n_nodes}-node BVH: {roots}")
+        bits = np.array(words, np.int64).astype(np.uint32).view(np.int32)
+        return (torch.tensor(roots, dtype=torch.int32, device=self.device),
+                torch.from_numpy(bits).to(self.device))
 
     @property
     def n_spheres(self) -> int:

@@ -1,16 +1,21 @@
 """Forest (non-flattened) scenes: ``compile(flatten_instances=False)``,
 the reference renderer's own per-object BVH loop (quirk Q11).
 
-The port walks each instance's tree in turn in object space with the
-narrow walk (on the CPU its plain twin); the JAX package scans the
-instances with its gather walk.  Against the JAX forest ``traverse`` and
+The port walks every instance's tree in turn in object space in one
+forest walk (``kernels/packet.py::forest_traverse``; on the CPU its
+plain version, ``forest_traverse_reference``, which takes each ray to
+object space elementwise in a fixed order and walks the tree with the
+narrow walk's plain twin); the JAX package scans the instances with its
+gather walk.  Against the JAX forest ``traverse`` and
 ``traverse_anyhit``: hit masks and instances equal, ``dst`` within
 rtol 1e-5, atol 1e-6, ``prim`` equal up to exact-t ties
-(``torch_parity.assert_tri_ties``); renders within the image tolerance
-of ``torch_parity.assert_images_match``, against the JAX forest render
-and against the port's flattened render of the same builder.
+(``torch_parity.assert_tri_ties``); the transform within rtol 1e-6 of
+the JAX package's; renders within the image tolerance of
+``torch_parity.assert_images_match``, against the JAX forest render and
+against the port's flattened render of the same builder.
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -42,9 +47,10 @@ from torch_parity import (
 TOL = dict(rtol=1e-5, atol=1e-6)
 
 
-def soup_pair(pkg, tmp, seed=7, n_tris=60):
+def soup_pair(pkg, tmp, seed=7, n_tris=60, twin=False):
     """One triangle soup placed twice, the second instance rotated, moved
-    and scaled unevenly (``tests/test_traverse.py``'s forest scene)."""
+    and scaled unevenly (``tests/test_traverse.py``'s forest scene), or
+    with ``twin`` placed where the first is."""
     rand = np.random.default_rng(seed)
     tris = (rand.uniform(-1, 1, (n_tris, 1, 3))
             + rand.uniform(-0.3, 0.3, (n_tris, 3, 3)))
@@ -55,8 +61,11 @@ def soup_pair(pkg, tmp, seed=7, n_tris=60):
     b.add_material(pkg.Material())
     b.add_material(pkg.Material(albedo=(0.9, 0.3, 0.2)))
     b.add_obj(path, material=0)
-    b.add_obj(path, material=1, position=(0.5, 0.2, 0.1),
-              rotation_deg=(10, 20, 30), scale=(1.1, 0.9, 1.0))
+    if twin:
+        b.add_obj(path, material=1)
+    else:
+        b.add_obj(path, material=1, position=(0.5, 0.2, 0.1),
+                  rotation_deg=(10, 20, 30), scale=(1.1, 0.9, 1.0))
     return b
 
 
@@ -133,6 +142,170 @@ def test_forest_anyhit_matches_jax(forest, case):
         torch.from_numpy(np.where(act, tmax, BIG))).numpy()
     assert want.any() and not want.all()
     np.testing.assert_array_equal(got, want)
+
+
+def _reference_args(sc):
+    return (sc.bvh_packed, sc.bvh_axis, sc.tri_packed, sc.obj_inv_transform,
+            sc.meta["obj_roots"])
+
+
+@pytest.mark.parametrize("mode", ["closest", "anyhit"])
+@pytest.mark.parametrize("case", ["open", "clipped", "inactive"])
+def test_forest_reference_matches_jax(forest, case, mode):
+    """The forest walk's plain version alone, given the bound the sphere
+    pass leaves (``traverse._sphere_hits``), against the JAX forest
+    ``traverse`` and ``traverse_anyhit``: the triangle hits, instances and
+    occlusion equal, ``dst`` at the file's tolerances."""
+    jsc, sc, _, name = forest
+    o, d = _rays(name, seed=15)
+    tmax = route_tmax(np.random.default_rng(6), case, o.shape[0])
+    if mode == "anyhit":
+        tmax = np.where(tmax > -BIG, np.minimum(tmax, 3.0), tmax)
+    act = tmax > -BIG
+    bound = np.where(act, tmax, BIG)
+    to, td = torch.from_numpy(o), torch.from_numpy(d)
+    best = t_traverse._sphere_hits(sc, to, td, torch.from_numpy(act),
+                                   torch.from_numpy(bound))
+    if mode == "anyhit":
+        got = t_packet.forest_traverse_reference(
+            *_reference_args(sc), to, td, torch.from_numpy(
+                np.where(act, tmax, -BIG)), anyhit=True)
+        occ = torch.zeros_like(got)
+        if sc.n_spheres:
+            s_dst, _ = t_traverse._sphere_dst(sc, to, td)
+            occ = torch.min(s_dst, dim=1).values < torch.from_numpy(bound)
+        want = np.asarray(j_traverse.traverse_anyhit(
+            jsc, jnp.asarray(o), jnp.asarray(d), jnp.asarray(act),
+            jnp.asarray(bound)))
+        assert want.any() and not want.all()
+        np.testing.assert_array_equal(((got | occ) & torch.from_numpy(act))
+                                      .numpy(), want)
+        return
+    tmax0 = torch.where(torch.from_numpy(act), best.dst, -BIG)
+    dst, prim, obj, u, v, front = t_packet.forest_traverse_reference(
+        *_reference_args(sc), to, td, tmax0)
+    want = _jhit(jsc, o, d, tmax)
+    tri = prim.numpy() >= 0
+    np.testing.assert_array_equal(
+        tri, np.asarray(want.kind) == t_traverse.KIND_TRI)
+    assert tri.any()
+    np.testing.assert_array_equal(obj.numpy()[tri], np.asarray(want.obj)[tri])
+    np.testing.assert_array_equal(obj.numpy()[~tri], -1)
+    np.testing.assert_allclose(dst.numpy()[tri], np.asarray(want.dst)[tri],
+                               **TOL)
+    np.testing.assert_array_equal(dst.numpy()[~tri], tmax0.numpy()[~tri])
+    differ = assert_tri_ties(sc, o, d, prim.numpy(), np.asarray(want.prim),
+                             tri, obj=obj.numpy())
+    same = tri & ~differ
+    for got_f, f in ((u, "u"), (v, "v")):
+        np.testing.assert_allclose(got_f.numpy()[same],
+                                   np.asarray(getattr(want, f))[same],
+                                   rtol=1e-4, atol=1e-5)
+    np.testing.assert_array_equal(front.numpy()[same],
+                                  np.asarray(want.front)[same])
+
+
+def test_object_ray_matches_jax_transform(forest):
+    """The forest walk's transform (``packet.object_ray``, elementwise in
+    the JAX form's order) against the JAX package's ``_transform_point``
+    and ``_transform_dir`` on every instance, within rtol 1e-6."""
+    _, sc, _, name = forest
+    o, d = _rays(name, n=512, seed=16)
+    for k in range(sc.meta["n_objects"]):
+        m = sc.obj_inv_transform[k]
+        got_o, got_d = t_packet.object_ray(m, torch.from_numpy(o),
+                                           torch.from_numpy(d))
+        jm = jnp.broadcast_to(jnp.asarray(m.numpy()), (o.shape[0], 4, 4))
+        np.testing.assert_allclose(
+            got_o.numpy(), np.asarray(j_traverse._transform_point(
+                jm, jnp.asarray(o))), rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(
+            got_d.numpy(), np.asarray(j_traverse._transform_dir(
+                jm, jnp.asarray(d))), rtol=1e-6, atol=1e-7)
+
+
+def _one_instance(sc, k):
+    """``sc`` cut to its instance ``k`` (a forest of one)."""
+    return dataclasses.replace(
+        sc, obj_inv_transform=sc.obj_inv_transform[k:k + 1].contiguous(),
+        meta={**sc.meta, "n_objects": 1,
+              "obj_roots": sc.meta["obj_roots"][k:k + 1],
+              "obj_root_words": sc.meta["obj_root_words"][k:k + 1]})
+
+
+@pytest.mark.parametrize("anyhit", [False, True])
+def test_forest_walk_of_one_instance(forest, anyhit):
+    """A forest of one instance is that instance's narrow walk in object
+    space, field for field (through the wrapper, whose CPU path checks
+    the root words)."""
+    _, sc, _, name = forest
+    one = _one_instance(sc, 1)
+    o, d = (torch.from_numpy(x) for x in _rays(name, seed=17))
+    tmax0 = torch.from_numpy(route_tmax(np.random.default_rng(7), "inactive",
+                                        o.shape[0]))
+    roots, words = one.forest_roots
+    got = t_packet.forest_traverse(
+        one.bvh_packed, one.bvh_axis, one.tri_packed, one.obj_inv_transform,
+        roots, words, o, d, tmax0, anyhit=anyhit)
+    oo, dd = t_packet.object_ray(one.obj_inv_transform[0], o, d)
+    t, p, u, v, f = t_packet.packet_traverse_reference(
+        one.bvh_packed, one.bvh_axis, one.tri_packed, oo, dd, tmax0,
+        one.meta["obj_roots"][0])
+    assert (p >= 0).any()
+    if anyhit:
+        assert torch.equal(got, p >= 0)
+        return
+    obj = torch.where(p >= 0, 0, -1).to(torch.int32)
+    for a, b in zip(got, (t, p, obj, u, v, f)):
+        assert torch.equal(a, b)
+
+
+def test_forest_walk_ray_missing_every_root(forest):
+    """Rays that enter no instance's root box: no hit, ``dst`` their
+    bound, ``prim`` and ``obj`` -1, ``u``, ``v`` 0, not facing; not
+    occluded."""
+    _, sc, _, _ = forest
+    n = 64
+    o = torch.full((n, 3), 50.0)
+    d = torch.nn.functional.normalize(torch.rand(n, 3) + 0.1, dim=1)
+    tmax0 = torch.full((n,), BIG)
+    tmax0[::4] = 2.0
+    dst, prim, obj, u, v, front = t_packet.forest_traverse_reference(
+        *_reference_args(sc), o, d, tmax0)
+    assert torch.equal(dst, tmax0)
+    assert (prim == -1).all() and (obj == -1).all()
+    assert (u == 0).all() and (v == 0).all() and not front.any()
+    assert not t_packet.forest_traverse_reference(
+        *_reference_args(sc), o, d, tmax0, anyhit=True).any()
+
+
+def test_forest_walk_ties_go_to_the_first_instance(tmp_path):
+    """Two instances of one mesh in the same place meet every ray at the
+    same t: the first in order is kept (a later instance replaces an
+    earlier one only at a strictly smaller t); under occlusion a lane
+    stops at its first instance, so only the lanes that missed it are
+    taken to the second's object space."""
+    sc = soup_pair(trt, str(tmp_path), twin=True).compile(
+        flatten_instances=False, device="cpu")
+    assert sc.meta["n_objects"] == 2
+    rand = np.random.default_rng(18)
+    o = torch.from_numpy(rand.uniform(-4, 4, (2048, 3)).astype(np.float32))
+    aim = torch.from_numpy(rand.uniform(-1, 1, (2048, 3)).astype(np.float32))
+    d = torch.nn.functional.normalize(aim - o, dim=1)
+    tmax0 = torch.full((o.shape[0],), BIG)
+    dst, prim, obj, _, _, _ = t_packet.forest_traverse_reference(
+        *_reference_args(sc), o, d, tmax0)
+    hit = prim >= 0
+    assert hit.float().mean() > 0.2
+    assert (obj[hit] == 0).all()
+    first = t_packet.forest_traverse_reference(
+        *_reference_args(_one_instance(sc, 0)), o, d, tmax0)
+    assert torch.equal(dst, first[0]) and torch.equal(prim, first[1])
+    stats = {}
+    occ = t_packet.forest_traverse_reference(
+        *_reference_args(sc), o, d, tmax0, anyhit=True, stats=stats)
+    assert torch.equal(occ, hit)
+    assert stats["scans"] == o.shape[0] + int((~hit).sum())
 
 
 def test_forest_traverse_matches_flattened(forest):

@@ -1029,14 +1029,114 @@ def forest_scene(dev):
         flatten_instances=False)
 
 
+def _forest_cut(sc, instances):
+    """The forest ``sc`` with its instances ``instances`` (indices, in
+    order, repeats allowed: a repeated instance meets a ray at the same t
+    as the first, which keeps it)."""
+    import dataclasses
+
+    pick = lambda xs: tuple(xs[k] for k in instances)
+    return dataclasses.replace(
+        sc, obj_inv_transform=sc.obj_inv_transform[list(instances)]
+        .contiguous(),
+        meta={**sc.meta, "n_objects": len(instances),
+              "obj_roots": pick(sc.meta["obj_roots"]),
+              "obj_root_words": pick(sc.meta["obj_root_words"])})
+
+
+@pytest.fixture(scope="module")
+def forest_cuts(forest_scene):
+    """The forest of every instance, of its largest instance alone (K =
+    1), and of every instance four times over (more than the 128 that a
+    block stages at once)."""
+    sc = forest_scene
+    roots = list(sc.meta["obj_roots"])
+    ext = sc.bvh_packed[roots, 3:6] - sc.bvh_packed[roots, 0:3]
+    k = sc.meta["n_objects"]
+    assert 4 * k > 128
+    return {"all": sc, "one": _forest_cut(sc, [int(ext.prod(1).argmax())]),
+            "four_times": _forest_cut(sc, list(range(k)) * 4)}
+
+
+def _forest_rays(sc, n, anyhit, seed=9):
+    """Rays from points across the whole forest (the union of the root
+    boxes) in random directions, a lane in nine inactive."""
+    rand = np.random.default_rng(seed)
+    lo = sc.bvh_packed[:, 0:3].min(0).values.cpu().numpy()
+    hi = sc.bvh_packed[:, 3:6].max(0).values.cpu().numpy()
+    o = rand.uniform(lo, hi, (n, 3)).astype(np.float32)
+    d = rand.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    d[::50, 1] = 0.0
+    tmax = rand.uniform(0.1, 8.0, n).astype(np.float32)
+    if not anyhit:
+        tmax[::2] = BIG
+    tmax[::9] = -BIG
+    return [torch.from_numpy(x).to(sc.device) for x in (o, d, tmax)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 255, 257, 20000])
+@pytest.mark.parametrize("cut", ["all", "one", "four_times"])
+@pytest.mark.parametrize("anyhit", [False, True])
+def test_forest_kernel_matches_plain_version(dev, forest_cuts, cut, n,
+                                             anyhit):
+    """forest_walk_kernel against its plain version, bit for bit, at ray
+    counts around its 128-thread block, on a forest of one instance and
+    on one of more instances than a block stages at once, closest hit and
+    occlusion; one launch a call."""
+    sc = forest_cuts[cut]
+    roots, words = sc.forest_roots
+    tables = (sc.bvh_packed, sc.bvh_axis, sc.tri_packed, sc.obj_inv_transform)
+    o, d, tmax = _forest_rays(sc, n, anyhit)
+    packet.reset_launches()
+    got = packet.forest_traverse(*tables, roots, words, o, d, tmax,
+                                 anyhit=anyhit)
+    assert packet.launches["forest_anyhit" if anyhit else "forest_walk"] == 1
+    want = packet.forest_traverse_reference(
+        *tables, sc.meta["obj_roots"], o, d, tmax, anyhit=anyhit)
+    torch.cuda.synchronize()
+    if anyhit:
+        assert torch.equal(got, want)
+        hit = got
+    else:
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        hit = got[1] >= 0
+        if cut == "four_times":  # every tie goes to the first copy
+            assert (got[2][hit] < sc.meta["n_objects"] // 4).all()
+    if n == 20000:
+        assert hit.any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("anyhit", [False, True])
+def test_forest_kernel_matches_old_composition(dev, forest_scene, anyhit):
+    """The forest walk against the per-instance composition it replaced
+    (tools/measure_forest_walk.py: a cuBLAS product, a narrow-walk launch
+    and the merges per instance): the object-space rays round apart, so
+    on these rays from open space the hits and instances equal and
+    ``dst`` within rtol 1e-5, each in all but 0.1% of the rays
+    (``compare_old``, whose ``dst`` budget of 1% is for rays that start on
+    a surface)."""
+    tool = _tools_module("measure_forest_walk")
+    sc = forest_scene
+    o, d, tmax = _forest_rays(sc, 20000, anyhit, seed=10)
+    new = packet.forest_traverse(*tool.forest_args(sc, (o, d, tmax)),
+                                 anyhit=anyhit)
+    old = tool.old_forest(sc, o, d, tmax, anyhit=anyhit)
+    rec = tool.compare_old("forest walk", new, old, anyhit)
+    assert rec["hits_apart"] <= 1e-3
+    assert rec.get("dst_apart_of_both", 0.0) <= 1e-3
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("anyhit", [False, True])
 def test_forest_walk_on_card_matches_cpu(dev, forest_scene, anyhit):
-    """The forest walk (the narrow kernel once per instance, in object
-    space) against the same walk on the CPU: the transforms are one
-    matrix product per instance, which cuBLAS and the CPU may round
-    apart, so ``dst`` within rtol 1e-5, hits and instances equal but at
-    most 0.1% of the rays."""
+    """The forest walk (one forest_walk_kernel launch, every instance in
+    object space) against the same walk on the CPU (its plain version):
+    the transforms are elementwise in a fixed order on both, so every
+    field of the hit, and the occlusion mask, equal bit for bit."""
     from ray_tracer_tpu_torch.ops import traverse
 
     sc = forest_scene
@@ -1049,18 +1149,15 @@ def test_forest_walk_on_card_matches_cpu(dev, forest_scene, anyhit):
     if anyhit:
         got = traverse.traverse_anyhit(sc, o, d, act, tmax)
         want = traverse.traverse_anyhit(cpu, *args)
-        assert float((got.cpu() != want).float().mean()) <= 1e-3
+        assert torch.equal(got.cpu(), want) and want.any()
     else:
         got = traverse.traverse(sc, o, d, act, tmax=tmax)
         want = traverse.traverse(cpu, *args[:3], tmax=args[3])
-        hit = want.did_hit
-        assert float((got.did_hit.cpu() != hit).float().mean()) <= 1e-3
-        both = hit & got.did_hit.cpu()
-        torch.testing.assert_close(got.dst.cpu()[both], want.dst[both],
-                                   rtol=1e-5, atol=1e-6)
-        same_obj = (got.obj.cpu() == want.obj)[both]
-        assert float(same_obj.float().mean()) >= 0.999
-    assert packet.launches["packet_narrow"] == sc.meta["n_objects"]
+        assert want.did_hit.any()
+        for name, a, b in zip(traverse.Hit._fields, got, want):
+            assert torch.equal(a.cpu(), b), name
+    assert packet.launches["packet_narrow"] == 0
+    assert packet.launches["forest_anyhit" if anyhit else "forest_walk"] == 1
 
 
 @pytest.mark.gpu
@@ -1075,7 +1172,8 @@ def test_forest_render_on_card_matches_cpu(dev, forest_scene, value):
     packet.reset_launches()
     gpu = trt.render(forest_scene, cfg)
     torch.cuda.synchronize()
-    assert packet.launches["packet_narrow"] > 0
+    assert packet.launches["forest_walk"] > 0
+    assert packet.launches["packet_narrow"] == 0
     _card_vs_cpu(gpu, trt.render(forest_scene.to("cpu"), cfg))
 
 
@@ -1106,7 +1204,8 @@ def test_dryrun_on_card(dev):
 @pytest.fixture(scope="module")
 def round_scenes(dev, tmp_path_factory):
     """The scenes of tests/test_torch_shade.py on the card: the textured
-    ones run the shade kernel's maps instance."""
+    ones run the shade kernel's maps instance, the forests the forest
+    walk."""
     from torch_parity import (bump_scene, maps_scene, room_scene,
                               sphere_maps_scene, uphill)
 
@@ -1119,6 +1218,9 @@ def round_scenes(dev, tmp_path_factory):
         "bump": bump_scene(trt, tmp, uphill).compile(),
         "bump_bilinear": bump_scene(trt, tmp, uphill, sampler=1).compile(),
         "sphere_maps": sphere_maps_scene(trt, tmp).compile(),
+        "room_forest": room_scene(trt, tmp).compile(flatten_instances=False),
+        "maps_forest": maps_scene(trt, tmp, ("albedo", "metal", "alpha"))
+        .compile(flatten_instances=False),
     }
 
 
@@ -1138,6 +1240,7 @@ def _round_cases(names):
 
 
 ROUND_CASES = _round_cases(("sponza", "spheres", "room"))
+FORESTS = ("room_forest", "maps_forest")
 
 
 def _round_launches(sc, cfg, rounds):
@@ -1161,7 +1264,8 @@ def _same_all(got, want, what):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("name,space,n_lights,jitter,tint",
-                         ROUND_CASES + _round_cases(TEXTURED))
+                         ROUND_CASES + _round_cases(TEXTURED)
+                         + _round_cases(FORESTS))
 def test_round_kernels_match_plain_versions(dev, round_scenes, name, space,
                                             n_lights, jitter, tint):
     """Every round of a 64x36 frame: shade_kernel (on the textured scenes
@@ -1296,12 +1400,12 @@ def test_round_kernels_on_ragged_widths(dev, round_scenes, monkeypatch, name,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", TEXTURED)
+@pytest.mark.parametrize("name", TEXTURED + ("maps_forest",))
 def test_textured_frame_equals_the_torch_round(dev, round_scenes,
                                                monkeypatch, name):
     """A textured 240x136 frame (spp 2, bounce limit 8) through the round
     kernels, the maps instance once a round, renders bit-identical to the
-    same frame through the torch round."""
+    same frame through the torch round (the textured forest too)."""
     from ray_tracer_tpu_torch.integrator import wavefront
     from ray_tracer_tpu_torch.kernels import shade
 

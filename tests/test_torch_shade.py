@@ -4,10 +4,11 @@ On CPU tensors the wrappers run their plain versions, so here the fused
 round (``integrator/wavefront.py::_fused_round``: shade, argsort, permute,
 traversal, NEE resolve) runs on the CPU and is held against the torch
 round bit for bit, round after round, on reduced scenes, textured ones
-(albedo, metalness, alpha and bump maps, both samplers) among them; the
-route predicate picks it for the main configuration, textures and normal
-maps, and for no excluded value; the maps instance's sRGB table equals
-the texture fetch's decode;
+(albedo, metalness, alpha and bump maps, both samplers) and forests
+among them; the route predicate picks it for the main configuration,
+textures and normal maps, forest scenes, and for no excluded value; a
+forest frame through it equals the torch round's; the maps instance's
+sRGB table equals the texture fetch's decode;
 a main-path frame goes through the three wrappers once a round; the plain
 versions' pieces equal the JAX package's; and one frame of the new path
 agrees with the JAX package's render of its group-kernel route.  The
@@ -62,6 +63,11 @@ def scenes(tmp_path_factory):
         "bump_bilinear": bump_scene(trt, tmp, uphill, sampler=1).compile(
             device="cpu"),
         "sphere_maps": sphere_maps_scene(trt, tmp).compile(device="cpu"),
+        # forests: one tree per instance, the walk's u, v, front and obj
+        "room_forest": room_scene(trt, tmp).compile(flatten_instances=False,
+                                                    device="cpu"),
+        "maps_forest": maps_scene(trt, tmp, ("albedo", "metal", "alpha"))
+        .compile(flatten_instances=False, device="cpu"),
     }
 
 
@@ -81,13 +87,21 @@ def assert_waves_equal(got, want):
 # the tint of the delta lobes each on in half of the cases.  The textured
 # scenes: two quads with albedo, metalness and alpha maps, one bilinear and
 # one nearest ("maps"), a bump-mapped quad, nearest and bilinear, under
-# enable_normal_maps, and spheres with maps (no meshes)
-TEXTURED = ("maps", "bump", "bump_bilinear", "sphere_maps")
+# enable_normal_maps, and spheres with maps (no meshes).  The forests: the
+# room and the maps scene compiled with flatten_instances=False (triangle
+# hits in the "tri" space on every route)
+TEXTURED = ("maps", "bump", "bump_bilinear", "sphere_maps", "maps_forest")
 CASES = [
     pytest.param(name, space, n_lights, space == "tri", n_lights != 1,
                  id=f"{name}-{space}-{n_lights}")
     for name, space, n_lights in itertools.product(
-        ("sponza", "spheres", "room") + TEXTURED, ("slot", "tri"), (0, 1, 2))
+        ("sponza", "spheres", "room") + TEXTURED[:-1], ("slot", "tri"),
+        (0, 1, 2))
+] + [
+    pytest.param(name, space, n_lights, space == "tri", n_lights != 1,
+                 id=f"{name}-{space}-{n_lights}")
+    for name, space, n_lights in itertools.product(
+        ("room_forest", "maps_forest"), ("slot", "tri"), (0, 1, 2))
 ]
 
 
@@ -103,8 +117,7 @@ def test_plain_versions_equal_the_torch_round(scenes, name, space, n_lights,
     c, round_, w = first_wave(sc, cfg)
     assert round_ is wavefront._fused_round
     assert (c.srgb is not None) == (name in TEXTURED)
-    if sc.meta["flattened"]:
-        assert c.space == space
+    assert c.space == (space if sc.meta["flattened"] else "tri")
     rounds = 0
     while int(w.n_alive) > 0:
         want = wavefront._torch_round(c, w)
@@ -116,56 +129,74 @@ def test_plain_versions_equal_the_torch_round(scenes, name, space, n_lights,
     assert w.n_rays[0] >= w.n_rays[1] >= cfg.n_pixels
 
 
-@pytest.fixture(scope="module")
-def forest(tmp_path_factory):
-    tmp = str(tmp_path_factory.mktemp("forest"))
-    return room_scene(trt, tmp).compile(flatten_instances=False,
-                                        device="cpu")
-
-
 def textured(sc):
     return dataclasses.replace(sc, meta={**sc.meta, "n_textures": 1})
 
 
 EXCLUDED = {  # each value that keeps the torch round
-    "forest": ({}, None),
-    "textured_forest": (dict(enable_normal_maps=True), textured),
-    "bin_leaf": (dict(routing=trt.Routing(bin_mode="leaf")), None),
-    "bin_hier": (dict(routing=trt.Routing(bin_mode="hier")), None),
-    "prebin_sort": (dict(routing=trt.Routing(nee_prebin="sort")), None),
-    "prebin_nosort": (dict(routing=trt.Routing(nee_prebin="nosort")), None),
-    "closest_nee": (dict(nee_anyhit=False), None),
-    "unbinned": (dict(bin_rays=False), None),
+    "bin_leaf": dict(routing=trt.Routing(bin_mode="leaf")),
+    "bin_hier": dict(routing=trt.Routing(bin_mode="hier")),
+    "prebin_sort": dict(routing=trt.Routing(nee_prebin="sort")),
+    "prebin_nosort": dict(routing=trt.Routing(nee_prebin="nosort")),
+    "closest_nee": dict(nee_anyhit=False),
+    "unbinned": dict(bin_rays=False),
 }
 
 
 @pytest.mark.parametrize("value", sorted(EXCLUDED))
-def test_fused_round_ok_excludes(scenes, forest, value):
-    kw, change = EXCLUDED[value]
-    sc = forest if value.endswith("forest") else scenes["sponza"]
-    if change is not None:
-        sc = change(sc)
-    cfg = trt.RenderConfig(**kw)
-    assert not wavefront._fused_round_ok(sc, cfg, cfg.resolved_routing())
+def test_fused_round_ok_excludes(scenes, value):
+    cfg = trt.RenderConfig(**EXCLUDED[value])
+    for name in ("sponza", "room_forest"):
+        assert not wavefront._fused_round_ok(scenes[name], cfg,
+                                             cfg.resolved_routing())
 
 
-@pytest.mark.parametrize("kw,with_textures", [
-    ({}, False), (dict(enable_textures=False), True),
-    (dict(routing=trt.Routing(wide=False)), False),
-    (dict(routing=trt.Routing(bin_dir_bits=2)), False),
-    (dict(aa_jitter=True), False), ({}, True),
-    (dict(enable_normal_maps=True), True),
-], ids=["main", "textures_off", "narrow", "dir_bits", "jitter", "textures",
-        "normal_maps"])
-def test_fused_round_ok_main(scenes, kw, with_textures):
+MAIN = {  # id -> (RenderConfig values, the scene, textured)
+    "main": ({}, "sponza", False),
+    "textures_off": (dict(enable_textures=False), "sponza", True),
+    "narrow": (dict(routing=trt.Routing(wide=False)), "sponza", False),
+    "dir_bits": (dict(routing=trt.Routing(bin_dir_bits=2)), "sponza", False),
+    "jitter": (dict(aa_jitter=True), "sponza", False),
+    "textures": ({}, "sponza", True),
+    "normal_maps": (dict(enable_normal_maps=True), "sponza", True),
+    "forest": ({}, "room_forest", False),
+    "textured_forest": (dict(enable_normal_maps=True), "room_forest", True),
+}
+
+
+@pytest.mark.parametrize("value", list(MAIN))
+def test_fused_round_ok_main(scenes, value):
     """The main configuration, and values the kernels take: a textured
     scene with textures on or off, normal maps, any route, direction
-    bits."""
-    sc = textured(scenes["sponza"]) if with_textures else scenes["sponza"]
+    bits, forest scenes, textured or not."""
+    kw, name, with_textures = MAIN[value]
+    sc = textured(scenes[name]) if with_textures else scenes[name]
     cfg = trt.RenderConfig(**kw)
     assert wavefront._fused_round_ok(sc, cfg, cfg.resolved_routing())
     assert wavefront._fused_round_ok(scenes["spheres"], cfg,
                                      cfg.resolved_routing())
+
+
+@pytest.mark.parametrize("name", ["room_forest", "maps_forest"])
+def test_forest_frame_runs_the_round_kernels(scenes, name, monkeypatch):
+    """A forest frame (the room, and the textured quads) runs the round
+    kernels' wrappers every round and equals the torch round's frame bit
+    for bit."""
+    calls = {"round": 0}
+    fused = wavefront._fused_round
+
+    def counting(*args, **kw):
+        calls["round"] += 1
+        return fused(*args, **kw)
+
+    monkeypatch.setattr(wavefront, "_fused_round", counting)
+    cfg = trt.RenderConfig(width=21, height=15, samples_per_pixel=2,
+                           bounce_limit=6)
+    img = trt.render(scenes[name], cfg)
+    assert calls["round"] >= 6
+    assert img.mean() > 0.02
+    monkeypatch.setattr(wavefront, "_fused_round_ok", lambda *a: False)
+    assert torch.equal(img, trt.render(scenes[name], cfg))
 
 
 def test_main_path_runs_the_wrappers(scenes, monkeypatch):
