@@ -65,12 +65,17 @@ bumped, bilinear and nearest lanes counted;
 the frame equal to the torch round's, both timed, with the launches a
 round and both shade kernel instances' ptxas lines), ``sponza_proxy`` compiled
 as a forest (``forest``: 64x36 against the CPU; forest_walk_kernel
-against its plain version on 2^18 rays of the forest frame's bounce and
-shadow sets, bit for bit, with bounds, and against the per-instance
-composition it replaced, ``tools/measure_forest_walk.py``, timed in
-turns, ``forest_vs_old``; the benchmark frame on the round kernels, one
-forest-walk launch a traversal, equal to the torch round's frame bit for
-bit, both timed, with the launches a round), the static scan's occupancy
+against its plain version on 2^18 rays of the forest frame's camera,
+bounce and shadow sets, bit for bit, with bounds from its audit instance,
+which must count no instance culled whose root test passes; against the
+per-instance composition it replaced, ``tools/measure_forest_walk.py``,
+timed in turns, ``forest_vs_old``; against the kernel before the cull,
+tools/forest_walk_variants.cu, bit for bit and timed in turns, with the
+ptxas lines, ``forest_vs_unculled``; the benchmark frame on the round
+kernels, one forest-walk launch a traversal, equal to the torch round's
+frame bit for bit, both timed, with the launches a round, on the
+kernel before the cull and this one in turns, and with the audit after
+every traversal for the frame bound), the static scan's occupancy
 profile, and an NCCL world of one (``sharded``: ``render_frame_sharded``
 on a (1, 1) mesh equal to ``render_frame``, then the port's
 ``dryrun_multichip(1)``).  Every phase prints one
@@ -118,6 +123,7 @@ from ray_tracer_tpu_torch.scene import presets  # noqa: E402
 import cluster_test_variants  # noqa: E402
 import deep_walk_variants  # noqa: E402
 import emit_walk_variants  # noqa: E402
+import forest_walk_variants  # noqa: E402
 import measure_forest_walk  # noqa: E402
 import narrow_walk_variants  # noqa: E402
 import packet_walk_variants  # noqa: E402
@@ -148,7 +154,7 @@ LIBRARIES = (bvh8.build, cluster.build, packet.build_narrow, lanewalk.build,
              deep_walk_variants.build, packet_walk_variants.build,
              narrow_walk_variants.build, emit_walk_variants.build,
              rope_walk_variants.build, top_walk_variants.build,
-             shade_round_variants.build)
+             shade_round_variants.build, forest_walk_variants.build)
 BVH8 = "ray_tracer_tpu_torch/csrc/bvh8_walk.cu"
 PACKET8 = "ray_tracer_tpu/kernels/packet.py:301"
 SHADE = "ray_tracer_tpu_torch/csrc/shade_round.cu"
@@ -191,9 +197,9 @@ KERNELS = {  # mode -> (source, its CUDA kernel, the TPU kernel it replaces)
     # the forest walk, which the JAX package leaves to XLA's fusion of its
     # lax.scan over the instances
     "forest_walk": ("ray_tracer_tpu_torch/csrc/bvh2_walk.cu",
-                    "forest_walk_kernel<false>", JAX_FOREST),
+                    "forest_walk_kernel<false, false>", JAX_FOREST),
     "forest_anyhit": ("ray_tracer_tpu_torch/csrc/bvh2_walk.cu",
-                      "forest_walk_kernel<true>", JAX_FOREST),
+                      "forest_walk_kernel<true, false>", JAX_FOREST),
 }
 
 # The least time the card could take for a kernel's work: the larger of
@@ -214,6 +220,13 @@ OPS_RAY_BOX = 22  # one ray x box: 6 plane products (one non-zero page row
 # each), 6 sub, 10 min/max
 OPS_SCAN = 36  # one ray taken to an instance's object space: the point 18,
 # the direction 15, three reciprocals (the root's box test is a box)
+OPS_CULL = 29  # one world-box test of the forest walk's cull: the
+# origin's margin 1, the grown planes 6, 6 sub, 6 mul, 10 min/max
+OPS_WORLD_RAY = 6  # one ray's world-space set-up: three reciprocals, |o|
+# max 3
+INSTANCE_BYTES = 88  # an instance as the forest walk reads it: inverse
+# transform rows 48, root 4, word 4, root's row 32
+TREE_NODE_BYTES = 32  # a chunk tree's node: its box, eta and word
 # Bytes the function needs per unit: a node's 8 child boxes with codes
 # and axis, a record's v0|e1|e2|n|front_only, a triangle's non-zero page
 # coefficients (T 4, B 3, U 6, V 6, FO 1), a box's 6 planes, a binary
@@ -1980,43 +1993,191 @@ def maps_phase(tmp):
     return checks, launches["fused"]
 
 
+def forest_cost(counts, tmax0, anyhit, n_obj, stats=None) -> dict:
+    """The forest walk's bound from its audit's counts (the work the
+    culling kernel does on these rays): the rays, every instance and its
+    chunk tree's nodes read once (and, where the plain walk's ``stats`` are
+    given, the distinct node rows and triangle records it tested);
+    ``OPS_WORLD_RAY`` a lane, ``OPS_CULL`` a box test of the trees, a
+    candidate taken to object space (``OPS_SCAN``) and its root's box
+    tested, 22 a child box and 40 a triangle the walks test."""
+    seen = 0 if stats is None else (
+        int(stats["node_seen"].sum()) * NODE2_BYTES
+        + int(stats["tri_seen"].sum()) * RECORD_BYTES)
+    chunks = -(-n_obj // packet.FOREST_CHUNK)
+    tree_bytes = (2 * n_obj - chunks) * TREE_NODE_BYTES
+    return bound(
+        ray_bytes(tmax0, 1 if anyhit else 21) + n_obj * INSTANCE_BYTES
+        + tree_bytes + seen,
+        int((tmax0 > -BIG).sum()) * OPS_WORLD_RAY
+        + counts["tree_tests"] * OPS_CULL
+        + counts["world_pass"] * (OPS_SCAN + OPS_CHILD)
+        + (counts["boxes"] - counts["roots"]) * OPS_CHILD
+        + counts["tris"] * OPS_RECORD)
+
+
+def forest_audit(args, anyhit, kernel_out, stats=None) -> dict:
+    """The audit instance on one traversal's arguments: its outputs must
+    equal the kernel's ``kernel_out`` and it must count no violation (an
+    instance culled whose root test passes); with the plain walk's
+    ``stats``, its scans, box and triangle tests must equal them.
+    Returns its counts."""
+    out, counts = packet.forest_audit(*args, anyhit=anyhit)
+    if not all(torch.equal(a, b) for a, b in zip(_tuple(out),
+                                                 _tuple(kernel_out))):
+        raise AssertionError("forest audit: its outputs differ from the "
+                             "kernel's")
+    if counts["violations"]:
+        raise AssertionError(f"forest audit: the cull dropped an instance "
+                             f"whose root test passes: {counts}")
+    if stats is not None and any(counts[k] != stats[k]
+                                 for k in ("scans", "boxes", "tris")):
+        raise AssertionError(f"forest audit: counts {counts} differ from "
+                             f"the plain walk's stats")
+    return counts
+
+
 def forest_checks(sc, rays):
     """The forest walk (forest_walk_kernel) against its plain version
     (``packet.forest_traverse_reference``, which walks the instances one
-    after the other: about a minute), closest hit on the bounce set and
-    occlusion on the shadow set, every output equal.  Bytes: the rays, the
-    instance table (the 48 B of the inverse transform a kernel reads, the
-    root, its word and the root's row), the distinct node rows whose boxes
-    were tested and the distinct triangle records tested; operations: 22
-    per box tested (the roots' too), 40 per triangle and ``OPS_SCAN`` per
-    ray taken to an instance's object space."""
+    after the other: about a minute a set), closest hit on the camera and
+    bounce sets and occlusion on the shadow set, every output equal; then
+    the audit instance on the same rays (``forest_audit``: equal outputs,
+    no violation, its scans, box and triangle tests the plain walk's).
+    The bound is the culling kernel's (``forest_cost``, from the audit's
+    counts and the plain walk's distinct rows); ``bound_unculled_ms`` the
+    bound of the kernel without the cull: the rays, the instance table
+    (the 48 B of the inverse transform a kernel reads, the root, its word
+    and the root's row), the distinct node rows whose boxes were tested
+    and the distinct triangle records tested; operations: 22 per box
+    tested (the roots' too), 40 per triangle and ``OPS_SCAN`` per ray taken
+    to an instance's object space."""
     out = {}
     n_obj = sc.meta["n_objects"]
-    for name, anyhit in (("bounce", False), ("shadow", True)):
+    for name, anyhit in (("camera", False), ("bounce", False),
+                         ("shadow", True)):
         args = measure_forest_walk.forest_args(sc, rays[name])
-        plain_args = (*args[:4], sc.meta["obj_roots"], *args[6:])
+        plain_args = (*args[:4], sc.meta["obj_roots"], *args[7:])
         stats = {}
 
+        def run(args=args, anyhit=anyhit):
+            return _tuple(packet.forest_traverse(*args, anyhit=anyhit))
+
         def cost(args=args, stats=stats, anyhit=anyhit):
-            return dict(bound(
-                ray_bytes(args[8], 1 if anyhit else 21)
+            counts = forest_audit(args, anyhit, run(), stats)
+            old = bound(
+                ray_bytes(args[9], 1 if anyhit else 21)
                 + n_obj * (48 + 8 + NODE2_BYTES)
                 + int(stats["node_seen"].sum()) * NODE2_BYTES
                 + int(stats["tri_seen"].sum()) * RECORD_BYTES,
                 stats["boxes"] * OPS_CHILD + stats["tris"] * OPS_RECORD
-                + stats["scans"] * OPS_SCAN),
-                **{k: stats[k] for k in ("boxes", "tris", "scans")})
+                + stats["scans"] * OPS_SCAN)
+            return dict(forest_cost(counts, args[9], anyhit, n_obj, stats),
+                        bound_unculled_ms=old["bound_ms"], audit=counts)
 
         out["forest_" + name] = measure(
-            "forest_anyhit" if anyhit else "forest_walk",
-            lambda args=args, anyhit=anyhit: _tuple(
-                packet.forest_traverse(*args, anyhit=anyhit)),
+            "forest_anyhit" if anyhit else "forest_walk", run,
             lambda plain_args=plain_args, anyhit=anyhit, stats=stats: _tuple(
                 packet.forest_traverse_reference(*plain_args, anyhit=anyhit,
                                                  stats=stats)),
             equal_all(f"forest {name}"), cost, rays=name, n=N_CHECK,
-            instances=n_obj, active=int((args[8] > -BIG).sum()))
+            instances=n_obj, active=int((args[9] > -BIG).sum()))
     return out
+
+
+def forest_ptxas():
+    """The forest walk's ptxas lines (the shipped kernel's four instances:
+    closest hit and occlusion, each with its audit; the kernel before the
+    cull, old_forest_kernel of tools/forest_walk_variants.cu) and the
+    narrow walk's, which shares walk(): bvh2_walk_kernel still at 56
+    registers without a spill.  The forest walk may spill a few bytes at
+    its 64 registers: eight blocks an SM that way measured faster than six
+    without (tools/measure_forest_walk.py, "blocks6")."""
+    ptxas = {
+        "forest_walk_kernel": ptxas_of(packet.build_narrow(),
+                                       "forest_walk_kernel"),
+        "old_forest_kernel": ptxas_of(forest_walk_variants.build(),
+                                      "old_forest_kernel"),
+        "bvh2_walk_kernel": ptxas_of(packet.build_narrow(),
+                                     "bvh2_walk_kernel"),
+    }
+    phase("forest_walk_ptxas", **ptxas)
+    narrow = ptxas["bvh2_walk_kernel"]
+    if len(ptxas["forest_walk_kernel"]) != 4 or len(narrow) != 1 \
+            or narrow[0]["spill_store_bytes"] != 0 \
+            or not any("Used 56 registers" in ln for ln in narrow[0]["lines"]):
+        raise AssertionError(f"the forest walk's instances or the narrow "
+                             f"walk's line changed: {ptxas}")
+
+
+def forest_vs_unculled(sc, rays):
+    """The culling forest walk against the kernel before the cull
+    (old_forest_kernel
+    of tools/forest_walk_variants.cu, every instance taken to object
+    space) on the 2^18-lane camera, bounce and shadow sets: every output
+    equal (``torch.equal``), then each timed in turns."""
+    for name, anyhit in measure_forest_walk.SETS.items():
+        args = measure_forest_walk.forest_args(sc, rays[name])
+
+        def new(args=args, anyhit=anyhit):
+            return packet.forest_traverse(*args, anyhit=anyhit)
+
+        def old(args=args, anyhit=anyhit):
+            return forest_walk_variants.run("old", *args, anyhit=anyhit)
+
+        forest_walk_variants.compare(
+            f"forest walk against the unculled, {name}", new(), old())
+        phase("forest_vs_unculled", rays=name, n=N_CHECK, anyhit=anyhit,
+              equal=True, active=int((args[9] > -BIG).sum()),
+              **in_turns(new, old))
+
+
+@contextlib.contextmanager
+def unculled_forest_kernel():
+    """Traversals of the forest walk through the kernel before the cull
+    (``forest_walk_variants.run("old")``) in place of the shipped one;
+    the launch counts count them as the shipped kernel's."""
+    launch = packet._launch_forest
+
+    def old(args, anyhit, counts=None):
+        return forest_walk_variants.run("old", *args, anyhit=anyhit)
+
+    packet._launch_forest = old
+    try:
+        yield
+    finally:
+        packet._launch_forest = launch
+
+
+def forest_frame_bound(sc, cfg):
+    """One forest frame whose every forest-walk traversal is followed by
+    the audit instance on its arguments (``forest_audit``: equal outputs,
+    no violation): each traversal's bound (``forest_cost``; the rays and
+    the instance table as its bytes) and their sum, the frame bound."""
+    traversals = []
+    walk = packet.forest_traverse
+
+    def audited(*args, anyhit=False):
+        out = walk(*args, anyhit=anyhit)
+        counts = forest_audit(args, anyhit, out)
+        traversals.append(dict(
+            anyhit=anyhit, lanes=int(args[7].shape[0]),
+            **forest_cost(counts, args[9], anyhit, sc.meta["n_objects"]),
+            **counts))
+        return out
+
+    packet.forest_traverse = audited
+    try:
+        trt.render(sc, cfg)
+    finally:
+        packet.forest_traverse = walk
+    total = {k: sum(t[k] for t in traversals) for k in (
+        "bound_ms", *packet.AUDIT_COUNTERS)}
+    phase("forest_frame_bound", traversals=len(traversals),
+          frame_bound_ms=total["bound_ms"],
+          **{k: v for k, v in total.items() if k != "bound_ms"},
+          per_traversal=traversals)
+    return total
 
 
 def _tuple(out):
@@ -2046,7 +2207,7 @@ def forest_vs_old(sc, rays):
                                                  new(), old(), anyhit),
                **in_turns(new, old)}
         phase("forest_vs_old", rays=name, n=N_CHECK, anyhit=anyhit,
-              active=int((args[8] > -BIG).sum()), **rec)
+              active=int((args[9] > -BIG).sum()), **rec)
         out[name] = rec
     return out
 
@@ -2055,19 +2216,23 @@ def forest(dev, main):
     """``sponza_proxy`` compiled as a forest (one BVH per mesh, every
     instance walked in one forest_walk_kernel launch a traversal): 64x36
     (spp 1) on the card against the CPU; the forest walk against its plain
-    version on 2^18 rays of the frame's bounce and shadow sets
-    (``forest_checks``, with bounds) and against the composition it
-    replaced on those and the camera set (``forest_vs_old``, in turns);
-    then the benchmark
+    version on 2^18 rays of the frame's camera, bounce and shadow sets
+    with its audit (``forest_checks``, with bounds), against the
+    composition it replaced (``forest_vs_old``, in turns) and against the
+    kernel before the cull (``forest_vs_unculled``, in turns, with the
+    ptxas lines: ``forest_ptxas``) on those sets; then the benchmark
     frame on the round kernels, whose checksum and ray counts must agree
     with the main frame's within 1% (``frame``), equal bit for bit to the
     same frame on the torch round, both timed, with every kernel launch a
     round of both (the profiler's count) and the forest walk's device ms in
     the frame; each traversal one forest-walk launch, no narrow-walk
-    launch, each round kernel once a round.  Its image's mean |diff| from
-    the main frame is printed (the forest's trees have no spatial splits,
-    so the frames differ only at exact-t ties).  Returns the frame's
-    record and the kernel checks."""
+    launch, each round kernel once a round; the frame on the kernel before
+    the cull and on this one in turns (that, this, this, that), each equal
+    to the torch round's frame; one frame with the audit after every
+    traversal, for the frame bound (``forest_frame_bound``).  Its image's
+    mean |diff| from the main frame is printed (the forest's trees have no
+    spatial splits, so the frames differ only at exact-t ties).  Returns
+    the frame's record and the kernel checks."""
     t0 = time.perf_counter()
     sc = presets.sponza_proxy(SCENE_TRIS).compile(flatten_instances=False)
     compile_s = time.perf_counter() - t0
@@ -2082,6 +2247,8 @@ def forest(dev, main):
     rays = check_rays(sc, dev)
     checks = forest_checks(sc, rays)
     forest_vs_old(sc, rays)
+    forest_ptxas()
+    forest_vs_unculled(sc, rays)
     del rays
     rec = frame(sc, dev, "frame_forest", None, 1, main=main)
     cfg = frame_cfg()
@@ -2106,6 +2273,28 @@ def forest(dev, main):
                 sc, cfg, ("forest_walk_kernel",))
     finally:
         wavefront._fused_round_ok = fused_ok
+    with unculled_forest_kernel():
+        trt.render(sc, cfg)  # warm-up
+    turns = {"new": [], "unculled": []}
+    for which in ("unculled", "new", "new", "unculled"):
+        with (unculled_forest_kernel() if which == "unculled"
+              else contextlib.nullcontext()):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            img = trt.render(sc, cfg)
+            torch.cuda.synchronize()
+            turns[which].append(time.perf_counter() - t0)
+        if not torch.equal(img, frames["torch"]):
+            raise AssertionError(f"forest: the frame on the {which} forest "
+                                 "kernel differs from the torch round's")
+    phase("forest_frame_vs_unculled", size=f"{FRAME[0]}x{FRAME[1]}", spp=2,
+          bounce=8, frame_s_new=statistics.mean(turns["new"]),
+          frame_s_unculled=statistics.mean(turns["unculled"]),
+          frame_s_new_runs=turns["new"],
+          frame_s_unculled_runs=turns["unculled"],
+          speedup=statistics.mean(turns["unculled"])
+          / statistics.mean(turns["new"]), equal_to_torch=True)
+    bound_total = forest_frame_bound(sc, cfg)
     rounds = once_a_round("forest", launches["fused"], "shade_round",
                           walk="forest_walk")
     walks = {k: rec["launches"][k] for k in ("forest_walk", "forest_anyhit",
@@ -2127,6 +2316,9 @@ def forest(dev, main):
           kernels_per_round_torch=kernels["torch"] / rounds,
           kernels_fused=kernels["fused"], kernels_torch=kernels["torch"],
           forest_walk_in_frame=in_frame["fused"]["forest_walk_kernel"],
+          forest_walk_frame_bound_ms=bound_total["bound_ms"],
+          forest_walk_frame_share=bound_total["bound_ms"]
+          / in_frame["fused"]["forest_walk_kernel"]["ms"],
           mean_abs_diff_vs_main=float(diff.mean()),
           pixels_within_2e3=float((diff.amax(dim=-1) <= 2e-3).float()
                                   .mean()))

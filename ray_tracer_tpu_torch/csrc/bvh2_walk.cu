@@ -88,29 +88,77 @@
 // closest hit and occlusion, with the narrow walk above (walk(), shared
 // with bvh2_walk_kernel) for each instance.  Its plain version is
 // kernels/packet.py::forest_traverse_reference.
-//   * One thread per ray loops over the K instances in their order (no
-//     top-level tree: the order decides which instance wins an exact-t
-//     tie, and a later instance replaces an earlier one only at a strictly
-//     smaller t).  Each instance's ray is ((m00*x + m01*y) + m02*z) + m03
-//     per row for the origin and (m00*dx + m01*dy) + m02*dz for the
-//     direction, the JAX package's _transform_point and _transform_dir in
-//     a fixed order (a matrix product's order is cuBLAS's, which no
-//     --fmad=false kernel can match).
-//   * A block stages the instance table in shared memory, 128 instances
-//     (10 KiB) at a time: three rows of the inverse transform, the root's
-//     box and its word, 80 B each.  Any K runs, in ceil(K / 128) chunks;
-//     every thread of the block, those past n included, takes part in each
-//     chunk's two barriers.
-//   * The root's box is tested against the best t so far before the walk,
-//     as the narrow walk's own first test does, so a ray skips an instance
-//     whose box it enters at or beyond its best t.  Under kAnyhit the ray's
-//     bound falls to -BIG at its first instance hit, which ends its scan.
-//   * The per-ray cost of the scan, for each instance: 33 FP32 operations
-//     for the transform (18 for the point, 15 for the direction), three
-//     IEEE reciprocals and 22 for the root's slab test, about 58 in all,
-//     and five 16 B shared-memory loads that a warp shares.  For
-//     sponza_proxy (K = 293) that is about 17,000 operations a ray a
-//     traversal before any tree is walked.
+//   * One thread per ray takes the K instances in their order (the order
+//     decides which instance wins an exact-t tie: a later instance
+//     replaces an earlier one only at a strictly smaller t, so no walk
+//     order of a top-level tree may replace it).  Each instance's ray is
+//     ((m00*x + m01*y) + m02*z) + m03 per row for the origin and
+//     (m00*dx + m01*dy) + m02*dz for the direction, the JAX package's
+//     _transform_point and _transform_dir in a fixed order (a matrix
+//     product's order is cuBLAS's, which no --fmad=false kernel can
+//     match).  The root's box is then tested
+//     against the best t so far, as the narrow walk's own first test does,
+//     and the tree walked where the ray enters it within that t.  Under
+//     kAnyhit the ray's bound falls to -BIG at its first instance hit,
+//     which ends its scan.
+//   * What bounds it: the scan, and walks that a warp runs one after the
+//     other.  Taking a ray to an instance's object space costs 33 FP32
+//     operations, three IEEE reciprocals and the root's 22-operation slab
+//     test, and on sponza_proxy's forest (K = 293) a bounce ray of the
+//     kernel before the cull scanned 229 instances to enter about 8
+//     (PERF.md); and where the lanes of a warp enter different instances,
+//     the warp runs each of those walks in turn while the other lanes
+//     wait.
+//   * So each instance first meets a conservative cull in world space: the
+//     world ray's guarded reciprocals are taken once per ray, and boxes in
+//     world space (kernels/packet.py::forest_cull_table, built on the host
+//     once per scene) are slab-tested, about 29 FP32 operations and no
+//     reciprocal (culled()).  The instances go in chunks of 128, each
+//     under a binary tree of their world boxes (forest_cull_trees: a node
+//     holds its children's boxes and their largest eta, so a node's test
+//     passes wherever a leaf's below it would).  A ray walks each chunk's
+//     tree into a mask of candidates, 128 bits in four registers, then
+//     takes the set bits in ascending order: the lanes of a warp walk
+//     their own candidates at once, and the order rule (the instance
+//     order decides ties) needs no tie-break.  Only a candidate takes the
+//     path above, unchanged, so the outputs are those of the scan without
+//     the cull, bit for bit.
+//   * The cull skips an instance only where the root's test must fail.
+//     An instance's box is the world image of its root's box under the
+//     float64 inverse of the f32 inverse transform (the matrix the kernel
+//     applies), rounded outward to f32 and widened by delta_k; the kernel
+//     widens it by eta_k * max|o| more.  delta_k and eta_k bound, over the
+//     3x3 part's condition number, the box's coordinates and the origin's
+//     size, what the f32 rounding of the object-space ray, of its
+//     reciprocals and of both slab tests can move the point where the ray
+//     meets the box (the argument: forest_cull_table).  The predicate is a
+//     geometric miss of that box, or an entry beyond the best t at the
+//     chunk's start with a relative slack of 2^-16, written so that a NaN
+//     keeps the box; a lane whose best t exceeds kBig takes every instance
+//     (there the root's test passes on a miss, kBig < best).
+//   * Nothing is staged in shared memory: the trees (8 KiB a chunk) and a
+//     candidate's instance (its inverse transform, root, word and root
+//     row) are read through L1, so no barrier holds a block's warps to the
+//     slowest one's chunk.
+//   * The audit instance, forest_walk_kernel<., true> (kernels/packet.py::
+//     forest_audit; off the path), takes every (ray, instance) pair the
+//     scan reaches through the object-space path, its candidate bit the
+//     cull's verdict, and counts scans, candidates, root passes, box and
+//     triangle tests, the trees' box tests and violations (no candidate
+//     although the root's test passes), one per-block sum and one atomic
+//     per counter.
+//   * Its design (tools/forest_walk_variants.cu, timed in turns by
+//     tools/measure_forest_walk.py at 2^18 rays; factors against the
+//     kernel before the cull, "old", on the camera, bounce and shadow
+//     sets, NVIDIA H100 80GB HBM3 at 700 W; PERF.md): the flat cull in
+//     the instance loop 1.21, 1.15, 1.23x; the flat cull into a mask,
+//     then the candidates 1.35, 1.58, 1.50x; the chunk trees staged in
+//     shared memory with the instances 1.46, 1.76, 1.58x; the same read
+//     through L1 (this kernel) 1.62, 1.84, 1.72x.  The cull on the best t
+//     moves the flat kernel by 1% or less, six blocks an SM against eight
+//     by 5% or less (this kernel at six: 1.05x slower on camera rays,
+//     1.02x faster on shadow rays; at eight it spills 36 B, at six
+//     nothing).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -221,15 +269,24 @@ __device__ __forceinline__ void test_leaf(const float4* __restrict__ tris,
   }
 }
 
+// Box and triangle tests of a walk, counted by the forest walk's audit.
+struct WalkCount {
+  uint32_t boxes = 0, tris = 0;
+};
+
 // The walk of one tree from the node word `cur`, whose box the ray enters
 // within best (`live`; the caller tests the root's box): the closest hit
-// within best, folded into best, prim, u, v and front.
+// within best, folded into best, prim, u, v and front.  kCount adds the
+// child boxes and triangles it tests to *count (the forest walk's audit);
+// the narrow walk and the forest walk run the instance without it.
+template <bool kCount = false>
 __device__ __forceinline__ void walk(const float4* __restrict__ nodes,
                                      const int* __restrict__ axis,
                                      const float4* __restrict__ tris,
                                      const Ray& y, uint32_t cur, bool live,
                                      float& best, int& prim, float& bu,
-                                     float& bv, bool& bfront) {
+                                     float& bv, bool& bfront,
+                                     WalkCount* count = nullptr) {
   uint32_t stack[kStack];  // far children, entered when popped
   int sp = 0;
   auto pop = [&]() {
@@ -246,6 +303,7 @@ __device__ __forceinline__ void walk(const float4* __restrict__ nodes,
       const float4 a1 = __ldg(r + 2), b1 = __ldg(r + 3);
       const int ax0 = __ldg(axis + first), ax1 = __ldg(axis + first + 1);
       const float e0 = entry(a0, b0, y), e1 = entry(a1, b1, y);
+      if constexpr (kCount) count->boxes += 2;
       const int ax = static_cast<int>((cur & kTagMask) - kInterior);
       const float dax = ax == 0 ? y.dx : (ax == 1 ? y.dy : y.dz);
       const bool neg = dax < 0.0f;  // near child: first + 1 down the axis
@@ -266,6 +324,7 @@ __device__ __forceinline__ void walk(const float4* __restrict__ nodes,
     }
     // leaves until this lane pops an interior node (or is done)
     while (live && (cur & kTagMask) < kInterior) {
+      if constexpr (kCount) count->tris += cur & kTagMask;
       test_leaf(tris, static_cast<int>(cur >> kTagBits),
                 static_cast<int>(cur & kTagMask), y, best, prim, bu, bv,
                 bfront);
@@ -304,108 +363,329 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
 
 // ---- the forest walk ------------------------------------------------------
 
-// One instance of a forest as a block stages it: the first three rows of
-// its inverse transform (m0..m2) and its root's box and word (a = min.xyz,
-// max.x; b = max.yz, the root's word as bits, unused).
-struct Instance {
-  float4 m0, m1, m2, a, b;
+constexpr int kForestMinBlocks = 8;  // blocks per SM: at most 64 registers
+constexpr int kForestChunk = 128;    // instances under one tree, one mask
+constexpr int kTreeRows = 2 * kForestChunk - 1;  // nodes of a chunk's tree
+constexpr int kTreeStack = 8;  // far children: the host's trees are balanced
+// A tree node's word (the bits of its hi.w): kTreeLeaf | e for the chunk's
+// instance e, else its first child's row (the second follows it).
+constexpr uint32_t kTreeLeaf = 0x80000000u;
+// the cull on the best t keeps the entries up to best * (1 + 2^-16)
+constexpr float kCullSlack = 1.0000152587890625f;
+
+// The audit's counters, in the order of ForestArgs::counts.
+enum {
+  kScans,
+  kWorldPass,
+  kRootPass,
+  kRoots,
+  kBoxes,
+  kTris,
+  kViolations,
+  kTreeTests,
+  kCounters
 };
 
-constexpr int kForestMinBlocks = 8;  // blocks per SM: at most 64 registers
-constexpr int kForestChunk = 128;    // instances staged at a time (10 KiB)
+// One forest walk's arguments (rt_forest_walk's).
+struct ForestArgs {
+  const float4* nodes;    // (B,8) f32 bvh_packed
+  const int* axis;        // (B,) i32
+  const float4* tris;     // (T,16) f32 tri_packed
+  const float4* inv;      // (K,4,4) f32 inverse transforms
+  const int* roots;       // (K,) i32
+  const uint32_t* words;  // (K,) the roots' words
+  const float4* cull;     // (ceil(K/128) * kTreeRows, 8) f32 chunk trees
+  int n_obj;
+  const float* origin;
+  const float* direction;
+  const float* tmax0;
+  float* dst;
+  int* prim;
+  int* obj;
+  float* u;
+  float* v;
+  bool* front;
+  bool* occluded;
+  unsigned long long* counts;  // the audit's kCounters sums (audit only)
+  int n;
+};
 
-// Every instance of a forest in turn, one thread per ray: the ray taken to
-// the instance's object space (the plain version's expressions, in its
-// order), the root's box tested against the best t so far, the tree walked
-// from the root's word, bounded by that t.  A later instance replaces an
-// earlier one at a strictly smaller t only.  Closest hit: dst, prim, obj
-// (-1 on a miss), u, v, front.  kAnyhit: the ray's bound falls to -BIG at
-// its first instance hit, which ends its scan; `occluded` says whether it
-// fell.
-template <bool kAnyhit>
-__global__ void __launch_bounds__(kBlock, kForestMinBlocks)
-    forest_walk_kernel(const float4* __restrict__ nodes,
-                       const int* __restrict__ axis,
-                       const float4* __restrict__ tris,
-                       const float4* __restrict__ inv,
-                       const int* __restrict__ roots,
-                       const uint32_t* __restrict__ words, int n_obj,
-                       const float* __restrict__ origin,
-                       const float* __restrict__ direction,
-                       const float* __restrict__ tmax0,
-                       float* __restrict__ dst_out,
-                       int* __restrict__ prim_out, int* __restrict__ obj_out,
-                       float* __restrict__ u_out, float* __restrict__ v_out,
-                       bool* __restrict__ front_out,
-                       bool* __restrict__ occluded_out, int n) {
-  __shared__ Instance table[kForestChunk];
+// Whether the world ray w, whose origin's largest |component| is m_o, may
+// skip everything inside the world box lo..hi: it misses that box grown by
+// eta * m_o (eta = lo.w) on every side or, under kBestCull, enters it
+// beyond best * kCullSlack.  Every comparison is false on a NaN, which
+// keeps the box.
+template <bool kBestCull = true>
+__device__ __forceinline__ bool culled(const float4 lo, const float4 hi,
+                                       const Ray& w, float m_o, float best) {
+  const float s = lo.w * m_o;
+  const float t1x = ((lo.x - s) - w.ox) * w.ix;
+  const float t2x = ((hi.x + s) - w.ox) * w.ix;
+  const float t1y = ((lo.y - s) - w.oy) * w.iy;
+  const float t2y = ((hi.y + s) - w.oy) * w.iy;
+  const float t1z = ((lo.z - s) - w.oz) * w.iz;
+  const float t2z = ((hi.z + s) - w.oz) * w.iz;
+  const float tmin = max_ptx(max_ptx(min_ptx(t1x, t2x), min_ptx(t1y, t2y)),
+                             min_ptx(t1z, t2z));
+  const float tmax = min_ptx(min_ptx(max_ptx(t1x, t2x), max_ptx(t1y, t2y)),
+                             max_ptx(t1z, t2z));
+  return tmax < tmin || tmax < 0.0f ||
+         (kBestCull && tmin > best * kCullSlack);
+}
+
+// Instance e of a chunk as a candidate: bit e of k0..k3.
+__device__ __forceinline__ void set_candidate(int e, uint32_t& k0,
+                                              uint32_t& k1, uint32_t& k2,
+                                              uint32_t& k3) {
+  const uint32_t bit = 1u << (e & 31);
+  k0 |= (e >> 5) == 0 ? bit : 0u;
+  k1 |= (e >> 5) == 1 ? bit : 0u;
+  k2 |= (e >> 5) == 2 ? bit : 0u;
+  k3 |= (e >> 5) == 3 ? bit : 0u;
+}
+
+// The lowest candidate of k0..k3, cleared, or -1 where there is none.
+__device__ __forceinline__ int pop_candidate(uint32_t& k0, uint32_t& k1,
+                                             uint32_t& k2, uint32_t& k3) {
+  if (k0) {
+    const int e = __ffs(k0) - 1;
+    k0 &= k0 - 1u;
+    return e;
+  }
+  if (k1) {
+    const int e = 31 + __ffs(k1);
+    k1 &= k1 - 1u;
+    return e;
+  }
+  if (k2) {
+    const int e = 63 + __ffs(k2);
+    k2 &= k2 - 1u;
+    return e;
+  }
+  if (k3) {
+    const int e = 95 + __ffs(k3);
+    k3 &= k3 - 1u;
+    return e;
+  }
+  return -1;
+}
+
+// A chunk's candidates, or'ed into k0..k3: the leaves of its tree (`tree`,
+// kTreeRows nodes of two float4: lo.xyz, eta | hi.xyz, word) that the ray
+// reaches through nodes whose boxes the cull keeps, both children of a
+// node tested together.  The visit order does not matter: the mask keeps
+// the instances' own order.  kCount adds the box tests to *tests.
+template <bool kCount>
+__device__ __forceinline__ void chunk_candidates(
+    const float4* __restrict__ tree, const Ray& w, float m_o, float best,
+    uint32_t& k0, uint32_t& k1, uint32_t& k2, uint32_t& k3,
+    uint32_t* tests) {
+  uint32_t stack[kTreeStack];  // far children's words
+  int sp = 0;
+  const float4 lo = __ldg(tree), hi = __ldg(tree + 1);
+  uint32_t cur = __float_as_uint(hi.w);
+  bool live = !culled(lo, hi, w, m_o, best);
+  if constexpr (kCount) ++*tests;
+  while (live) {
+    if (cur & kTreeLeaf) {
+      set_candidate(static_cast<int>(cur & ~kTreeLeaf), k0, k1, k2, k3);
+      live = sp > 0;
+      if (live) cur = stack[--sp];
+      continue;
+    }
+    const float4* c = tree + 2 * cur;
+    const float4 lo0 = __ldg(c), hi0 = __ldg(c + 1);
+    const float4 lo1 = __ldg(c + 2), hi1 = __ldg(c + 3);
+    const bool in0 = !culled(lo0, hi0, w, m_o, best);
+    const bool in1 = !culled(lo1, hi1, w, m_o, best);
+    if constexpr (kCount) *tests += 2;
+    if (in0) {
+      if (in1) stack[sp++] = __float_as_uint(hi1.w);
+      cur = __float_as_uint(hi0.w);
+    } else if (in1) {
+      cur = __float_as_uint(hi1.w);
+    } else {
+      live = sp > 0;
+      if (live) cur = stack[--sp];
+    }
+  }
+}
+
+// Instance k against the ray o + t d, as the plain version takes it: the
+// ray taken to the instance's object space (the plain version's
+// expressions, in its order), the root's box tested against best, the
+// tree walked from the root's word where the ray enters it.  A hit is
+// folded into best, p, bu, bv and bfront; kCount adds the walk's tests to
+// *count.  Returns whether the root's test passed.
+template <bool kCount>
+__device__ __forceinline__ bool instance_walk(
+    const ForestArgs& a, int k, float ox, float oy, float oz, float dx,
+    float dy, float dz, float& best, int& p, float& bu, float& bv,
+    bool& bfront, WalkCount* count) {
+  const int root = __ldg(a.roots + k);
+  const float4 m0 = __ldg(a.inv + 4 * k), m1 = __ldg(a.inv + 4 * k + 1);
+  const float4 m2 = __ldg(a.inv + 4 * k + 2);
+  // ray_tracer_tpu/ops/traverse.py::_transform_point, _transform_dir
+  const float px = ((m0.x * ox + m0.y * oy) + m0.z * oz) + m0.w;
+  const float py = ((m1.x * ox + m1.y * oy) + m1.z * oz) + m1.w;
+  const float pz = ((m2.x * ox + m2.y * oy) + m2.z * oz) + m2.w;
+  const float qx = (m0.x * dx + m0.y * dy) + m0.z * dz;
+  const float qy = (m1.x * dx + m1.y * dy) + m1.z * dz;
+  const float qz = (m2.x * dx + m2.y * dy) + m2.z * dz;
+  const Ray y = make_ray(px, py, pz, qx, qy, qz);
+  const bool enter = entry(__ldg(a.nodes + 2 * root),
+                           __ldg(a.nodes + 2 * root + 1), y) < best;
+  if (enter)
+    walk<kCount>(a.nodes, a.axis, a.tris, y, __ldg(a.words + k), true, best,
+                 p, bu, bv, bfront, count);
+  return enter;
+}
+
+// Every instance of a forest in turn, one thread per ray.  For each chunk
+// of 128 instances the ray walks the chunk's tree into a mask of
+// candidates (chunk_candidates; every instance where its best t exceeds
+// kBig, where the root's test passes on a miss), then takes the set bits
+// in ascending order through instance_walk, bounded by its best t so far.
+// A later instance replaces an earlier one at a strictly smaller t only.
+// Closest hit: dst, prim, obj (-1 on a miss), u, v, front.  kAnyhit: the
+// ray's bound falls to -BIG at its first instance hit, which ends its
+// scan; `occluded` says whether it fell.  kAudit: every instance the scan
+// reaches through instance_walk, its bit the cull's verdict, and the
+// counters summed into a.counts: scans (pairs whose lane's bound is above
+// 0), world-box passes (candidates) and root passes, root tests (on every
+// lane above -BIG, as the plain version's stats count them), box tests
+// (those and the children the walks test), triangle tests, violations
+// (no candidate, the root's test passing) and the trees' box tests.
+template <bool kAnyhit, bool kAudit, int kMinBlk = kForestMinBlocks>
+__global__ void __launch_bounds__(kBlock, kMinBlk)
+    forest_walk_kernel(const ForestArgs a) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool in = i < n;
+  const bool in = i < a.n;
   float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 0.0f;
   float best = -kBig;
   if (in) {
-    ox = origin[3 * i];
-    oy = origin[3 * i + 1];
-    oz = origin[3 * i + 2];
-    dx = direction[3 * i];
-    dy = direction[3 * i + 1];
-    dz = direction[3 * i + 2];
-    best = tmax0[i];
+    ox = a.origin[3 * i];
+    oy = a.origin[3 * i + 1];
+    oz = a.origin[3 * i + 2];
+    dx = a.direction[3 * i];
+    dy = a.direction[3 * i + 1];
+    dz = a.direction[3 * i + 2];
+    best = a.tmax0[i];
   }
+  // the world ray and its guarded reciprocals, once a ray
+  const Ray w = make_ray(ox, oy, oz, dx, dy, dz);
+  const float m_o = max_ptx(max_ptx(fabsf(ox), fabsf(oy)), fabsf(oz));
   int prim = -1, obj = -1;
   float bu = 0.0f, bv = 0.0f;
   bool bfront = false;
-  // every thread of the block stages each chunk, those past n included
-  for (int base = 0; base < n_obj; base += kForestChunk) {
-    const int m = min(kForestChunk, n_obj - base);
-    __syncthreads();
-    for (int e = threadIdx.x; e < m; e += kBlock) {
-      const int k = base + e;
-      const int root = __ldg(roots + k);
-      Instance s;
-      s.m0 = __ldg(inv + 4 * k);
-      s.m1 = __ldg(inv + 4 * k + 1);
-      s.m2 = __ldg(inv + 4 * k + 2);
-      s.a = __ldg(nodes + 2 * root);
-      s.b = __ldg(nodes + 2 * root + 1);
-      s.b.z = __uint_as_float(__ldg(words + k));
-      table[e] = s;
+  uint32_t count[kCounters] = {};  // kAudit
+  WalkCount walked;                // kAudit
+  int next = 0;                    // kAudit: the first instance not reached
+  // a lane whose bound is not above 0 enters no box: the entry is >= 0
+  for (int base = 0; base < a.n_obj && best > 0.0f; base += kForestChunk) {
+    const int m = min(kForestChunk, a.n_obj - base);
+    uint32_t k0 = 0, k1 = 0, k2 = 0, k3 = 0;
+    if (best <= kBig) {
+      chunk_candidates<kAudit>(a.cull + 2 * kTreeRows * (base / kForestChunk),
+                               w, m_o, best, k0, k1, k2, k3,
+                               &count[kTreeTests]);
+    } else {
+      for (int e = 0; e < m; ++e) set_candidate(e, k0, k1, k2, k3);
+    }
+    if constexpr (kAudit) {
+      int e = 0;
+      for (; e < m && best > 0.0f; ++e) {
+        const uint32_t bits = e < 32 ? k0 : (e < 64 ? k1 : (e < 96 ? k2 : k3));
+        const bool cull = !((bits >> (e & 31)) & 1u);
+        int p = -1;
+        const bool enter = instance_walk<true>(
+            a, base + e, ox, oy, oz, dx, dy, dz, best, p, bu, bv, bfront,
+            &walked);
+        ++count[kScans];
+        ++count[kRoots];
+        ++count[kBoxes];
+        count[kWorldPass] += !cull;
+        count[kRootPass] += enter;
+        count[kViolations] += enter && cull;
+        if (p >= 0) {
+          prim = p;
+          obj = base + e;
+          if (kAnyhit) best = -kBig;
+        }
+      }
+      next = base + e;
+    } else {
+#pragma unroll 1
+      while (best > 0.0f) {
+        const int e = pop_candidate(k0, k1, k2, k3);
+        if (e < 0) break;
+        int p = -1;
+        instance_walk<false>(a, base + e, ox, oy, oz, dx, dy, dz, best, p,
+                             bu, bv, bfront, nullptr);
+        if (p >= 0) {
+          prim = p;
+          obj = base + e;
+          if (kAnyhit) best = -kBig;
+        }
+      }
+    }
+  }
+  if constexpr (kAudit) {
+    // the plain version tests the root's box of every lane above -BIG
+    if (best > -kBig && !(best > 0.0f)) {
+      count[kRoots] += a.n_obj - next;
+      count[kBoxes] += a.n_obj - next;
+    }
+    count[kBoxes] += walked.boxes;
+    count[kTris] = walked.tris;
+    __shared__ unsigned long long part[kBlock / 32][kCounters];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+    for (int c = 0; c < kCounters; ++c) {
+      unsigned long long x = count[c];
+      for (int o = 16; o > 0; o >>= 1) x += __shfl_down_sync(0xffffffffu, x, o);
+      if (lane == 0) part[warp][c] = x;
     }
     __syncthreads();
-    // a lane whose bound is not above 0 enters no box: the entry is >= 0
-#pragma unroll 1
-    for (int e = 0; e < m && best > 0.0f; ++e) {
-      const Instance& s = table[e];
-      // ray_tracer_tpu/ops/traverse.py::_transform_point, _transform_dir
-      const float px = ((s.m0.x * ox + s.m0.y * oy) + s.m0.z * oz) + s.m0.w;
-      const float py = ((s.m1.x * ox + s.m1.y * oy) + s.m1.z * oz) + s.m1.w;
-      const float pz = ((s.m2.x * ox + s.m2.y * oy) + s.m2.z * oz) + s.m2.w;
-      const float qx = (s.m0.x * dx + s.m0.y * dy) + s.m0.z * dz;
-      const float qy = (s.m1.x * dx + s.m1.y * dy) + s.m1.z * dz;
-      const float qz = (s.m2.x * dx + s.m2.y * dy) + s.m2.z * dz;
-      const Ray y = make_ray(px, py, pz, qx, qy, qz);
-      if (!(entry(s.a, s.b, y) < best)) continue;
-      int p = -1;
-      walk(nodes, axis, tris, y, __float_as_uint(s.b.z), true, best, p, bu,
-           bv, bfront);
-      if (p >= 0) {
-        prim = p;
-        obj = base + e;
-        if (kAnyhit) best = -kBig;
-      }
+    if (threadIdx.x < kCounters) {
+      unsigned long long sum = 0;
+      for (int k = 0; k < kBlock / 32; ++k) sum += part[k][threadIdx.x];
+      atomicAdd(a.counts + threadIdx.x, sum);
     }
   }
   if (!in) return;
   if (kAnyhit) {
-    occluded_out[i] = prim >= 0;
+    a.occluded[i] = prim >= 0;
     return;
   }
-  dst_out[i] = best;
-  prim_out[i] = prim;
-  obj_out[i] = obj;
-  u_out[i] = bu;
-  v_out[i] = bv;
-  front_out[i] = bfront;
+  a.dst[i] = best;
+  a.prim[i] = prim;
+  a.obj[i] = obj;
+  a.u[i] = bu;
+  a.v[i] = bv;
+  a.front[i] = bfront;
+}
+
+// The arguments of rt_forest_walk as the kernels take them.
+inline ForestArgs forest_args(const void* nodes, const void* axis,
+                              const void* tris, const void* inv,
+                              const void* roots, const void* words,
+                              const void* cull, int n_obj,
+                              const void* origin, const void* direction,
+                              const void* tmax0, void* dst, void* prim,
+                              void* obj, void* u, void* v, void* front,
+                              void* occluded, void* counts, int n) {
+  return ForestArgs{
+      static_cast<const float4*>(nodes), static_cast<const int*>(axis),
+      static_cast<const float4*>(tris), static_cast<const float4*>(inv),
+      static_cast<const int*>(roots), static_cast<const uint32_t*>(words),
+      static_cast<const float4*>(cull), n_obj,
+      static_cast<const float*>(origin), static_cast<const float*>(direction),
+      static_cast<const float*>(tmax0), static_cast<float*>(dst),
+      static_cast<int*>(prim), static_cast<int*>(obj), static_cast<float*>(u),
+      static_cast<float*>(v), static_cast<bool*>(front),
+      static_cast<bool*>(occluded),
+      static_cast<unsigned long long*>(counts), n};
 }
 
 }  // namespace
@@ -432,28 +712,30 @@ extern "C" int rt_bvh2_walk(const void* nodes, const void* axis,
 }
 
 // One launch of the forest walk over the n_obj instances whose inverse
-// transforms (n_obj,4,4), roots and root words (kernels/packet.py::
-// narrow_root_words) are given; anyhit writes `occluded` only, else dst,
-// prim, obj, u, v and front.  Returns the launch's CUDA error.
+// transforms (n_obj,4,4), roots, root words (kernels/packet.py::
+// narrow_root_words) and chunk trees of world boxes (kernels/packet.py::
+// forest_cull_trees) are given; anyhit writes `occluded` only, else dst,
+// prim, obj, u, v and front.  `counts` non-null: the audit instance, which
+// adds its kCounters sums to counts[0..7] (zeroed by the caller).
+// Returns the launch's CUDA error.
 extern "C" int rt_forest_walk(const void* nodes, const void* axis,
                               const void* tris, const void* inv,
                               const void* roots, const void* words,
-                              int n_obj, const void* origin,
-                              const void* direction, const void* tmax0,
-                              int anyhit, void* dst, void* prim, void* obj,
-                              void* u, void* v, void* front, void* occluded,
+                              const void* cull, int n_obj,
+                              const void* origin, const void* direction,
+                              const void* tmax0, int anyhit, void* dst,
+                              void* prim, void* obj, void* u, void* v,
+                              void* front, void* occluded, void* counts,
                               int n, void* stream) {
   const dim3 grid((n + kBlock - 1) / kBlock), block(kBlock);
-  auto kernel = anyhit ? forest_walk_kernel<true> : forest_walk_kernel<false>;
-  kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(nodes), static_cast<const int*>(axis),
-      static_cast<const float4*>(tris), static_cast<const float4*>(inv),
-      static_cast<const int*>(roots), static_cast<const uint32_t*>(words),
-      n_obj, static_cast<const float*>(origin),
-      static_cast<const float*>(direction),
-      static_cast<const float*>(tmax0), static_cast<float*>(dst),
-      static_cast<int*>(prim), static_cast<int*>(obj),
-      static_cast<float*>(u), static_cast<float*>(v),
-      static_cast<bool*>(front), static_cast<bool*>(occluded), n);
+  const ForestArgs a =
+      forest_args(nodes, axis, tris, inv, roots, words, cull, n_obj, origin,
+                  direction, tmax0, dst, prim, obj, u, v, front, occluded,
+                  counts, n);
+  auto kernel = counts ? (anyhit ? forest_walk_kernel<true, true>
+                                 : forest_walk_kernel<false, true>)
+                       : (anyhit ? forest_walk_kernel<true, false>
+                                 : forest_walk_kernel<false, false>);
+  kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -228,8 +228,8 @@ def _load_narrow() -> ctypes.CDLL:
         )
         lib.rt_forest_walk.restype = ctypes.c_int
         lib.rt_forest_walk.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_void_p] * 3
-            + [ctypes.c_int] + [ctypes.c_void_p] * 7
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] + [ctypes.c_void_p] * 3
+            + [ctypes.c_int] + [ctypes.c_void_p] * 8
             + [ctypes.c_int, ctypes.c_void_p]
         )
         _narrow_lib = lib
@@ -352,29 +352,217 @@ def object_ray(m, origin, direction):
     return o, d
 
 
-def forest_traverse(bvh_packed, bvh_axis, tri_packed, inv_transform, roots,
-                    words, origin, direction, tmax0, anyhit: bool = False):
-    """Every instance of a forest in one walk of N rays: ``(dst, prim,
-    obj, u, v, front)``, each (N,), or under ``anyhit`` the (N,) bool mask
-    of rays that hit an instance within ``tmax0``.
+# The forest walk's cull: an entry beyond best * CULL_SLACK is culled
+# (bvh2_walk.cu's kCullSlack, 1 + 2^-16); a row that never culls.
+CULL_SLACK = 1.0000152587890625
+CULL_NEVER = (-np.inf, -np.inf, -np.inf, 0.0, np.inf, np.inf, np.inf, np.inf)
+# Its chunks (bvh2_walk.cu's kForestChunk, kTreeRows, kTreeLeaf and
+# kTreeStack): instances under one tree and one candidate mask, a chunk
+# tree's rows, a leaf's word flag, the far children a walk of it keeps.
+FOREST_CHUNK = 128
+TREE_ROWS = 2 * FOREST_CHUNK - 1
+TREE_LEAF = 0x80000000
+TREE_STACK = 8
+# The audit instance's counters (bvh2_walk.cu's ForestArgs::counts).
+AUDIT_COUNTERS = ("scans", "world_pass", "root_pass", "roots", "boxes",
+                  "tris", "violations", "tree_tests")
 
-    ``bvh_packed``, ``bvh_axis`` and ``tri_packed`` as for
-    :func:`packet_traverse`; ``inv_transform`` (K,4,4) f32, the instances'
-    world-to-object transforms; ``roots`` (K,) i32, their roots in
-    ``bvh_packed``, and ``words`` (K,) i32, the bits of those roots'
-    :func:`narrow_root_words` (``CompiledScene.forest_roots`` builds both
-    once from ``meta["obj_roots"]`` and ``["obj_root_words"]``; on CPU
-    tensors they are checked against the tables).  The instances are
-    walked in order, each ray taken to object space by :func:`object_ray`
-    and bounded by its best t so far (``tmax0`` at first; -BIG disables a
-    lane): a later instance replaces an earlier one only at a strictly
-    smaller t.  ``dst``: the closest accepted t (``tmax0`` on a miss);
-    ``prim``: its global triangle id and ``obj`` its instance (-1 on a
-    miss); ``u``, ``v``: its barycentrics (0 on a miss); ``front``:
-    whether it faces the ray.  Under ``anyhit`` a ray stops at the first
-    instance it hits.  On CUDA tensors one launch of
-    ``forest_walk_kernel``; on CPU tensors
-    :func:`forest_traverse_reference`."""
+
+def _f32_out(x, up: bool):
+    """float64 values rounded to f32 away from the box: up or down."""
+    y = np.asarray(x, np.float64).astype(np.float32)
+    off = y.astype(np.float64) < x if up else y.astype(np.float64) > x
+    return np.where(off, np.nextafter(y, np.float32(np.inf if up else -np.inf)),
+                    y)
+
+
+def forest_cull_table(inv_transform, bvh_packed, roots) -> np.ndarray:
+    """The forest walk's world boxes, from host arrays: (K,8) f32 rows
+    ``lo.xyz, eta, hi.xyz, delta``, one per instance (``inv_transform``
+    (K,4,4) f32, ``bvh_packed`` (B,8) f32, ``roots`` the K root nodes).
+
+    ``lo..hi`` is the world image of instance k's root box (row
+    ``roots[k]``) under the float64 inverse of the f32 ``inv_transform[k]``
+    (the matrix the kernel applies; ``obj_transform`` in f32 is not its
+    exact inverse), rounded outward to f32 and widened by ``delta`` on
+    every side; the kernel grows it by ``eta * max|o|`` more for a ray from
+    o (``forest_cull_reference``).  The kernel may skip the instance where
+    the world ray misses that box, because then its root test must fail.
+
+    The margin (u = 2^-24, g_n = n u / (1 - n u); A and c the f32 matrix's
+    3x3 part and translation, Ai the inverse of A, |.| elementwise, m =
+    max|o|, M the root box's largest |coordinate| per axis, W the world
+    image's): where the root test passes on a lane whose best t is at most
+    BIG, t' = max(tmin, 0) < best lies in each of the three computed slabs,
+    so the real point p + t' q of the kernel's object-space ray lies in the
+    root's box grown per axis by g3 (|p| + M) (the slab's three roundings)
+    and 1e-12 (a zero component's 1e-20 over t' < 1e8).  The kernel's p
+    and q miss A o + c and A d by at most g4 (|A| m + |c|) and g3 |A| |d|,
+    and t' |d| <= |X| + m for the world point X = o + t' d.  Taken to world
+    space through |Ai|, X lies in the image grown by |Ai| times the sum;
+    that sum holds X itself through g3 |A| |X|, which is why the bound is
+    taken 4/3 times, for g3 times the largest row sum of |Ai| |A| (the
+    condition number) at most 1/4.  The world test moves each of its
+    planes by at most g4 (|lo| + s + m) + 1e-12 by its own rounding.
+    ``delta`` is twice the parts that do not grow with m, ``eta`` twice
+    those that do (the factor also covers the roundings of the kernel's
+    ``eta * m`` and of the float64 arithmetic here).  A row whose
+    transform is singular, not finite or beyond that condition number, or
+    whose box is not finite, never culls (``CULL_NEVER``).  The kernel
+    reads the rows under :func:`forest_cull_trees`."""
+    inv = np.asarray(inv_transform, np.float32).astype(np.float64)
+    nodes = np.asarray(bvh_packed, np.float32).astype(np.float64)
+    roots = [int(r) for r in roots]
+    out = np.tile(np.array(CULL_NEVER, np.float32), (len(roots), 1))
+    u = 2.0 ** -24
+    g3, g4 = 3 * u / (1 - 3 * u), 4 * u / (1 - 4 * u)
+    bits = np.arange(8)
+    pick = np.stack([np.where(bits & 1, 3, 0), np.where(bits & 2, 4, 1),
+                     np.where(bits & 4, 5, 2)], axis=1)
+    with np.errstate(all="ignore"):
+        for k, root in enumerate(roots):
+            a_mat, c = inv[k, :3, :3], inv[k, :3, 3]
+            box = nodes[root, 0:6]
+            if not (np.isfinite(inv[k, :3]).all()
+                    and np.isfinite(box).all()):
+                continue
+            try:
+                ai = np.linalg.inv(a_mat)
+            except np.linalg.LinAlgError:
+                continue
+            abs_a, abs_ai = np.abs(a_mat), np.abs(ai)
+            kappa = float((abs_ai @ abs_a.sum(1)).max())
+            if not (np.isfinite(ai).all() and g3 * kappa <= 0.25):
+                continue
+            world = (box[pick] - c) @ ai.T
+            w_lo, w_hi = world.min(0), world.max(0)
+            w_max = np.maximum(np.abs(w_lo), np.abs(w_hi))
+            big_m = np.maximum(np.abs(box[0:3]), np.abs(box[3:6]))
+            fixed = ((g3 * (1 + g4) + g4) * np.abs(c) + g3 * big_m
+                     + g3 * (abs_a @ w_max) + 1e-12)
+            per_m = (g3 * (1 + g4) + g4 + g3) * abs_a.sum(1)
+            slop = 1e-9 * float((abs_ai @ (big_m + np.abs(c))).max())
+            delta = (2 * (4 / 3 * float((abs_ai @ fixed).max())
+                          + g4 * float(w_max.max()) + 1e-12) + slop)
+            eta = 2 * (4 / 3 * float((abs_ai @ per_m).max()) + g4)
+            lo = _f32_out(w_lo - delta, up=False)
+            hi = _f32_out(w_hi + delta, up=True)
+            if not (np.isfinite(lo).all() and np.isfinite(hi).all()):
+                continue
+            out[k, 0:3], out[k, 4:7] = lo, hi
+            out[k, 3] = _f32_out(eta, up=True)
+            out[k, 7] = _f32_out(delta, up=True)
+    return out
+
+
+def forest_cull_reference(row, origin, direction, best):
+    """Whether the forest walk's cull rules out the box ``row`` ((8,) f32:
+    lo.xyz, eta, hi.xyz, ...: a ``forest_cull_table`` row or a chunk
+    tree's node; or (R,8) for an (N,R) answer) for the rays (N,3) with best
+    t ``best`` (N,): ``bvh2_walk.cu::culled`` and its guard in plain torch,
+    f32, in the kernel's order.  The ray misses the box grown by eta *
+    max|o| on every side, or enters it beyond best * ``CULL_SLACK``; False
+    on a NaN, and wherever best exceeds BIG.  For the tests and the
+    audit's plain version; no path runs it."""
+    rows = row.reshape(-1, 8)
+    d = torch.where(direction == 0.0, 1e-20, direction)
+    inv = (1.0 / d)[:, None]
+    a = origin.abs()
+    m_o = torch.maximum(torch.maximum(a[:, 0], a[:, 1]), a[:, 2])
+    s = (rows[None, :, 3] * m_o[:, None])[..., None]
+    o = origin[:, None]
+    t1 = ((rows[None, :, 0:3] - s) - o) * inv
+    t2 = ((rows[None, :, 4:7] + s) - o) * inv
+    lo, hi = torch.minimum(t1, t2), torch.maximum(t1, t2)
+    tmin = torch.maximum(torch.maximum(lo[..., 0], lo[..., 1]), lo[..., 2])
+    tmax = torch.minimum(torch.minimum(hi[..., 0], hi[..., 1]), hi[..., 2])
+    out = ((tmax < tmin) | (tmax < 0.0)
+           | (tmin > best[:, None] * CULL_SLACK)) & (best <= BIG)[:, None]
+    return out[:, 0] if row.dim() == 1 else out
+
+
+def forest_cull_trees(rows) -> np.ndarray:
+    """The forest walk's chunk trees, from the (K,8) rows of
+    :func:`forest_cull_table` (host array or tensor): per chunk of
+    ``FOREST_CHUNK`` instances ``TREE_ROWS`` rows of 8 f32 (lo.xyz, eta,
+    hi.xyz, word bits), row 0 the root; (ceil(K / 128) * ``TREE_ROWS``,
+    8).  A leaf is an instance's own row with the word ``TREE_LEAF | e``
+    (e its index in the chunk); an interior node holds the union of its
+    children's boxes and their largest eta, so its test passes wherever a
+    leaf's below it would, and its word is its first child's row (the
+    second follows; children come after their parent).  Each node splits
+    its instances at the median of their boxes' centres along the widest
+    spread of those centres, so a tree is balanced: at most 7 levels below
+    its root, within the kernel's ``TREE_STACK``."""
+    rows = np.asarray(torch.as_tensor(rows).cpu(), np.float32).reshape(-1, 8)
+    n_chunks = -(-rows.shape[0] // FOREST_CHUNK)
+    out = np.zeros((n_chunks, TREE_ROWS, 8), np.float32)
+    word = lambda w: np.array([w], np.uint32).view(np.float32)[0]
+    for c in range(n_chunks):
+        chunk = rows[c * FOREST_CHUNK:(c + 1) * FOREST_CHUNK]
+        with np.errstate(invalid="ignore"):  # a row that never culls
+            centre = np.nan_to_num(0.5 * (chunk[:, 0:3] + chunk[:, 4:7]),
+                                   posinf=1e30, neginf=-1e30)
+        tree, free = out[c], [1]
+
+        def build(at, items, depth):
+            if len(items) == 1:
+                tree[at] = chunk[items[0]]
+                tree[at, 7] = word(TREE_LEAF | int(items[0]))
+                return
+            if depth >= TREE_STACK:
+                raise AssertionError("a chunk tree deeper than the stack")
+            first = free[0]
+            free[0] += 2
+            tree[at, 0:3] = chunk[items, 0:3].min(0)
+            tree[at, 3] = chunk[items, 3].max()
+            tree[at, 4:7] = chunk[items, 4:7].max(0)
+            tree[at, 7] = word(first)
+            axis = int(np.ptp(centre[items], axis=0).argmax())
+            order = items[np.argsort(centre[items, axis], kind="stable")]
+            half = len(items) // 2
+            build(first, order[:half], depth + 1)
+            build(first + 1, order[half:], depth + 1)
+
+        build(0, np.arange(chunk.shape[0]), 0)
+    return out.reshape(-1, 8)
+
+
+def forest_mask_reference(trees, chunk: int, n_inst: int, origin,
+                          direction, best):
+    """The candidates of chunk ``chunk`` (``n_inst`` instances) of the
+    chunk trees ``trees`` for the rays (N,3) with best t ``best`` (N,):
+    ``bvh2_walk.cu::chunk_candidates`` in plain torch -> ``(mask, tests)``,
+    ``mask`` (N, n_inst) bool, every instance where best exceeds BIG, and
+    ``tests`` (N,) i64, the node boxes a lane's walk of the tree tests
+    (none where best exceeds BIG).  Each node's box against every ray
+    (:func:`forest_cull_reference`), then a node is reached where its
+    parent is reached and its own test passes; a leaf reached is a
+    candidate."""
+    rows = trees[chunk * TREE_ROWS:chunk * TREE_ROWS + 2 * n_inst - 1]
+    keep = ~forest_cull_reference(rows, origin, direction, best)
+    words = rows[:, 7].contiguous().view(torch.int32).tolist()
+    walked = best <= BIG
+    reach = torch.zeros_like(keep)
+    reach[:, 0] = keep[:, 0] & walked
+    tests = walked.to(torch.int64)
+    mask = torch.zeros((origin.shape[0], n_inst), dtype=torch.bool,
+                       device=origin.device)
+    for r, w in enumerate(words):
+        w &= 0xFFFFFFFF
+        if w & TREE_LEAF:
+            mask[:, w & ~TREE_LEAF] = reach[:, r]
+            continue
+        reach[:, w] = reach[:, r] & keep[:, w]
+        reach[:, w + 1] = reach[:, r] & keep[:, w + 1]
+        tests += 2 * reach[:, r]
+    return mask | ~walked[:, None], tests
+
+
+def _check_forest(bvh_packed, bvh_axis, tri_packed, inv_transform, roots,
+                  words, cull, origin, direction, tmax0):
+    """The forest walk's argument checks; on CPU tensors the roots' words
+    and the world boxes against the tables."""
     n = origin.shape[0]
     k = inv_transform.shape[0]
     dev = origin.device
@@ -383,6 +571,7 @@ def forest_traverse(bvh_packed, bvh_axis, tri_packed, inv_transform, roots,
         bvh_packed=(bvh_packed, (bvh_packed.shape[0], 8)),
         tri_packed=(tri_packed, (tri_packed.shape[0], 16)),
         inv_transform=(inv_transform, (k, 4, 4)),
+        cull=(cull, (-(-k // FOREST_CHUNK) * TREE_ROWS, 8)),
         origin=(origin, (n, 3)), direction=(direction, (n, 3)),
         tmax0=(tmax0, (n,)),
     )
@@ -397,15 +586,27 @@ def forest_traverse(bvh_packed, bvh_axis, tri_packed, inv_transform, roots,
         if -1 in want or got != want:
             raise ValueError(f"words {got} are not the roots' narrow-walk "
                              f"words {want}")
-        return forest_traverse_reference(
-            bvh_packed, bvh_axis, tri_packed, inv_transform, roots.tolist(),
-            origin, direction, tmax0, anyhit=anyhit)
+        trees = torch.from_numpy(forest_cull_trees(forest_cull_table(
+            inv_transform, bvh_packed, roots.tolist())))
+        if not torch.equal(cull, trees):
+            raise ValueError("cull is not forest_cull_trees of the "
+                             "instances' transforms and root boxes")
+        return
     if dev.type != "cuda":
         raise ValueError(f"no traversal kernel for device {dev}")
     if any(t.data_ptr() % 16 for t in (bvh_packed, tri_packed,
-                                       inv_transform)):
-        raise ValueError("bvh_packed, tri_packed and inv_transform must be "
-                         "16-byte aligned")
+                                       inv_transform, cull)):
+        raise ValueError("bvh_packed, tri_packed, inv_transform and cull "
+                         "must be 16-byte aligned")
+
+
+def _launch_forest(args, anyhit: bool, counts=None):
+    """One rt_forest_walk launch on checked CUDA arguments; the audit
+    instance where ``counts`` (a zeroed (6,) i64 tensor) is given."""
+    (bvh_packed, bvh_axis, tri_packed, inv_transform, roots, words, cull,
+     origin, direction, tmax0) = args
+    n = origin.shape[0]
+    dev = origin.device
     f32 = lambda: torch.empty(n, dtype=torch.float32, device=dev)
     i32 = lambda: torch.empty(n, dtype=torch.int32, device=dev)
     b8 = lambda: torch.empty(n, dtype=torch.bool, device=dev)
@@ -418,16 +619,88 @@ def forest_traverse(bvh_packed, bvh_axis, tri_packed, inv_transform, roots,
     if n:
         err = _load_narrow().rt_forest_walk(
             bvh_packed.data_ptr(), bvh_axis.data_ptr(), tri_packed.data_ptr(),
-            inv_transform.data_ptr(), roots.data_ptr(), words.data_ptr(), k,
-            origin.data_ptr(), direction.data_ptr(), tmax0.data_ptr(),
-            int(anyhit), *ptrs, n,
+            inv_transform.data_ptr(), roots.data_ptr(), words.data_ptr(),
+            cull.data_ptr(), inv_transform.shape[0], origin.data_ptr(),
+            direction.data_ptr(), tmax0.data_ptr(), int(anyhit), *ptrs,
+            None if counts is None else counts.data_ptr(), n,
             torch.cuda.current_stream(dev).cuda_stream,
         )
         if err != 0:
             raise RuntimeError(f"forest walk kernel launch failed: CUDA "
                                f"error {err}")
-        launches["forest_anyhit" if anyhit else "forest_walk"] += 1
     return out[0] if anyhit else out
+
+
+def forest_traverse(bvh_packed, bvh_axis, tri_packed, inv_transform, roots,
+                    words, cull, origin, direction, tmax0,
+                    anyhit: bool = False):
+    """Every instance of a forest in one walk of N rays: ``(dst, prim,
+    obj, u, v, front)``, each (N,), or under ``anyhit`` the (N,) bool mask
+    of rays that hit an instance within ``tmax0``.
+
+    ``bvh_packed``, ``bvh_axis`` and ``tri_packed`` as for
+    :func:`packet_traverse`; ``inv_transform`` (K,4,4) f32, the instances'
+    world-to-object transforms; ``roots`` (K,) i32, their roots in
+    ``bvh_packed``, ``words`` (K,) i32, the bits of those roots'
+    :func:`narrow_root_words`, and ``cull`` (ceil(K/128) * ``TREE_ROWS``,
+    8) f32, the chunk trees of their world boxes (:func:`forest_cull_trees`
+    of :func:`forest_cull_table`; ``CompiledScene.forest_roots`` and
+    ``forest_cull`` build them once from ``meta``; on CPU tensors all
+    three are checked against the tables).  The instances are walked in
+    order, each ray taken to object space by :func:`object_ray` and
+    bounded by its best t so far (``tmax0`` at first; -BIG disables a
+    lane): a later instance replaces an earlier one only at a strictly
+    smaller t.  ``dst``: the closest accepted t (``tmax0`` on a miss);
+    ``prim``: its global triangle id and ``obj`` its instance (-1 on a
+    miss); ``u``, ``v``: its barycentrics (0 on a miss); ``front``:
+    whether it faces the ray.  Under ``anyhit`` a ray stops at the first
+    instance it hits.  On CUDA tensors one launch of
+    ``forest_walk_kernel``, which takes to object space only the
+    instances whose world box the ray can enter (the outputs are the
+    same); on CPU tensors :func:`forest_traverse_reference`."""
+    args = (bvh_packed, bvh_axis, tri_packed, inv_transform, roots, words,
+            cull, origin, direction, tmax0)
+    _check_forest(*args)
+    if origin.device.type == "cpu":
+        return forest_traverse_reference(
+            bvh_packed, bvh_axis, tri_packed, inv_transform, roots.tolist(),
+            origin, direction, tmax0, anyhit=anyhit)
+    out = _launch_forest(args, anyhit)
+    if origin.shape[0]:
+        launches["forest_anyhit" if anyhit else "forest_walk"] += 1
+    return out
+
+
+def forest_audit(bvh_packed, bvh_axis, tri_packed, inv_transform, roots,
+                 words, cull, origin, direction, tmax0,
+                 anyhit: bool = False):
+    """:func:`forest_traverse` through the audit instance,
+    ``forest_walk_kernel<., true>``, which takes every (ray, instance)
+    pair the scan reaches through the root's test, its candidate bit (the
+    chunk tree's walk) the cull's verdict, and walks where the root's
+    test passes -> ``(out, counts)``: ``out`` what :func:`forest_traverse`
+    returns, ``counts`` a dict of ``AUDIT_COUNTERS``: ``scans`` (pairs
+    whose lane's bound is above 0), ``world_pass`` and ``root_pass``
+    (candidates, pairs whose root's test passes), ``roots`` (root tests:
+    every pair whose lane's bound is above -BIG), ``boxes`` and ``tris``
+    (box and triangle tests, those roots' included, as
+    :func:`forest_traverse_reference`'s ``stats`` count them),
+    ``violations`` (pairs culled whose root's test passes: the cull's
+    fault) and ``tree_tests`` (the chunk trees' box tests).  Off the
+    path: ``chip_smoke.py`` and the GPU tests run it; it adds to no
+    launch count.  On CPU tensors
+    :func:`forest_audit_reference`."""
+    args = (bvh_packed, bvh_axis, tri_packed, inv_transform, roots, words,
+            cull, origin, direction, tmax0)
+    _check_forest(*args)
+    if origin.device.type == "cpu":
+        return forest_audit_reference(
+            bvh_packed, bvh_axis, tri_packed, inv_transform, roots.tolist(),
+            cull, origin, direction, tmax0, anyhit=anyhit)
+    counts = torch.zeros(len(AUDIT_COUNTERS), dtype=torch.int64,
+                         device=origin.device)
+    out = _launch_forest(args, anyhit, counts)
+    return out, dict(zip(AUDIT_COUNTERS, counts.tolist()))
 
 
 def forest_traverse_reference(bvh_packed, bvh_axis, tri_packed,
@@ -488,6 +761,66 @@ def forest_traverse_reference(bvh_packed, bvh_axis, tri_packed,
     if anyhit:
         return hit_any
     return t, prim, obj, u, v, front
+
+
+def forest_audit_reference(bvh_packed, bvh_axis, tri_packed, inv_transform,
+                           roots, cull, origin, direction, tmax0,
+                           anyhit: bool = False):
+    """The audit instance in plain torch -> ``(out, counts)`` as
+    :func:`forest_audit` returns them: :func:`forest_traverse_reference`'s
+    walk, and on each instance, for the lanes whose bound is above 0, its
+    candidate bit (:func:`forest_mask_reference` of the chunk trees
+    ``cull``, at the chunk's start) and the root's test (:func:`_entry` of
+    the object-space ray, below the bound) counted.  ``roots``: host
+    ints."""
+    n = origin.shape[0]
+    dev = origin.device
+    counts = dict.fromkeys(AUDIT_COUNTERS, 0)
+    t = tmax0.clone()
+    best = dict(prim=torch.full((n,), -1, dtype=torch.int32, device=dev),
+                obj=torch.full((n,), -1, dtype=torch.int32, device=dev),
+                u=torch.zeros(n, dtype=torch.float32, device=dev),
+                v=torch.zeros(n, dtype=torch.float32, device=dev),
+                front=torch.zeros(n, dtype=torch.bool, device=dev))
+    hit_any = torch.zeros(n, dtype=torch.bool, device=dev)
+    boxes = bvh_packed[:, 0:6]
+    mask = None
+    for k, root in enumerate(roots):
+        live = t > 0
+        if k % FOREST_CHUNK == 0:
+            mask, tests = forest_mask_reference(
+                cull, k // FOREST_CHUNK,
+                min(FOREST_CHUNK, len(roots) - k), origin, direction, t)
+            counts["tree_tests"] += int(tests[live].sum())
+        o_k, d_k = object_ray(inv_transform[k], origin, direction)
+        inv = 1.0 / torch.where(d_k == 0.0, 1e-20, d_k)
+        enter = live & (_entry(boxes[int(root)].expand(n, 6), o_k, inv) < t)
+        culled = live & ~mask[:, k % FOREST_CHUNK]
+        counts["scans"] += int(live.sum())
+        counts["world_pass"] += int((live & ~culled).sum())
+        counts["root_pass"] += int(enter.sum())
+        counts["violations"] += int((enter & culled).sum())
+        counts["roots"] += int((t > -BIG).sum())
+        one = {}
+        t_k, p_k, u_k, v_k, f_k = packet_traverse_reference(
+            bvh_packed, bvh_axis, tri_packed, o_k, d_k, t, int(root),
+            stats=one)
+        counts["boxes"] += one["boxes"]
+        counts["tris"] += one["tris"]
+        hit = p_k >= 0
+        if anyhit:
+            hit_any = hit_any | hit
+            t = torch.where(hit, -BIG, t_k)
+            continue
+        t = t_k
+        for name, value in (("prim", p_k), ("u", u_k), ("v", v_k),
+                            ("front", f_k)):
+            best[name] = torch.where(hit, value, best[name])
+        best["obj"] = torch.where(hit, k, best["obj"]).to(torch.int32)
+    if anyhit:
+        return hit_any, counts
+    return (t, best["prim"], best["obj"], best["u"], best["v"],
+            best["front"]), counts
 
 
 def _entry(box, origin, inv):

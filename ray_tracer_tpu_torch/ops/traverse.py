@@ -319,13 +319,14 @@ def _forest(scene, origin, direction, tmax0, best=None):
     :func:`_sphere_hits`) it takes the walk's ``dst``, ``prim``, ``u``,
     ``v``, ``front`` and instance ``obj``.  With ``best`` None this is the
     occlusion query: a lane stops at its first instance hit and the result
-    is the (N,) mask of lanes hit.  The roots and their words are the
-    scene's ``forest_roots``, built once from ``meta``: no value is read
-    back from the device."""
+    is the (N,) mask of lanes hit.  The roots, their words and the
+    instances' world boxes are the scene's ``forest_roots`` and
+    ``forest_cull``, built once from ``meta``: no value is read back from
+    the device."""
     roots, words = scene.forest_roots
     args = (scene.bvh_packed, scene.bvh_axis, scene.tri_packed,
-            scene.obj_inv_transform, roots, words, origin.contiguous(),
-            direction.contiguous(), tmax0.contiguous())
+            scene.obj_inv_transform, roots, words, scene.forest_cull,
+            origin.contiguous(), direction.contiguous(), tmax0.contiguous())
     if best is None:
         return packet.forest_traverse(*args, anyhit=True)
     t, t_prim, t_obj, t_u, t_v, t_front = packet.forest_traverse(*args)

@@ -851,7 +851,8 @@ class SceneBuilder:
                 "bvh_max_depth": forest.max_depth_seen,
                 **narrow_root_meta(dict(obj_bvh_root=obj_root,
                                         bvh_packed=bvh_packed,
-                                        bvh_axis=forest.axis)),
+                                        bvh_axis=forest.axis,
+                                        obj_inv_transform=obj_inv)),
                 "camera": (
                     tuple(self.camera.position),
                     tuple(self.camera.angles_deg),

@@ -164,7 +164,9 @@ def narrow_root_meta(arrays: dict) -> dict:
     the flattened tree), and ``bvh_root_word``, its word for the kernel
     (``kernels/packet.py::narrow_root_word``, -1 where the table lies
     beyond the word's limits); ``obj_roots`` and ``obj_root_words``, every
-    instance's root and its word, which the forest walk starts from."""
+    instance's root and its word, which the forest walk starts from; and
+    ``forest_cull``, those instances' world boxes for the forest walk's
+    cull (:func:`forest_cull_meta`)."""
     from ..kernels.packet import narrow_root_words
 
     roots = [int(r) for r in np.asarray(arrays["obj_bvh_root"]).reshape(-1)]
@@ -172,7 +174,21 @@ def narrow_root_meta(arrays: dict) -> dict:
                               roots or [0])
     return dict(bvh_root=roots[0] if roots else 0, bvh_root_word=words[0],
                 obj_roots=tuple(roots),
-                obj_root_words=tuple(words[:len(roots)]))
+                obj_root_words=tuple(words[:len(roots)]),
+                forest_cull=forest_cull_meta(arrays, roots))
+
+
+def forest_cull_meta(arrays: dict, roots) -> tuple:
+    """The forest walk's world boxes, read once on the host: one row of 8
+    floats per instance root of ``roots``
+    (``kernels/packet.py::forest_cull_table`` of ``obj_inv_transform`` and
+    the roots' rows of ``bvh_packed``), whose chunk trees
+    ``CompiledScene.forest_cull`` puts on the scene's device."""
+    from ..kernels.packet import forest_cull_table
+
+    table = forest_cull_table(arrays["obj_inv_transform"],
+                              arrays["bvh_packed"], roots)
+    return tuple(tuple(row) for row in table.tolist())
 
 
 ROPE_FIELDS = 16  # floats per row of the JAX package's rope streams
@@ -427,8 +443,9 @@ class CompiledScene:
         ``arrays`` may be the JAX package's compiled scene fields: its
         rope streams (BOX and TRI rows, 16 floats each) are converted by
         :func:`rope_box_rows`, which sets ``meta["rope_rows"]`` to the BOX
-        rows, and the page counts, narrow-walk root and TOP table it lacks
-        are derived by :func:`page_counts`, :func:`narrow_root_meta` and
+        rows, and the page counts, narrow-walk roots (with the forest
+        walk's world boxes) and TOP table it lacks are derived by
+        :func:`page_counts`, :func:`narrow_root_meta` and
         ``builder.py::top_table``.
         """
         dev = resolve_device(device)
@@ -492,6 +509,26 @@ class CompiledScene:
         bits = np.array(words, np.int64).astype(np.uint32).view(np.int32)
         return (torch.tensor(roots, dtype=torch.int32, device=self.device),
                 torch.from_numpy(bits).to(self.device))
+
+    @functools.cached_property
+    def forest_cull(self) -> torch.Tensor:
+        """The forest walk's cull on the scene's device: the chunk trees
+        (``kernels/packet.py::forest_cull_trees``, (ceil(K/128) * 255, 8)
+        f32) of every instance's world box, the rows of
+        ``meta["forest_cull"]`` (``forest_cull_table``), which
+        :meth:`from_numpy` builds from the host arrays.  Built on the host
+        once per scene object, so a traversal reads nothing back; raises
+        where the rows are not one per instance root."""
+        from ..kernels.packet import forest_cull_trees
+
+        rows = self.meta["forest_cull"]
+        if len(rows) != len(self.meta["obj_roots"]):
+            raise ValueError(
+                f"meta['forest_cull'] holds {len(rows)} rows for "
+                f"{len(self.meta['obj_roots'])} instances: rebuild it with "
+                "scene.types.forest_cull_meta")
+        trees = forest_cull_trees(np.array(rows, np.float32).reshape(-1, 8))
+        return torch.from_numpy(trees).to(self.device)
 
     @property
     def n_spheres(self) -> int:

@@ -230,7 +230,8 @@ def _one_instance(sc, k):
         sc, obj_inv_transform=sc.obj_inv_transform[k:k + 1].contiguous(),
         meta={**sc.meta, "n_objects": 1,
               "obj_roots": sc.meta["obj_roots"][k:k + 1],
-              "obj_root_words": sc.meta["obj_root_words"][k:k + 1]})
+              "obj_root_words": sc.meta["obj_root_words"][k:k + 1],
+              "forest_cull": sc.meta["forest_cull"][k:k + 1]})
 
 
 @pytest.mark.parametrize("anyhit", [False, True])
@@ -246,7 +247,7 @@ def test_forest_walk_of_one_instance(forest, anyhit):
     roots, words = one.forest_roots
     got = t_packet.forest_traverse(
         one.bvh_packed, one.bvh_axis, one.tri_packed, one.obj_inv_transform,
-        roots, words, o, d, tmax0, anyhit=anyhit)
+        roots, words, one.forest_cull, o, d, tmax0, anyhit=anyhit)
     oo, dd = t_packet.object_ray(one.obj_inv_transform[0], o, d)
     t, p, u, v, f = t_packet.packet_traverse_reference(
         one.bvh_packed, one.bvh_axis, one.tri_packed, oo, dd, tmax0,

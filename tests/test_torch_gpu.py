@@ -20,6 +20,7 @@ from torch_parity import (
     aimed_chunks,
     binary_chain,
     deep_chain,
+    grazing_rays,
     hand_built_pages,
     soup_scene,
 )
@@ -1041,7 +1042,8 @@ def _forest_cut(sc, instances):
         .contiguous(),
         meta={**sc.meta, "n_objects": len(instances),
               "obj_roots": pick(sc.meta["obj_roots"]),
-              "obj_root_words": pick(sc.meta["obj_root_words"])})
+              "obj_root_words": pick(sc.meta["obj_root_words"]),
+              "forest_cull": pick(sc.meta["forest_cull"])})
 
 
 @pytest.fixture(scope="module")
@@ -1090,8 +1092,8 @@ def test_forest_kernel_matches_plain_version(dev, forest_cuts, cut, n,
     tables = (sc.bvh_packed, sc.bvh_axis, sc.tri_packed, sc.obj_inv_transform)
     o, d, tmax = _forest_rays(sc, n, anyhit)
     packet.reset_launches()
-    got = packet.forest_traverse(*tables, roots, words, o, d, tmax,
-                                 anyhit=anyhit)
+    got = packet.forest_traverse(*tables, roots, words, sc.forest_cull, o, d,
+                                 tmax, anyhit=anyhit)
     assert packet.launches["forest_anyhit" if anyhit else "forest_walk"] == 1
     want = packet.forest_traverse_reference(
         *tables, sc.meta["obj_roots"], o, d, tmax, anyhit=anyhit)
@@ -1128,6 +1130,117 @@ def test_forest_kernel_matches_old_composition(dev, forest_scene, anyhit):
     rec = tool.compare_old("forest walk", new, old, anyhit)
     assert rec["hits_apart"] <= 1e-3
     assert rec.get("dst_apart_of_both", 0.0) <= 1e-3
+
+
+def _forest_args(sc, o, d, tmax):
+    """``packet.forest_traverse``'s arguments for the forest ``sc``."""
+    roots, words = sc.forest_roots
+    return (sc.bvh_packed, sc.bvh_axis, sc.tri_packed, sc.obj_inv_transform,
+            roots, words, sc.forest_cull, o, d, tmax)
+
+
+def _grazing(sc, n, seed, above_big=False):
+    """About ``n`` rays at the corners and edges of every instance's
+    world box (``torch_parity.grazing_rays``), from near and from a
+    thousand box sizes away, on the scene's device.  A bound above BIG
+    (1e9, inf) enters every node of every tree, in the kernel and in the
+    plain walk, whose steps then number the trees' nodes: unless
+    ``above_big``, such bounds become BIG."""
+    rand = np.random.default_rng(seed)
+    tables = (sc.obj_inv_transform.cpu().numpy(),
+              sc.bvh_packed.cpu().numpy(), list(sc.meta["obj_roots"]))
+    per = max(8, n // len(tables[2]))
+    near = grazing_rays(*tables, per, rand, 4.0)
+    far = grazing_rays(*tables, per // 4 + 1, rand, 1e3)
+    o, d, tmax = (np.concatenate(x) for x in zip(near, far))
+    if not above_big:
+        tmax = np.minimum(tmax, np.float32(BIG))
+    return [torch.from_numpy(x).to(sc.device) for x in (o, d, tmax)]
+
+
+def _as_tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cut", ["all", "one", "four_times"])
+@pytest.mark.parametrize("anyhit", [False, True])
+def test_forest_kernel_on_grazing_rays(dev, forest_cuts, cut, anyhit):
+    """Rays that graze every instance's world-box corners and edges, each
+    component moved by an ulp, with best t at or below 0, at BIG and above
+    it (on the forest of one instance: ``_grazing``): the culling kernel
+    equals its plain version bit for bit, and its audit instance finds no
+    instance culled whose root test passes, and culls."""
+    sc = forest_cuts[cut]
+    rays = _grazing(sc, 4000, seed=21, above_big=cut == "one")
+    args = _forest_args(sc, *rays)
+    got = packet.forest_traverse(*args, anyhit=anyhit)
+    want = packet.forest_traverse_reference(
+        *args[:4], sc.meta["obj_roots"], *rays, anyhit=anyhit)
+    out, counts = packet.forest_audit(*args, anyhit=anyhit)
+    torch.cuda.synchronize()
+    for a, b, c in zip(_as_tuple(got), _as_tuple(want), _as_tuple(out)):
+        assert torch.equal(a, b) and torch.equal(c, b)
+    assert counts["violations"] == 0, counts
+    assert counts["root_pass"] <= counts["world_pass"] <= counts["scans"]
+    if cut != "one":  # every ray is aimed at one of the instances
+        assert counts["world_pass"] < counts["scans"], counts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 255, 3000])
+@pytest.mark.parametrize("cut", ["all", "one", "four_times"])
+@pytest.mark.parametrize("anyhit", [False, True])
+def test_forest_audit_counts(dev, forest_cuts, cut, n, anyhit):
+    """The audit instance (forest_walk_kernel<., true>) against its plain
+    version on the card, every counter equal; its scans, box and triangle
+    tests equal to the plain walk's ``stats``, no violation, its outputs
+    the kernel's, and no launch counted."""
+    sc = forest_cuts[cut]
+    o, d, tmax = _forest_rays(sc, n, anyhit, seed=22)
+    args = _forest_args(sc, o, d, tmax)
+    packet.reset_launches()
+    out, counts = packet.forest_audit(*args, anyhit=anyhit)
+    assert not any(packet.launches.values())
+    got = packet.forest_traverse(*args, anyhit=anyhit)
+    plain, plain_counts = packet.forest_audit_reference(
+        *args[:4], sc.meta["obj_roots"], sc.forest_cull, o, d, tmax,
+        anyhit=anyhit)
+    stats = {}
+    packet.forest_traverse_reference(*args[:4], sc.meta["obj_roots"], o, d,
+                                     tmax, anyhit=anyhit, stats=stats)
+    torch.cuda.synchronize()
+    for a, b, c in zip(_as_tuple(out), _as_tuple(got), _as_tuple(plain)):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert counts == plain_counts
+    assert {k: counts[k] for k in ("scans", "boxes", "tris")} == {
+        k: stats[k] for k in ("scans", "boxes", "tris")}
+    assert counts["violations"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["old", "flat_best", "flat",
+                                     "blocks6_flat", "flat_mask",
+                                     "tree_shared", "shipped_copy",
+                                     "blocks6"])
+@pytest.mark.parametrize("anyhit", [False, True])
+def test_forest_walk_variants(dev, forest_cuts, variant, anyhit):
+    """Each variant of tools/forest_walk_variants.cu (the kernel before
+    the cull; the flat cull in the instance loop, with and without its
+    test on the best t, at six blocks an SM; the flat cull into a mask;
+    the chunk trees staged in shared memory; the shipped kernel's copy, at
+    eight and six blocks an SM) equals the shipped kernel bit for bit, on
+    forest rays and grazing rays, with K of 39 and of 156 (two chunks)."""
+    tool = _tools_module("forest_walk_variants")
+    for cut in ("all", "four_times"):
+        sc = forest_cuts[cut]
+        rows = tool.scene_rows(sc)
+        for rays in (_forest_rays(sc, 20000, anyhit, seed=23),
+                     _grazing(sc, 4000, seed=24)):
+            args = _forest_args(sc, *rays)
+            tool.compare(f"{variant}, {cut}",
+                         tool.run(variant, *args, anyhit=anyhit, rows=rows),
+                         packet.forest_traverse(*args, anyhit=anyhit))
 
 
 @pytest.mark.gpu

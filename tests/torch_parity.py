@@ -813,3 +813,74 @@ def same_bits(a, b):
     if a.is_floating_point():
         a, b = (x.contiguous().view(torch.int32) for x in (a, b))
     return torch.equal(a, b)
+
+
+def world_corners(inv_transform, box):
+    """The 8 corners of the object-space ``box`` (6,) min3|max3 taken to
+    world space by the float64 inverse of the f32 ``inv_transform``
+    (4,4): (8,3) f64, as ``packet.forest_cull_table`` takes them."""
+    m = np.asarray(inv_transform, np.float32).astype(np.float64)
+    box = np.asarray(box, np.float32).astype(np.float64)
+    bits = np.arange(8)
+    corner = np.stack([box[np.where(bits & 1, 3, 0)],
+                       box[np.where(bits & 2, 4, 1)],
+                       box[np.where(bits & 4, 5, 2)]], axis=1)
+    return (corner - m[:3, 3]) @ np.linalg.inv(m[:3, :3]).T
+
+
+# the 12 edges of a box as pairs of world_corners' indices
+BOX_EDGES = [(a, a | b) for b in (1, 2, 4) for a in range(8) if not a & b]
+
+
+def grazing_rays(inv_transform, bvh_packed, roots, n_per, rand,
+                 spread=4.0):
+    """Rays aimed at every instance's root box in world space: at its
+    corners and at points of its edges, from origins up to ``spread``
+    box sizes away (a tenth of them axis-aligned, so that direction
+    components are exactly zero), each target and direction component
+    then moved by -1, 0 or +1 ulp.  ``n_per`` rays an instance -> (o, d,
+    tmax) f32 numpy; tmax drawn from BIG, above BIG (1e9, inf), 0, -1,
+    -BIG and the target's distance times 1 +- 1e-6."""
+    big = np.float32(99999999.0)
+    inv = np.asarray(inv_transform, np.float32)
+    nodes = np.asarray(bvh_packed, np.float32)
+    o_all, d_all, t_all = [], [], []
+    for k, root in enumerate(roots):
+        corner = world_corners(inv[k], nodes[int(root), 0:6])
+        size = max(float(np.ptp(corner, axis=0).max()), 1e-6)
+        edge = rand.integers(0, 12, n_per)
+        a = corner[[BOX_EDGES[e][0] for e in edge]]
+        b = corner[[BOX_EDGES[e][1] for e in edge]]
+        s = rand.uniform(0.0, 1.0, (n_per, 1))
+        s[rand.random(n_per) < 0.4] = rand.integers(0, 2, 1)[0]
+        target = a + s * (b - a)
+        away = rand.normal(size=(n_per, 3))
+        axis = rand.random(n_per) < 0.1
+        away[axis] = 0.0
+        away[axis, rand.integers(0, 3, int(axis.sum()))] = 1.0
+        away /= np.linalg.norm(away, axis=1, keepdims=True)
+        dist = size * rand.uniform(0.05, spread, (n_per, 1))
+        origin = (target + away * dist).astype(np.float32)
+        target = target.astype(np.float32)
+        nudge = rand.integers(-1, 2, target.shape)
+        target = np.where(nudge > 0, np.nextafter(target, np.inf),
+                          np.where(nudge < 0, np.nextafter(target, -np.inf),
+                                   target)).astype(np.float32)
+        d = (target.astype(np.float64) - origin)
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        d = d.astype(np.float32)
+        nudge = rand.integers(-1, 2, d.shape) * (d != 0)
+        d = np.where(nudge > 0, np.nextafter(d, np.inf),
+                     np.where(nudge < 0, np.nextafter(d, -np.inf), d))
+        reach = np.linalg.norm(target.astype(np.float64) - origin, axis=1)
+        choice = rand.integers(0, 8, n_per)
+        tmax = np.select(
+            [choice == 0, choice == 1, choice == 2, choice == 3,
+             choice == 4, choice == 5, choice == 6],
+            [big, 1e9, np.inf, 0.0, -1.0, -big, reach * (1 - 1e-6)],
+            reach * (1 + 1e-6)).astype(np.float32)
+        o_all.append(origin)
+        d_all.append(d.astype(np.float32))
+        t_all.append(tmax)
+    return (np.concatenate(o_all), np.concatenate(d_all),
+            np.concatenate(t_all))

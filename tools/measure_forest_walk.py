@@ -1,30 +1,44 @@
-"""Time the forest walk against the composition it replaced, on one card.
+"""Time the forest walk against its design variants and the composition
+it replaced, on one card.
 
     python3 tools/measure_forest_walk.py
 
 Compiles ``sponza_proxy`` as a forest (``flatten_instances=False``: one
-tree per instance) and builds ``csrc/bvh2_walk.cu``.  On chip_smoke's
-camera, bounce and shadow sets of the forest frame at 2^18 lanes, each
-ordered by the integrator's bin key, holds the forest walk ("new":
-``packet.forest_traverse``, one ``forest_walk_kernel`` launch, closest
-hit on the camera and bounce sets, occlusion on the shadow set) against
-"old" (:func:`old_forest`: the per-instance composition the port ran
-before the kernel, a cuBLAS product taking the rays to each instance's
+tree per instance) and builds ``csrc/bvh2_walk.cu`` and
+``tools/forest_walk_variants.cu`` in parallel.  On chip_smoke's camera,
+bounce and shadow sets of the forest frame at 2^18 lanes, each ordered by
+the integrator's bin key, holds every variant of
+tools/forest_walk_variants.py (the kernel before the cull, "old"; the
+flat cull in the instance loop with and without its test on the best t
+and at six blocks an SM; the flat cull into a mask; the chunk trees
+staged in shared memory; the shipped kernel's copy at eight and six
+blocks an SM)
+against the shipped kernel
+(``packet.forest_traverse``, closest hit on the camera and bounce sets,
+occlusion on the shadow set; every output bit for bit) and times them all
+in turns (CUDA events over 10 launches: in order, then reversed).  Then
+holds the shipped kernel against "old composition"
+(:func:`old_forest`: the per-instance composition the port ran before
+any forest kernel, a cuBLAS product taking the rays to each instance's
 object space, one narrow-walk launch and five ``torch.where`` merges per
-instance) and times both in turns (old, new, new, old; CUDA events over
-10 calls).  The two take the rays to object space in different orders,
-so they agree within the tolerances of :func:`compare_old`.
+instance) and times both in turns (old, new, new, old).  The two take
+the rays to object space in different orders, so they agree within the
+tolerances of :func:`compare_old`.
 
-Prints the card's name and power limit, the forest kernel's ptxas lines,
-then one JSON line per ray set.  Needs a CUDA device; imports no JAX.
+Prints the card's name and power limit, the forest kernels' and the
+narrow walk's ptxas lines, then JSON lines per ray set.  Needs a CUDA
+device; imports no JAX.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import statistics
 import subprocess
 import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -110,13 +124,14 @@ def forest_args(sc, rays):
     """``packet.forest_traverse``'s arguments for one ray set."""
     roots, words = sc.forest_roots
     return (sc.bvh_packed, sc.bvh_axis, sc.tri_packed, sc.obj_inv_transform,
-            roots, words, *rays)
+            roots, words, sc.forest_cull, *rays)
 
 
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("measure_forest_walk.py needs a CUDA device")
     import chip_smoke
+    import forest_walk_variants as variants
     from ray_tracer_tpu_torch.scene import presets
 
     smi = subprocess.run(
@@ -125,29 +140,59 @@ def main() -> None:
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     print(smi, flush=True)
-    lib = packet.build_narrow()
+    with ThreadPoolExecutor(2) as pool:
+        lib, path = pool.map(lambda build: build(),
+                             (packet.build_narrow, variants.build))
     print(json.dumps({"ptxas": [
         [w["entry"], *w["lines"][-2:]]
-        for name in ("forest_walk_kernel", "bvh2_walk_kernel")
-        for w in chip_smoke.ptxas_of(lib, name)]}), flush=True)
+        for found, name in ((lib, "forest_walk_kernel"),
+                            (lib, "bvh2_walk_kernel"),
+                            (path, "forest_walk_kernel"),
+                            (path, "flat_forest_kernel"),
+                            (path, "tree_forest_kernel"),
+                            (path, "old_forest_kernel"))
+        for w in chip_smoke.ptxas_of(found, name)]}), flush=True)
     sc = presets.sponza_proxy(chip_smoke.SCENE_TRIS).compile(
         flatten_instances=False)
+    t0 = time.perf_counter()
+    trees = sc.forest_cull
+    torch.cuda.synchronize()
+    print(json.dumps({"instances": sc.meta["n_objects"],
+                      "tree_rows": int(trees.shape[0]),
+                      "forest_cull_s": time.perf_counter() - t0}), flush=True)
+    rows = variants.scene_rows(sc)
     rays = chip_smoke.check_rays(sc, sc.device)
+    names = ("shipped", *variants.VARIANTS)
     for name, anyhit in SETS.items():
         args = forest_args(sc, rays[name])
-
-        def new(args=args, anyhit=anyhit):
-            return packet.forest_traverse(*args, anyhit=anyhit)
+        runs = {"shipped": lambda args=args, anyhit=anyhit:
+                packet.forest_traverse(*args, anyhit=anyhit)}
+        for v in variants.VARIANTS:
+            runs[v] = lambda v=v, args=args, anyhit=anyhit: variants.run(
+                v, *args, anyhit=anyhit, rows=rows)
+        want = runs["shipped"]()
+        for v in variants.VARIANTS:
+            variants.compare(f"{v} on {name} rays", runs[v](), want)
+        times = {v: [] for v in names}
+        for v in names + names[::-1]:
+            times[v].append(chip_smoke.cuda_ms(runs[v], 10))
+        ms = {v: statistics.mean(t) for v, t in times.items()}
+        print(json.dumps({
+            "rays": name, "n": chip_smoke.N_CHECK, "anyhit": anyhit,
+            "device": smi, "equal": True,
+            "active": int((rays[name][2] > -BIG).sum()), "ms": ms,
+            "vs_shipped": {k: m / ms["shipped"] for k, m in ms.items()},
+            "ms_runs": times}), flush=True)
 
         def old(rays=rays[name], anyhit=anyhit):
             return old_forest(sc, *rays, anyhit=anyhit)
 
-        rec = compare_old(f"{name} rays", new(), old(), anyhit)
+        rec = compare_old(f"{name} rays", want, old(), anyhit)
         print(json.dumps({
-            "rays": name, "n": chip_smoke.N_CHECK, "anyhit": anyhit,
-            "instances": sc.meta["n_objects"],
-            "active": int((rays[name][2] > -BIG).sum()), **rec,
-            **chip_smoke.in_turns(new, old)}), flush=True)
+            "rays": name, "against": "old composition",
+            "n": chip_smoke.N_CHECK, "anyhit": anyhit,
+            "instances": sc.meta["n_objects"], **rec,
+            **chip_smoke.in_turns(runs["shipped"], old)}), flush=True)
 
 
 if __name__ == "__main__":
