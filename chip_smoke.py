@@ -31,10 +31,13 @@ version on the card at the main path's shapes, holds the wavefront
 round's three kernels (csrc/shade_round.cu: shade, state permute, NEE
 resolve) against their plain versions on the main frame's own rounds
 (round_kernels, with each kernel's bound on every round and summed over
-the frame: round_bounds), holds the shade kernel against the one it
-replaced (tools/shade_round_variants.cu), bit for bit and timed in turns
-with both kernels' ptxas lines (shade_vs_old), and requires the main
-frame to launch each round kernel once a round,
+the frame: round_bounds), holds the shade kernel, the state permute and
+the NEE resolve each against the kernel it replaced
+(tools/shade_round_variants.cu) on the main frame's rounds 0 and 6, bit
+for bit and timed in turns with both kernels' ptxas lines (shade_vs_old,
+permute_vs_old with the TMA floor gather's and torch's index_select times
+beside it, nee_vs_old), and requires the main frame to launch each round
+kernel once a round,
 checks small card renders
 against the same renders on the CPU, and renders the benchmark frame
 (sponza_proxy, 1920x1080, spp 2, bounce limit 8, one whole-frame tile)
@@ -426,7 +429,7 @@ def shade_cost(c, w) -> dict:
     state = nbytes(w.origin, w.direction, hit.dst, hit.kind, hit.prim,
                    hit.front, w.atten, w.total, w.direct, w.acc, w.bad,
                    w.alive, w.j, w.s, w.sb, w.pix, w.slot, c.consts)
-    outs = (4 * shading.PACKED_F + 4 * shading.PACKED_I + 4) * n
+    outs = (4 * shading.ROW + 4) * n
     if not shade.maps_on(c.scene, c.cfg):
         return dict(bound(state + rows * SHADE_ROW_BYTES + outs,
                           OPS_SHADE * n), shade_rows=rows)
@@ -505,26 +508,38 @@ def maps_usage(c, w) -> dict:
                 nearest_lanes=int((textured & (sampler != 1)).sum()))
 
 
-def permute_cost(packed, packed_i, order) -> dict:
+def permute_cost(packed, order) -> dict:
     """The permute's bound: the packed rows and the order in, the next
     wave's columns out (nine (N,3) f32, two f32, five flags, six i32)."""
     n = order.shape[0]
     out = (4 * 3 * shading.N_VEC + 4 * 2 + 5 + 4 * shading.PACKED_I) * n
-    return bound(nbytes(packed, packed_i, order) + out, 0)
+    return bound(nbytes(packed, order) + out, 0)
 
 
 def nee_cost(scene, lanes, occluded) -> dict:
-    """The NEE resolve's bound: what it needs of each lane (its flag and,
-    where NEE does not resolve it, ``direct_base``; where it does, the
-    diffuse flag and, on a diffuse lane, the light sample (li, l_dir,
-    l_dist, nee_active, cos_pdf_at_l, nee_k), the occlusion of a traced
-    shadow ray, and the arithmetic) and the next ``direct`` out."""
+    """The NEE resolve's bound: the bytes its function needs of each lane
+    and the next ``direct`` out.  A lane's fresh_direct flag; where it is
+    false, direct_base; where it is true, the diffuse flag; on a diffuse
+    lane with rect lights the light's index (more than one light), the
+    NEE flag and nee_k, where its shadow ray was traced the occlusion, and
+    where that reached the light the pdf's direction and distance and
+    cos_pdf_at_l (elsewhere the pdf is 0 and the weight 0 whatever they
+    hold); the light and material tables once.  Without lights a diffuse
+    lane's ``direct`` is NaN (the pdf divided by 0 lights) whatever it
+    holds."""
     n = lanes.l_dir.shape[0]
     fresh = lanes.fresh_direct
     diff = fresh & lanes.is_diff
     count = lambda m: int(m.sum())
-    need = (n + 12 * count(~fresh) + count(fresh) + 37 * count(diff)
-            + count(diff & lanes.nee_active))
+    need = n + 12 * count(~fresh) + count(fresh)
+    if scene.n_lights:
+        traced = diff & lanes.nee_active
+        reached = traced & ~occluded
+        need += ((4 * (scene.n_lights > 1) + 1 + 12) * count(diff)
+                 + count(traced) + (12 + 4 + 4) * count(reached)
+                 + nbytes(scene.light_mat, scene.light_normal,
+                          scene.light_area, scene.mat_emission,
+                          scene.mat_emission_strength))
     return dict(bound(need + 12 * n, OPS_NEE * count(diff)),
                 resolved=count(diff))
 
@@ -606,6 +621,8 @@ def round_checks(sc, key="", old=True, check_rounds=CHECK_ROUNDS, **kw):
                                  "version's")
         if old:
             shade_vs_old(c, w, r, costs["shade_round"][r])
+            permute_vs_old(pargs, r, costs["permute_rows"][r])
+            nee_vs_old(nargs, r, costs["nee_resolve"][r])
         else:
             shade_alone(c, w, r, costs["shade_round"][r], key)
     del shades, permutes, nees
@@ -625,7 +642,7 @@ def shade_alone(c, w, r, cost, key):
 
 def shade_vs_old(c, w, r, cost):
     """shade_kernel against the kernel it replaced (old_shade_kernel of
-    tools/shade_round_variants.cu) on round ``r``'s wave: all four
+    tools/shade_round_variants.cu) on round ``r``'s wave: all three
     outputs equal bit for bit, then each timed in turns (new, old, old,
     new; 20 launches each on arguments packed once, so no wrapper time),
     with both kernels' registers and spills as ptxas reports them and
@@ -633,13 +650,9 @@ def shade_vs_old(c, w, r, cost):
     shade_round_variants.compare(
         f"shade kernel, round {r}", shade_round_variants.run("shipped", c, w),
         shade_round_variants.run("old", c, w))
-    runs = {name: shade_round_variants.launcher(name, c, w)[0]
-            for name in ("shipped", "old")}
-    times = {"shipped": [], "old": []}
-    for name in ("shipped", "old", "old", "shipped"):
-        times[name].append(cuda_ms(runs[name], 20))
-    new_ms = statistics.mean(times["shipped"])
-    old_ms = statistics.mean(times["old"])
+    ms, times = turns({name: shade_round_variants.launcher(name, c, w)[0]
+                       for name in ("shipped", "old")})
+    new_ms, old_ms = ms["shipped"], ms["old"]
     ptx = {"new": shade_ptxas(maps=False),
            "old": ptxas_of(shade_round_variants.build(), "old_shade_kernel")}
     regs = {k: [ln for x in v for ln in x["lines"] if "registers" in ln]
@@ -656,6 +669,93 @@ def shade_vs_old(c, w, r, cost):
           old_occupancy=shade_round_variants.info("old"))
     if len(ptx["new"]) != 1 or ptx["new"][0]["spill_store_bytes"] != 0:
         raise AssertionError(f"shade_kernel spills: {ptx['new']}")
+
+
+def turns(runs) -> tuple:
+    """``runs`` (name -> launch) timed in turns: in order, then reversed,
+    20 launches each time: each one's mean and its times."""
+    names = tuple(runs)
+    times = {name: [] for name in names}
+    for name in names + names[::-1]:
+        times[name].append(cuda_ms(runs[name], 20))
+    return {name: statistics.mean(t) for name, t in times.items()}, times
+
+
+def registers(lib, name) -> list:
+    """The ptxas lines with the registers of ``lib``'s entries named
+    ``name``; raises where there is none or one spills."""
+    ptx = ptxas_of(lib, name)
+    if not ptx or any(x["spill_store_bytes"] for x in ptx):
+        raise AssertionError(f"{name}: no ptxas entry, or it spills: {ptx}")
+    return [ln for x in ptx for ln in x["lines"] if "registers" in ln]
+
+
+def permute_vs_old(pargs, r, cost):
+    """permute_kernel against the kernel it replaced (old_permute_kernel
+    of tools/shade_round_variants.cu, on the same rows split into its two
+    arrays) on round ``r``'s rows and order: every column equal bit for
+    bit to the old kernel's and the plain version's, then both timed in
+    turns (new, old, old, new; 20 launches each on arguments packed once),
+    beside two yardsticks of a gather of these bytes, timed in turns too:
+    the floor (tools' tma_floor_kernel: the rows gathered into a
+    contiguous copy by the TMA engine, nothing unpacked; its rows equal
+    ``packed[order]``) and torch's ``index_select`` of the rows; with both
+    kernels' ptxas lines and blocks per SM."""
+    packed, order = pargs
+    variants = shade_round_variants
+    new = variants.permute_run("shipped", packed, order)
+    for name, want in (("old", variants.permute_run("old", packed, order)),
+                       ("plain", shade.permute_rows_reference(packed, order))):
+        variants.compare(f"permute, round {r}: new against {name}", new, want)
+    variants.compare(f"permute floor, round {r}",
+                     [variants.permute_run("floor_tma", packed, order)],
+                     [packed[order]])
+    ms, times = turns({name: variants.permute_launcher(name, packed, order)[0]
+                       for name in ("shipped", "old")})
+    yard, yard_times = turns({
+        "floor_tma": variants.permute_launcher("floor_tma", packed,
+                                               order)[0],
+        "index_select": lambda: packed.index_select(0, order)})
+    phase("permute_vs_old", round=r, n=int(order.shape[0]), equal=True,
+          new_ms=ms["shipped"], old_ms=ms["old"], new_ms_runs=times["shipped"],
+          old_ms_runs=times["old"], speedup=ms["old"] / ms["shipped"],
+          bound_ms=cost["bound_ms"],
+          new_share=cost["bound_ms"] / ms["shipped"],
+          old_share=cost["bound_ms"] / ms["old"],
+          floor_ms=yard["floor_tma"],
+          floor_bound_ms=bound(nbytes(packed, order, packed), 0)["bound_ms"],
+          new_vs_floor=ms["shipped"] / yard["floor_tma"],
+          index_select_ms=yard["index_select"], yardstick_ms_runs=yard_times,
+          new_ptxas=registers(shade.build(), "permute_kernel"),
+          old_ptxas=registers(variants.build(), "old_permute_kernel"),
+          new_occupancy=variants.permute_info("shipped"),
+          old_occupancy=variants.permute_info("old"))
+
+
+def nee_vs_old(nargs, r, cost):
+    """nee_resolve_kernel against the kernel it replaced (old_nee_kernel
+    of tools/shade_round_variants.cu) on round ``r``'s lanes: ``direct``
+    equal bit for bit to the old kernel's and the plain version's, then
+    both timed in turns (new, old, old, new; 20 launches each on arguments
+    packed once), with both kernels' ptxas lines."""
+    variants = shade_round_variants
+    new = variants.nee_run("shipped", *nargs)
+    for name, want in (("old", variants.nee_run("old", *nargs)),
+                       ("plain", shade.nee_resolve_reference(*nargs))):
+        variants.compare(f"NEE, round {r}: new against {name}", [new],
+                         [want])
+    runs = {name: variants.nee_launcher(name, *nargs)[0]
+            for name in ("shipped", "old")}
+    ms, times = turns(runs)
+    phase("nee_vs_old", round=r, n=int(nargs[1].l_dir.shape[0]), equal=True,
+          new_ms=ms["shipped"], old_ms=ms["old"],
+          new_ms_runs=times["shipped"], old_ms_runs=times["old"],
+          speedup=ms["old"] / ms["shipped"], bound_ms=cost["bound_ms"],
+          resolved=cost["resolved"],
+          new_share=cost["bound_ms"] / ms["shipped"],
+          old_share=cost["bound_ms"] / ms["old"],
+          new_ptxas=registers(shade.build(), "nee_resolve_kernel"),
+          old_ptxas=registers(variants.build(), "old_nee_kernel"))
 
 
 def shade_ptxas(maps: bool) -> list:

@@ -1,7 +1,7 @@
 // The wavefront round of ray_tracer_tpu_torch/integrator/wavefront.py
 // (_fused_round) as three kernels:
 //   shade_kernel        one thread per lane: from the lane's pending hit to
-//                       its next state, written as the packed rows of the
+//                       its next state, written as the packed row of the
 //                       state permute, with its bin key and the round's ray
 //                       counts (plain version: kernels/shade.py::
 //                       shade_round_reference, i.e. integrator/shading.py::
@@ -19,23 +19,53 @@
 // key once; the permute reads a row and writes the columns once; the
 // counts are integer sums added with integer atomics, exact in any order.
 //
-// shade_kernel's design.  A lane's 136-byte f32 row and 24-byte i32 row
-// are most of its traffic.  Written by each thread in place (the first
-// form of this kernel, tools/shade_round_variants.cu::old_shade_kernel),
-// every warp store touches 32 sectors 136 B apart and fills 8 B of each.
-// Here a block of 256 lanes writes its rows into shared-memory tiles (the
-// 34-word rows as float2 pairs: each half-warp's pairs fall on 32 distinct
-// banks), each value as soon as the lane knows it, so no row is held in
-// registers; after one barrier thread 0 stores each tile with one TMA bulk
-// copy (cp.async.bulk), contiguous in global memory, while the block adds
-// its counts.  The last, ragged tile stores exactly its rows: 34 and 6
-// words a row leave 0 or 2 words past the last 16 bytes, which one thread
-// stores.  The sky, the second block of draws with the BSDF lobes, and the
-// camera ray run only on the lanes that use them (the escaped, the shaded,
-// the regenerated), with the plain version's selects kept, so the values
-// are the same; with them and the early writes __launch_bounds__(256, 4)
-// holds a thread to 64 registers without spilling: four blocks (50%) to an
-// SM.  The counts are warp sums and one atomic per counter per block.
+// The packed row (integrator/shading.py::pack_lanes, ROW) is 40 words,
+// 160 B: the 34 f32 words of the state, then its 6 i32 words as their bits
+// (j, s, pix, slot, li, sb), copied and never converted.  160 B is five
+// 32-byte sectors, so a row on a 16-byte boundary shares no sector with
+// its neighbours and is ten 16-byte chunks.
+//
+// shade_kernel's design.  A lane's 160-byte row is most of its traffic.
+// Written by each thread in place (the first form of this kernel,
+// tools/shade_round_variants.cu::old_shade_kernel), every warp store
+// touches 32 sectors a row apart and fills 8 B of each.  Here a block of
+// 256 lanes writes its rows into a shared-memory tile, each value as soon
+// as the lane knows it, so no row is held in registers; after one barrier
+// thread 0 stores the tile with one TMA bulk copy (cp.async.bulk),
+// contiguous in global memory, while the block adds its counts; a ragged
+// last tile is still a multiple of 16 bytes.  The sky, the second block
+// of draws with the BSDF lobes, and the camera ray run only on the lanes
+// that use them (the escaped, the shaded, the regenerated), with the plain
+// version's selects kept, so the values are the same; with them and the
+// early writes __launch_bounds__(256, 4) holds a thread to 64 registers
+// without spilling: four blocks (50%) to an SM.  The counts are warp sums
+// and one atomic per counter per block.
+//
+// permute_kernel's design.  Its rows are gathered by a permutation, so
+// each is read once, from anywhere.  Read by each thread in place (the
+// first form, tools/shade_round_variants.cu::old_permute_kernel, on 136 B
+// and 24 B rows 8 B aligned), every warp load touches 32 rows and a row's
+// sectors are fetched once per load that touches them.  Here the TMA
+// engine gathers a warp's 32 rows: each lane starts one 160-byte bulk copy
+// (cp.async.bulk) of its row into the warp's part of a shared-memory tile,
+// all completing on one mbarrier, so a row is read whole, five sectors,
+// by one request, with no load instruction and no register waiting on it.
+// Each thread then reads its row from the tile (ten 16-byte loads) and
+// writes its columns as the first form did.  Warps work alone: no block
+// barrier.  Measured against the same warp-wide gather done with 16-byte
+// loads (32 consecutive chunks of the warp's rows a load), and with the
+// nine (N,3) vectors staged through shared memory for 128-byte warp
+// stores: tools/shade_round_variants.cu.
+//
+// nee_resolve_kernel's design.  A lane loads what its flags say it needs,
+// in the plain version's order of selects: fresh_direct; direct_base
+// where it is false; is_diff where it is true; on a diffuse lane the light
+// pick, the material's emission and nee_k, and where its shadow ray was
+// traced the occlusion, and where that reached the light the direction,
+// distance and light normal of the pdf and cos_pdf_at_l, its weight's.
+// The lanes are sorted by bin key with the dead lanes last, so whole warps
+// skip whole sectors.  Every expression is as before; only the loads
+// moved.
 //
 // Bit equality with the plain versions on the card.  Built with
 // --fmad=false and without fast math, each expression below is the torch
@@ -122,8 +152,7 @@ struct ShadeArgs {
   const float* consts;         // (kConsts,) kernels/shade.py::frame_constants
   const long long* prev_rays;  // (2,) the wave's ray counts
   // outputs
-  float* packed;  // (N,34)
-  int* packed_i;  // (N,6)
+  float* packed;  // (N,40): kPackedF f32 words, then kPackedI i32 as bits
   int* key;       // (N,)
   unsigned long long* tally;  // (3,) zeroed: semantic, traced, live
   int n, n_spheres, n_lights, n_spp, bounce_limit, rr_start, width, height,
@@ -168,6 +197,8 @@ namespace {
 constexpr int kBlock = 256;
 constexpr int kPackedF = 34;  // integrator/shading.py::PACKED_F
 constexpr int kPackedI = 6;   // PACKED_I
+constexpr int kRow = kPackedF + kPackedI;  // ROW: 40 words, 160 B
+constexpr int kRowChunks = kRow / 4;       // 16-byte chunks of a row
 constexpr float kInvPi = 0.3183098862f;  // sampling/bsdf.py::INV_PI
 
 struct V3 {
@@ -424,7 +455,7 @@ struct Counts {
   int alive = 0, sem = 0, act = 0;
 };
 
-// Lane i from its pending hit to its next state: its packed rows into
+// Lane i from its pending hit to its next state: its packed row into
 // ``f`` (34 floats) and ``fi`` (6 ints), each 8-byte aligned, its bin key
 // into a.key[i], its counts into ``cnt``.  Each value is the first form's
 // (and so the plain version's), each expression on the same operands.  A
@@ -782,25 +813,20 @@ __device__ __forceinline__ void shade_lane(const ShadeArgs& a,
   cnt.act += a.n_lights > 0 && nee_active;
 }
 
-// The first ``words`` (even) 32-bit words of a shared-memory tile to
-// ``dst`` (16-byte aligned): the bytes up to the last 16-byte boundary as
-// one TMA bulk store, issued by thread 0 into the thread's bulk group, the
-// 8 bytes past it, if any, by a plain store of the block's last thread.
-// The tile's writers have made their writes visible to the async proxy
-// (fence.proxy.async) and passed a barrier.
+// The first ``words`` (a multiple of 4) 32-bit words of a shared-memory
+// tile to ``dst`` (16-byte aligned) as one TMA bulk store, issued by
+// thread 0 into the thread's bulk group.  The tile's writers have made
+// their writes visible to the async proxy (fence.proxy.async) and passed a
+// barrier.
 __device__ __forceinline__ void store_tile(const void* tile, void* dst,
                                            int words) {
-  const int n4 = words / 4;
-  if (threadIdx.x == 0 && n4 > 0) {
+  if (threadIdx.x == 0) {
     asm volatile(
         "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
             __cvta_generic_to_global(dst)),
         "r"(static_cast<unsigned>(__cvta_generic_to_shared(tile))),
-        "r"(16 * n4)
+        "r"(4 * words)
         : "memory");
-  }
-  if (words % 4 != 0 && threadIdx.x == kBlock - 1) {
-    static_cast<uint2*>(dst)[2 * n4] = static_cast<const uint2*>(tile)[2 * n4];
   }
 }
 
@@ -849,51 +875,94 @@ __device__ __forceinline__ void add_counts(const ShadeArgs& a, Counts cnt) {
   }
 }
 
-// One block a tile of 256 lanes: the lanes' rows into the tiles, then the
-// tiles out by TMA while the block adds its counts.  kMaps: the maps
+// One block a tile of 256 lanes: the lanes' rows into the tile, then the
+// tile out by TMA while the block adds its counts.  kMaps: the maps
 // instance, capped at 80 registers (3 blocks an SM) for its texel taps.
 template <bool kMaps>
 __global__ void __launch_bounds__(kBlock, kMaps ? 3 : 4)
     shade_kernel(const ShadeArgs a) {
-  __shared__ __align__(16) float tile_f[kBlock * kPackedF];
-  __shared__ __align__(16) int tile_i[kBlock * kPackedI];
+  __shared__ __align__(16) float tile[kBlock * kRow];
   const long long base = static_cast<long long>(blockIdx.x) * kBlock;
   const int rows = min(kBlock, a.n - static_cast<int>(base));
   Counts cnt;
   if (static_cast<int>(threadIdx.x) < rows) {
-    shade_lane<true, kMaps>(a, base + threadIdx.x,
-                            tile_f + kPackedF * threadIdx.x,
-                            tile_i + kPackedI * threadIdx.x, cnt);
+    float* row = tile + kRow * threadIdx.x;
+    shade_lane<true, kMaps>(a, base + threadIdx.x, row,
+                            reinterpret_cast<int*>(row + kPackedF), cnt);
   }
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   __syncthreads();
-  store_tile(tile_f, a.packed + kPackedF * base, kPackedF * rows);
-  store_tile(tile_i, a.packed_i + kPackedI * base, kPackedI * rows);
+  store_tile(tile, a.packed + kRow * base, kRow * rows);
   commit_stores();
   add_counts(a, cnt);
-  wait_store_reads();  // the tiles live until the block exits
+  wait_store_reads();  // the tile lives until the block exits
 }
 
-// integrator/shading.py::unpack_lanes of the rows in ``order``: nine (N,3)
-// vectors, the columns cos_pdf_at_l and l_dist, the flags alive, bad,
-// fresh_direct, is_diff and nee_active (row value > 0.5), six i32 columns.
-__global__ void __launch_bounds__(kBlock)
-    permute_kernel(const float* __restrict__ packed,
-                   const int* __restrict__ packed_i,
-                   const long long* __restrict__ order, float* __restrict__ vec,
-                   float* __restrict__ cols, unsigned char* __restrict__ flags,
-                   int* __restrict__ ints, int n) {
-  const long long i = static_cast<long long>(blockIdx.x) * kBlock + threadIdx.x;
-  if (i >= n) return;
-  const long long src = order[i];
-  const float2* row = reinterpret_cast<const float2*>(packed + kPackedF * src);
-  float f[kPackedF];
-#pragma unroll
-  for (int c = 0; c < kPackedF / 2; ++c) {
-    const float2 v = row[c];
-    f[2 * c] = v.x;
-    f[2 * c + 1] = v.y;
+// The warp's ``rows`` (<= 32) packed rows, row r = row ``src`` of lane r
+// (``src`` of a lane past ``rows`` is never read), gathered by the TMA
+// engine into the warp's 32-row tile ``wt``: lane r copies its row with
+// one 160-byte bulk copy that completes on the warp's mbarrier ``bar``,
+// lane 0 arms the barrier with the bytes to come, and every lane waits
+// for them.  Every lane of the warp calls it, once per ``bar``.
+__device__ __forceinline__ void tma_rows(const float* __restrict__ packed,
+                                         long long src, int rows, int lane,
+                                         float* wt, unsigned long long* bar) {
+  const unsigned b = static_cast<unsigned>(__cvta_generic_to_shared(bar));
+  if (lane == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(b)
+                 : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncwarp();
+  if (lane == 0) {
+    asm volatile(
+        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b),
+        "r"(static_cast<unsigned>(rows * kRow * 4))
+        : "memory");
+  }
+  if (lane < rows) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n" ::"r"(static_cast<unsigned>(
+            __cvta_generic_to_shared(wt + kRow * lane))),
+        "l"(packed + kRow * src), "r"(kRow * 4), "r"(b)
+        : "memory");
+  }
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(b)
+        : "memory");
+  }
+}
+
+// Row ``lane`` of the warp's tile ``wt`` (rows 40 words apart) into ``f``
+__device__ __forceinline__ void tile_row(const float* wt, int lane,
+                                         float f[kRow]) {
+  const float4* row = reinterpret_cast<const float4*>(wt + kRow * lane);
+#pragma unroll
+  for (int k = 0; k < kRowChunks; ++k) {
+    const float4 v = row[k];
+    f[4 * k] = v.x;
+    f[4 * k + 1] = v.y;
+    f[4 * k + 2] = v.z;
+    f[4 * k + 3] = v.w;
+  }
+}
+
+// Lane i's columns: the nine (N,3) vectors, three scalar stores each;
+// cos_pdf_at_l and l_dist; the flags alive, bad, fresh_direct, is_diff and
+// nee_active (row value > 0.5); the six i32 words.
+__device__ __forceinline__ void store_lane(const float f[kRow],
+                                           float* __restrict__ vec,
+                                           float* __restrict__ cols,
+                                           unsigned char* __restrict__ flags,
+                                           int* __restrict__ ints,
+                                           long long i, int n) {
 #pragma unroll
   for (int k = 0; k < 9; ++k) {
     float* dst = vec + (static_cast<long long>(k) * n + i) * 3;
@@ -908,41 +977,72 @@ __global__ void __launch_bounds__(kBlock)
   flags[2ll * n + i] = f[29] > 0.5f;
   flags[3ll * n + i] = f[30] > 0.5f;
   flags[4ll * n + i] = f[33] > 0.5f;
-  const int2* irow = reinterpret_cast<const int2*>(packed_i + kPackedI * src);
 #pragma unroll
-  for (int c = 0; c < kPackedI / 2; ++c) {
-    const int2 v = irow[c];
-    ints[(2ll * c) * n + i] = v.x;
-    ints[(2ll * c + 1) * n + i] = v.y;
+  for (int c = 0; c < kPackedI; ++c) {
+    ints[c * static_cast<long long>(n) + i] = __float_as_int(f[kPackedF + c]);
   }
 }
 
-// shading.analytic_nee and shading.resolve_direct
+// integrator/shading.py::unpack_lanes of the rows in ``order``: nine (N,3)
+// vectors, the columns cos_pdf_at_l and l_dist, the flags alive, bad,
+// fresh_direct, is_diff and nee_active (row value > 0.5), six i32 columns.
+// Each warp takes 32 lanes in its 32-row part of the block's tile.
+__global__ void __launch_bounds__(kBlock)
+    permute_kernel(const float* __restrict__ packed,
+                   const long long* __restrict__ order, float* __restrict__ vec,
+                   float* __restrict__ cols, unsigned char* __restrict__ flags,
+                   int* __restrict__ ints, int n) {
+  __shared__ __align__(16) float tile[kBlock * kRow];
+  __shared__ __align__(8) unsigned long long bars[kBlock / 32];
+  const int lane = threadIdx.x & 31;
+  const long long base =
+      static_cast<long long>(blockIdx.x) * kBlock + (threadIdx.x & ~31);
+  if (base >= n) return;  // the whole warp
+  const int rows = static_cast<int>(min(32ll, n - base));
+  float* wt = tile + kRow * (threadIdx.x & ~31);
+  const long long i = base + lane;
+  tma_rows(packed, lane < rows ? order[i] : 0, rows, lane, wt,
+           bars + threadIdx.x / 32);
+  if (lane >= rows) return;
+  float f[kRow];
+  tile_row(wt, lane, f);
+  store_lane(f, vec, cols, flags, ints, i, n);
+}
+
+// shading.analytic_nee and shading.resolve_direct, each value loaded only
+// where a select takes it
 __global__ void __launch_bounds__(kBlock) nee_resolve_kernel(const NeeArgs a) {
   const long long i = static_cast<long long>(blockIdx.x) * kBlock + threadIdx.x;
   if (i >= a.n) return;
-  const V3 l_dir = ld3(a.l_dir, i);
-  V3 l_emit = splat(0.0f);
-  float real_l_pdf = 0.0f;
-  if (a.n_lights > 0) {
-    const int row = a.n_lights <= 1 ? 0 : a.li[i];
-    const int mat = a.light_mat[row];
-    l_emit = ld3(a.mat_emission, mat) * a.mat_emission_strength[mat];
-    const float l_dist = a.l_dist[i];
-    const float cos_theta = dot(ld3(a.light_normal, row), l_dir);
-    const float pdf = l_dist * l_dist / (cos_theta * a.light_area[row]);
-    const bool reached = a.nee_active[i] != 0 && a.occluded[i] == 0;
-    real_l_pdf = reached ? pdf : 0.0f;
+  V3 out;
+  if (a.fresh_direct[i] == 0) {
+    out = ld3(a.direct_base, i);
+  } else if (a.is_diff[i] == 0) {
+    out = splat(-1.0f);
+  } else {
+    V3 l_emit = splat(0.0f);
+    // c is read only where the pdf is: elsewhere real_l_pdf is 0 (NaN
+    // without lights), and q is 0 (NaN) whatever c holds
+    float real_l_pdf = 0.0f, c = 0.0f;
+    if (a.n_lights > 0) {
+      const int row = a.n_lights <= 1 ? 0 : a.li[i];
+      const int mat = a.light_mat[row];
+      l_emit = ld3(a.mat_emission, mat) * a.mat_emission_strength[mat];
+      if (a.nee_active[i] != 0 && a.occluded[i] == 0) {  // reached
+        const V3 l_dir = ld3(a.l_dir, i);
+        const float l_dist = a.l_dist[i];
+        c = a.cos_pdf_at_l[i];
+        const float cos_theta = dot(ld3(a.light_normal, row), l_dir);
+        real_l_pdf = l_dist * l_dist / (cos_theta * a.light_area[row]);
+      }
+    }
+    // real_l_pdf / n_lights, as torch's CUDA division by a Python number
+    real_l_pdf = real_l_pdf * (1.0f / static_cast<float>(a.n_lights));
+    float w1 = real_l_pdf * real_l_pdf / (real_l_pdf * real_l_pdf + c * c);
+    w1 = isnan(w1) ? 0.0f : w1;
+    const float q = real_l_pdf == 0.0f ? 0.0f : w1 / real_l_pdf;
+    out = l_emit * ld3(a.nee_k, i) * q;
   }
-  // real_l_pdf / n_lights, as torch's CUDA division by a Python number
-  real_l_pdf = real_l_pdf * (1.0f / static_cast<float>(a.n_lights));
-  const float c = a.cos_pdf_at_l[i];
-  float w1 = real_l_pdf * real_l_pdf / (real_l_pdf * real_l_pdf + c * c);
-  w1 = isnan(w1) ? 0.0f : w1;
-  const float q = real_l_pdf == 0.0f ? 0.0f : w1 / real_l_pdf;
-  const V3 direct_diff = l_emit * ld3(a.nee_k, i) * q;
-  const V3 new_direct = a.is_diff[i] != 0 ? direct_diff : splat(-1.0f);
-  const V3 out = a.fresh_direct[i] != 0 ? new_direct : ld3(a.direct_base, i);
   a.direct[3 * i] = out.x;
   a.direct[3 * i + 1] = out.y;
   a.direct[3 * i + 2] = out.z;
@@ -974,16 +1074,18 @@ extern "C" int rt_shade_round(const ShadeArgs* a, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// One launch of permute_kernel over n lanes.
-extern "C" int rt_permute_rows(const void* packed, const void* packed_i,
-                               const void* order, void* vec, void* cols,
-                               void* flags, void* ints, int n, void* stream) {
+// One launch of permute_kernel over n lanes; ``packed`` 16-byte aligned.
+extern "C" int rt_permute_rows(const void* packed, const void* order,
+                               void* vec, void* cols, void* flags, void* ints,
+                               int n, void* stream) {
+  if (n < 1 || reinterpret_cast<uintptr_t>(packed) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const dim3 grid((n + kBlock - 1) / kBlock), block(kBlock);
   permute_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(packed), static_cast<const int*>(packed_i),
-      static_cast<const long long*>(order), static_cast<float*>(vec),
-      static_cast<float*>(cols), static_cast<unsigned char*>(flags),
-      static_cast<int*>(ints), n);
+      static_cast<const float*>(packed), static_cast<const long long*>(order),
+      static_cast<float*>(vec), static_cast<float*>(cols),
+      static_cast<unsigned char*>(flags), static_cast<int*>(ints), n);
   return static_cast<int>(cudaGetLastError());
 }
 

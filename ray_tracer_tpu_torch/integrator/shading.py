@@ -411,8 +411,9 @@ class Lanes(NamedTuple):
 
 N_VEC = 9  # (N,3) fields of Lanes, then N_COL (N,) columns packed as f32
 N_COL = 7
-PACKED_F = 3 * N_VEC + N_COL  # 34 f32 columns
-PACKED_I = 6  # j, s, pix, slot, li, sb
+PACKED_F = 3 * N_VEC + N_COL  # 34 f32 words
+PACKED_I = 6  # j, s, pix, slot, li, sb: i32 words, stored as their bits
+ROW = PACKED_F + PACKED_I  # 40 words, 160 B: five 32 B sectors a lane
 _BOOL_COLS = (0, 1, 2, 3, 6)  # alive, bad, fresh_direct, is_diff, nee_active
 
 
@@ -569,22 +570,36 @@ def shade_lanes(scene: CompiledScene, cfg, space: str, w, frame: int,
     return lanes, continuing, nee_sem, n_lights_w
 
 
-def pack_lanes(lanes: Lanes):
-    """The (N, PACKED_F) f32 and (N, PACKED_I) i32 rows of ``lanes``,
-    the state permute's input (booleans as 0.0 / 1.0)."""
+def pack_split(lanes: Lanes):
+    """The (N, PACKED_F) f32 rows (booleans as 0.0 / 1.0) and the
+    (N, PACKED_I) i32 rows of ``lanes``: the two parts of a packed row."""
     fi = lambda x: x.to(F32)[:, None]
     vec = list(lanes[:N_VEC])
     cols = [fi(x) if x.dtype == torch.bool else x[:, None]
             for x in lanes[N_VEC:N_VEC + N_COL]]
-    packed = torch.cat(vec + cols, dim=1)
-    packed_i = torch.stack(list(lanes[N_VEC + N_COL:]), dim=1)
-    return packed, packed_i
+    return (torch.cat(vec + cols, dim=1),
+            torch.stack(list(lanes[N_VEC + N_COL:]), dim=1))
 
 
-def unpack_lanes(packed, packed_i) -> Lanes:
-    """:func:`pack_lanes` undone: views of the rows, booleans as
+def unpack_split(packed_f, packed_i) -> Lanes:
+    """:func:`pack_split` undone: views of the rows, booleans as
     ``> 0.5``."""
-    vec = [packed[:, 3 * k:3 * k + 3] for k in range(N_VEC)]
-    cols = [packed[:, 3 * N_VEC + k] for k in range(N_COL)]
+    vec = [packed_f[:, 3 * k:3 * k + 3] for k in range(N_VEC)]
+    cols = [packed_f[:, 3 * N_VEC + k] for k in range(N_COL)]
     cols = [c > 0.5 if k in _BOOL_COLS else c for k, c in enumerate(cols)]
     return Lanes(*vec, *cols, *packed_i.unbind(dim=1))
+
+
+def pack_lanes(lanes: Lanes):
+    """The (N, ROW) f32 rows of ``lanes``, the state permute's input: the
+    PACKED_F f32 words of :func:`pack_split`, then its PACKED_I i32 words
+    as their bits (copied, never converted)."""
+    packed_f, packed_i = pack_split(lanes)
+    return torch.cat([packed_f, packed_i.view(F32)], dim=1)
+
+
+def unpack_lanes(packed) -> Lanes:
+    """:func:`pack_lanes` undone: views of the rows, the i32 words' bits
+    viewed as i32."""
+    return unpack_split(packed[:, :PACKED_F],
+                        packed[:, PACKED_F:ROW].view(I32))

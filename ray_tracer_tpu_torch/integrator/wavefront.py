@@ -539,6 +539,18 @@ def _first_wave(c: shade.Round, pixel_id, sample_base, rope_err=None):
     )
 
 
+def _gather_lanes(lanes: shading.Lanes, order) -> shading.Lanes:
+    """The torch round's state permute: the lane state gathered by
+    ``order`` with torch's own indexing, as two arrays of rows, f32 and
+    i32 (``shading.pack_split``).  Gathering the 40-word rows of
+    ``shading.pack_lanes`` instead is slower in torch: 12.55 ms at round 0
+    of the benchmark frame against 10.27, 11.20 with the rows 4 bytes
+    past a 16-byte boundary (NVIDIA H100 80GB HBM3, 700 W;
+    ``tools/measure_permute.py``)."""
+    packed_f, packed_i = shading.pack_split(lanes)
+    return shading.unpack_split(packed_f[order], packed_i[order])
+
+
 def _torch_round(c: shade.Round, w: Wave, rope_err=None) -> Wave:
     """One wavefront round in torch ops: shade (``shading.shade_lanes``),
     bin and permute the lane state, traverse the merged wavefront (bounce
@@ -605,11 +617,10 @@ def _torch_round(c: shade.Round, w: Wave, rope_err=None) -> Wave:
             bad = packed[:, 19] > 0.5
             j_cur, s_cur, pix, slot, sb_cur = packed_i.unbind(dim=1)
         else:
-            packed, packed_i = shading.pack_lanes(lanes)
             (new_origin, new_dir, atten, total, acc, direct_base,
              nee_origin, l_dir, nee_k, alive, bad, fresh_direct, is_diff,
              cos_pdf_at_l, l_dist, nee_active, j_cur, s_cur, pix, slot, li,
-             sb_cur) = shading.unpack_lanes(packed[order], packed_i[order])
+             sb_cur) = _gather_lanes(lanes, order)
 
     # ---- traverse the merged wavefront (bounce ++ regenerated primary)
     hit_next = traverse.traverse(scene, new_origin, new_dir, alive,
@@ -660,9 +671,9 @@ def _fused_round(c: shade.Round, w: Wave, rope_err=None) -> Wave:
     kernel resolves ``direct``.  The same values as :func:`_torch_round`,
     bit for bit, on every device."""
     scene = c.scene
-    packed, packed_i, key, tally = shade.shade_round(c, w)
+    packed, key, tally = shade.shade_round(c, w)
     order = torch.argsort(key, stable=True)
-    lanes = shade.permute_rows(packed, packed_i, order)
+    lanes = shade.permute_rows(packed, order)
     hit = traverse.traverse(scene, lanes.origin, lanes.direction,
                             lanes.alive, routing=c.rt, rope_err=rope_err)
     occluded = None

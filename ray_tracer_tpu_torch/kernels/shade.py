@@ -9,17 +9,20 @@ tensors (nothing falls back: a CUDA call that cannot launch raises):
   one thread per lane from its pending hit to its next state: the shade
   fetch, the pending-light resolve, the sky, the RNG draws, the BSDF
   lobes and the rect-light sample, russian roulette, sample completion
-  and regeneration, written as the packed rows the permute moves, with the
-  lane's morton bin key and the round's ray counts; where textures are in
+  and regeneration, written as the packed row the permute moves (40 words,
+  160 B: the f32 state, then the i32 words' bits), with the lane's morton
+  bin key and the round's ray counts; where textures are in
   use (:func:`maps_on`) its maps instance, ``shade_kernel<true>``, adds
   the albedo, metalness and alpha maps and the bump maps, its sRGB decode
   a lookup in the round's table (:func:`srgb_table`);
 * ``permute_kernel`` (:func:`permute_rows`; plain:
   :func:`permute_rows_reference`): each lane's packed row gathered by the
-  sorted order into the next wave's columns;
+  sorted order into the next wave's columns, each warp's 32 rows gathered
+  into shared memory by the TMA engine first;
 * ``nee_resolve_kernel`` (:func:`nee_resolve`; plain:
   :func:`nee_resolve_reference`): the occlusion NEE's light side and the
-  MIS resolve into the next ``direct``.
+  MIS resolve into the next ``direct``, each lane loading only what its
+  flags say it needs.
 
 They replace no Pallas kernel: the JAX package's round
 (``ray_tracer_tpu/integrator/wavefront.py:1003-1400``) runs inside
@@ -135,16 +138,16 @@ def frame_constants(scene, cam) -> torch.Tensor:
 
 
 def shade_round_reference(c: Round, w):
-    """The shade kernel's function in torch: ``(packed, packed_i, key,
-    tally)``: the round's next lane state as (N,34) f32 and (N,6) i32 rows
-    (``shading.pack_lanes``), the lanes' morton bin key (N,) i32, and
+    """The shade kernel's function in torch: ``(packed, key, tally)``: the
+    round's next lane state as (N,40) f32 rows (``shading.pack_lanes``:
+    the i32 words as their bits), the lanes' morton bin key (N,) i32, and
     (3,) i64: the wave's ray counts after the round (semantic, traced:
     ``w.n_rays`` plus the live lanes plus the shadow rays counted and
     traced; no shadow rays without rect lights) and the live count."""
     scene = c.scene
     lanes, _, nee_sem, _ = shading.shade_lanes(
         scene, c.cfg, c.space, w, c.frame, c.n_spp, c.cam)
-    packed, packed_i = shading.pack_lanes(lanes)
+    packed = shading.pack_lanes(lanes)
     key = shading.bin_key(scene, lanes.origin, lanes.direction, lanes.alive,
                           c.rt.bin_bits, c.rt.bin_dir_bits)
     n_alive = lanes.alive.sum()
@@ -153,13 +156,13 @@ def shade_round_reference(c: Round, w):
     else:
         n_nee = torch.stack([nee_sem.sum(), lanes.nee_active.sum()])
     tally = torch.cat([w.n_rays + n_alive + n_nee, n_alive.view(1)])
-    return packed, packed_i, key, tally
+    return packed, key, tally
 
 
-def permute_rows_reference(packed, packed_i, order) -> shading.Lanes:
+def permute_rows_reference(packed, order) -> shading.Lanes:
     """The permute kernel's function in torch: row ``order[i]`` of the
     packed state as lane ``i`` of the next wave's columns."""
-    return shading.unpack_lanes(packed[order], packed_i[order])
+    return shading.unpack_lanes(packed[order])
 
 
 def nee_resolve_reference(scene, lanes: shading.Lanes, occluded):
@@ -200,7 +203,7 @@ class _ShadeArgs(ctypes.Structure):
         "mat_emission_strength", "mat_reflectance", "mat_ior",
         "light_corner", "light_edge_u", "light_edge_v", "env_horizon",
         "env_zenith", "env_ground", "env_light_dir", "consts", "prev_rays",
-        "packed", "packed_i", "key", "tally")] + [
+        "packed", "key", "tally")] + [
         (name, ctypes.c_int) for name in (
             "n", "n_spheres", "n_lights", "n_spp", "bounce_limit",
             "rr_start", "width", "height", "aa_jitter", "tint", "mb", "db",
@@ -232,7 +235,7 @@ def _load() -> ctypes.CDLL:
         lib.rt_shade_round.restype = ctypes.c_int
         lib.rt_shade_round.argtypes = [ctypes.POINTER(_ShadeArgs), _P]
         lib.rt_permute_rows.restype = ctypes.c_int
-        lib.rt_permute_rows.argtypes = [_P] * 7 + [ctypes.c_int, _P]
+        lib.rt_permute_rows.argtypes = [_P] * 6 + [ctypes.c_int, _P]
         lib.rt_nee_resolve.restype = ctypes.c_int
         lib.rt_nee_resolve.argtypes = [ctypes.POINTER(_NeeArgs), _P]
         _lib = lib
@@ -291,7 +294,7 @@ def _scene_tables(scene, dev, srgb=None):
 
 def shade_args(c: Round, w):
     """The shade kernel's arguments for the wave ``w`` on the card,
-    checked, and its outputs ``(packed, packed_i, key, tally)``, allocated
+    checked, and its outputs ``(packed, key, tally)``, allocated
     (``tally`` zeroed): ``(args, outputs)``.  ``args`` holds the tensors'
     addresses only: the caller keeps ``c``, ``w`` and the outputs alive
     while a launch may read them."""
@@ -318,10 +321,9 @@ def shade_args(c: Round, w):
         raise ValueError("textures are in use: the round needs its sRGB "
                          "table (Round.srgb)")
     _scene_tables(scene, dev, c.srgb if maps else None)
-    if table.shape[0] == 0 or n >= 2**31 // shading.PACKED_F:
+    if table.shape[0] == 0 or n >= 2**31 // shading.ROW:
         raise ValueError("an empty shade table, or too many lanes")
-    packed = torch.empty((n, shading.PACKED_F), dtype=F32, device=dev)
-    packed_i = torch.empty((n, shading.PACKED_I), dtype=I32, device=dev)
+    packed = torch.empty((n, shading.ROW), dtype=F32, device=dev)
     key = torch.empty(n, dtype=I32, device=dev)
     tally = torch.zeros(3, dtype=I64, device=dev)
     ptr = lambda t: t.data_ptr()
@@ -344,19 +346,19 @@ def shade_args(c: Round, w):
             scene.mat_ior, scene.light_corner, scene.light_edge_u,
             scene.light_edge_v, scene.env_horizon, scene.env_zenith,
             scene.env_ground, scene.env_light_dir, c.consts, w.n_rays,
-            packed, packed_i, key, tally)),
+            packed, key, tally)),
         n, scene.n_spheres, scene.n_lights, c.n_spp, cfg.bounce_limit,
         cfg.rr_start_bounce, cfg.width, cfg.height, int(cfg.aa_jitter),
         int(cfg.tint_spec_diel), rt.bin_bits, rt.bin_dir_bits,
         int(_morton(scene)), int(_flat(scene)),
         cfg.seed & 0xFFFFFFFF, c.frame & 0xFFFFFFFF, cfg.rr_clamp,
         *maps_args)
-    return args, (packed, packed_i, key, tally)
+    return args, (packed, key, tally)
 
 
 def shade_round(c: Round, w):
-    """One round's shading of the wave ``w`` -> ``(packed, packed_i, key,
-    tally)`` as :func:`shade_round_reference` returns them; on CUDA
+    """One round's shading of the wave ``w`` -> ``(packed, key, tally)``
+    as :func:`shade_round_reference` returns them; on CUDA
     tensors one launch of ``shade_kernel``, its maps instance where
     :func:`maps_on` (the arguments' ``maps``)."""
     dev = _device(w.origin)
@@ -364,7 +366,7 @@ def shade_round(c: Round, w):
         return shade_round_reference(c, w)
     args, out = shade_args(c, w)
     if w.origin.shape[0] == 0:
-        out[3][:2] = w.n_rays
+        out[2][:2] = w.n_rays
         return out
     _raise_on(_load().rt_shade_round(
         ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream),
@@ -373,40 +375,50 @@ def shade_round(c: Round, w):
     return out
 
 
-def permute_rows(packed, packed_i, order) -> shading.Lanes:
+def permute_rows(packed, order) -> shading.Lanes:
     """The packed rows gathered by ``order`` (N,) i64 into the next
     wave's columns, as :func:`permute_rows_reference` returns them (on
     CUDA tensors contiguous columns); one launch of ``permute_kernel``."""
     dev = _device(packed)
     if dev.type == "cpu":
-        return permute_rows_reference(packed, packed_i, order)
+        return permute_rows_reference(packed, order)
     n = packed.shape[0]
-    check_tensors(dev, F32, packed=(packed, (n, shading.PACKED_F)))
-    check_tensors(dev, I32, packed_i=(packed_i, (n, shading.PACKED_I)))
+    check_tensors(dev, F32, packed=(packed, (n, shading.ROW)))
     check_tensors(dev, I64, order=(order, (n,)))
-    vec = torch.empty((shading.N_VEC, n, 3), dtype=F32, device=dev)
-    cols = torch.empty((2, n), dtype=F32, device=dev)
-    flags = torch.empty((5, n), dtype=BOOL, device=dev)
-    ints = torch.empty((shading.PACKED_I, n), dtype=I32, device=dev)
+    if packed.data_ptr() % 16:
+        raise ValueError("the packed rows must be 16-byte aligned")
+    vec, cols, flags, ints = permute_outputs(n, dev)
     if n:
         _raise_on(_load().rt_permute_rows(
-            packed.data_ptr(), packed_i.data_ptr(), order.data_ptr(),
-            vec.data_ptr(), cols.data_ptr(), flags.data_ptr(),
-            ints.data_ptr(), n, torch.cuda.current_stream(dev).cuda_stream),
-            "permute_kernel")
+            packed.data_ptr(), order.data_ptr(), vec.data_ptr(),
+            cols.data_ptr(), flags.data_ptr(), ints.data_ptr(), n,
+            torch.cuda.current_stream(dev).cuda_stream), "permute_kernel")
         launches["permute_rows"] += 1
+    return permute_lanes(vec, cols, flags, ints)
+
+
+def permute_outputs(n: int, dev):
+    """The permute kernel's outputs for ``n`` lanes, allocated: nine (N,3)
+    f32 vectors, two f32 columns, five bool flags, six i32 columns."""
+    return (torch.empty((shading.N_VEC, n, 3), dtype=F32, device=dev),
+            torch.empty((2, n), dtype=F32, device=dev),
+            torch.empty((5, n), dtype=BOOL, device=dev),
+            torch.empty((shading.PACKED_I, n), dtype=I32, device=dev))
+
+
+def permute_lanes(vec, cols, flags, ints) -> shading.Lanes:
+    """The :class:`shading.Lanes` the permute kernel's outputs hold."""
     alive, bad, fresh_direct, is_diff, nee_active = flags
     return shading.Lanes(
         *vec, alive, bad, fresh_direct, is_diff, cols[0], cols[1],
         nee_active, *ints)
 
 
-def nee_resolve(scene, lanes: shading.Lanes, occluded):
-    """The next ``direct`` (N,3) as :func:`nee_resolve_reference` returns
-    it; one launch of ``nee_resolve_kernel``."""
+def nee_args(scene, lanes: shading.Lanes, occluded):
+    """The NEE kernel's arguments on the card, checked, and its output
+    ``direct`` (N,3), allocated: ``(args, direct)``; ``args`` holds the
+    tensors' addresses only (the caller keeps them alive)."""
     dev = _device(lanes.l_dir)
-    if dev.type == "cpu":
-        return nee_resolve_reference(scene, lanes, occluded)
     n = lanes.l_dir.shape[0]
     if scene.n_lights and occluded is None:
         raise ValueError("rect lights need the shadow rays' occlusion")
@@ -431,15 +443,25 @@ def nee_resolve(scene, lanes: shading.Lanes, occluded):
         flags["occluded"] = (occluded, (n,))
     check_tensors(dev, BOOL, **flags)
     direct = torch.empty((n, 3), dtype=F32, device=dev)
-    if n:
-        args = _NeeArgs(
-            *(None if t is None else t.data_ptr() for t in (
-                lanes.li, lanes.l_dir, lanes.l_dist, lanes.nee_active,
-                occluded, lanes.cos_pdf_at_l, lanes.nee_k, lanes.is_diff,
-                lanes.fresh_direct, lanes.direct_base, scene.light_normal,
-                scene.light_area, scene.light_mat, scene.mat_emission,
-                scene.mat_emission_strength, direct)),
-            n, scene.n_lights)
+    args = _NeeArgs(
+        *(None if t is None else t.data_ptr() for t in (
+            lanes.li, lanes.l_dir, lanes.l_dist, lanes.nee_active,
+            occluded, lanes.cos_pdf_at_l, lanes.nee_k, lanes.is_diff,
+            lanes.fresh_direct, lanes.direct_base, scene.light_normal,
+            scene.light_area, scene.light_mat, scene.mat_emission,
+            scene.mat_emission_strength, direct)),
+        n, scene.n_lights)
+    return args, direct
+
+
+def nee_resolve(scene, lanes: shading.Lanes, occluded):
+    """The next ``direct`` (N,3) as :func:`nee_resolve_reference` returns
+    it; one launch of ``nee_resolve_kernel``."""
+    dev = _device(lanes.l_dir)
+    if dev.type == "cpu":
+        return nee_resolve_reference(scene, lanes, occluded)
+    args, direct = nee_args(scene, lanes, occluded)
+    if args.n:
         _raise_on(_load().rt_nee_resolve(
             ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream),
             "nee_resolve_kernel")

@@ -1404,9 +1404,9 @@ def test_round_kernels_match_plain_versions(dev, round_scenes, name, space,
     while int(w.n_alive) > 0:
         out = shade.shade_round(c, w)
         _same_all(out, shade.shade_round_reference(c, w), "shade")
-        order = torch.argsort(out[2], stable=True)
-        lanes = shade.permute_rows(out[0], out[1], order)
-        _same_all(lanes, shade.permute_rows_reference(out[0], out[1], order),
+        order = torch.argsort(out[1], stable=True)
+        lanes = shade.permute_rows(out[0], order)
+        _same_all(lanes, shade.permute_rows_reference(out[0], order),
                   "permute")
         occluded = None
         if sc.n_lights:
@@ -1569,7 +1569,7 @@ def test_shade_kernel_equals_the_old_kernel(dev, round_scenes, monkeypatch,
 @pytest.mark.parametrize("variant", ["shipped_copy", "vector", "in_place",
                                      "eager", "persistent", "blocks3",
                                      "blocks5", "regs_free",
-                                     "in_place_blocks3"])
+                                     "in_place_blocks3", "split"])
 def test_shade_kernel_variants_match(dev, round_scenes, shade_variants,
                                      variant):
     """The variants that tools/measure_shade_round.py times compute
@@ -1592,3 +1592,100 @@ def test_shade_kernel_variants_match(dev, round_scenes, shade_variants,
         shade_variants.compare(variant, shade_variants.run(variant, c, w),
                                shade.shade_round(c, w))
         w = wavefront._fused_round(c, w)
+
+
+# the widths of the permute and NEE tests: one lane, less than a warp,
+# less than a block, a block and a warp's lane more, and a wide wave
+# whose last warp holds three lanes
+ROUND_WIDTHS = (1, 31, 255, 257, 2**18 + 3)
+
+
+def _orders(n, kind, dev):
+    if kind == "identity":
+        return torch.arange(n, device=dev)
+    if kind == "reversed":
+        return torch.arange(n - 1, -1, -1, device=dev)
+    rand = np.random.default_rng(n)
+    return torch.from_numpy(rand.permutation(n)).to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["identity", "reversed", "random"])
+@pytest.mark.parametrize("n", ROUND_WIDTHS)
+def test_permute_kernel_matches_plain_version(dev, shade_variants, n, kind):
+    """permute_kernel on rows of random bits (NaN payloads, -0.0, any i32)
+    against its plain version and the kernel it replaced, every column bit
+    for bit, with the identity, the reversed and a random order."""
+    from ray_tracer_tpu_torch.kernels import shade
+    from torch_parity import random_rows, same_bits
+
+    packed = random_rows(n, seed=n, device=dev)
+    order = _orders(n, kind, dev)
+    shade.reset_launches()
+    got = shade.permute_rows(packed, order)
+    assert shade.launches["permute_rows"] == 1
+    for name, want in (
+            ("plain", shade.permute_rows_reference(packed, order)),
+            ("old", shade_variants.permute_run("old", packed, order))):
+        for field, a, b in zip(got._fields, got, want):
+            assert same_bits(a, b), f"{name}: {field}"
+
+
+@pytest.mark.gpu
+def test_permute_floor_gathers_the_rows(dev, shade_variants):
+    """The floor that chip_smoke.py times beside permute_kernel
+    (tools/shade_round_variants.cu::tma_floor_kernel) is the rows gathered
+    by the order, bit for bit, on ragged widths and a random order."""
+    from torch_parity import random_rows
+
+    for n in ROUND_WIDTHS:
+        packed = random_rows(n, seed=n + 1, device=dev)
+        order = _orders(n, "random", dev)
+        shade_variants.compare(
+            f"floor, {n} lanes",
+            [shade_variants.permute_run("floor_tma", packed, order)],
+            [packed[order]])
+
+
+@pytest.mark.gpu
+def test_permute_rows_raises_on_unaligned_rows(dev):
+    """permute_kernel's bulk copies need rows on a 16-byte boundary: the
+    wrapper raises on rows 4 bytes off one and launches nothing."""
+    from ray_tracer_tpu_torch.integrator import shading
+    from ray_tracer_tpu_torch.kernels import shade
+    from torch_parity import random_rows
+
+    n = 257
+    buf = torch.empty(n * shading.ROW + 4, dtype=torch.float32, device=dev)
+    packed = buf[1:1 + n * shading.ROW].view(n, shading.ROW)
+    packed.copy_(random_rows(n, seed=3, device=dev))
+    assert packed.data_ptr() % 16 == 4
+    shade.reset_launches()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        shade.permute_rows(packed, _orders(n, "random", dev))
+    assert shade.launches["permute_rows"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fresh", ["all", "none", "mixed"])
+@pytest.mark.parametrize("n_lights", [0, 1, 2])
+@pytest.mark.parametrize("n", ROUND_WIDTHS)
+def test_nee_kernel_matches_plain_version(dev, round_scenes, shade_variants,
+                                          n, n_lights, fresh):
+    """nee_resolve_kernel on random lanes (all, none or half of them
+    fresh; NaN payloads, infinities and zeros among the values) against
+    its plain version and the kernel it replaced, bit for bit, with 0, 1
+    and 2 rect lights."""
+    from ray_tracer_tpu_torch.kernels import shade
+    from torch_parity import random_lanes, same_bits, with_lights
+
+    sc = with_lights(round_scenes["room"], n_lights)
+    lanes = random_lanes(n, n_lights, fresh, seed=n + n_lights, device=dev)
+    rand = np.random.default_rng(n)
+    occluded = None if n_lights == 0 else torch.from_numpy(
+        rand.uniform(size=n) < 0.4).to(dev)
+    shade.reset_launches()
+    got = shade.nee_resolve(sc, lanes, occluded)
+    assert shade.launches["nee_resolve"] == 1
+    assert same_bits(got, shade.nee_resolve_reference(sc, lanes, occluded))
+    assert same_bits(got, shade_variants.nee_run("old", sc, lanes, occluded))

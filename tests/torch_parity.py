@@ -884,3 +884,62 @@ def grazing_rays(inv_transform, bvh_packed, roots, n_per, rand,
         t_all.append(tmax)
     return (np.concatenate(o_all), np.concatenate(d_all),
             np.concatenate(t_all))
+
+
+# f32 bit patterns a copy must keep: quiet and signalling NaNs with
+# payloads, both infinities, -0.0, the smallest subnormal
+SPECIAL_BITS = np.array([0x7FC00001, 0x7F800123, 0xFFC0BEEF, 0x7F800000,
+                         0xFF800000, 0x80000000, 0x00000001],
+                        dtype=np.uint32).view(np.int32)
+
+
+def random_rows(n, seed=0, device="cpu"):
+    """(n, 40) f32 packed lane rows of random bits, made with numpy from
+    ``seed``: any f32 and i32 value, every 11th word one of
+    SPECIAL_BITS."""
+    rand = np.random.default_rng(seed)
+    bits = rand.integers(-2**31, 2**31, (n, 40)).astype(np.int32)
+    flat = bits.reshape(-1)
+    flat[::11] = np.resize(SPECIAL_BITS, flat[::11].shape)
+    return torch.from_numpy(bits).view(torch.float32).to(device)
+
+
+def random_lanes(n, n_lights=2, fresh="mixed", seed=0, device="cpu"):
+    """``shading.Lanes`` of ``n`` random lanes, made with numpy from
+    ``seed``: vectors and columns with NaN payloads, infinities, -0.0 and
+    zeros among them, random flags (``fresh``: fresh_direct on "all", on
+    "none" or on a random half of the lanes), negative i32 words, and a
+    light index below ``max(n_lights, 1)``."""
+    from ray_tracer_tpu_torch.integrator import shading
+
+    rand = np.random.default_rng(seed)
+
+    def floats(*shape):
+        x = rand.normal(size=shape).astype(np.float32)
+        bits = x.reshape(-1).view(np.int32)
+        bits[::13] = np.resize(SPECIAL_BITS, bits[::13].shape)
+        x.reshape(-1)[5::17] = 0.0
+        return x
+
+    def unit(count):
+        d = rand.normal(size=(count, 3)).astype(np.float32)
+        return d / np.linalg.norm(d, axis=-1, keepdims=True)
+
+    flag = lambda: rand.uniform(size=n) < 0.5
+    fresh_direct = {"all": np.ones(n, bool), "none": np.zeros(n, bool),
+                    "mixed": flag()}[fresh]
+    ints = lambda: rand.integers(-2**31, 2**31, n).astype(np.int32)
+    f = {k: floats(n, 3) for k in ("origin", "direction", "atten", "total",
+                                   "acc", "direct_base", "nee_origin")}
+    lanes = dict(
+        f, l_dir=unit(n), nee_k=np.abs(floats(n, 3)), alive=flag(),
+        bad=flag(), fresh_direct=fresh_direct, is_diff=flag(),
+        cos_pdf_at_l=np.abs(floats(n)),
+        l_dist=rand.uniform(0.0, 5.0, n).astype(np.float32),
+        nee_active=flag(), j=ints(), s=ints(), pix=ints(), slot=ints(),
+        li=rand.integers(0, max(n_lights, 1), n).astype(np.int32),
+        sb=ints())
+    lanes["l_dir"][::29] = np.float32(np.nan)
+    lanes["l_dist"][3::31] = 0.0
+    return shading.Lanes(**{k: torch.from_numpy(v).to(device)
+                            for k, v in lanes.items()})

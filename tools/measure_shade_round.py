@@ -5,7 +5,8 @@ and with each of its design elements switched, on one card.
 
 Builds ``csrc/shade_round.cu`` (the library as it ships) and
 ``tools/shade_round_variants.cu`` (the old kernel, and shade_kernel with
-each element switched; see tools/shade_round_variants.py) in parallel,
+each element switched, the split layout of 34 f32 and 6 i32 words a lane
+among them; see tools/shade_round_variants.py) in parallel,
 compiles the benchmark frame's scene (sponza_proxy) and renders
 chip_smoke's main frame once with the shade kernel's arguments captured.
 On rounds 0 and 6 of that frame it holds the shipped kernel against the
@@ -25,7 +26,6 @@ from __future__ import annotations
 
 import json
 import os
-import statistics
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -48,11 +48,7 @@ RAGGED = (1, 255, 4410, 32769)
 
 def timed(runs) -> dict:
     """Every run of ``runs`` timed in turns: in order, then reversed."""
-    names = tuple(runs)
-    times = {name: [] for name in names}
-    for name in names + names[::-1]:
-        times[name].append(chip_smoke.cuda_ms(runs[name], 20))
-    ms = {name: statistics.mean(t) for name, t in times.items()}
+    ms, times = chip_smoke.turns(runs)
     return dict(ms=ms, vs_shipped={k: m / ms["shipped"]
                                    for k, m in ms.items()},
                 ms_runs=times)

@@ -1,25 +1,34 @@
-// The shade kernel of the wavefront round before its redesign, and the
-// redesigned kernel with each design element switched: built and launched
-// by tools/shade_round_variants.py (for chip_smoke.py,
-// tools/measure_shade_round.py and the GPU tests); not part of the
-// package's library.  Every variant computes exactly what shade_kernel
-// (ray_tracer_tpu_torch/csrc/shade_round.cu) computes, bit for bit: the
-// same expressions on the same operands, only where the bytes go and which
-// lanes evaluate a select's unused side differ.
+// The round kernels before their redesigns, and the redesigned kernels
+// with each design element switched: built and launched by
+// tools/shade_round_variants.py (for chip_smoke.py,
+// tools/measure_shade_round.py, tools/measure_permute.py and the GPU
+// tests); not part of the package's library.  Every variant computes
+// exactly what its shipped kernel (ray_tracer_tpu_torch/csrc/
+// shade_round.cu) computes, bit for bit: the same expressions on the same
+// operands, only where the bytes go, which lanes evaluate a select's
+// unused side and which loads run differ.
+//
+// The split layout.  Before the 40-word row, a lane's state was two rows:
+// 34 f32 words and 6 i32 words, in two arrays.  The kernels of that layout
+// write and read them here in one buffer: the f32 rows from word 0, the
+// i32 rows from word split_offset(n) (16-byte aligned).
 //
 // old_shade_kernel is shade_kernel as it was first written, copied
-// verbatim but for its name: one thread per lane, the whole lane computed
-// on every lane, its 34-float row held in registers to the end and written
-// in place as 17 float2 and 3 int2 stores 136 B and 24 B apart, the counts
-// as three __syncthreads_count sums and three atomics per block of 256.
+// verbatim but for its name and the address of its i32 rows: one thread
+// per lane, the whole lane computed on every lane, its 34-float row held
+// in registers to the end and written in place as 17 float2 and 3 int2
+// stores 136 B and 24 B apart (the split layout), the counts as three
+// __syncthreads_count sums and three atomics per block of 256.
 //
 // variant_kernel<kStore, kLazy, kMinBlocks, kLoop> is shade_kernel with:
-//   kStore      kInPlace: each lane writes its rows in place (float2/int2
-//               stores 136 B and 24 B apart, as the old kernel); kVector:
-//               staged in shared memory and copied out by the block's
-//               threads with 16-byte stores; kBulk: staged and copied out
-//               by thread 0's TMA bulk stores (cp.async.bulk), the last 8
-//               bytes of a ragged tile by a plain store (shipped)
+//   kStore      kInPlace: each lane writes its row in place (float2/int2
+//               stores 160 B apart); kVector: staged in shared memory and
+//               copied out by the block's threads with 16-byte stores;
+//               kBulk: staged and copied out by thread 0's TMA bulk store
+//               (cp.async.bulk) (shipped); kSplit: the split layout's two
+//               tiles, each stored by TMA, the last 8 bytes of a ragged
+//               f32 tile by a plain store (the kernel before the 40-word
+//               row)
 //   kLazy       false: the sky, the lobes and the camera ray on every lane
 //               (the old kernel's order of work); true: only where selected
 //               (shipped)
@@ -29,10 +38,28 @@
 //   kLoop       true: block b takes tiles b, b + gridDim.x, ... ("persistent":
 //               the shipped configuration on a grid of as many blocks as
 //               fit on the card at once); false: one block a tile (shipped)
+//
+// old_permute_kernel is permute_kernel as it was first written, verbatim
+// but for its name: one thread per lane reading its split rows in place
+// (17 float2 and 3 int2 loads, 136 B and 24 B apart) and writing each
+// column itself.  tma_floor_kernel only gathers the 40-word rows by the
+// order into a contiguous copy, by the TMA engine in and out (the shipped
+// kernel's loads): what a gather of these bytes can reach.
+//
+// old_nee_kernel is nee_resolve_kernel as it was first written, verbatim
+// but for its name: every field loaded on every lane.
 
 #include "../ray_tracer_tpu_torch/csrc/shade_round.cu"
 
 namespace {
+
+// The first word of the split layout's i32 rows in a buffer of n lanes
+__host__ __device__ __forceinline__ long long split_offset(int n) {
+  return (static_cast<long long>(kPackedF) * n + 3) & ~3ll;
+}
+__device__ __forceinline__ int* split_ints(const ShadeArgs& a) {
+  return reinterpret_cast<int*>(a.packed + split_offset(a.n));
+}
 
 __global__ void __launch_bounds__(kBlock)
     old_shade_kernel(const ShadeArgs a) {
@@ -236,7 +263,7 @@ __global__ void __launch_bounds__(kBlock)
     float2* out = reinterpret_cast<float2*>(a.packed + kPackedF * i);
 #pragma unroll
     for (int c = 0; c < kPackedF / 2; ++c) out[c] = {f[2 * c], f[2 * c + 1]};
-    int2* out_i = reinterpret_cast<int2*>(a.packed_i + kPackedI * i);
+    int2* out_i = reinterpret_cast<int2*>(split_ints(a) + kPackedI * i);
     out_i[0] = {j_new, s_new};
     out_i[1] = {pix, a.slot[i]};
     out_i[2] = {li, sb};
@@ -264,7 +291,7 @@ __global__ void __launch_bounds__(kBlock)
 }
 
 
-enum Store { kInPlace = 0, kVector = 1, kBulk = 2 };
+enum Store { kInPlace = 0, kVector = 1, kBulk = 2, kSplit = 3 };
 
 // The tile's first ``words`` (even) words to ``dst`` by the block's
 // threads, 16 bytes a thread, neighbours on neighbouring addresses; the
@@ -281,35 +308,57 @@ __device__ __forceinline__ void vector_tile(const void* tile, void* dst,
   }
 }
 
+// store_tile of the first ``words`` (even) words of a split-layout tile:
+// the 8 bytes past the last 16-byte boundary, if any, by a plain store of
+// the block's last thread
+__device__ __forceinline__ void store_split_tile(const void* tile, void* dst,
+                                                 int words) {
+  const int n4 = words / 4;
+  if (n4 > 0) store_tile(tile, dst, 4 * n4);
+  if (words % 4 != 0 && threadIdx.x == kBlock - 1) {
+    static_cast<uint2*>(dst)[2 * n4] = static_cast<const uint2*>(tile)[2 * n4];
+  }
+}
+
 // One 256-lane tile of variant_kernel: the lanes' rows written as kStore
-// says; ``more``: the block takes another tile after this one, so the
-// tiles are free again before it returns
+// says (``tile``: the 40-word rows, or kSplit's f32 rows with its i32 rows
+// at ``tile_i``); ``more``: the block takes another tile after this one,
+// so the tiles are free again before it returns
 template <int kStore, bool kLazy>
-__device__ __forceinline__ void variant_tile(const ShadeArgs& a, int tile,
-                                             bool more, float* tile_f,
+__device__ __forceinline__ void variant_tile(const ShadeArgs& a, int tile_id,
+                                             bool more, float* tile,
                                              int* tile_i, Counts& cnt) {
-  const long long base = static_cast<long long>(tile) * kBlock;
+  const long long base = static_cast<long long>(tile_id) * kBlock;
   const int rows = min(kBlock, a.n - static_cast<int>(base));
   if (static_cast<int>(threadIdx.x) < rows) {
     const long long i = base + threadIdx.x;
     if constexpr (kStore == kInPlace) {
-      shade_lane<kLazy>(a, i, a.packed + kPackedF * i,
-                        a.packed_i + kPackedI * i, cnt);
-    } else {
-      shade_lane<kLazy>(a, i, tile_f + kPackedF * threadIdx.x,
+      float* row = a.packed + kRow * i;
+      shade_lane<kLazy>(a, i, row, reinterpret_cast<int*>(row + kPackedF),
+                        cnt);
+    } else if constexpr (kStore == kSplit) {
+      shade_lane<kLazy>(a, i, tile + kPackedF * threadIdx.x,
                         tile_i + kPackedI * threadIdx.x, cnt);
+    } else {
+      float* row = tile + kRow * threadIdx.x;
+      shade_lane<kLazy>(a, i, row, reinterpret_cast<int*>(row + kPackedF),
+                        cnt);
     }
   }
   if constexpr (kStore == kVector) {
     __syncthreads();
-    vector_tile(tile_f, a.packed + kPackedF * base, kPackedF * rows);
-    vector_tile(tile_i, a.packed_i + kPackedI * base, kPackedI * rows);
+    vector_tile(tile, a.packed + kRow * base, kRow * rows);
     if (more) __syncthreads();
-  } else if constexpr (kStore == kBulk) {
+  } else if constexpr (kStore == kBulk || kStore == kSplit) {
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();
-    store_tile(tile_f, a.packed + kPackedF * base, kPackedF * rows);
-    store_tile(tile_i, a.packed_i + kPackedI * base, kPackedI * rows);
+    if constexpr (kStore == kBulk) {
+      store_tile(tile, a.packed + kRow * base, kRow * rows);
+    } else {
+      store_split_tile(tile, a.packed + kPackedF * base, kPackedF * rows);
+      store_split_tile(tile_i, split_ints(a) + kPackedI * base,
+                       kPackedI * rows);
+    }
     commit_stores();
     if (more) {
       wait_store_reads();
@@ -323,21 +372,22 @@ __device__ __forceinline__ void variant_tile(const ShadeArgs& a, int tile,
 template <int kStore, bool kLazy, int kMinBlocks, bool kLoop>
 __global__ void __launch_bounds__(kBlock, kMinBlocks)
     variant_kernel(const ShadeArgs a) {
-  constexpr bool kStaged = kStore != kInPlace;
-  __shared__ __align__(16) float tile_f[kStaged ? kBlock * kPackedF : 2];
-  __shared__ __align__(16) int tile_i[kStaged ? kBlock * kPackedI : 2];
+  constexpr bool kSplitTiles = kStore == kSplit;
+  __shared__ __align__(16) float tile[
+      kStore == kInPlace ? 4 : kBlock * (kSplitTiles ? kPackedF : kRow)];
+  __shared__ __align__(16) int tile_i[kSplitTiles ? kBlock * kPackedI : 4];
   Counts cnt;
   if constexpr (kLoop) {
     const int tiles = (a.n + kBlock - 1) / kBlock;
-    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-      variant_tile<kStore, kLazy>(a, tile, tile + gridDim.x < tiles, tile_f,
-                                  tile_i, cnt);
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      variant_tile<kStore, kLazy>(a, t, t + gridDim.x < tiles, tile, tile_i,
+                                  cnt);
     }
   } else {
-    variant_tile<kStore, kLazy>(a, blockIdx.x, false, tile_f, tile_i, cnt);
+    variant_tile<kStore, kLazy>(a, blockIdx.x, false, tile, tile_i, cnt);
   }
   add_counts(a, cnt);
-  if constexpr (kStore == kBulk) wait_store_reads();
+  if constexpr (kStore == kBulk || kStore == kSplit) wait_store_reads();
 }
 
 using Kernel = void (*)(const ShadeArgs);
@@ -354,9 +404,116 @@ const Kernel kVariants[] = {
     variant_kernel<kBulk, true, 5, false>,        // blocks5
     variant_kernel<kBulk, true, 1, false>,        // regs_free
     variant_kernel<kInPlace, true, 3, false>,     // in_place_blocks3
+    variant_kernel<kSplit, true, 4, false>,       // split
 };
 constexpr int kNumVariants = sizeof(kVariants) / sizeof(kVariants[0]);
 constexpr int kPersistent = 5;
+
+// ---- the state permute
+
+__global__ void __launch_bounds__(kBlock)
+    old_permute_kernel(const float* __restrict__ packed,
+                       const int* __restrict__ packed_i,
+                       const long long* __restrict__ order,
+                       float* __restrict__ vec, float* __restrict__ cols,
+                       unsigned char* __restrict__ flags,
+                       int* __restrict__ ints, int n) {
+  const long long i = static_cast<long long>(blockIdx.x) * kBlock + threadIdx.x;
+  if (i >= n) return;
+  const long long src = order[i];
+  const float2* row = reinterpret_cast<const float2*>(packed + kPackedF * src);
+  float f[kPackedF];
+#pragma unroll
+  for (int c = 0; c < kPackedF / 2; ++c) {
+    const float2 v = row[c];
+    f[2 * c] = v.x;
+    f[2 * c + 1] = v.y;
+  }
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    float* dst = vec + (static_cast<long long>(k) * n + i) * 3;
+    dst[0] = f[3 * k];
+    dst[1] = f[3 * k + 1];
+    dst[2] = f[3 * k + 2];
+  }
+  cols[i] = f[31];
+  cols[n + i] = f[32];
+  flags[i] = f[27] > 0.5f;
+  flags[n + i] = f[28] > 0.5f;
+  flags[2ll * n + i] = f[29] > 0.5f;
+  flags[3ll * n + i] = f[30] > 0.5f;
+  flags[4ll * n + i] = f[33] > 0.5f;
+  const int2* irow = reinterpret_cast<const int2*>(packed_i + kPackedI * src);
+#pragma unroll
+  for (int c = 0; c < kPackedI / 2; ++c) {
+    const int2 v = irow[c];
+    ints[(2ll * c) * n + i] = v.x;
+    ints[(2ll * c + 1) * n + i] = v.y;
+  }
+}
+
+// The 40-word rows in ``order`` into ``out`` (N,40), nothing unpacked:
+// the warp's rows copied in by 160-byte bulk copies of the TMA engine, as
+// permute_kernel's, then out as one bulk copy of the warp's rows
+__global__ void __launch_bounds__(kBlock)
+    tma_floor_kernel(const float* __restrict__ packed,
+                     const long long* __restrict__ order,
+                     float* __restrict__ out, int n) {
+  __shared__ __align__(16) float tile[kBlock * kRow];
+  __shared__ __align__(8) unsigned long long bars[kBlock / 32];
+  const int lane = threadIdx.x & 31;
+  const long long base =
+      static_cast<long long>(blockIdx.x) * kBlock + (threadIdx.x & ~31);
+  if (base >= n) return;  // the whole warp
+  const int rows = static_cast<int>(min(32ll, n - base));
+  float* wt = tile + kRow * (threadIdx.x & ~31);
+  tma_rows(packed, lane < rows ? order[base + lane] : 0, rows, lane, wt,
+           bars + threadIdx.x / 32);
+  if (lane == 0) {
+    asm volatile(
+        "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+            __cvta_generic_to_global(out + kRow * base)),
+        "r"(static_cast<unsigned>(__cvta_generic_to_shared(wt))),
+        "r"(rows * kRow * 4)
+        : "memory");
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  }
+}
+
+constexpr int kNumPermutes = 2;  // old_permute_kernel, tma_floor_kernel
+
+// ---- the NEE resolve
+
+__global__ void __launch_bounds__(kBlock) old_nee_kernel(const NeeArgs a) {
+  const long long i = static_cast<long long>(blockIdx.x) * kBlock + threadIdx.x;
+  if (i >= a.n) return;
+  const V3 l_dir = ld3(a.l_dir, i);
+  V3 l_emit = splat(0.0f);
+  float real_l_pdf = 0.0f;
+  if (a.n_lights > 0) {
+    const int row = a.n_lights <= 1 ? 0 : a.li[i];
+    const int mat = a.light_mat[row];
+    l_emit = ld3(a.mat_emission, mat) * a.mat_emission_strength[mat];
+    const float l_dist = a.l_dist[i];
+    const float cos_theta = dot(ld3(a.light_normal, row), l_dir);
+    const float pdf = l_dist * l_dist / (cos_theta * a.light_area[row]);
+    const bool reached = a.nee_active[i] != 0 && a.occluded[i] == 0;
+    real_l_pdf = reached ? pdf : 0.0f;
+  }
+  // real_l_pdf / n_lights, as torch's CUDA division by a Python number
+  real_l_pdf = real_l_pdf * (1.0f / static_cast<float>(a.n_lights));
+  const float c = a.cos_pdf_at_l[i];
+  float w1 = real_l_pdf * real_l_pdf / (real_l_pdf * real_l_pdf + c * c);
+  w1 = isnan(w1) ? 0.0f : w1;
+  const float q = real_l_pdf == 0.0f ? 0.0f : w1 / real_l_pdf;
+  const V3 direct_diff = l_emit * ld3(a.nee_k, i) * q;
+  const V3 new_direct = a.is_diff[i] != 0 ? direct_diff : splat(-1.0f);
+  const V3 out = a.fresh_direct[i] != 0 ? new_direct : ld3(a.direct_base, i);
+  a.direct[3 * i] = out.x;
+  a.direct[3 * i + 1] = out.y;
+  a.direct[3 * i + 2] = out.z;
+}
 
 }  // namespace
 
@@ -402,5 +559,66 @@ extern "C" int rt_shade_variant(int variant, const ShadeArgs* a,
   }
   kVariants[variant]<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
       *a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One launch of permute variant ``variant`` over n lanes: 0
+// old_permute_kernel (the split layout: ``packed`` its f32 rows,
+// ``packed_i`` its i32 rows; the column outputs as permute_kernel's), 1
+// tma_floor_kernel (``packed`` the 40-word rows, gathered into
+// ``rows_out``, (N,40)).
+extern "C" int rt_permute_variant(int variant, const void* packed,
+                                  const void* packed_i, const void* order,
+                                  void* vec, void* cols, void* flags,
+                                  void* ints, void* rows_out, int n,
+                                  void* stream) {
+  if (variant < 0 || variant >= kNumPermutes || n < 1 ||
+      reinterpret_cast<uintptr_t>(packed) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(rows_out) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid((n + kBlock - 1) / kBlock), block(kBlock);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* f = static_cast<const float*>(packed);
+  const auto* o = static_cast<const long long*>(order);
+  if (variant == 0) {
+    old_permute_kernel<<<grid, block, 0, s>>>(
+        f, static_cast<const int*>(packed_i), o, static_cast<float*>(vec),
+        static_cast<float*>(cols), static_cast<unsigned char*>(flags),
+        static_cast<int*>(ints), n);
+  } else {
+    tma_floor_kernel<<<grid, block, 0, s>>>(
+        f, o, static_cast<float*>(rows_out), n);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Registers a thread, local and static shared memory bytes and blocks per
+// SM of permute variant ``variant`` (-1: permute_kernel as it ships).
+extern "C" int rt_permute_variant_info(int variant, int* blocks_per_sm,
+                                       int* registers, int* local_bytes,
+                                       int* shared_bytes) {
+  if (variant < -1 || variant >= kNumPermutes) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const void* fn =
+      variant < 0 ? reinterpret_cast<const void*>(permute_kernel)
+      : variant == 0 ? reinterpret_cast<const void*>(old_permute_kernel)
+                     : reinterpret_cast<const void*>(tma_floor_kernel);
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *registers = attr.numRegs;
+  *local_bytes = static_cast<int>(attr.localSizeBytes);
+  *shared_bytes = static_cast<int>(attr.sharedSizeBytes);
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn, kBlock,
+                                                    0));
+}
+
+// One launch of old_nee_kernel.
+extern "C" int rt_old_nee(const NeeArgs* a, void* stream) {
+  const dim3 grid((a->n + kBlock - 1) / kBlock), block(kBlock);
+  old_nee_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(*a);
   return static_cast<int>(cudaGetLastError());
 }
