@@ -89,7 +89,10 @@ def _parser() -> argparse.ArgumentParser:
     _add_common(pb)
     pb.add_argument("--profile", metavar="DIR",
                     help="write a torch.profiler trace of the timed render "
-                         "to DIR/trace.json")
+                         "to DIR/trace.json; it carries the wavefront "
+                         "loop's host ranges 'rt.first_wave lanes=N', "
+                         "'rt.live_read', 'rt.round lanes=W live=L' and "
+                         "the mark 'rt.rays samples=S sem=A traced=B'")
 
     pv = sub.add_parser("view", help="live progressive viewer (HTTP)")
     _add_common(pv)

@@ -16,9 +16,13 @@ and the NEE resolve of a round are the three CUDA kernels of
 runs as torch ops (:func:`_torch_round`), the two equal bit for bit.
 The per-lane shading itself is ``integrator/shading.py``.  The loop is a
 Python ``while`` whose
-exit test is one device-to-host read per round (the live count, and on
-the rope-walk route its error flag beside it); multi-phase drain shrinks
-the state arrays as lanes retire.  The traversal route
+exit test is one device-to-host read per round (the live count with the
+round's ray counts, and on the rope-walk route its error flag beside
+them); multi-phase drain shrinks
+the state arrays as lanes retire.  While a ``torch.profiler`` runs, the
+loop records its own host ranges (``utils/trace.py``): the first wave,
+each round and each live-count read, with a round's width and live count,
+and the ray counts of the call.  The traversal route
 (group kernel, packet walk or cluster route) follows ``cfg.routing``; see
 ``ops/traverse.py``.
 
@@ -35,7 +39,7 @@ and whole-sample zeroing on NaN or negative radiance.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -46,6 +50,7 @@ from ..ops import intersect, traverse
 from ..ops.intersect import dot, sqrt
 from ..sampling import bsdf, lights, rng
 from ..scene.types import CompiledScene
+from ..utils.trace import mark, span
 from . import shading
 from .shading import (
     CameraRays,
@@ -475,9 +480,12 @@ class Wave(NamedTuple):
     slot: torch.Tensor  # (N,) i32 original lane (output position)
     n_rays: torch.Tensor  # (2,) i64: semantic, traced
     n_alive: torch.Tensor  # () i64: the count of ``alive``
+    # (3,) i64 that ``n_rays`` and ``n_alive`` view, where a round wrote
+    # them as one buffer; the first wave has none
+    tally: Optional[torch.Tensor] = None
 
 
-_PER_WAVE = ("n_rays", "n_alive")
+_PER_WAVE = ("n_rays", "n_alive", "tally")
 
 
 def _slice_wave(w: Wave, m: int) -> Wave:
@@ -654,11 +662,12 @@ def _torch_round(c: shade.Round, w: Wave, rope_err=None) -> Wave:
         )
 
     n_alive = alive.sum()
+    tally = torch.cat([w.n_rays + n_alive + n_nee, n_alive.view(1)])
     return Wave(
         origin=new_origin, direction=new_dir, hit=hit_next, atten=atten,
         total=total, direct=direct, bad=bad, alive=alive, j=j_cur,
         s=s_cur, sb=sb_cur, acc=acc, pix=pix, slot=slot,
-        n_rays=w.n_rays + n_alive + n_nee, n_alive=n_alive,
+        n_rays=tally[:2], n_alive=tally[2], tally=tally,
     )
 
 
@@ -687,6 +696,7 @@ def _fused_round(c: shade.Round, w: Wave, rope_err=None) -> Wave:
         atten=lanes.atten, total=lanes.total, direct=direct, bad=lanes.bad,
         alive=lanes.alive, j=lanes.j, s=lanes.s, sb=lanes.sb, acc=lanes.acc,
         pix=lanes.pix, slot=lanes.slot, n_rays=tally[:2], n_alive=tally[2],
+        tally=tally,
     )
 
 
@@ -722,24 +732,38 @@ def _trace_wave_lanes(scene, rot, pos, fov, aspect, near, pixel_id,
 
     # the rope walk's error flag, read with each round's live count
     rope_err = traverse.rope_error_flag(scene, c.rt, dev)
+    # a round's counts land in pinned memory, as ``int`` takes the first
+    # wave's: one device-to-host copy a read either way
+    host = torch.empty(3, dtype=torch.int64, pin_memory=dev.type == "cuda")
+    rays = (n, n)  # the ray counts the last read took: the first wave's
 
     def n_live(w: Wave) -> int:
         """Live lanes: one device-to-host copy per round, of the count and,
-        on the rope-walk route, its error flag beside it."""
-        if rope_err is None:
-            return int(w.n_alive)
-        count, err = torch.cat([w.n_alive.view(1),
-                                rope_err.long()]).tolist()
-        lanewalk.raise_on_flag(err, scene.meta["rope_rows"])
-        return count
+        on the rope-walk route, its error flag beside it; the ray counts
+        ride in the same copy wherever a round wrote them beside the count,
+        and in the rope walk's."""
+        nonlocal rays
+        with span("rt.live_read"):
+            if rope_err is not None:
+                *rays, count, err = torch.cat([w.n_rays, w.n_alive.view(1),
+                                               rope_err.long()]).tolist()
+                lanewalk.raise_on_flag(err, scene.meta["rope_rows"])
+                return count
+            if w.tally is None:
+                return int(w.n_alive)
+            *rays, count = host.copy_(w.tally).tolist()
+            return count
 
-    w = _first_wave(c, pixel_id, sample_base, rope_err)
+    with span("rt.first_wave lanes=%d", n):
+        w = _first_wave(c, pixel_id, sample_base, rope_err)
 
     if cfg.bin_rays is False:
         # one loop at full width: the lanes never move, so lane i is
         # pixel_id[i] throughout
-        while n_live(w) > 0:
-            w = round_(c, w, rope_err)
+        while (live := n_live(w)) > 0:
+            with span("rt.round lanes=%d live=%d", n, live):
+                w = round_(c, w, rope_err)
+        mark("rt.rays samples=%d sem=%d traced=%d", n * n_spp, *rays)
         return (w.acc, w.n_rays) if with_stats else w.acc
 
     # ---- multi-phase drain: the bin key sorts dead lanes last, so once
@@ -753,12 +777,16 @@ def _trace_wave_lanes(scene, rot, pos, fov, aspect, near, pixel_id,
     banked_acc, banked_slot = [], []
     for i in range(len(widths)):
         nxt = widths[i + 1] if i + 1 < len(widths) else 0
-        while n_live(w) > nxt:
-            w = round_(c, w, rope_err)
+        # inline, not a helper: a helper's argument would hold the width's
+        # first wave alive through all its rounds
+        while (live := n_live(w)) > nxt:
+            with span("rt.round lanes=%d live=%d", widths[i], live):
+                w = round_(c, w, rope_err)
         if nxt:
             banked_acc.append(w.acc[nxt:])
             banked_slot.append(w.slot[nxt:])
             w = _slice_wave(w, nxt)
+    mark("rt.rays samples=%d sem=%d traced=%d", n * n_spp, *rays)
     banked_acc.append(w.acc)
     banked_slot.append(w.slot)
     acc = torch.zeros((n, 3), dtype=F32, device=dev)

@@ -249,7 +249,12 @@ def test_cli_info_and_bench(tmp_path):
     assert line["device"] == "cpu" and line["primary_rays"] == 24 * 20 * 2
     assert set(line) == {"wall_s", "primary_rays", "primary_mrays_per_s",
                          "spp", "resolution", "device"}
-    assert os.path.getsize(tmp_path / "prof" / "trace.json") > 0
+    with open(tmp_path / "prof" / "trace.json") as f:
+        names = {e.get("name", "").split(" ")[0]
+                 for e in json.load(f)["traceEvents"]}
+    # the wavefront loop's host ranges ride in the exported trace
+    assert {"rt.first_wave", "rt.live_read", "rt.round",
+            "rt.rays"} <= names
 
 
 def test_cli_scene_file_and_preset_assets(tmp_path, assets):

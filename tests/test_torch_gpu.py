@@ -1689,3 +1689,45 @@ def test_nee_kernel_matches_plain_version(dev, round_scenes, shade_variants,
     assert shade.launches["nee_resolve"] == 1
     assert same_bits(got, shade.nee_resolve_reference(sc, lanes, occluded))
     assert same_bits(got, shade_variants.nee_run("old", sc, lanes, occluded))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["fused", "rope"])
+def test_profiler_ranges_put_nothing_on_the_device(dev, scene, route,
+                                                   monkeypatch):
+    """Under ``torch.profiler`` a step's ``rt.*`` ranges stay on the host:
+    no device operation carries their names, and the step issues the
+    device operations, copies by kind included, of the same step with the
+    ranges turned off."""
+    import re
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tracer_tpu_torch.utils import trace
+
+    cuda = torch.autograd.DeviceType.CUDA
+    routing = trt.Routing(lanewalk="force") if route == "rope" else None
+    cfg = trt.RenderConfig(width=320, height=180, samples_per_pixel=2,
+                           bounce_limit=8, routing=routing)
+    trt.ProgressiveRenderer(scene, cfg).step()  # builds the kernels
+
+    def device_ops():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            trt.ProgressiveRenderer(scene, cfg).step()
+            torch.cuda.synchronize()
+        events = prof.events()
+        host = [e.name for e in events if e.device_type != cuda]
+        # by name without template arguments: the rope read's ``cat`` may
+        # take another instance for its other inputs
+        return Counter(re.sub(r"<.*", "", e.name) for e in events
+                       if e.device_type == cuda), host
+
+    traced, host = device_ops()
+    assert {"rt.first_wave", "rt.live_read", "rt.round", "rt.rays"} <= {
+        n.split(" ")[0] for n in host}
+    assert not [n for n in traced if n.startswith("rt.")]
+    monkeypatch.setattr(trace, "recording", lambda: False)
+    plain, _ = device_ops()
+    assert traced == plain
