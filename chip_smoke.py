@@ -508,12 +508,13 @@ def maps_usage(c, w) -> dict:
                 nearest_lanes=int((textured & (sampler != 1)).sum()))
 
 
-def permute_cost(packed, order) -> dict:
-    """The permute's bound: the packed rows and the order in, the next
-    wave's columns out (nine (N,3) f32, two f32, five flags, six i32)."""
+def permute_cost(packed, order, skey, runs) -> dict:
+    """The permute's bound: the packed rows, the order and the sorted keys
+    (4 B a lane, for their runs) in, the next wave's columns out (nine
+    (N,3) f32, two f32, five flags, six i32) and the runs word."""
     n = order.shape[0]
     out = (4 * 3 * shading.N_VEC + 4 * 2 + 5 + 4 * shading.PACKED_I) * n
-    return bound(nbytes(packed, order) + out, 0)
+    return bound(nbytes(packed, order, skey, runs) + out, 0)
 
 
 def nee_cost(scene, lanes, occluded) -> dict:
@@ -591,9 +592,14 @@ def round_checks(sc, key="", old=True, check_rounds=CHECK_ROUNDS, **kw):
             lambda: costs["shade_round"][r], err=values_err, round=r, n=n,
             frame=key.rstrip("_") or "main")
         pargs, _ = permutes[r]
+        # the frame's own runs word (the round's tally's last) holds its
+        # count: each call here adds into a zeroed word of its own
+        packed, order, skey, frame_runs = pargs
+        word = lambda: torch.zeros_like(frame_runs)
         out[f"{key}permute_rows_{r}"] = measure(
-            "permute_rows", lambda: shade.permute_rows(*pargs),
-            lambda: shade.permute_rows_reference(*pargs),
+            "permute_rows",
+            lambda: shade.permute_rows(packed, order, skey, word()),
+            lambda: shade.permute_rows_reference(packed, order, skey, word()),
             equal_values("permute_rows"), lambda: costs["permute_rows"][r],
             err=values_err, round=r, n=n, frame=key.rstrip("_") or "main")
         nargs, _ = nees[r]
@@ -602,23 +608,32 @@ def round_checks(sc, key="", old=True, check_rounds=CHECK_ROUNDS, **kw):
             lambda: (shade.nee_resolve_reference(*nargs),),
             equal_values("nee_resolve"), lambda: costs["nee_resolve"][r],
             err=values_err, round=r, n=n, frame=key.rstrip("_") or "main")
-        got = (*shade.shade_round(c, w), *shade.permute_rows(*pargs),
-               shade.nee_resolve(*nargs))
+        got_runs, want_runs = word(), word()
+        got = (*shade.shade_round(c, w),
+               *shade.permute_rows(packed, order, skey, got_runs),
+               shade.nee_resolve(*nargs), got_runs)
         want = (*shade.shade_round_reference(c, w),
-                *shade.permute_rows_reference(*pargs),
-                shade.nee_resolve_reference(*nargs))
+                *shade.permute_rows_reference(packed, order, skey,
+                                              want_runs),
+                shade.nee_resolve_reference(*nargs), want_runs)
         bitwise = all(
             torch.equal(a.contiguous().view(torch.int32),
                         b.contiguous().view(torch.int32))
             if a.is_floating_point() else torch.equal(a, b)
             for a, b in zip(got, want))
         nan = sum(int(a.isnan().sum()) for a in got if a.is_floating_point())
+        runs_equal = torch.equal(got_runs, frame_runs)
         phase("round_kernels", frame=key.rstrip("_") or "main", round=r, rounds=rounds,
-              n=n, bitwise=bitwise, nan_values=nan)
+              n=n, bitwise=bitwise, nan_values=nan, key_runs=int(got_runs),
+              frame_key_runs=int(frame_runs))
         if not bitwise:
             raise AssertionError(f"round {r}: a round kernel's output "
                                  "differs in its bits from the plain "
                                  "version's")
+        if not runs_equal:
+            raise AssertionError(f"round {r}: the permute counts "
+                                 f"{int(got_runs)} key runs, the frame's "
+                                 f"round {int(frame_runs)}")
         if old:
             shade_vs_old(c, w, r, costs["shade_round"][r])
             permute_vs_old(pargs, r, costs["permute_rows"][r])
@@ -695,26 +710,31 @@ def permute_vs_old(pargs, r, cost):
     of tools/shade_round_variants.cu, on the same rows split into its two
     arrays) on round ``r``'s rows and order: every column equal bit for
     bit to the old kernel's and the plain version's, then both timed in
-    turns (new, old, old, new; 20 launches each on arguments packed once),
+    turns (new, old, old, new; 20 launches each on arguments packed once;
+    the new kernel counts the sorted keys' runs, as in the frame),
     beside two yardsticks of a gather of these bytes, timed in turns too:
     the floor (tools' tma_floor_kernel: the rows gathered into a
     contiguous copy by the TMA engine, nothing unpacked; its rows equal
     ``packed[order]``) and torch's ``index_select`` of the rows; with both
     kernels' ptxas lines and blocks per SM."""
-    packed, order = pargs
+    packed, order, skey, runs = pargs
     variants = shade_round_variants
-    new = variants.permute_run("shipped", packed, order)
-    for name, want in (("old", variants.permute_run("old", packed, order)),
-                       ("plain", shade.permute_rows_reference(packed, order))):
+    new = variants.permute_run("shipped", packed, order, skey)
+    plain = shade.permute_rows_reference(packed, order, skey,
+                                         torch.zeros_like(runs))
+    for name, want in (("old", variants.permute_run("old", packed, order,
+                                                    skey)),
+                       ("plain", plain)):
         variants.compare(f"permute, round {r}: new against {name}", new, want)
     variants.compare(f"permute floor, round {r}",
-                     [variants.permute_run("floor_tma", packed, order)],
+                     [variants.permute_run("floor_tma", packed, order, skey)],
                      [packed[order]])
-    ms, times = turns({name: variants.permute_launcher(name, packed, order)[0]
+    ms, times = turns({name: variants.permute_launcher(name, packed, order,
+                                                       skey)[0]
                        for name in ("shipped", "old")})
     yard, yard_times = turns({
-        "floor_tma": variants.permute_launcher("floor_tma", packed,
-                                               order)[0],
+        "floor_tma": variants.permute_launcher("floor_tma", packed, order,
+                                               skey)[0],
         "index_select": lambda: packed.index_select(0, order)})
     phase("permute_vs_old", round=r, n=int(order.shape[0]), equal=True,
           new_ms=ms["shipped"], old_ms=ms["old"], new_ms_runs=times["shipped"],

@@ -7,7 +7,9 @@
 //                       shade_round_reference, i.e. integrator/shading.py::
 //                       shade_lanes, pack_lanes and bin_key);
 //   permute_kernel      each lane's packed row gathered by the sorted order
-//                       into the next wave's columns (permute_rows_reference);
+//                       into the next wave's columns, and the runs of equal
+//                       keys among the live lanes counted into the round's
+//                       tally (permute_rows_reference);
 //   nee_resolve_kernel  the occlusion NEE's light side and the MIS resolve
 //                       into the next ``direct`` (nee_resolve_reference).
 // They replace no Pallas kernel: in the JAX package the round
@@ -55,7 +57,11 @@
 // barrier.  Measured against the same warp-wide gather done with 16-byte
 // loads (32 consecutive chunks of the warp's rows a load), and with the
 // nine (N,3) vectors staged through shared memory for 128-byte warp
-// stores: tools/shade_round_variants.cu.
+// stores: tools/shade_round_variants.cu.  From the sorted keys a warp
+// also counts the runs of equal live keys that start among its lanes
+// (one coalesced 4-byte load a lane, the key before it by a shuffle, a
+// warp sum) and adds them to the tally's last word with one atomic, only
+// where the count is not zero: the key runs a round's traversal sees.
 //
 // nee_resolve_kernel's design.  A lane loads what its flags say it needs,
 // in the plain version's order of selects: fresh_direct; direct_base
@@ -154,7 +160,8 @@ struct ShadeArgs {
   // outputs
   float* packed;  // (N,40): kPackedF f32 words, then kPackedI i32 as bits
   int* key;       // (N,)
-  unsigned long long* tally;  // (3,) zeroed: semantic, traced, live
+  unsigned long long* tally;  // (4,) zeroed: semantic, traced, live, and
+                              // the key runs permute_kernel adds
   int n, n_spheres, n_lights, n_spp, bounce_limit, rr_start, width, height,
       aa_jitter, tint, mb, db, morton, flat;
   unsigned seed, frame;
@@ -983,15 +990,35 @@ __device__ __forceinline__ void store_lane(const float f[kRow],
   }
 }
 
+// integrator/shading.py::key_runs over the warp's lanes: the live lanes
+// whose sorted key differs from the key before them, summed over the warp
+// and added to ``runs`` by lane 0 (the warp's lanes all call it).
+__device__ __forceinline__ void add_key_runs(const int* __restrict__ skey,
+                                             unsigned long long* runs,
+                                             long long base, int lane,
+                                             int rows) {
+  constexpr int kDead = 1 << 30;  // shading.DEAD_KEY
+  const int key = lane < rows ? skey[base + lane] : kDead;
+  int before = __shfl_up_sync(0xffffffffu, key, 1);
+  if (lane == 0) before = base > 0 ? skey[base - 1] : ~key;
+  const int starts =
+      __reduce_add_sync(0xffffffffu, key != kDead && key != before ? 1 : 0);
+  if (lane == 0 && starts > 0) {
+    atomicAdd(runs, static_cast<unsigned long long>(starts));
+  }
+}
+
 // integrator/shading.py::unpack_lanes of the rows in ``order``: nine (N,3)
 // vectors, the columns cos_pdf_at_l and l_dist, the flags alive, bad,
-// fresh_direct, is_diff and nee_active (row value > 0.5), six i32 columns.
-// Each warp takes 32 lanes in its 32-row part of the block's tile.
+// fresh_direct, is_diff and nee_active (row value > 0.5), six i32 columns;
+// the runs of the sorted keys ``skey`` added to ``runs``.  Each warp
+// takes 32 lanes in its 32-row part of the block's tile.
 __global__ void __launch_bounds__(kBlock)
     permute_kernel(const float* __restrict__ packed,
                    const long long* __restrict__ order, float* __restrict__ vec,
                    float* __restrict__ cols, unsigned char* __restrict__ flags,
-                   int* __restrict__ ints, int n) {
+                   int* __restrict__ ints, const int* __restrict__ skey,
+                   unsigned long long* runs, int n) {
   __shared__ __align__(16) float tile[kBlock * kRow];
   __shared__ __align__(8) unsigned long long bars[kBlock / 32];
   const int lane = threadIdx.x & 31;
@@ -1001,6 +1028,7 @@ __global__ void __launch_bounds__(kBlock)
   const int rows = static_cast<int>(min(32ll, n - base));
   float* wt = tile + kRow * (threadIdx.x & ~31);
   const long long i = base + lane;
+  add_key_runs(skey, runs, base, lane, rows);
   tma_rows(packed, lane < rows ? order[i] : 0, rows, lane, wt,
            bars + threadIdx.x / 32);
   if (lane >= rows) return;
@@ -1077,7 +1105,8 @@ extern "C" int rt_shade_round(const ShadeArgs* a, void* stream) {
 // One launch of permute_kernel over n lanes; ``packed`` 16-byte aligned.
 extern "C" int rt_permute_rows(const void* packed, const void* order,
                                void* vec, void* cols, void* flags, void* ints,
-                               int n, void* stream) {
+                               const void* skey, void* runs, int n,
+                               void* stream) {
   if (n < 1 || reinterpret_cast<uintptr_t>(packed) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1085,7 +1114,9 @@ extern "C" int rt_permute_rows(const void* packed, const void* order,
   permute_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(packed), static_cast<const long long*>(order),
       static_cast<float*>(vec), static_cast<float*>(cols),
-      static_cast<unsigned char*>(flags), static_cast<int*>(ints), n);
+      static_cast<unsigned char*>(flags), static_cast<int*>(ints),
+      static_cast<const int*>(skey), static_cast<unsigned long long*>(runs),
+      n);
   return static_cast<int>(cudaGetLastError());
 }
 

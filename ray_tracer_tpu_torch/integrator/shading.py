@@ -341,11 +341,41 @@ def octant(direction):
     )
 
 
+DEAD_KEY = 1 << 30  # the bin key of a lane that is not alive
+
+
+def morton_bits(scene: CompiledScene) -> bool:
+    """Does the bin key hold origin morton bits: a scene with triangles,
+    flattened, or a forest whose world box is finite
+    (``CompiledScene.forest_box``)?  Read from the scene alone, with no
+    device operation."""
+    if not scene.meta.get("n_tris", 0):
+        return False
+    return (scene.meta.get("flattened", False)
+            or scene.forest_box is not None)
+
+
+def bin_box(scene: CompiledScene):
+    """The box of the bin key's morton cells, ``(minimum, extent)`` (3,)
+    f32 on the scene's device, the extent clamped to 1e-6: a flattened
+    scene's BVH root box; a forest's world box, the union of its
+    instances' (``CompiledScene.forest_box``, built once per scene); None
+    where the key has no morton bits (:func:`morton_bits`)."""
+    if not morton_bits(scene):
+        return None
+    if scene.meta.get("flattened", False):
+        root = scene.bvh_packed[scene.obj_bvh_root[0].long()]
+        mn, mx = root[0:3], root[3:6]
+        return mn, torch.clamp(mx - mn, min=1e-6)
+    return scene.forest_box
+
+
 def bin_key(scene: CompiledScene, origin, direction, alive, mb=5, db=0):
     """Traversal-coherence sort key (int32): (direction octant [+ optional
-    finer direction bits], origin morton cell); dead lanes key to the end.
-    Bounds come from the flattened BVH's root box; mesh-free and forest
-    scenes key by octant only."""
+    finer direction bits], origin morton cell in :func:`bin_box`); dead
+    lanes key to the end.  Mesh-free scenes key by octant only.  (The JAX
+    package keys forests by octant only too; the port gives them the
+    morton cell, which changes the lanes' order and no lane's result.)"""
     oct_ = octant(direction)
     key = oct_ << (3 * mb + 3 * db)
     if db:
@@ -354,11 +384,11 @@ def bin_key(scene: CompiledScene, origin, direction, alive, mb=5, db=0):
         ).to(I32)
         dmix = (dq[:, 0] << (2 * db)) | (dq[:, 1] << db) | dq[:, 2]
         key = key | (dmix << (3 * mb))
-    if scene.meta.get("flattened", False) and scene.meta.get("n_tris", 0):
-        root = scene.bvh_packed[scene.obj_bvh_root[0].long()]
-        mn, mx = root[0:3], root[3:6]
+    box = bin_box(scene)
+    if box is not None:
+        mn, extent = box
         cell = torch.clamp(
-            ((origin - mn) / torch.clamp(mx - mn, min=1e-6)) * (1 << mb),
+            ((origin - mn) / extent) * (1 << mb),
             0.0,
             float((1 << mb) - 1),
         ).to(I32)
@@ -367,7 +397,17 @@ def bin_key(scene: CompiledScene, origin, direction, alive, mb=5, db=0):
             for ax in range(3):
                 morton = morton | (((cell[:, ax] >> b) & 1) << (3 * b + ax))
         key = key | morton
-    return torch.where(alive, key, 1 << 30).to(I32)
+    return torch.where(alive, key, DEAD_KEY).to(I32)
+
+
+def key_runs(skey):
+    """Runs of equal keys among the live lanes of the sorted bin keys
+    ``skey`` (dead lanes, :data:`DEAD_KEY`, sort last): () i64, the count
+    of live lanes whose key differs from the lane's before it."""
+    start = torch.ones_like(skey, dtype=torch.bool)
+    start[1:] = skey[1:] != skey[:-1]
+    return (start & (skey != DEAD_KEY)).sum()
+
 
 def primary_rays(cam, cfg, frame: int, pix, s) -> CameraRays:
     """Camera rays of pixels ``pix`` at samples ``s``; ``cam`` is

@@ -6,7 +6,7 @@ Port of ``ray_tracer_tpu/integrator/wavefront.py``'s main path
 pending hits of all live lanes (fat-row shade fetch, the three BSDF lobes
 evaluated branchlessly, rect-light NEE, MIS resolve, russian roulette),
 regenerates finished paths with their pixel's next sample, bins the lanes
-by (direction octant, origin morton cell) with one stable argsort and one
+by (direction octant, origin morton cell) with one stable sort and one
 packed state permute, and traces the merged wavefront: closest hit for
 bounce and camera rays, any-hit occlusion for the NEE shadow rays.  Both
 traversals run the BVH8 kernels.  Where :func:`_fused_round_ok` holds
@@ -386,17 +386,20 @@ def render_sample(scene: CompiledScene, rot, pos, fov, aspect, near,
 
 def _bin_order(scene, rt, origin, direction, alive, continuing,
                hit: traverse.Hit, pix):
-    """The lanes' order after a round's binning (dead lanes last), by
-    ``rt.bin_mode``: ``"morton"`` sorts by :func:`_bin_key`; ``"leaf"``
+    """``(order, runs)``: the lanes' order after a round's binning (dead
+    lanes last), by ``rt.bin_mode``, and in the ``"morton"`` mode the
+    runs of equal keys among the live lanes (``shading.key_runs``; None
+    in the others): ``"morton"`` sorts by :func:`_bin_key`; ``"leaf"``
     keys continuing lanes by (octant, previous-hit primitive; spheres
     after the triangles) and regenerated camera lanes by pixel id;
     ``"hier"`` keeps the morton order and sorts the lanes inside each key
     by that primitive or pixel (two stable argsorts).  Each is a pure
     re-permutation (the JAX package's ``wavefront.py:1213-1268``)."""
     if rt.bin_mode == "morton":
-        return torch.argsort(_bin_key(scene, origin, direction, alive,
-                                      rt.bin_bits, rt.bin_dir_bits),
-                             stable=True)
+        skey, order = torch.sort(_bin_key(scene, origin, direction, alive,
+                                          rt.bin_bits, rt.bin_dir_bits),
+                                 stable=True)
+        return order, shading.key_runs(skey)
     pk = torch.clamp(hit.prim, 0, (1 << 24) - 1)
     pk = torch.where(hit.kind == traverse.KIND_SPHERE, (1 << 24) - 64 + pk,
                      pk)
@@ -404,12 +407,12 @@ def _bin_order(scene, rt, origin, direction, alive, continuing,
     if rt.bin_mode == "leaf":
         key = torch.where(continuing, (_octant(direction) << 24) | pk,
                           (1 << 29) | pix)
-        key = torch.where(alive, key, 1 << 30)
-        return torch.argsort(key, stable=True)
+        key = torch.where(alive, key, shading.DEAD_KEY)
+        return torch.argsort(key, stable=True), None
     key = _bin_key(scene, origin, direction, alive, rt.bin_bits,
                    rt.bin_dir_bits)
     order = torch.argsort(torch.where(continuing, pk, pix), stable=True)
-    return order[torch.argsort(key[order], stable=True)]
+    return order[torch.argsort(key[order], stable=True)], None
 
 
 def _lane_groups(n_lanes: int, n_spp: int, cfg: RenderConfig) -> int:
@@ -480,8 +483,10 @@ class Wave(NamedTuple):
     slot: torch.Tensor  # (N,) i32 original lane (output position)
     n_rays: torch.Tensor  # (2,) i64: semantic, traced
     n_alive: torch.Tensor  # () i64: the count of ``alive``
-    # (3,) i64 that ``n_rays`` and ``n_alive`` view, where a round wrote
-    # them as one buffer; the first wave has none
+    # (4,) i64 that ``n_rays`` and ``n_alive`` view, where a round wrote
+    # them as one buffer, with the runs of equal bin keys among the live
+    # lanes after the round's sort (0 where its bins were no morton key's);
+    # the first wave has none
     tally: Optional[torch.Tensor] = None
 
 
@@ -507,8 +512,8 @@ def _fused_round_ok(scene: CompiledScene, cfg: RenderConfig,
     lights, the analytic sky; albedo, metalness and alpha maps and, with
     ``enable_normal_maps``, a flattened scene's bump maps, through the
     shade kernel's maps instance): binned by the morton key (``bin_rays``
-    on, ``bin_mode="morton"``; a forest or mesh-free scene's key is its
-    octant), with occlusion NEE traced after the permute
+    on, ``bin_mode="morton"``; a mesh-free scene's key is its octant),
+    with occlusion NEE traced after the permute
     (``nee_anyhit=True``, ``nee_prebin="off"``), on any traversal route.
 
     Every other configuration runs the torch round (:func:`_torch_round`):
@@ -604,12 +609,13 @@ def _torch_round(c: shade.Round, w: Wave, rope_err=None) -> Wave:
             is_diff, fresh_direct, direct_base,
         )
 
+    runs = None  # the key runs, counted where the bins are morton keys
     if do_bin:
         # ---- coherence binning: one permutation of the lanes by
         # their bin key and one packed row-gather per dtype move the
         # whole lane state; per-lane results are permutation-invariant.
-        order = _bin_order(scene, rt, new_origin, new_dir, alive,
-                           continuing, w.hit, w.pix)
+        order, runs = _bin_order(scene, rt, new_origin, new_dir, alive,
+                                 continuing, w.hit, w.pix)
         if prebin:
             # the slim pack: NEE is resolved into ``direct`` already
             fi = lambda x: x.to(F32)[:, None]
@@ -662,7 +668,10 @@ def _torch_round(c: shade.Round, w: Wave, rope_err=None) -> Wave:
         )
 
     n_alive = alive.sum()
-    tally = torch.cat([w.n_rays + n_alive + n_nee, n_alive.view(1)])
+    if runs is None:
+        runs = torch.zeros_like(n_alive)
+    tally = torch.cat([w.n_rays + n_alive + n_nee, n_alive.view(1),
+                       runs.view(1)])
     return Wave(
         origin=new_origin, direction=new_dir, hit=hit_next, atten=atten,
         total=total, direct=direct, bad=bad, alive=alive, j=j_cur,
@@ -675,14 +684,15 @@ def _fused_round(c: shade.Round, w: Wave, rope_err=None) -> Wave:
     """One wavefront round through the round kernels (where
     :func:`_fused_round_ok`): the shade kernel writes every lane's next
     state as packed rows, its bin key and the round's ray counts; a stable
-    argsort orders the keys; the permute kernel gathers the rows into the
-    next wave's columns; the traversals run as in the torch round; the NEE
-    kernel resolves ``direct``.  The same values as :func:`_torch_round`,
-    bit for bit, on every device."""
+    sort orders the keys; the permute kernel gathers the rows into the
+    next wave's columns and counts the sorted keys' runs into the tally;
+    the traversals run as in the torch round; the NEE kernel resolves
+    ``direct``.  The same values as :func:`_torch_round`, bit for bit, on
+    every device."""
     scene = c.scene
     packed, key, tally = shade.shade_round(c, w)
-    order = torch.argsort(key, stable=True)
-    lanes = shade.permute_rows(packed, order)
+    skey, order = torch.sort(key, stable=True)
+    lanes = shade.permute_rows(packed, order, skey, tally[3:])
     hit = traverse.traverse(scene, lanes.origin, lanes.direction,
                             lanes.alive, routing=c.rt, rope_err=rope_err)
     occluded = None
@@ -734,15 +744,16 @@ def _trace_wave_lanes(scene, rot, pos, fov, aspect, near, pixel_id,
     rope_err = traverse.rope_error_flag(scene, c.rt, dev)
     # a round's counts land in pinned memory, as ``int`` takes the first
     # wave's: one device-to-host copy a read either way
-    host = torch.empty(3, dtype=torch.int64, pin_memory=dev.type == "cuda")
+    host = torch.empty(4, dtype=torch.int64, pin_memory=dev.type == "cuda")
     rays = (n, n)  # the ray counts the last read took: the first wave's
+    runs = 0  # the key runs it took: none before the first sort
 
     def n_live(w: Wave) -> int:
         """Live lanes: one device-to-host copy per round, of the count and,
         on the rope-walk route, its error flag beside it; the ray counts
         ride in the same copy wherever a round wrote them beside the count,
-        and in the rope walk's."""
-        nonlocal rays
+        and in the rope walk's; the key runs wherever a round wrote them."""
+        nonlocal rays, runs
         with span("rt.live_read"):
             if rope_err is not None:
                 *rays, count, err = torch.cat([w.n_rays, w.n_alive.view(1),
@@ -751,8 +762,16 @@ def _trace_wave_lanes(scene, rot, pos, fov, aspect, near, pixel_id,
                 return count
             if w.tally is None:
                 return int(w.n_alive)
-            *rays, count = host.copy_(w.tally).tolist()
+            *rays, count, runs = host.copy_(w.tally).tolist()
             return count
+
+    def round_span(width: int, live: int):
+        """The round's range: its width, the live count and, where the
+        read before it took them, the key runs of the lanes it shades."""
+        if runs:
+            return span("rt.round lanes=%d live=%d runs=%d", width, live,
+                        runs)
+        return span("rt.round lanes=%d live=%d", width, live)
 
     with span("rt.first_wave lanes=%d", n):
         w = _first_wave(c, pixel_id, sample_base, rope_err)
@@ -761,7 +780,7 @@ def _trace_wave_lanes(scene, rot, pos, fov, aspect, near, pixel_id,
         # one loop at full width: the lanes never move, so lane i is
         # pixel_id[i] throughout
         while (live := n_live(w)) > 0:
-            with span("rt.round lanes=%d live=%d", n, live):
+            with round_span(n, live):
                 w = round_(c, w, rope_err)
         mark("rt.rays samples=%d sem=%d traced=%d", n * n_spp, *rays)
         return (w.acc, w.n_rays) if with_stats else w.acc
@@ -780,7 +799,7 @@ def _trace_wave_lanes(scene, rot, pos, fov, aspect, near, pixel_id,
         # inline, not a helper: a helper's argument would hold the width's
         # first wave alive through all its rounds
         while (live := n_live(w)) > nxt:
-            with span("rt.round lanes=%d live=%d", widths[i], live):
+            with round_span(widths[i], live):
                 w = round_(c, w, rope_err)
         if nxt:
             banked_acc.append(w.acc[nxt:])

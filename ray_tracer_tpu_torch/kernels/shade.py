@@ -18,7 +18,8 @@ tensors (nothing falls back: a CUDA call that cannot launch raises):
 * ``permute_kernel`` (:func:`permute_rows`; plain:
   :func:`permute_rows_reference`): each lane's packed row gathered by the
   sorted order into the next wave's columns, each warp's 32 rows gathered
-  into shared memory by the TMA engine first;
+  into shared memory by the TMA engine first, and the runs of the sorted
+  keys among the live lanes added to the round's tally;
 * ``nee_resolve_kernel`` (:func:`nee_resolve`; plain:
   :func:`nee_resolve_reference`): the occlusion NEE's light side and the
   MIS resolve into the next ``direct``, each lane loading only what its
@@ -89,12 +90,6 @@ class Round(NamedTuple):
     srgb: Optional[torch.Tensor] = None
 
 
-def _morton(scene) -> bool:
-    """Does the bin key hold origin morton bits (``shading.bin_key``)?"""
-    return bool(scene.meta.get("flattened", False)
-                and scene.meta.get("n_tris", 0))
-
-
 def _flat(scene) -> bool:
     return bool(scene.meta.get("flattened", False))
 
@@ -117,17 +112,16 @@ def srgb_table(device) -> torch.Tensor:
 def frame_constants(scene, cam) -> torch.Tensor:
     """(N_CONSTS,) f32 on the scene's device: the camera's rotation and
     position, the view plane's size and corner as ``shading.raygen``
-    computes them, and the bin key's box (the flattened BVH root's minimum
-    and clamped extent, as ``shading.bin_key`` computes them; zeros where
-    the key has no morton bits), each by the same torch ops."""
+    computes them, and the bin key's box (``shading.bin_box``: minimum and
+    clamped extent; zeros where the key has no morton bits), each by the
+    same torch ops."""
     rot, pos, fov, aspect, near = cam
     plane_h = near * torch.tan(torch.deg2rad(fov * 0.5)) * 2.0
     plane_w = plane_h * aspect
     plane = torch.stack([plane_w, plane_h, -plane_w / 2.0, -plane_h / 2.0])
-    if _morton(scene):
-        root = scene.bvh_packed[scene.obj_bvh_root[0].long()]
-        mn, mx = root[0:3], root[3:6]
-        box = torch.cat([mn, torch.clamp(mx - mn, min=1e-6)])
+    box = shading.bin_box(scene)
+    if box is not None:
+        box = torch.cat(box)
     else:
         box = torch.zeros(6, dtype=F32, device=rot.device)
     return torch.cat([rot.reshape(9), pos.reshape(3), plane.reshape(4),
@@ -141,9 +135,10 @@ def shade_round_reference(c: Round, w):
     """The shade kernel's function in torch: ``(packed, key, tally)``: the
     round's next lane state as (N,40) f32 rows (``shading.pack_lanes``:
     the i32 words as their bits), the lanes' morton bin key (N,) i32, and
-    (3,) i64: the wave's ray counts after the round (semantic, traced:
+    (4,) i64: the wave's ray counts after the round (semantic, traced:
     ``w.n_rays`` plus the live lanes plus the shadow rays counted and
-    traced; no shadow rays without rect lights) and the live count."""
+    traced; no shadow rays without rect lights), the live count, and 0,
+    the word the permute adds the key runs to (:func:`permute_rows`)."""
     scene = c.scene
     lanes, _, nee_sem, _ = shading.shade_lanes(
         scene, c.cfg, c.space, w, c.frame, c.n_spp, c.cam)
@@ -155,13 +150,17 @@ def shade_round_reference(c: Round, w):
         n_nee = torch.zeros(2, dtype=I64, device=n_alive.device)
     else:
         n_nee = torch.stack([nee_sem.sum(), lanes.nee_active.sum()])
-    tally = torch.cat([w.n_rays + n_alive + n_nee, n_alive.view(1)])
+    tally = torch.cat([w.n_rays + n_alive + n_nee, n_alive.view(1),
+                       torch.zeros_like(n_alive).view(1)])
     return packed, key, tally
 
 
-def permute_rows_reference(packed, order) -> shading.Lanes:
+def permute_rows_reference(packed, order, skey, runs) -> shading.Lanes:
     """The permute kernel's function in torch: row ``order[i]`` of the
-    packed state as lane ``i`` of the next wave's columns."""
+    packed state as lane ``i`` of the next wave's columns, and
+    ``shading.key_runs(skey)`` of the sorted keys ``skey`` added to the
+    (1,) i64 ``runs`` (the round's tally's last word)."""
+    runs += shading.key_runs(skey)
     return shading.unpack_lanes(packed[order])
 
 
@@ -235,7 +234,7 @@ def _load() -> ctypes.CDLL:
         lib.rt_shade_round.restype = ctypes.c_int
         lib.rt_shade_round.argtypes = [ctypes.POINTER(_ShadeArgs), _P]
         lib.rt_permute_rows.restype = ctypes.c_int
-        lib.rt_permute_rows.argtypes = [_P] * 6 + [ctypes.c_int, _P]
+        lib.rt_permute_rows.argtypes = [_P] * 8 + [ctypes.c_int, _P]
         lib.rt_nee_resolve.restype = ctypes.c_int
         lib.rt_nee_resolve.argtypes = [ctypes.POINTER(_NeeArgs), _P]
         _lib = lib
@@ -295,7 +294,7 @@ def _scene_tables(scene, dev, srgb=None):
 def shade_args(c: Round, w):
     """The shade kernel's arguments for the wave ``w`` on the card,
     checked, and its outputs ``(packed, key, tally)``, allocated
-    (``tally`` zeroed): ``(args, outputs)``.  ``args`` holds the tensors'
+    (``tally`` zeroed, (4,) as :func:`shade_round_reference`'s): ``(args, outputs)``.  ``args`` holds the tensors'
     addresses only: the caller keeps ``c``, ``w`` and the outputs alive
     while a launch may read them."""
     dev = _device(w.origin)
@@ -325,7 +324,7 @@ def shade_args(c: Round, w):
         raise ValueError("an empty shade table, or too many lanes")
     packed = torch.empty((n, shading.ROW), dtype=F32, device=dev)
     key = torch.empty(n, dtype=I32, device=dev)
-    tally = torch.zeros(3, dtype=I64, device=dev)
+    tally = torch.zeros(4, dtype=I64, device=dev)
     ptr = lambda t: t.data_ptr()
     # the maps' fields, left zero where the untextured instance runs
     maps_args = () if not maps else (
@@ -350,7 +349,7 @@ def shade_args(c: Round, w):
         n, scene.n_spheres, scene.n_lights, c.n_spp, cfg.bounce_limit,
         cfg.rr_start_bounce, cfg.width, cfg.height, int(cfg.aa_jitter),
         int(cfg.tint_spec_diel), rt.bin_bits, rt.bin_dir_bits,
-        int(_morton(scene)), int(_flat(scene)),
+        int(shading.morton_bits(scene)), int(_flat(scene)),
         cfg.seed & 0xFFFFFFFF, c.frame & 0xFFFFFFFF, cfg.rr_clamp,
         *maps_args)
     return args, (packed, key, tally)
@@ -375,23 +374,28 @@ def shade_round(c: Round, w):
     return out
 
 
-def permute_rows(packed, order) -> shading.Lanes:
+def permute_rows(packed, order, skey, runs) -> shading.Lanes:
     """The packed rows gathered by ``order`` (N,) i64 into the next
     wave's columns, as :func:`permute_rows_reference` returns them (on
-    CUDA tensors contiguous columns); one launch of ``permute_kernel``."""
+    CUDA tensors contiguous columns), and the runs of the sorted keys
+    ``skey`` (N,) i32 added to ``runs`` (1,) i64; one launch of
+    ``permute_kernel``."""
     dev = _device(packed)
     if dev.type == "cpu":
-        return permute_rows_reference(packed, order)
+        return permute_rows_reference(packed, order, skey, runs)
     n = packed.shape[0]
     check_tensors(dev, F32, packed=(packed, (n, shading.ROW)))
     check_tensors(dev, I64, order=(order, (n,)))
+    check_tensors(dev, I32, skey=(skey, (n,)))
+    check_tensors(dev, I64, runs=(runs, (1,)))
     if packed.data_ptr() % 16:
         raise ValueError("the packed rows must be 16-byte aligned")
     vec, cols, flags, ints = permute_outputs(n, dev)
     if n:
         _raise_on(_load().rt_permute_rows(
             packed.data_ptr(), order.data_ptr(), vec.data_ptr(),
-            cols.data_ptr(), flags.data_ptr(), ints.data_ptr(), n,
+            cols.data_ptr(), flags.data_ptr(), ints.data_ptr(),
+            skey.data_ptr(), runs.data_ptr(), n,
             torch.cuda.current_stream(dev).cuda_stream), "permute_kernel")
         launches["permute_rows"] += 1
     return permute_lanes(vec, cols, flags, ints)

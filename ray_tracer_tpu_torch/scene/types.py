@@ -530,6 +530,24 @@ class CompiledScene:
         trees = forest_cull_trees(np.array(rows, np.float32).reshape(-1, 8))
         return torch.from_numpy(trees).to(self.device)
 
+    @functools.cached_property
+    def forest_box(self):
+        """The bin key's box on a forest (``integrator/shading.py::
+        bin_box``): ``(minimum, extent)``, (3,) f32 tensors on the scene's
+        device, the union of the instances' world boxes (the finite rows
+        of ``meta["forest_cull"]``), the extent clamped to 1e-6 as a
+        flattened scene's is.  Built on the host once per scene object;
+        None where no instance's box is finite."""
+        rows = np.array(self.meta["forest_cull"], np.float32).reshape(-1, 8)
+        lo, hi = rows[:, 0:3], rows[:, 4:7]
+        finite = np.isfinite(lo).all(1) & np.isfinite(hi).all(1)
+        if not finite.any():
+            return None
+        mn = torch.from_numpy(lo[finite].min(0))
+        extent = torch.clamp(torch.from_numpy(hi[finite].max(0)) - mn,
+                             min=1e-6)
+        return mn.to(self.device), extent.to(self.device)
+
     @property
     def n_spheres(self) -> int:
         return self.meta.get("n_spheres", 0)

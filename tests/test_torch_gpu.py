@@ -1334,6 +1334,8 @@ def round_scenes(dev, tmp_path_factory):
         "room_forest": room_scene(trt, tmp).compile(flatten_instances=False),
         "maps_forest": maps_scene(trt, tmp, ("albedo", "metal", "alpha"))
         .compile(flatten_instances=False),
+        "sponza_forest": presets.sponza_proxy(n_tris_target=20000).compile(
+            flatten_instances=False),
     }
 
 
@@ -1353,7 +1355,7 @@ def _round_cases(names):
 
 
 ROUND_CASES = _round_cases(("sponza", "spheres", "room"))
-FORESTS = ("room_forest", "maps_forest")
+FORESTS = ("room_forest", "maps_forest", "sponza_forest")
 
 
 def _round_launches(sc, cfg, rounds):
@@ -1385,8 +1387,11 @@ def test_round_kernels_match_plain_versions(dev, round_scenes, name, space,
     its maps instance), permute_kernel and nee_resolve_kernel each against
     its plain version on the same inputs (equal values, NaN equal to NaN),
     then the frame on the card through the kernels against the torch
-    round's, bit for bit."""
-    from ray_tracer_tpu_torch.integrator import wavefront
+    round's, bit for bit.  The shade kernel's key is ``shading.bin_key``'s
+    (on the forests with the morton bits of the forest's world box), and
+    the runs the permute kernel adds to the tally equal the plain
+    version's and the distinct live keys torch counts."""
+    from ray_tracer_tpu_torch.integrator import shading, wavefront
     from ray_tracer_tpu_torch.kernels import shade
     from ray_tracer_tpu_torch.ops import traverse
     from torch_parity import first_wave, with_lights
@@ -1399,15 +1404,20 @@ def test_round_kernels_match_plain_versions(dev, round_scenes, name, space,
                            **SCENE_CFG.get(name, {}))
     c, round_, w = first_wave(sc, cfg)
     assert round_ is wavefront._fused_round
+    assert shading.morton_bits(sc) == (name not in ("spheres",
+                                                    "sphere_maps"))
     shade.reset_launches()
     rounds = 0
     while int(w.n_alive) > 0:
         out = shade.shade_round(c, w)
         _same_all(out, shade.shade_round_reference(c, w), "shade")
-        order = torch.argsort(out[1], stable=True)
-        lanes = shade.permute_rows(out[0], order)
-        _same_all(lanes, shade.permute_rows_reference(out[0], order),
-                  "permute")
+        skey, order = torch.sort(out[1], stable=True)
+        runs, want_runs = out[2][3:], out[2][3:].clone()
+        lanes = shade.permute_rows(out[0], order, skey, runs)
+        _same_all(lanes, shade.permute_rows_reference(out[0], order, skey,
+                                                      want_runs), "permute")
+        live_keys = out[1][out[1] != shading.DEAD_KEY]
+        assert int(runs) == int(want_runs) == live_keys.unique().numel()
         occluded = None
         if sc.n_lights:
             occluded = traverse.traverse_anyhit(
@@ -1455,9 +1465,12 @@ def _checked_frame(sc, cfg, monkeypatch, old=None):
         widths.append(int(w.origin.shape[0]))
         return out
 
-    def permute_rows(*args):
-        out = kernels["permute_rows"](*args)
-        same(out, shade.permute_rows_reference(*args), "permute")
+    def permute_rows(packed, order, skey, runs):
+        want_runs = runs.clone()
+        out = kernels["permute_rows"](packed, order, skey, runs)
+        same(out, shade.permute_rows_reference(packed, order, skey,
+                                               want_runs), "permute")
+        assert torch.equal(runs, want_runs)
         return out
 
     def nee_resolve(*args):
@@ -1539,6 +1552,22 @@ def test_textured_frame_equals_the_torch_round(dev, round_scenes,
     assert torch.equal(img, want)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ("room_forest", "sponza_forest"))
+def test_forest_frame_is_the_same_under_the_octant_key(dev, round_scenes,
+                                                      name):
+    """A forest's 240x136 frame through the round kernels with the morton
+    key and with the octant key alone (``bin_bits=0``): the lanes' order
+    differs, the image is the same bit for bit."""
+    sc = round_scenes[name]
+    cfg = trt.RenderConfig(width=240, height=136, samples_per_pixel=2,
+                           bounce_limit=8)
+    img = trt.render(sc, cfg)
+    octant = trt.render(sc, cfg.replace(routing=trt.Routing(bin_bits=0)))
+    assert img.mean() > 0.01
+    assert torch.equal(img, octant)
+
+
 @pytest.fixture(scope="module")
 def shade_variants(dev):
     """tools/shade_round_variants.py: the shade kernel before its redesign
@@ -1615,20 +1644,27 @@ def _orders(n, kind, dev):
 def test_permute_kernel_matches_plain_version(dev, shade_variants, n, kind):
     """permute_kernel on rows of random bits (NaN payloads, -0.0, any i32)
     against its plain version and the kernel it replaced, every column bit
-    for bit, with the identity, the reversed and a random order."""
+    for bit, with the identity, the reversed and a random order; its count
+    of the sorted keys' runs equal to the plain version's, added to what
+    the word held."""
     from ray_tracer_tpu_torch.kernels import shade
-    from torch_parity import random_rows, same_bits
+    from torch_parity import random_rows, same_bits, sorted_keys
 
     packed = random_rows(n, seed=n, device=dev)
     order = _orders(n, kind, dev)
+    skey = sorted_keys(n, seed=n, device=dev)
+    runs = torch.full((1,), 7, dtype=torch.int64, device=dev)
+    want_runs = runs.clone()
     shade.reset_launches()
-    got = shade.permute_rows(packed, order)
+    got = shade.permute_rows(packed, order, skey, runs)
     assert shade.launches["permute_rows"] == 1
     for name, want in (
-            ("plain", shade.permute_rows_reference(packed, order)),
-            ("old", shade_variants.permute_run("old", packed, order))):
+            ("plain", shade.permute_rows_reference(packed, order, skey,
+                                                   want_runs)),
+            ("old", shade_variants.permute_run("old", packed, order, skey))):
         for field, a, b in zip(got._fields, got, want):
             assert same_bits(a, b), f"{name}: {field}"
+    assert torch.equal(runs, want_runs) and int(runs) > 7
 
 
 @pytest.mark.gpu
@@ -1636,14 +1672,15 @@ def test_permute_floor_gathers_the_rows(dev, shade_variants):
     """The floor that chip_smoke.py times beside permute_kernel
     (tools/shade_round_variants.cu::tma_floor_kernel) is the rows gathered
     by the order, bit for bit, on ragged widths and a random order."""
-    from torch_parity import random_rows
+    from torch_parity import random_rows, sorted_keys
 
     for n in ROUND_WIDTHS:
         packed = random_rows(n, seed=n + 1, device=dev)
         order = _orders(n, "random", dev)
+        skey = sorted_keys(n, seed=n, device=dev)
         shade_variants.compare(
             f"floor, {n} lanes",
-            [shade_variants.permute_run("floor_tma", packed, order)],
+            [shade_variants.permute_run("floor_tma", packed, order, skey)],
             [packed[order]])
 
 
@@ -1653,7 +1690,7 @@ def test_permute_rows_raises_on_unaligned_rows(dev):
     wrapper raises on rows 4 bytes off one and launches nothing."""
     from ray_tracer_tpu_torch.integrator import shading
     from ray_tracer_tpu_torch.kernels import shade
-    from torch_parity import random_rows
+    from torch_parity import random_rows, sorted_keys
 
     n = 257
     buf = torch.empty(n * shading.ROW + 4, dtype=torch.float32, device=dev)
@@ -1662,7 +1699,9 @@ def test_permute_rows_raises_on_unaligned_rows(dev):
     assert packed.data_ptr() % 16 == 4
     shade.reset_launches()
     with pytest.raises(ValueError, match="16-byte aligned"):
-        shade.permute_rows(packed, _orders(n, "random", dev))
+        shade.permute_rows(packed, _orders(n, "random", dev),
+                           sorted_keys(n, device=dev),
+                           torch.zeros(1, dtype=torch.int64, device=dev))
     assert shade.launches["permute_rows"] == 0
 
 

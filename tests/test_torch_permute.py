@@ -24,7 +24,8 @@ from ray_tracer_tpu_torch.integrator import shading, wavefront
 from ray_tracer_tpu_torch.kernels import shade
 from ray_tracer_tpu_torch.scene import presets
 
-from torch_parity import random_lanes, random_rows, same_bits, with_lights
+from torch_parity import (random_lanes, random_rows, same_bits, sorted_keys,
+                          with_lights)
 
 SIZES = (1, 31, 257, 4096)
 BOOL_WORDS = (27, 28, 29, 30, 33)  # alive, bad, fresh_direct, is_diff,
@@ -70,12 +71,17 @@ def test_unpack_pack_keeps_every_word(n):
 @pytest.mark.parametrize("n", SIZES)
 def test_permute_rows_gathers_each_field(n, kind):
     """``permute_rows`` on CPU tensors (the plain version) is each lane
-    field gathered by the order, bit for bit."""
+    field gathered by the order, bit for bit, and adds the sorted keys'
+    runs among the live lanes to the word it is given."""
     lanes = random_lanes(n, seed=n + 1)
     order = orders(n, seed=n)[kind]
-    got = shade.permute_rows(shading.pack_lanes(lanes), order)
+    skey = sorted_keys(n, seed=n)
+    runs = torch.full((1,), 5, dtype=torch.int64)
+    got = shade.permute_rows(shading.pack_lanes(lanes), order, skey, runs)
     for name, a, b in zip(shading.Lanes._fields, got, lanes):
         assert same_bits(a, b[order]), name
+    live = skey[skey != shading.DEAD_KEY]
+    assert int(runs) == 5 + live.unique().numel()
 
 
 @pytest.mark.parametrize("kind", ["identity", "reversed", "random"])
@@ -87,7 +93,9 @@ def test_torch_round_gather_equals_the_rows(n, kind):
     lanes = random_lanes(n, seed=n + 2)
     order = orders(n, seed=n + 1)[kind]
     got = wavefront._gather_lanes(lanes, order)
-    want = shade.permute_rows_reference(shading.pack_lanes(lanes), order)
+    want = shade.permute_rows_reference(shading.pack_lanes(lanes), order,
+                                        sorted_keys(n, seed=n),
+                                        torch.zeros(1, dtype=torch.int64))
     for name, a, b in zip(shading.Lanes._fields, got, want):
         assert same_bits(a, b), name
 

@@ -68,6 +68,8 @@ def scenes(tmp_path_factory):
                                                     device="cpu"),
         "maps_forest": maps_scene(trt, tmp, ("albedo", "metal", "alpha"))
         .compile(flatten_instances=False, device="cpu"),
+        "sponza_forest": presets.sponza_proxy(n_tris_target=8000).compile(
+            flatten_instances=False, device="cpu"),
     }
 
 
@@ -261,6 +263,143 @@ def test_bin_key_matches_jax(scenes):
                                     jnp.asarray(d), jnp.asarray(alive),
                                     mb, db)
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _box_key(o, d, alive, mn, mx, mb, db):
+    """The bin key over the box ``mn..mx`` as ``shading.bin_key`` wrote it
+    for a flattened scene's BVH root box before forests took the morton
+    key: (octant, direction bits, morton cell of the origin)."""
+    key = shading.octant(d) << (3 * mb + 3 * db)
+    if db:
+        dq = torch.clamp(torch.abs(d) * (1 << db), 0, (1 << db) - 1).to(
+            torch.int32)
+        key = key | (((dq[:, 0] << (2 * db)) | (dq[:, 1] << db) | dq[:, 2])
+                     << (3 * mb))
+    cell = torch.clamp(((o - mn) / torch.clamp(mx - mn, min=1e-6))
+                       * (1 << mb), 0.0, float((1 << mb) - 1)).to(torch.int32)
+    for b in range(mb):
+        for ax in range(3):
+            key = key | (((cell[:, ax] >> b) & 1) << (3 * b + ax))
+    return torch.where(alive, key, 1 << 30).to(torch.int32)
+
+
+def _seeded_lanes(box, n=4096, seed=5):
+    rand = np.random.default_rng(seed)
+    o = rand.uniform(box[0:3] - 1.0, box[3:6] + 1.0, (n, 3))
+    d = rand.normal(size=(n, 3))
+    d[::7, 1] = 0.0
+    return (torch.from_numpy(o.astype(np.float32)),
+            torch.from_numpy(d.astype(np.float32)),
+            torch.from_numpy(rand.uniform(size=n) < 0.8))
+
+
+@pytest.mark.parametrize("name", ["room", "sponza"])
+def test_flattened_keys_are_unchanged(scenes, name):
+    """A flattened scene keys over its BVH root box exactly as before
+    forests took the morton key, and the shade kernel's constants carry
+    that box."""
+    sc = scenes[name]
+    root = sc.bvh_packed[sc.obj_bvh_root[0].long()]
+    o, d, alive = _seeded_lanes(root.numpy())
+    for mb, db in ((6, 0), (5, 2), (0, 0)):
+        got = shading.bin_key(sc, o, d, alive, mb, db)
+        want = _box_key(o, d, alive, root[0:3], root[3:6], mb, db)
+        assert same_bits(got, want), (mb, db)
+    box = torch.cat([root[0:3], torch.clamp(root[3:6] - root[0:3], min=1e-6)])
+    consts = shade.frame_constants(sc, first_wave(
+        sc, trt.RenderConfig(**SIZE))[0].cam)
+    assert same_bits(consts[16:22], box)
+
+
+@pytest.mark.parametrize("name", ["room_forest", "maps_forest"])
+def test_forest_key_has_the_forest_box_morton_bits(scenes, name):
+    """A forest keys by (octant, morton cell of the origin) over its world
+    box, the union of its instances' world boxes (the finite rows of
+    ``meta["forest_cull"]``), as a flattened scene keys over its root box;
+    the shade kernel's constants carry that box."""
+    sc = scenes[name]
+    rows = np.array(sc.meta["forest_cull"], np.float32)
+    assert np.isfinite(rows).all() and len(rows) == len(sc.meta["obj_roots"])
+    mn = torch.from_numpy(rows[:, 0:3].min(0))
+    mx = torch.from_numpy(rows[:, 4:7].max(0))
+    assert shading.morton_bits(sc)
+    o, d, alive = _seeded_lanes(torch.cat([mn, mx]).numpy())
+    for mb, db in ((6, 0), (5, 2)):
+        got = shading.bin_key(sc, o, d, alive, mb, db)
+        assert same_bits(got, _box_key(o, d, alive, mn, mx, mb, db))
+        cells = got[alive] & ((1 << 3 * mb) - 1)
+        assert cells.unique().numel() > 100  # morton bits, not octant alone
+        octant = _box_key(o, d, alive, mn, mx, 0, db) << (3 * mb)
+        assert same_bits(torch.where(alive, got >> 3 * mb << 3 * mb, got),
+                         torch.where(alive, octant, got))
+    consts = shade.frame_constants(sc, first_wave(
+        sc, trt.RenderConfig(**SIZE))[0].cam)
+    assert same_bits(consts[16:22],
+                     torch.cat([mn, torch.clamp(mx - mn, min=1e-6)]))
+
+
+def test_mesh_free_scenes_key_by_octant(scenes):
+    """Without meshes the key is the octant alone and the constants' box
+    zero."""
+    sc = scenes["spheres"]
+    o, d, alive = _seeded_lanes(np.array([-5, -5, -5, 5, 5, 5], np.float32))
+    assert not shading.morton_bits(sc) and shading.bin_box(sc) is None
+    assert same_bits(shading.bin_key(sc, o, d, alive, 6, 0),
+                     torch.where(alive, shading.octant(d) << 18, 1 << 30))
+    consts = shade.frame_constants(sc, first_wave(
+        sc, trt.RenderConfig(**SIZE))[0].cam)
+    assert not consts[16:22].any()
+
+
+@pytest.mark.parametrize("name", ["room_forest", "sponza_forest"])
+def test_forest_frame_is_the_same_under_the_octant_key(scenes, name):
+    """A forest's frame through the round kernels' plain versions keyed by
+    the morton cell and by the octant alone (``bin_bits=0``): the same
+    image bit for bit, as every lane's path is its own."""
+    sc = scenes[name]
+    cfg = trt.RenderConfig(width=24, height=14, samples_per_pixel=2,
+                           bounce_limit=8)
+    img = trt.render(sc, cfg)
+    assert img.mean() > 0.01
+    assert torch.equal(img, trt.render(
+        sc, cfg.replace(routing=trt.Routing(bin_bits=0))))
+
+
+def _round_runs(sc, cfg):
+    """``(live, runs)`` of each fused round of a frame: the live count
+    and the tally's key runs, each round's runs checked against the
+    distinct live keys torch finds in the wave it leaves."""
+    c, round_, w = first_wave(sc, cfg)
+    assert round_ is wavefront._fused_round
+    out = []
+    while int(w.n_alive) > 0:
+        w = round_(c, w)
+        key = shading.bin_key(sc, w.origin, w.direction, w.alive,
+                              c.rt.bin_bits, c.rt.bin_dir_bits)
+        live_keys = key[key != shading.DEAD_KEY]
+        assert int(w.tally[3]) == live_keys.unique().numel()
+        assert int(w.tally[3]) == int(shading.key_runs(key.sort().values))
+        out.append((int(w.n_alive), int(w.tally[3])))
+    return out
+
+
+@pytest.mark.parametrize("name", ["room_forest", "sponza_forest", "sponza"])
+def test_tally_counts_the_key_runs(scenes, name):
+    """The tally's last word is the runs of equal keys among a round's
+    live lanes after its sort.  Under the octant key a round has at most 8
+    runs, so a run holds about a round's live lanes over 8; under the
+    morton key many times fewer."""
+    sc = scenes[name]
+    cfg = trt.RenderConfig(width=48, height=27, samples_per_pixel=2,
+                           bounce_limit=8)
+    morton = _round_runs(sc, cfg)
+    octant = _round_runs(sc, cfg.replace(routing=trt.Routing(bin_bits=0)))
+    assert [n for n, _ in morton] == [n for n, _ in octant]
+    assert all(r <= 8 and (r > 0) == (n > 0) for n, r in octant)
+    per_run = lambda rounds: (sum(n for n, _ in rounds)
+                              / sum(r for _, r in rounds))
+    assert per_run(octant) >= sum(n for n, _ in octant) / (8 * len(octant))
+    assert per_run(morton) * 8 < per_run(octant)
 
 
 class _JaxKeyScene:

@@ -16,7 +16,7 @@ from torch.profiler import ProfilerActivity, profile
 
 import ray_tracer_tpu_torch as trt
 from ray_tracer_tpu_torch import api
-from ray_tracer_tpu_torch.integrator import wavefront
+from ray_tracer_tpu_torch.integrator import shading, wavefront
 from ray_tracer_tpu_torch.scene import presets
 from ray_tracer_tpu_torch.utils import trace
 
@@ -88,6 +88,38 @@ def test_a_step_records_a_span_a_read_and_a_round(scene, route,
     # make one width, so no drain step reads again
     assert kinds[1:-1] == ["live_read", "round"] * len(seen) + ["live_read"]
     assert kinds.count("rays") == 1
+
+
+@pytest.mark.parametrize("route", ["fused", "torch"])
+def test_a_round_carries_the_key_runs_of_its_wave(scene, route,
+                                                  monkeypatch):
+    """On the fused round (and the torch round's morton bins) every round
+    but the first carries ``runs``: the distinct live bin keys of the wave
+    it takes, which the round before it sorted; the first round takes the
+    unsorted first wave and carries none, nor does a round after bins that
+    are no morton key's."""
+    cfg = config(route)
+    if route == "torch":
+        cfg = cfg.replace(routing=trt.Routing(nee_prebin="sort"))
+    rt = cfg.resolved_routing()
+    seen = []  # the distinct live keys of each wave a round takes
+    name = "_fused_round" if route == "fused" else "_torch_round"
+    real = getattr(wavefront, name)
+
+    def spy(c, w, rope_err=None):
+        key = shading.bin_key(scene, w.origin, w.direction, w.alive,
+                              rt.bin_bits, rt.bin_dir_bits)
+        seen.append(key[key != shading.DEAD_KEY].unique().numel())
+        return real(c, w, rope_err)
+
+    monkeypatch.setattr(wavefront, name, spy)
+    got = profiled_step(trt.ProgressiveRenderer(scene, cfg))
+    rounds = [c for k, c in got if k == "round"]
+    assert len(rounds) == len(seen) >= 3
+    assert "runs" not in rounds[0]
+    assert [c["runs"] for c in rounds[1:]] == seen[1:]
+    leaf = profiled_step(trt.ProgressiveRenderer(scene, config("torch")))
+    assert not [c for k, c in leaf if k == "round" and "runs" in c]
 
 
 @pytest.mark.parametrize("route", list(ROUTES))

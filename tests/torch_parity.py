@@ -904,6 +904,19 @@ def random_rows(n, seed=0, device="cpu"):
     return torch.from_numpy(bits).view(torch.float32).to(device)
 
 
+def sorted_keys(n, seed=0, device="cpu"):
+    """(n,) i32 bin keys as the round's sort leaves them, made with numpy
+    from ``seed``: keys below n/4 in ascending order, so runs of several
+    lanes and runs of one, then a fifth of the lanes dead
+    (``shading.DEAD_KEY``)."""
+    from ray_tracer_tpu_torch.integrator import shading
+
+    rand = np.random.default_rng(seed)
+    keys = np.sort(rand.integers(0, max(n // 4, 1), n)).astype(np.int32)
+    keys[n - n // 5:] = shading.DEAD_KEY
+    return torch.from_numpy(keys).to(device)
+
+
 def random_lanes(n, n_lights=2, fresh="mixed", seed=0, device="cpu"):
     """``shading.Lanes`` of ``n`` random lanes, made with numpy from
     ``seed``: vectors and columns with NaN payloads, infinities, -0.0 and

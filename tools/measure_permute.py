@@ -92,21 +92,24 @@ def kernels(sc) -> None:
         trt.render(sc, chip_smoke.frame_cfg())
         torch.cuda.synchronize()
     for r in chip_smoke.CHECK_ROUNDS:
-        (packed, order), _ = permutes[r]
+        (packed, order, skey, word), _ = permutes[r]
         n = int(order.shape[0])
-        want = shade.permute_rows(packed, order)
-        variants.compare(f"round {r}: permute against the plain version",
-                         want, shade.permute_rows_reference(packed, order))
+        want = shade.permute_rows(packed, order, skey, torch.zeros_like(word))
+        variants.compare(
+            f"round {r}: permute against the plain version", want,
+            shade.permute_rows_reference(packed, order, skey,
+                                         torch.zeros_like(word)))
         variants.compare(f"round {r}: permute against the old kernel", want,
-                         variants.permute_run("old", packed, order))
-        variants.compare(f"round {r}: floor",
-                         [variants.permute_run("floor_tma", packed, order)],
-                         [packed[order]])
-        runs = {name: variants.permute_launcher(name, packed, order)[0]
+                         variants.permute_run("old", packed, order, skey))
+        variants.compare(
+            f"round {r}: floor",
+            [variants.permute_run("floor_tma", packed, order, skey)],
+            [packed[order]])
+        runs = {name: variants.permute_launcher(name, packed, order, skey)[0]
                 for name in ("shipped", "old", "floor_tma")}
         runs["index_select"] = lambda: packed.index_select(0, order)
         ms, times = chip_smoke.turns(runs)
-        cost = chip_smoke.permute_cost(packed, order)
+        cost = chip_smoke.permute_cost(packed, order, skey, word)
         print(json.dumps({
             "kernel": "permute", "round": r, "n": n, "equal": True, **cost,
             "floor_bound_ms": chip_smoke.bound(

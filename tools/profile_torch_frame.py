@@ -69,7 +69,7 @@ STAGE_CALLS = {
                   ("ray_tracer_tpu_torch.integrator.wavefront",
                    "_occlusion")),
     "sort": (("ray_tracer_tpu_torch.integrator.wavefront", "_bin_order"),
-             ("torch", "argsort")),
+             ("torch", "argsort"), ("torch", "sort")),
     "shade": (("ray_tracer_tpu_torch.integrator.wavefront", "_shade_fetch"),
               ("ray_tracer_tpu_torch.integrator.shading", "shade_lanes"),
               ("ray_tracer_tpu_torch.kernels.shade", "shade_round")),

@@ -178,16 +178,19 @@ def compare(name, got, want):
             raise AssertionError(f"{name}: output {k} differs")
 
 
-def permute_launcher(variant: str, packed, order):
+def permute_launcher(variant: str, packed, order, skey):
     """``(launch, result)`` of permute variant ``variant`` (a name of
     PERMUTES, or "shipped": permute_kernel through the package's library)
-    on the (N,40) rows ``packed`` and ``order``, its outputs allocated once
-    ("old" reads the rows split into their two arrays first):
+    on the (N,40) rows ``packed``, ``order`` and the sorted keys ``skey``,
+    its outputs allocated once ("old" reads the rows split into their two
+    arrays first; "shipped" counts the keys' runs into a scratch word, as
+    the round does into its tally; the others do not read the keys):
     ``result()`` is the ``Lanes`` of the outputs (FLOORS: the gathered
     rows)."""
     n, dev = packed.shape[0], packed.device
     stream = torch.cuda.current_stream(dev).cuda_stream
     outs = shade.permute_outputs(n, dev)
+    runs = torch.zeros(1, dtype=torch.int64, device=dev)
     rows_out = torch.empty((n, shading.ROW), dtype=torch.float32,
                            device=dev) if variant in FLOORS else None
     src = (packed, None)
@@ -198,7 +201,8 @@ def permute_launcher(variant: str, packed, order):
             for t in (*src, order, *outs, rows_out)]
     if variant == "shipped":
         call = lambda: shade._load().rt_permute_rows(
-            ptrs[0], *ptrs[2:7], n, stream)
+            ptrs[0], *ptrs[2:7], skey.data_ptr(), runs.data_ptr(), n,
+            stream)
     else:
         index = PERMUTES.index(variant)
         call = lambda: lib().rt_permute_variant(index, *ptrs, n, stream)
@@ -206,16 +210,16 @@ def permute_launcher(variant: str, packed, order):
     def launch():
         _check(call(), f"permute variant {variant}")
 
-    launch.keep = (packed, order, src, outs, rows_out)
+    launch.keep = (packed, order, skey, runs, src, outs, rows_out)
     if variant in FLOORS:
         return launch, lambda: rows_out
     return launch, lambda: shade.permute_lanes(*outs)
 
 
-def permute_run(variant: str, packed, order):
+def permute_run(variant: str, packed, order, skey):
     """One launch of permute variant ``variant``: its ``Lanes`` (FLOORS:
     the gathered rows)."""
-    launch, result = permute_launcher(variant, packed, order)
+    launch, result = permute_launcher(variant, packed, order, skey)
     launch()
     return result()
 
