@@ -30,8 +30,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from rt_bench import harness, traffic as traffic_mod  # noqa: E402
-from rt_bench.reference import compare, integrator  # noqa: E402
-from rt_bench.reference import scene as ref_scene  # noqa: E402
+from rt_bench.reference import compare  # noqa: E402
 
 
 CONTROLS = {"bf16": (torch.bfloat16, None),
@@ -40,15 +39,17 @@ CONTROLS = {"bf16": (torch.bfloat16, None),
 
 def control_numbers(spec, config, mix, seed, cam, pix, n_frames, dev,
                     want=None) -> dict:
-    """Each control's ``rel_l1`` against the float32 reference."""
+    """Each control's ``rel_l1`` against the float32 reference, both the
+    configuration's own reference (:func:`harness.parts`)."""
     if want is None:
         want = harness.check(spec, config, mix, seed, cam, pix, n_frames, dev)
+    ref = harness.parts(config).reference
     cfg = dict(width=mix["width"], height=mix["height"], spp=mix["spp"],
                bounce_limit=mix["bounce_limit"], seed=seed, **config["render"])
     out = {}
     for name, (geometry, colour) in CONTROLS.items():
-        rs = ref_scene.build(spec, dev, geometry)
-        low = integrator.render_pixels(rs, cfg, cam, torch.as_tensor(
+        rs = ref.scene.build(spec, dev, geometry)
+        low = ref.integrator.render_pixels(rs, cfg, cam, torch.as_tensor(
             pix, device=dev), n_frames, colour).float().cpu()
         out[name] = compare.numbers(low, want)["rel_l1"]
     return out
@@ -100,9 +101,9 @@ def main() -> int:
     spec = harness.generate(config)
     scene = None
     if args.program:
-        from rt_bench import port_scene
-        scene = port_scene.builder_of(spec).compile(device=dev,
-                                                    **config["compile"])
+        scene = harness.build_scene(
+            harness.parts(config).handoff, config, spec, dev,
+            harness.Spans(time.perf_counter()))
     for seed in (int(s) for s in args.seeds.split(",")):
         move_every, views = traffic_mod.camera_plan(mix, spec.meta,
                                                     spec.camera, seed)

@@ -7,10 +7,33 @@ scene generator under ``rt_bench/scenes/`` and its arguments, the compile
 options, the render constants) and a traffic mix
 (``rt_bench/traffic/<name>.json``, read by ``rt_bench/traffic.py``).
 
-Set-up: generate the scene, build and compile it with the program's
-``SceneBuilder`` on the card, make a ``ProgressiveRenderer`` with
-``RenderConfig.seed = --seed``, and run one warm step at the cell's
-shapes.  ``setup_s`` runs from the process's start to the first timed step.
+A configuration may also name, each relative to ``rt_bench`` as a dotted
+module name, the parts that run it beside its generator (:func:`parts`,
+which everything that runs a configuration goes through):
+- ``"handoff"``: a module with ``builder_of(spec, workdir)``, which hands
+  the generated scene to the program and returns the program's
+  ``SceneBuilder``; default ``port_scene``;
+- ``"reference"``: the plain reference's package, with
+  ``scene.build(spec, device, dtype=torch.float32)`` and
+  ``integrator.render_pixels(rs, cfg, cam, pix, n_frames, colour=None)``;
+  default ``reference``.  The comparison (``rt_bench/reference/compare.py``)
+  is every configuration's;
+- ``"small_args"``: the generator arguments the CPU tests' small cells
+  override; read by ``rt_bench/tests/common.py`` alone, never by a run.
+
+A generator's result (the spec) is read here and in ``traffic.py`` only
+through ``spec.camera`` (the camera's keys, as ``Camera`` takes them) and
+``spec.meta`` (the scene's layout, which the ``views`` mixes read).
+Everything else goes unchanged to the configuration's hand-off and
+reference, so a configuration may bring a spec type of its own in its own
+generator module.
+
+Set-up: generate the scene, hand it to the program in a work directory
+that the harness makes for the run under ``TMPDIR`` and removes once the
+scene is compiled (:func:`build_scene`), compile it on the card, make a
+``ProgressiveRenderer`` with ``RenderConfig.seed = --seed``, and run one
+warm step at the cell's shapes.  ``setup_s`` runs from the process's start
+to the first timed step.
 
 Window: ``ProgressiveRenderer.step`` back to back for ``--seconds``, each
 ending in ``torch.cuda.synchronize()`` and timed on the host clock; a mix
@@ -28,8 +51,8 @@ carries ``busy_s``, ``window_s`` and ``breakdown``.
 
 Check: once the window has closed and the peak memory is read, the image
 the window accumulated is compared at pixels drawn from the seed, one in
-each tile of a grid over the frame (:func:`sample_pixels`), with the plain
-reference's (``rt_bench/reference/``), after the program's state is freed
+each tile of a grid over the frame (:func:`sample_pixels`), with the
+configuration's plain reference's, after the program's state is freed
 (:func:`check`).
 
 The harness keeps its spans in memory and writes them at exit to
@@ -48,7 +71,9 @@ import math
 import os
 import statistics
 import sys
+import tempfile
 import time
+from dataclasses import dataclass
 
 import numpy as np
 
@@ -59,6 +84,8 @@ TRACED_STEPS = 16
 PATH_BUDGET = 1 << 20  # reference paths a check traces
 MIN_PIXELS = 64
 FORBIDDEN = ("jax", "jaxlib", "flax", "ray_tracer_tpu")
+HANDOFF = "port_scene"  # a configuration's parts where it names none
+REFERENCE = "reference"
 
 
 class Spans:
@@ -113,6 +140,51 @@ def generate(config: dict):
     return gen.generate(**config["generator_args"])
 
 
+@dataclass(frozen=True)
+class Parts:
+    """The modules that run a configuration beside its generator, named
+    relative to ``rt_bench``; each is imported where it is first used."""
+
+    handoff_name: str
+    reference_name: str
+
+    @property
+    def handoff(self):
+        """The module whose ``builder_of(spec, workdir)`` hands the scene to
+        the program."""
+        return importlib.import_module(f"rt_bench.{self.handoff_name}")
+
+    @property
+    def reference(self):
+        """The plain reference's package, its ``scene`` and ``integrator``
+        loaded."""
+        name = f"rt_bench.{self.reference_name}"
+        for sub in ("scene", "integrator"):
+            importlib.import_module(f"{name}.{sub}")
+        return importlib.import_module(name)
+
+
+def parts(config: dict) -> Parts:
+    """The configuration's own ``handoff`` and ``reference``, the defaults
+    where it names none."""
+    return Parts(config.get("handoff", HANDOFF),
+                 config.get("reference", REFERENCE))
+
+
+def build_scene(handoff, config: dict, spec, dev, spans: Spans):
+    """The program's compiled scene.  The configuration's ``handoff``
+    (:attr:`Parts.handoff`) builds it (span ``build``) in a work directory
+    made for this run under ``TMPDIR``.  The directory stays until the
+    ``compile`` span has ended, since the program reads the files written
+    there (meshes, materials, images) when it compiles, and goes then, or
+    as soon as either step raises."""
+    with tempfile.TemporaryDirectory(prefix="rt_bench_work_") as workdir:
+        with spans.timed("build"):
+            builder = handoff.builder_of(spec, workdir)
+        with spans.timed("compile"):
+            return builder.compile(device=dev, **config["compile"])
+
+
 def sync(dev):
     import torch
 
@@ -151,16 +223,12 @@ def run_cell(root: str, config: dict, mix: dict, seed: int, seconds: float,
 
     with spans.timed("import"):
         import ray_tracer_tpu_torch as trt
-        from . import port_scene
+        handoff = parts(config).handoff
 
     dev = torch.device(device)
     with spans.timed("generate"):
         spec = generate(config)
-    with spans.timed("build"):
-        builder = port_scene.builder_of(spec)
-    with spans.timed("compile"):
-        scene = builder.compile(device=dev, **config["compile"])
-    del builder
+    scene = build_scene(handoff, config, spec, dev, spans)
     cfg = trt.RenderConfig(width=mix["width"], height=mix["height"],
                            samples_per_pixel=mix["spp"],
                            bounce_limit=mix["bounce_limit"], seed=seed,
@@ -264,18 +332,18 @@ def run_cell(root: str, config: dict, mix: dict, seed: int, seconds: float,
 
 
 def check(spec, config, mix, seed, cam, pix, n_frames, dev):
-    """The plain reference's image at the sampled pixels, on ``dev``."""
+    """The configuration's plain reference's image at the sampled pixels,
+    on ``dev``."""
     import torch
 
-    from .reference import integrator, scene as ref_scene
-
+    ref = parts(config).reference
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    rs = ref_scene.build(spec, dev)
+    rs = ref.scene.build(spec, dev)
     cfg = dict(width=mix["width"], height=mix["height"], spp=mix["spp"],
                bounce_limit=mix["bounce_limit"], seed=seed, **config["render"])
-    img = integrator.render_pixels(rs, cfg, cam, torch.as_tensor(
+    img = ref.integrator.render_pixels(rs, cfg, cam, torch.as_tensor(
         pix, device=dev), n_frames)
     return img.float().cpu()
 

@@ -1,8 +1,10 @@
 """The benchmark's own rules: ``BENCHMARK.json`` names files that exist,
 every per-layer metric has its reader, the readers read a trace, the
-traffic's views are fixed and only ordered by the seed, and nothing the
-harness or the reference loads is JAX or the JAX package."""
+traffic's views are fixed and only ordered by the seed, nothing the
+harness or the reference loads is JAX or the JAX package, and each
+configuration's generator and reference load nothing of the program."""
 
+import json
 import os
 import re
 import subprocess
@@ -11,7 +13,7 @@ import sys
 import pytest
 
 from rt_bench import harness, trace_view, traffic
-from rt_bench.tests.common import ROOT
+from rt_bench.tests.common import CELLS, ROOT
 
 BENCH = harness.load_json(ROOT, "BENCHMARK.json")
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -93,30 +95,60 @@ def test_views_are_fixed_and_ordered_by_the_seed():
                                spec.meta, spec.camera, 1) == (0, [])
 
 
+def _python(code: str) -> str:
+    """The last line ``code`` prints in a fresh interpreter at the root."""
+    out = subprocess.run(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, %r)\n"
+         % ROOT + code], capture_output=True, text=True, check=True,
+        env=dict(os.environ, PYTHONPATH=""))
+    return out.stdout.strip().splitlines()[-1]
+
+
 def test_the_harness_and_reference_load_no_jax():
-    code = (
-        "import sys; sys.path.insert(0, %r)\n"
-        "import rt_bench.harness, rt_bench.control, rt_bench.trace_view\n"
-        "import rt_bench.reference.integrator, rt_bench.port_scene\n"
+    # every configuration's parts, through the resolver, and a small run
+    assert _python(
+        "import importlib\n"
+        "import rt_bench.harness as h, rt_bench.control, rt_bench.trace_view\n"
+        "for c in h.load_json(%r, 'BENCHMARK.json')['configs']:\n"
+        "    config = h.load_json(%r, c['file'])\n"
+        "    h.parts(config).handoff, h.parts(config).reference\n"
+        "    importlib.import_module('rt_bench.scenes.'\n"
+        "                            + config['generator'])\n"
         "import ray_tracer_tpu_torch\n"
         "from rt_bench.tests.common import run_small\n"
-        "run_small('sponza_flat.progressive1080', steps=1)\n"
-        "print(rt_bench.harness.forbidden_modules())\n" % ROOT)
-    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, check=True, env=dict(os.environ,
-                                                         PYTHONPATH=""))
-    assert out.stdout.strip().splitlines()[-1] == "[]"
+        "run_small(%r, steps=1)\n"
+        "print(h.forbidden_modules())\n" % (ROOT, ROOT, CELLS[0])) == "[]"
 
 
 def test_the_reference_imports_nothing_of_the_program():
-    ref = os.path.join(ROOT, "rt_bench", "reference")
-    for fn in os.listdir(ref) + ["../scenes/spec.py",
-                                 "../scenes/sponza_proxy.py"]:
-        if fn.endswith(".py"):
-            with open(os.path.join(ref, fn)) as f:
+    # each configuration's generator module and reference package, with
+    # every module of the benchmark that they load: none is loaded with the
+    # program or JAX, and none names either in an import, lazy ones too
+    for c in BENCH["configs"]:
+        found = json.loads(_python(
+            "import importlib, json, sys\n"
+            "import rt_bench.harness as h\n"
+            "config = h.load_json(%r, %r)\n"
+            "before = set(sys.modules)\n"
+            "gen = 'rt_bench.scenes.' + config['generator']\n"
+            "importlib.import_module(gen)\n"
+            "ref = h.parts(config).reference.__name__\n"
+            "files = sorted(\n"
+            "    m.__file__ for n, m in sys.modules.items()\n"
+            "    if n.startswith('rt_bench.') and m.__file__ and (\n"
+            "        n in (gen, ref) or n.startswith(ref + '.')\n"
+            "        or n not in before))\n"
+            "print(json.dumps(dict(files=files, loaded=sorted(\n"
+            "    n for n in sys.modules if n.split('.')[0] in\n"
+            "    h.FORBIDDEN + ('ray_tracer_tpu_torch',)))))\n"
+            % (ROOT, c["file"])))
+        assert found["loaded"] == [], c["name"]
+        assert len(found["files"]) >= 3, c["name"]
+        for fn in found["files"]:
+            with open(fn) as f:
                 text = f.read()
             assert not re.search(r"^\s*(import|from)\s+(ray_tracer_tpu|jax)",
-                                 text, re.M), fn
+                                 text, re.M), (c["name"], fn)
 
 
 def test_forbidden_names_compare_whole():
@@ -130,7 +162,7 @@ def test_a_traced_run_reads_its_metrics_and_stays_correct(monkeypatch):
     from rt_bench.tests.common import run_small
 
     monkeypatch.setattr(harness, "TRACED_STEPS", 2)
-    res = run_small("sponza_flat.progressive1080", steps=1, trace=True)
+    res = run_small(CELLS[0], steps=1, trace=True)
     assert res["correct"] and res["attempted"] >= 2  # the traced steps
     assert res["metrics"]["scene_compile_s"]["value"] > 0
     assert set(res["device_info"]) == {"busy_s", "window_s"}

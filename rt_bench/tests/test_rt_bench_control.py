@@ -9,10 +9,7 @@ import torch
 
 from rt_bench import control, harness
 from rt_bench.reference import compare
-from rt_bench.tests.common import ROOT, SEED, small
-
-CELLS = ["sponza_flat.progressive1080", "sponza_instanced.progressive1080",
-         "sponza_flat.orbit1080"]
+from rt_bench.tests.common import CELLS, ROOT, SEED, small
 
 
 @pytest.mark.parametrize("cell", CELLS)

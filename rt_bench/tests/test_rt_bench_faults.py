@@ -11,10 +11,7 @@ altered where it is produced."""
 import pytest
 
 from rt_bench.faults import altered_answer, half_the_samples, unchanged_state
-from rt_bench.tests.common import run_small
-
-CELLS = ["sponza_flat.progressive1080", "sponza_flat.orbit1080",
-         "sponza_instanced.progressive1080"]
+from rt_bench.tests.common import CELLS, run_small
 
 
 @pytest.mark.parametrize("cell", CELLS)
