@@ -592,7 +592,7 @@ def round_checks(sc, key="", old=True, check_rounds=CHECK_ROUNDS, **kw):
             lambda: costs["shade_round"][r], err=values_err, round=r, n=n,
             frame=key.rstrip("_") or "main")
         pargs, _ = permutes[r]
-        # the frame's own runs word (the round's tally's last) holds its
+        # the frame's own runs word (the round's tally's fourth) holds its
         # count: each call here adds into a zeroed word of its own
         packed, order, skey, frame_runs = pargs
         word = lambda: torch.zeros_like(frame_runs)

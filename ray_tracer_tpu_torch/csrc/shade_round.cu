@@ -93,7 +93,9 @@
 // with textures): it adds the albedo,
 // metalness and alpha maps (shading.apply_material_maps) and, on a
 // flattened scene with enable_normal_maps, the bump maps (shading.bump);
-// shade_kernel<false> keeps the untextured code as it was.  Its texel
+// shade_kernel<false> keeps the untextured code as it was.  The maps
+// instance also counts its cutout lanes into a fifth word of the tally (a
+// warp sum and one atomic a warp, add_cutouts).  Its texel
 // loads are plain u8 loads, never hardware filtering, whose 8-bit
 // fixed-point weights cannot equal the plain version's, and
 //   * the sRGB decode is one lookup in a 256-entry table that the wrapper
@@ -161,7 +163,8 @@ struct ShadeArgs {
   float* packed;  // (N,40): kPackedF f32 words, then kPackedI i32 as bits
   int* key;       // (N,)
   unsigned long long* tally;  // (4,) zeroed: semantic, traced, live, and
-                              // the key runs permute_kernel adds
+                              // the key runs permute_kernel adds; (5,)
+                              // where maps is set: and the cutout lanes
   int n, n_spheres, n_lights, n_spp, bounce_limit, rr_start, width, height,
       aa_jitter, tint, mb, db, morton, flat;
   unsigned seed, frame;
@@ -460,6 +463,7 @@ __device__ __forceinline__ void sample_texture(const ShadeArgs& a, int tex_id,
 // The round's counts of one thread's lanes
 struct Counts {
   int alive = 0, sem = 0, act = 0;
+  int cut = 0;  // the maps instance's cutout lanes
 };
 
 // Lane i from its pending hit to its next state: its packed row into
@@ -818,6 +822,7 @@ __device__ __forceinline__ void shade_lane(const ShadeArgs& a,
   cnt.alive += alive_next;
   cnt.sem += a.n_lights > 0 && nee_sem;
   cnt.act += a.n_lights > 0 && nee_active;
+  if (kMaps) cnt.cut += shaded && cutout;
 }
 
 // The first ``words`` (a multiple of 4) 32-bit words of a shared-memory
@@ -882,6 +887,16 @@ __device__ __forceinline__ void add_counts(const ShadeArgs& a, Counts cnt) {
   }
 }
 
+// The maps instance's cutout lanes (shaded lanes whose alpha map cut the
+// surface out) into the tally's fifth word: a warp sum, then one atomic a
+// warp where it is not zero.  Every thread of the block calls it.
+__device__ __forceinline__ void add_cutouts(const ShadeArgs& a, Counts cnt) {
+  const int cut = __reduce_add_sync(0xffffffffu, cnt.cut);
+  if ((threadIdx.x & 31) == 0 && cut > 0) {
+    atomicAdd(a.tally + 4, static_cast<unsigned long long>(cut));
+  }
+}
+
 // One block a tile of 256 lanes: the lanes' rows into the tile, then the
 // tile out by TMA while the block adds its counts.  kMaps: the maps
 // instance, capped at 80 registers (3 blocks an SM) for its texel taps.
@@ -902,6 +917,7 @@ __global__ void __launch_bounds__(kBlock, kMaps ? 3 : 4)
   store_tile(tile, a.packed + kRow * base, kRow * rows);
   commit_stores();
   add_counts(a, cnt);
+  if constexpr (kMaps) add_cutouts(a, cnt);
   wait_store_reads();  // the tile lives until the block exits
 }
 

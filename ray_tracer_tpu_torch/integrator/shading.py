@@ -223,6 +223,12 @@ def bump(scene, cfg, srow, uv, normal, is_tri):
     return torch.where(use[:, None], pert, normal)
 
 
+def maps_on(scene, cfg) -> bool:
+    """Are textures in use (:func:`apply_material_maps` samples them, and
+    :func:`bump` may), so that the shade kernel's maps instance runs?"""
+    return bool(cfg.enable_textures and scene.meta.get("n_textures", 0) > 0)
+
+
 def apply_material_maps(scene, cfg, uv, sampler, albedo, emission,
                          reflectance, tex_id, metal_tex, alpha_tex):
     """Sample albedo/metalness/alpha maps into the per-hit material params.
@@ -233,7 +239,7 @@ def apply_material_maps(scene, cfg, uv, sampler, albedo, emission,
     Returns (albedo, emission, reflectance, cutout).
     """
     cutout = torch.zeros(uv.shape[:1], dtype=torch.bool, device=uv.device)
-    if not (cfg.enable_textures and scene.meta.get("n_textures", 0) > 0):
+    if not maps_on(scene, cfg):
         return albedo, emission, reflectance, cutout
     tex_rgb = sample_texture(scene, tex_id, uv, sampler)
     albedo = torch.where((tex_id >= 0)[:, None], albedo * tex_rgb, albedo)
@@ -460,9 +466,11 @@ _BOOL_COLS = (0, 1, 2, 3, 6)  # alive, bad, fresh_direct, is_diff, nee_active
 def shade_lanes(scene: CompiledScene, cfg, space: str, w, frame: int,
                 n_spp: int, cam):
     """One round's shading of the wave ``w`` (``wavefront.Wave``) ->
-    ``(lanes, continuing, nee_sem, n_lights_w)``: the next :class:`Lanes`
-    in lane order, the lanes that bounce on, those whose shadow ray counts
-    as a semantic ray, and the inverse light-pick pdf.
+    ``(lanes, continuing, nee_sem, n_lights_w, cut)``: the next
+    :class:`Lanes` in lane order, the lanes that bounce on, those whose
+    shadow ray counts as a semantic ray, the inverse light-pick pdf, and
+    the shaded lanes whose surface an alpha map cut out (None where no
+    maps are in use, :func:`maps_on`).
 
     Shades each lane's pending hit (``space`` says which shade table its
     triangle ids index), resolves the pending light, adds the sky to
@@ -607,7 +615,8 @@ def shade_lanes(scene: CompiledScene, cfg, space: str, w, frame: int,
         nee_active=nee_active, j=j_new, s=s_new, pix=w.pix, slot=w.slot,
         li=li.to(I32), sb=w.sb,
     )
-    return lanes, continuing, nee_sem, n_lights_w
+    cut = shaded & cutout if maps_on(scene, cfg) else None
+    return lanes, continuing, nee_sem, n_lights_w, cut
 
 
 def pack_split(lanes: Lanes):

@@ -485,8 +485,9 @@ class Wave(NamedTuple):
     n_alive: torch.Tensor  # () i64: the count of ``alive``
     # (4,) i64 that ``n_rays`` and ``n_alive`` view, where a round wrote
     # them as one buffer, with the runs of equal bin keys among the live
-    # lanes after the round's sort (0 where its bins were no morton key's);
-    # the first wave has none
+    # lanes after the round's sort (0 where its bins were no morton key's),
+    # and where textures are in use (``shading.maps_on``) a fifth word, the
+    # lanes the round's alpha maps cut out; the first wave has none
     tally: Optional[torch.Tensor] = None
 
 
@@ -581,7 +582,7 @@ def _torch_round(c: shade.Round, w: Wave, rope_err=None) -> Wave:
     use_raw = cfg.nee_anyhit
     prebin = use_raw and rt.nee_prebin != "off"
 
-    lanes, continuing, nee_sem, n_lights_w = shading.shade_lanes(
+    lanes, continuing, nee_sem, n_lights_w, cut = shading.shade_lanes(
         scene, cfg, c.space, w, c.frame, c.n_spp, c.cam)
     if use_raw and scene.n_lights == 0:
         n_nee = torch.zeros(2, dtype=torch.int64, device=dev)
@@ -670,8 +671,10 @@ def _torch_round(c: shade.Round, w: Wave, rope_err=None) -> Wave:
     n_alive = alive.sum()
     if runs is None:
         runs = torch.zeros_like(n_alive)
-    tally = torch.cat([w.n_rays + n_alive + n_nee, n_alive.view(1),
-                       runs.view(1)])
+    words = [w.n_rays + n_alive + n_nee, n_alive.view(1), runs.view(1)]
+    if cut is not None:
+        words.append(cut.sum().view(1))
+    tally = torch.cat(words)
     return Wave(
         origin=new_origin, direction=new_dir, hit=hit_next, atten=atten,
         total=total, direct=direct, bad=bad, alive=alive, j=j_cur,
@@ -692,7 +695,7 @@ def _fused_round(c: shade.Round, w: Wave, rope_err=None) -> Wave:
     scene = c.scene
     packed, key, tally = shade.shade_round(c, w)
     skey, order = torch.sort(key, stable=True)
-    lanes = shade.permute_rows(packed, order, skey, tally[3:])
+    lanes = shade.permute_rows(packed, order, skey, tally[3:4])
     hit = traverse.traverse(scene, lanes.origin, lanes.direction,
                             lanes.alive, routing=c.rt, rope_err=rope_err)
     occluded = None
@@ -744,16 +747,18 @@ def _trace_wave_lanes(scene, rot, pos, fov, aspect, near, pixel_id,
     rope_err = traverse.rope_error_flag(scene, c.rt, dev)
     # a round's counts land in pinned memory, as ``int`` takes the first
     # wave's: one device-to-host copy a read either way
-    host = torch.empty(4, dtype=torch.int64, pin_memory=dev.type == "cuda")
+    host = torch.empty(5, dtype=torch.int64, pin_memory=dev.type == "cuda")
     rays = (n, n)  # the ray counts the last read took: the first wave's
     runs = 0  # the key runs it took: none before the first sort
+    cut = None  # the cutout lanes it took, where the round counted them
 
     def n_live(w: Wave) -> int:
         """Live lanes: one device-to-host copy per round, of the count and,
         on the rope-walk route, its error flag beside it; the ray counts
         ride in the same copy wherever a round wrote them beside the count,
-        and in the rope walk's; the key runs wherever a round wrote them."""
-        nonlocal rays, runs
+        and in the rope walk's; the key runs and the cutouts wherever a
+        round wrote them."""
+        nonlocal rays, runs, cut
         with span("rt.live_read"):
             if rope_err is not None:
                 *rays, count, err = torch.cat([w.n_rays, w.n_alive.view(1),
@@ -762,12 +767,20 @@ def _trace_wave_lanes(scene, rot, pos, fov, aspect, near, pixel_id,
                 return count
             if w.tally is None:
                 return int(w.n_alive)
-            *rays, count, runs = host.copy_(w.tally).tolist()
+            words = host[:w.tally.shape[0]].copy_(w.tally).tolist()
+            rays, count, runs = words[:2], words[2], words[3]
+            cut = words[4] if len(words) > 4 else None
             return count
 
     def round_span(width: int, live: int):
         """The round's range: its width, the live count and, where the
-        read before it took them, the key runs of the lanes it shades."""
+        read before it took them, the key runs of the lanes it shades and
+        the cutout lanes of the round before it."""
+        if cut is not None:
+            if runs:
+                return span("rt.round lanes=%d live=%d runs=%d cut=%d",
+                            width, live, runs, cut)
+            return span("rt.round lanes=%d live=%d cut=%d", width, live, cut)
         if runs:
             return span("rt.round lanes=%d live=%d runs=%d", width, live,
                         runs)

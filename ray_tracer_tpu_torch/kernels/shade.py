@@ -14,7 +14,8 @@ tensors (nothing falls back: a CUDA call that cannot launch raises):
   bin key and the round's ray counts; where textures are in
   use (:func:`maps_on`) its maps instance, ``shade_kernel<true>``, adds
   the albedo, metalness and alpha maps and the bump maps, its sRGB decode
-  a lookup in the round's table (:func:`srgb_table`);
+  a lookup in the round's table (:func:`srgb_table`), and counts the
+  lanes its alpha maps cut out into a fifth word of the tally;
 * ``permute_kernel`` (:func:`permute_rows`; plain:
   :func:`permute_rows_reference`): each lane's packed row gathered by the
   sorted order into the next wave's columns, each warp's 32 rows gathered
@@ -94,11 +95,7 @@ def _flat(scene) -> bool:
     return bool(scene.meta.get("flattened", False))
 
 
-def maps_on(scene, cfg) -> bool:
-    """Are textures in use (``shading.apply_material_maps`` samples them,
-    and ``shading.bump`` may), so that the shade kernel's maps instance
-    runs?"""
-    return bool(cfg.enable_textures and scene.meta.get("n_textures", 0) > 0)
+maps_on = shading.maps_on  # does the maps instance run
 
 
 def srgb_table(device) -> torch.Tensor:
@@ -138,9 +135,11 @@ def shade_round_reference(c: Round, w):
     (4,) i64: the wave's ray counts after the round (semantic, traced:
     ``w.n_rays`` plus the live lanes plus the shadow rays counted and
     traced; no shadow rays without rect lights), the live count, and 0,
-    the word the permute adds the key runs to (:func:`permute_rows`)."""
+    the word the permute adds the key runs to (:func:`permute_rows`);
+    where textures are in use (:func:`maps_on`), (5,): and the shaded
+    lanes that an alpha map cut out."""
     scene = c.scene
-    lanes, _, nee_sem, _ = shading.shade_lanes(
+    lanes, _, nee_sem, _, cut = shading.shade_lanes(
         scene, c.cfg, c.space, w, c.frame, c.n_spp, c.cam)
     packed = shading.pack_lanes(lanes)
     key = shading.bin_key(scene, lanes.origin, lanes.direction, lanes.alive,
@@ -150,16 +149,18 @@ def shade_round_reference(c: Round, w):
         n_nee = torch.zeros(2, dtype=I64, device=n_alive.device)
     else:
         n_nee = torch.stack([nee_sem.sum(), lanes.nee_active.sum()])
-    tally = torch.cat([w.n_rays + n_alive + n_nee, n_alive.view(1),
-                       torch.zeros_like(n_alive).view(1)])
-    return packed, key, tally
+    words = [w.n_rays + n_alive + n_nee, n_alive.view(1),
+             torch.zeros_like(n_alive).view(1)]
+    if cut is not None:
+        words.append(cut.sum().view(1))
+    return packed, key, torch.cat(words)
 
 
 def permute_rows_reference(packed, order, skey, runs) -> shading.Lanes:
     """The permute kernel's function in torch: row ``order[i]`` of the
     packed state as lane ``i`` of the next wave's columns, and
     ``shading.key_runs(skey)`` of the sorted keys ``skey`` added to the
-    (1,) i64 ``runs`` (the round's tally's last word)."""
+    (1,) i64 ``runs`` (the round's tally's fourth word)."""
     runs += shading.key_runs(skey)
     return shading.unpack_lanes(packed[order])
 
@@ -294,7 +295,8 @@ def _scene_tables(scene, dev, srgb=None):
 def shade_args(c: Round, w):
     """The shade kernel's arguments for the wave ``w`` on the card,
     checked, and its outputs ``(packed, key, tally)``, allocated
-    (``tally`` zeroed, (4,) as :func:`shade_round_reference`'s): ``(args, outputs)``.  ``args`` holds the tensors'
+    (``tally`` zeroed, (4,) or (5,) as :func:`shade_round_reference`'s):
+    ``(args, outputs)``.  ``args`` holds the tensors'
     addresses only: the caller keeps ``c``, ``w`` and the outputs alive
     while a launch may read them."""
     dev = _device(w.origin)
@@ -324,7 +326,7 @@ def shade_args(c: Round, w):
         raise ValueError("an empty shade table, or too many lanes")
     packed = torch.empty((n, shading.ROW), dtype=F32, device=dev)
     key = torch.empty(n, dtype=I32, device=dev)
-    tally = torch.zeros(4, dtype=I64, device=dev)
+    tally = torch.zeros(5 if maps else 4, dtype=I64, device=dev)
     ptr = lambda t: t.data_ptr()
     # the maps' fields, left zero where the untextured instance runs
     maps_args = () if not maps else (

@@ -1389,8 +1389,10 @@ def test_round_kernels_match_plain_versions(dev, round_scenes, name, space,
     then the frame on the card through the kernels against the torch
     round's, bit for bit.  The shade kernel's key is ``shading.bin_key``'s
     (on the forests with the morton bits of the forest's world box), and
-    the runs the permute kernel adds to the tally equal the plain
-    version's and the distinct live keys torch counts."""
+    the runs the permute kernel adds to the tally's fourth word equal the
+    plain version's and the distinct live keys torch counts (on the
+    textured scenes the tally's fifth word is the cutout lanes, held to
+    the plain version's with the shade kernel's other outputs)."""
     from ray_tracer_tpu_torch.integrator import shading, wavefront
     from ray_tracer_tpu_torch.kernels import shade
     from ray_tracer_tpu_torch.ops import traverse
@@ -1412,7 +1414,7 @@ def test_round_kernels_match_plain_versions(dev, round_scenes, name, space,
         out = shade.shade_round(c, w)
         _same_all(out, shade.shade_round_reference(c, w), "shade")
         skey, order = torch.sort(out[1], stable=True)
-        runs, want_runs = out[2][3:], out[2][3:].clone()
+        runs, want_runs = out[2][3:4], out[2][3:4].clone()
         lanes = shade.permute_rows(out[0], order, skey, runs)
         _same_all(lanes, shade.permute_rows_reference(out[0], order, skey,
                                                       want_runs), "permute")
